@@ -12,13 +12,34 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
            ConvNeXt-v2 MLP+GRN kernel at tile 320 and the slice's tile batch:
            kernel vs ``reference_mlp_grn`` in f32 (TF32 off) and bf16, one
            masked case, and CUDA-event medians of kernel and plain.
-4. slice   the flagship VSUNet (FCMAE UNeXt2, dims 96-768, bf16, seeded
+4. kernel-bwd  the fused MLP+GRN backward (passes C and D) at every (S, C, M)
+           of the flagship train step at batch 16: all ten gradients against
+           ``reference_mlp_grn_bwd`` in f32 (TF32 off) and bf16, one masked
+           case, two runs bit-identical; CUDA-event medians of kernel and
+           plain, and the operation bound.
+5. warp    the affine-warp kernel at (16,3,20,600,600) -> (16,3,15,384,384)
+           with the center-crop offset and production-range matrices,
+           against the plain version in zeros and border modes; medians of
+           kernel, plain and ``F.affine_grid`` + ``F.grid_sample``; bounds
+           from the full input and from the input voxels the maps touch.
+6. slice   the flagship VSUNet (FCMAE UNeXt2, dims 96-768, bf16, seeded
            weights with non-zero GRN gamma/beta) serves three 2048^2 x 15
            FOVs through ``Trainer.predict`` with YX tiling, in five timed
            rounds; checks shapes, finiteness and the kernel launch count
            over all rounds; prints each round's FOVs/s; profiles one more
            request (device time by kernel, device busy share); then one f32
            two-tile batch on the card (kernel) against the CPU (plain version).
+7. train   the flagship VSCyto3D train step through ``Trainer.fit``: seeded
+           (16,1,20,600,600) / (16,2,20,600,600) stacks in device memory, the
+           production augmentation (affine warp kernel, center crop fused,
+           intensity members), the bf16 model, ``MixedLoss(0.5, 0, 0.5)`` on
+           bf16 inputs, the fused backward kernels, AdamW + WarmupCosine.
+           One warm-up step, then five timed rounds of four steps (patches/s
+           per round, step latency, peak memory); checks the loss at every
+           step, that parameters moved and the launch counts per step; one
+           profiled step; then one f32 step (batch 1, (20,160,160) ->
+           (15,128,128), fixed draws) on the card against the CPU: the
+           augmented batch, the loss and every parameter gradient.
 
 The last two lines are a JSON ``kernels`` record and the JSON result line.
 Needs ``torch.cuda.is_available()`` and the repo's ``viscy_tpu_torch``
@@ -63,6 +84,15 @@ N_ROUNDS = 5
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TIMED_RUNS = 20
+# flagship train step (bench.py): host-crop stacks -> device crop, batch 16
+TRAIN_BATCH = 16
+TRAIN_STACK = (20, 600, 600)
+TRAIN_PATCH = (15, 384, 384)
+TRAIN_ROUNDS = 5
+STEPS_PER_ROUND = 4
+# f32 card-vs-CPU train-step cross-check
+XCHECK_STACK = (20, 160, 160)
+XCHECK_PATCH = (15, 128, 128)
 
 
 def log(msg: str) -> None:
@@ -297,7 +327,6 @@ def profile_request(trainer, module) -> None:
 def phase_slice(card: str) -> dict:
     from viscy_tpu_torch.apps.cytoland.engine import VSUNet
     from viscy_tpu_torch.apps.cytoland.prediction import tile_positions
-    from viscy_tpu_torch.models.components.blocks import GRN
     from viscy_tpu_torch.ops import fused_block as fb
     from viscy_tpu_torch.training.trainer import Trainer
 
@@ -309,12 +338,7 @@ def phase_slice(card: str) -> dict:
         seed=0,
         device="cuda",
     )
-    g = torch.Generator().manual_seed(1)
-    with torch.no_grad():
-        for mod in module.modules():
-            if isinstance(mod, GRN):
-                mod.weight.copy_(torch.randn(mod.weight.shape, generator=g) * 0.5)
-                mod.bias.copy_(torch.randn(mod.bias.shape, generator=g) * 0.1)
+    randomize_grn(module, seed=1)
     n_params = sum(p.numel() for p in module.parameters())
     log(f"[slice] VSUNet fcmae dims {FLAGSHIP['dims']} bf16: {n_params} parameters, "
         f"tile {TILE}x{TILE}, tile_batch {TILE_BATCH}")
@@ -380,6 +404,438 @@ def phase_slice(card: str) -> dict:
     return dict(launches=launches)
 
 
+GRAD_NAMES = ("dx", "dshortcut", "dln_scale", "dln_bias", "dw1", "db1", "dgrn_gamma",
+              "dgrn_beta", "dw2", "db2")
+
+
+def production_aug(patch):
+    """The flagship VSCyto3D device augmentation (bench.py, ``_production_aug``)."""
+    from viscy_tpu_torch.transforms import (
+        BatchedCenterSpatialCropd,
+        BatchedRandAdjustContrastd,
+        BatchedRandAffined,
+        BatchedRandGaussianNoised,
+        BatchedRandGaussianSmoothd,
+        BatchedRandScaleIntensityd,
+        Compose,
+    )
+
+    return Compose(
+        [
+            BatchedRandAffined(
+                keys=["source", "target"],
+                prob=0.8,
+                rotate_range=[3.14, 0, 0],
+                shear_range=[0.0, 0.05, 0.05],
+                scale_range=[[0.7, 1.3], [0.5, 1.5], [0.5, 1.5]],
+            ),
+            BatchedCenterSpatialCropd(keys=["source", "target"], roi_size=list(patch)),
+            BatchedRandAdjustContrastd(keys=["source"], prob=0.5, gamma=(0.8, 1.2)),
+            BatchedRandScaleIntensityd(keys=["source"], prob=0.5, factors=0.5),
+            BatchedRandGaussianNoised(keys=["source"], prob=0.5, mean=0.0, std=0.3),
+            BatchedRandGaussianSmoothd(
+                keys=["source"], prob=0.5, sigma_x=(0.25, 0.75), sigma_y=(0.25, 0.75),
+                sigma_z=(0.25, 0.75),
+            ),
+        ]
+    )
+
+
+def train_engine(cfg: dict, device: str, bf16_loss: bool):
+    """The flagship engine of ``__graft_entry__._flagship``: MixedLoss(0.5, 0,
+    0.5), AdamW lr 2e-5 with WarmupCosine (warmup 30)."""
+    from viscy_tpu_torch.apps.cytoland.engine import VSUNet
+    from viscy_tpu_torch.training.losses.mixed_loss import MixedLoss
+
+    return VSUNet(
+        architecture="fcmae",
+        model_config=cfg,
+        loss_function=MixedLoss(l1_alpha=0.5, l2_alpha=0.0, ms_dssim_alpha=0.5),
+        lr=2e-5,
+        schedule="WarmupCosine",
+        warmup_steps=30,
+        bf16_loss=bf16_loss,
+        seed=0,
+        device=device,
+    )
+
+
+def randomize_grn(module, seed: int) -> None:
+    """GRN gamma/beta away from their zero init, so the GRN terms of every
+    kernel carry weight."""
+    from viscy_tpu_torch.models.components.blocks import GRN
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for mod in module.modules():
+            if isinstance(mod, GRN):
+                mod.weight.copy_(torch.randn(mod.weight.shape, generator=g) * 0.5)
+                mod.bias.copy_(torch.randn(mod.bias.shape, generator=g) * 0.1)
+
+
+def compare(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float, float]:
+    """(max |d|, max |d| / range(want), Pearson r) in float64."""
+    gotf, wantf = got.double(), want.double()
+    err = float((gotf - wantf).abs().max())
+    rng = float(wantf.max() - wantf.min())
+    return err, err / max(rng, 1e-30), pearson(gotf, wantf)
+
+
+def phase_kernel_bwd() -> dict:
+    from viscy_tpu_torch.ops import fused_block as fb
+
+    batch = TRAIN_BATCH
+    per_step = kernel_shapes(FLAGSHIP, TRAIN_PATCH[-1])
+    distinct = sorted(set(per_step), key=per_step.index)
+    rows = {}
+    worst_bf16 = 0.0
+    for k, (s, c, m) in enumerate(distinct):
+        for masked in [False, True] if k == 1 else [False]:
+            for dtype, rel, r_min in ((torch.float32, 1e-4, None), (torch.bfloat16, 1.5e-2, 0.999)):
+                args, mask = block_inputs(batch, s, c, m, dtype, seed=300 + k, masked=masked)
+                gen = torch.Generator(device="cuda").manual_seed(400 + k)
+                g = torch.randn(args[0].shape, generator=gen, device="cuda").to(dtype)
+                x, _, *params = args
+                ss = fb._reference_ss(x, *params[:4], mask, 1e-6)
+                mask_f = fb._check_cuda_args(x, g, params, mask)
+                got = fb._fused_bwd_cuda(x, g, params, mask_f, ss, 1e-6, 1e-6)
+                again = fb._fused_bwd_cuda(x, g, params, mask_f, ss, 1e-6, 1e-6)
+                want = fb.reference_mlp_grn_bwd(x, g, *params, ss, mask=mask)
+                torch.cuda.synchronize()
+                tag = f"S={s} C={c} M={m} B={batch} {str(dtype)[6:]}{' masked' if masked else ''}"
+                worst_rel, worst_name, min_r = 0.0, "", 1.0
+                for name, a, b2, w in zip(GRAD_NAMES, got, again, want):
+                    if not torch.equal(a, b2):
+                        raise AssertionError(f"{name} differs between two runs at {tag}")
+                    err, e_rel, r = compare(a, w)
+                    ok = bool(torch.isfinite(a).all()) and e_rel <= rel and (r_min is None or r > r_min)
+                    if not ok:
+                        raise AssertionError(
+                            f"backward kernels disagree with the plain version at {tag}: {name} "
+                            f"max|d|={err:.3e} ({e_rel:.2e} of range, bound {rel:g}) r={r:.7f}"
+                        )
+                    if dtype == torch.bfloat16:
+                        worst_bf16 = max(worst_bf16, err)
+                    if e_rel >= worst_rel:
+                        worst_rel, worst_name = e_rel, name
+                    min_r = min(min_r, r)
+                log(f"[kernel-bwd] {tag}: 10 gradients, worst {worst_name} {worst_rel:.2e} of range "
+                    f"(bound {rel:g}), min r={min_r:.7f}, two runs bit-identical")
+                del args, mask, g, x, params, ss, got, again, want
+                torch.cuda.empty_cache()
+        args, _ = block_inputs(batch, s, c, m, torch.bfloat16, seed=500 + k)
+        gen = torch.Generator(device="cuda").manual_seed(600 + k)
+        g = torch.randn(args[0].shape, generator=gen, device="cuda").to(torch.bfloat16)
+        x, _, *params = args
+        ss = fb._reference_ss(x, *params[:4], None, 1e-6)
+        kernel_ms = cuda_median_ms(lambda: fb._fused_bwd_cuda(x, g, params, None, ss, 1e-6, 1e-6))
+        plain_ms = cuda_median_ms(lambda: fb.reference_mlp_grn_bwd(x, g, *params, ss), runs=5)
+        # 8 B S C M operations (dy, d fc2, d fc1, dln); bytes: x, g read and dx
+        # written once in bf16, f32 parameters read and their gradients written
+        t_ops = 8.0 * batch * s * c * m / PEAK_FLOPS[torch.bfloat16] * 1e3
+        nbytes = 3 * batch * s * c * 2 + 2 * 4 * (2 * c * m + 3 * m + 3 * c) + 4 * batch * m
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bound, bound_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+        n = per_step.count((s, c, m))
+        rows[(s, c, m)] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, n=n)
+        log(
+            f"[kernel-bwd] time S={s} C={c} M={m} B={batch} bf16 x{n}/step: C+glue+D {kernel_ms:.3f} ms "
+            f"plain {plain_ms:.3f} ms bound {bound:.4f} ms ({bound_by}) "
+            f"= {bound / kernel_ms:.3f} of bound, library n/a"
+        )
+        del args, g, x, params, ss
+        torch.cuda.empty_cache()
+    total = {key: sum(v[key] * v["n"] for v in rows.values()) for key in ("ms", "plain_ms", "bound_ms")}
+    log(f"[kernel-bwd] per step ({len(per_step)} calls, B={batch}): kernels {total['ms']:.3f} ms "
+        f"plain {total['plain_ms']:.3f} ms bound {total['bound_ms']:.3f} ms")
+    return dict(total, bound_by="operations", max_abs_err=worst_bf16)
+
+
+def library_warp(vol, mats, offset, out_shape, padding_mode):
+    """``F.affine_grid`` + ``F.grid_sample(align_corners=True)`` on the same
+    maps, rewritten for normalized (x, y, z) coordinates. (Its zeros mode
+    blends partial border points, where the kernel zeroes the point.)"""
+    import torch.nn.functional as F
+
+    b = vol.shape[0]
+    hi = torch.tensor([(n - 1) / 2.0 for n in vol.shape[-3:]], device=vol.device)
+    ho = torch.tensor([(n - 1) / 2.0 for n in out_shape], device=vol.device)
+    off = torch.tensor(offset, device=vol.device)
+    a, t = mats[:, :, :3], mats[:, :, 3]
+    theta = a * ho[None, None, :] / hi[None, :, None]
+    shift = (torch.einsum("bij,j->bi", a, off) + t) / hi[None, :]
+    theta = torch.cat([theta.flip(1).flip(2), shift.flip(1)[:, :, None]], dim=2)
+    grid = F.affine_grid(theta, (b, vol.shape[1], *out_shape), align_corners=True)
+    return F.grid_sample(vol, grid, mode="bilinear", padding_mode=padding_mode, align_corners=True)
+
+
+def touched_input_voxels(mats, offset, in_shape, out_shape) -> int:
+    """Input voxels the kernel reads in zeros mode: the 8 corners of every
+    output point whose coordinates lie inside the volume, counted once."""
+    from viscy_tpu_torch.ops import warp as tw
+
+    grids = tw.affine_grid_3d(mats, in_shape, out_shape, offset)
+    b = grids.shape[0]
+    zi, yi, xi = in_shape
+    n_in = zi * yi * xi
+    inside = torch.ones(grids.shape[:1] + grids.shape[2:], dtype=torch.bool, device=grids.device)
+    base = torch.zeros(inside.shape, dtype=torch.long, device=grids.device)
+    for a, n in enumerate(in_shape):
+        cc = grids[:, a]
+        inside &= (cc >= 0) & (cc <= n - 1)
+        base = base * n + torch.clamp(torch.floor(cc), 0, max(n - 2, 0)).long()
+    del grids
+    base = torch.where(inside, base, n_in).reshape(b, -1)
+    read = torch.zeros((b, n_in + 1), dtype=torch.bool, device=base.device)
+    for dz in (0, yi * xi):
+        for dy in (0, xi):
+            for dx in (0, 1):
+                idx = torch.clamp_max(base + (dz + dy + dx), n_in)
+                idx = torch.where(base == n_in, n_in, idx)
+                read.scatter_(1, idx, True)
+    return int(read[:, :n_in].sum())
+
+
+def phase_warp() -> dict:
+    from viscy_tpu_torch.ops import warp as tw
+    from viscy_tpu_torch.ops import warp3d
+
+    b, c = TRAIN_BATCH, 3
+    gen = torch.Generator(device="cuda").manual_seed(50)
+    vol = torch.rand((b, c, *TRAIN_STACK), generator=gen, device="cuda")
+    affine = production_aug(TRAIN_PATCH).transforms[0]
+    d = affine.draw({"source": vol}, gen)
+    mats = tw.compose_affine_3d(rotation=d["rotation"], scale=d["scale"], shear=d["shear"],
+                                translate=d["translate"])
+    offset = tuple((s - r) // 2 - (s - r) / 2.0 for r, s in zip(TRAIN_PATCH, TRAIN_STACK))
+    worst = 0.0
+    for mode in ("zeros", "border"):
+        got = warp3d.affine_warp_3d(vol, mats, TRAIN_PATCH, mode, offset)
+        want = tw.affine_warp_3d(vol, mats, TRAIN_PATCH, mode, offset)
+        lib = library_warp(vol, mats, offset, TRAIN_PATCH, mode)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        lib_err = float((lib - got).abs().max())
+        worst = max(worst, err)
+        log(f"[warp] {mode}: kernel vs plain max|d|={err:.3e} (bound 1e-6, inputs in [0, 1]); "
+            f"grid_sample vs kernel max|d|={lib_err:.3e}")
+        if not (bool(torch.isfinite(got).all()) and err <= 1e-6):
+            raise AssertionError(f"warp kernel disagrees with the plain version ({mode})")
+        del got, want, lib
+    kernel_ms = cuda_median_ms(lambda: warp3d.affine_warp_3d(vol, mats, TRAIN_PATCH, "zeros", offset))
+    plain_ms = cuda_median_ms(lambda: tw.affine_warp_3d(vol, mats, TRAIN_PATCH, "zeros", offset), runs=5)
+    library_ms = cuda_median_ms(lambda: library_warp(vol, mats, offset, TRAIN_PATCH, "zeros"))
+    n_out = b * c * math.prod(TRAIN_PATCH)
+    full_bytes = (b * c * math.prod(TRAIN_STACK) + n_out) * 4
+    touched = touched_input_voxels(mats, offset, TRAIN_STACK, TRAIN_PATCH)
+    touched_bytes = (touched * c + n_out) * 4 + mats.numel() * 4
+    full_ms = full_bytes / HBM_BYTES_PER_S * 1e3
+    bound = touched_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"[warp] {(b, c, *TRAIN_STACK)} -> {(b, c, *TRAIN_PATCH)} zeros: kernel {kernel_ms:.3f} ms plain "
+        f"{plain_ms:.3f} ms affine_grid+grid_sample {library_ms:.3f} ms; bound {bound:.4f} ms (bytes: "
+        f"{touched} touched input voxels x {c} ch = {touched / (b * math.prod(TRAIN_STACK)):.1%} of "
+        f"the input, read once, + output) = {bound / kernel_ms:.3f} of bound; the whole input read "
+        f"once + output: {full_bytes / 1e9:.3f} GB, {full_ms:.4f} ms")
+    del vol
+    torch.cuda.empty_cache()
+    return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
+                bound_by="bytes", max_abs_err=worst)
+
+
+def _stack_datamodule(batch: dict, steps: int, aug):
+    from viscy_tpu_torch.data.gpu_aug import DeviceTransformDataModule
+
+    class StackDataModule(DeviceTransformDataModule):
+        """In-memory stand-in for the HCS datamodule: the seeded host-crop
+        output stacks, already in device memory, handed out ``steps`` times."""
+
+        train_device_transforms = aug
+
+        def train_dataloader(self):
+            return [batch] * steps
+
+    return StackDataModule()
+
+
+def _step_timer():
+    from viscy_tpu_torch.training.callbacks.base import Callback
+
+    class StepTimer(Callback):
+        """Round wall times (synchronized at round ends only) and the loss
+        of every step, kept on the card until the run ends."""
+
+        def __init__(self):
+            self.losses, self.rounds, self.t0 = [], [], None
+
+        def on_train_batch_end(self, trainer, module, metrics, batch, batch_idx):
+            self.losses.append(metrics["loss/train"])
+            step = trainer.global_step
+            if step == 1 or (step > 1 and (step - 1) % STEPS_PER_ROUND == 0):
+                torch.cuda.synchronize()
+                now = time.perf_counter()
+                if self.t0 is not None:
+                    self.rounds.append(now - self.t0)
+                self.t0 = now
+
+    return StepTimer()
+
+
+def record_draws(compose, data: dict, gen: torch.Generator) -> list[dict]:
+    """Draws of every random member of ``compose`` on ``data`` with every
+    application mask set (each member applies)."""
+    draws = []
+    for t in compose.transforms:
+        if getattr(t, "is_random", False):
+            d = t.draw(data, gen)
+            d["mask"] = torch.ones_like(d["mask"])
+            draws.append(d)
+            data = t(data, draws=d)
+        else:
+            data = t(data)
+    return draws
+
+
+def _to(v, dev):
+    if isinstance(v, list):
+        return [_to(x, dev) for x in v]
+    return v.to(dev) if isinstance(v, torch.Tensor) else v
+
+
+def train_cross_check(module) -> None:
+    """One f32 step's loss and gradients, card (kernels) against CPU (plain)."""
+    cfg32 = dict(FLAGSHIP, dtype="float32")
+    on_card = train_engine(cfg32, "cuda", bf16_loss=False)
+    on_card.load_state_dict(module.state_dict())
+    on_cpu = train_engine(cfg32, "cpu", bf16_loss=False)
+    on_cpu.load_state_dict(module.state_dict())
+    g = torch.Generator().manual_seed(60)
+    batch = {
+        "source": torch.rand((1, 1, *XCHECK_STACK), generator=g),
+        "target": torch.rand((1, 2, *XCHECK_STACK), generator=g),
+    }
+    aug = production_aug(XCHECK_PATCH)
+    draws = record_draws(aug, batch, torch.Generator().manual_seed(61))
+    t0 = time.perf_counter()
+    cpu_batch = aug(batch, draws=draws)
+    cpu_loss = on_cpu.training_loss(cpu_batch)
+    cpu_loss.backward()
+    cpu_s = time.perf_counter() - t0
+    card_batch = aug({k: v.cuda() for k, v in batch.items()}, draws=[{k: _to(v, "cuda") for k, v in d.items()} for d in draws])
+    card_loss = on_card.training_loss(card_batch)
+    card_loss.backward()
+    torch.cuda.synchronize()
+    for k in ("source", "target"):
+        err, e_rel, r = compare(card_batch[k].cpu(), cpu_batch[k])
+        log(f"[train] f32 cross-check augmented {k} {tuple(cpu_batch[k].shape)}: max|d|={err:.3e} "
+            f"({e_rel:.2e} of range) r={r:.8f}")
+        if not (e_rel <= 2e-3 and r > 0.9999):
+            raise AssertionError(f"augmented {k} on the card disagrees with the CPU")
+    card_loss, cpu_loss = float(card_loss.detach()), float(cpu_loss.detach())
+    l_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    worst = (0.0, "", 1.0)
+    for (name, p_card), (_, p_cpu) in zip(on_card.named_parameters(), on_cpu.named_parameters()):
+        if p_cpu.grad is None:
+            if p_card.grad is not None:
+                raise AssertionError(f"{name}: gradient on the card only")
+            continue
+        err, e_rel, r = compare(p_card.grad.cpu(), p_cpu.grad)
+        if not (e_rel <= 2e-3 and r > 0.9999):
+            raise AssertionError(f"gradient of {name} on the card disagrees with the CPU: "
+                                 f"{e_rel:.2e} of range, r={r:.8f}")
+        if e_rel >= worst[0]:
+            worst = (e_rel, name, min(worst[2], r))
+    log(f"[train] f32 cross-check (1,1,{','.join(map(str, XCHECK_STACK))}) -> "
+        f"{XCHECK_PATCH} card kernels vs CPU plain: loss {card_loss:.7f} vs {cpu_loss:.7f} "
+        f"(rel {l_rel:.2e}); every parameter gradient within 2e-3 of range and r > 0.9999, worst "
+        f"{worst[1]} {worst[0]:.2e} (CPU step {cpu_s:.1f} s)")
+    if not l_rel <= 2e-3:
+        raise AssertionError("f32 train-step loss on the card disagrees with the CPU")
+
+
+def profile_step(trainer, module, datamodule) -> None:
+    """Device time by kernel over one more train step (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer.max_steps = trainer.global_step + 1
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.fit(module, datamodule)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        log("[profile] torch.profiler recorded no device time: breakdown not measured")
+        return
+    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+
+    def share(pat):
+        return sum(e.self_device_time_total for e in events if pat in e.key) / 1e3
+
+    log(f"[profile] one train step: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+        f"({busy_ms / wall_ms:.1%} of wall); fused MLP+GRN forward {share('fmg_kernel'):.1f} ms, "
+        f"backward {share('bwd_kernel'):.1f} ms, warp {share('warp_kernel'):.1f} ms")
+    for e in events[:15]:
+        log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<4d} {e.key[:100]}")
+
+
+def phase_train(card: str) -> dict:
+    from viscy_tpu_torch.ops import fused_block as fb
+    from viscy_tpu_torch.ops import warp3d
+    from viscy_tpu_torch.training.trainer import Trainer
+
+    module = train_engine(FLAGSHIP, "cuda", bf16_loss=True)
+    randomize_grn(module, seed=2)
+    gen = torch.Generator(device="cuda").manual_seed(70)
+    batch = {
+        "source": torch.rand((TRAIN_BATCH, 1, *TRAIN_STACK), generator=gen, device="cuda"),
+        "target": torch.rand((TRAIN_BATCH, 2, *TRAIN_STACK), generator=gen, device="cuda"),
+    }
+    n_steps = 1 + TRAIN_ROUNDS * STEPS_PER_ROUND
+    dm = _stack_datamodule(batch, n_steps + 1, production_aug(TRAIN_PATCH))
+    timer = _step_timer()
+    trainer = Trainer(max_steps=n_steps, callbacks=[timer], log_every_n_steps=10**9, seed=0, device="cuda")
+    watched = dict(module.model.named_parameters())
+    names = ["encoder.stem.conv3d.weight", "encoder.stages.0.blocks.0.mlp.fc1.weight",
+             "encoder.stages.3.blocks.0.mlp.grn.weight", "decoder.decoder_stages.2.conv.blocks.1.mlp.fc2.weight"]
+    before = {n: watched[n].detach().clone() for n in names}
+    torch.cuda.reset_peak_memory_stats()
+    fb.launches = fb.bwd_launches = warp3d.launches = 0
+    t0 = time.perf_counter()
+    trainer.fit(module, dm)
+    torch.cuda.synchronize()
+    counts = dict(fwd=fb.launches, bwd=fb.bwd_launches, warp=warp3d.launches)
+    total_s = time.perf_counter() - t0
+    per_fwd = len(kernel_shapes(FLAGSHIP, TRAIN_PATCH[-1]))
+    want = dict(fwd=2 * per_fwd * n_steps, bwd=2 * per_fwd * n_steps, warp=n_steps)
+    log(f"[train] {n_steps} steps in {total_s:.1f} s; launches A+B {counts['fwd']}, C+D {counts['bwd']}, "
+        f"warp {counts['warp']}; expected {2 * per_fwd}/{2 * per_fwd}/1 per step = "
+        f"{want['fwd']}/{want['bwd']}/{want['warp']}")
+    if counts != want:
+        raise AssertionError(f"train path launched {counts}, expected {want}")
+    losses = torch.stack(timer.losses).float().cpu()
+    if len(losses) != n_steps or not torch.isfinite(losses).all():
+        raise AssertionError(f"non-finite or missing train losses: {losses.tolist()}")
+    for n in names:
+        if torch.equal(before[n], watched[n].detach()):
+            raise AssertionError(f"parameter {n} did not change")
+    rates = [TRAIN_BATCH * STEPS_PER_ROUND / t for t in timer.rounds]
+    steps_ms = [t / STEPS_PER_ROUND * 1e3 for t in timer.rounds]
+    log(f"[train] losses {', '.join(f'{v:.5f}' for v in losses.tolist())}")
+    log(f"[train] rounds of {STEPS_PER_ROUND} steps: patches/s " + ", ".join(f"{r:.4f}" for r in rates))
+    log(f"[train] flagship train step, batch {TRAIN_BATCH}, {TRAIN_STACK} -> {TRAIN_PATCH}, bf16: "
+        f"patches/s median {statistics.median(rates):.4f} (min {min(rates):.4f}, max {max(rates):.4f}, "
+        f"spread {(max(rates) - min(rates)) / min(rates):.1%}); step latency median "
+        f"{statistics.median(steps_ms):.1f} ms; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
+    profile_step(trainer, module, dm)
+    del batch, dm
+    torch.cuda.empty_cache()
+    train_cross_check(module)
+    return dict(bwd_launches=counts["bwd"], warp_launches=counts["warp"])
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is False")
@@ -394,23 +850,43 @@ def main() -> None:
     card = phase_env()
     phase_build()
     kern = phase_kernel()
+    bwd = phase_kernel_bwd()
+    warp = phase_warp()
     sl = phase_slice(card)
+    tr = phase_train(card)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)
-    record = dict(
-        name="fused_mlp_grn_fwd",
-        route="cuda",
-        source="viscy_tpu_torch/csrc/fused_mlp_grn.cu",
-        replaces="viscy_tpu/ops/pallas/fused_block.py:164,183",
-        launches=sl["launches"],
-        max_abs_err=kern["max_abs_err"],
-        ms=kern["ms"],
-        plain_ms=kern["plain_ms"],
-        bound_ms=kern["bound_ms"],
-        bound_by=kern["bound_by"],
-        library_ms=None,
-    )
-    print(json.dumps({"kernels": [record]}))
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    records = [
+        dict(
+            name="fused_mlp_grn_fwd",
+            route="cuda",
+            source="viscy_tpu_torch/csrc/fused_mlp_grn.cu",
+            replaces="viscy_tpu/ops/pallas/fused_block.py:164,183",
+            launches=sl["launches"],
+            **{k: kern[k] for k in keys},
+            library_ms=None,
+        ),
+        dict(
+            name="fused_mlp_grn_bwd",
+            route="cuda",
+            source="viscy_tpu_torch/csrc/fused_mlp_grn.cu",
+            replaces="viscy_tpu/ops/pallas/fused_block.py:233,307",
+            launches=tr["bwd_launches"],
+            **{k: bwd[k] for k in keys},
+            library_ms=None,
+        ),
+        dict(
+            name="affine_warp_3d",
+            route="cuda",
+            source="viscy_tpu_torch/csrc/affine_warp3d.cu",
+            replaces="viscy_tpu/ops/pallas/warp3d.py:226,352",
+            launches=tr["warp_launches"],
+            **{k: warp[k] for k in keys},
+            library_ms=warp["library_ms"],
+        ),
+    ]
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
 

@@ -103,3 +103,105 @@ def test_kernel_rejects_what_it_cannot_take():
         tfb.fused_mlp_grn(args[0], args[1], *args[2:4], args[4].t(), *args[5:])
     with pytest.raises(ValueError):
         tfb.fused_mlp_grn(args[0], args[1], *args[2:4], args[4].t().contiguous().t(), *args[5:])
+
+
+def _grads_case(s, c, m, dtype, masked, b=3, seed=0):
+    args, mask = _card_case(s, c, m, dtype, masked, b=b, seed=seed)
+    g = torch.randn(args[0].shape, generator=torch.Generator().manual_seed(seed + 1)).to(
+        device="cuda", dtype=dtype
+    )
+    return args, mask, g
+
+
+BWD_SHAPES = [(70, 40, 160), (100, 96, 384), (33, 480, 1920), (47, 768, 3072)]
+GRAD_NAMES = ("dx", "dshortcut", "dln_scale", "dln_bias", "dw1", "db1", "dgrn_gamma",
+              "dgrn_beta", "dw2", "db2")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+@pytest.mark.parametrize(
+    "dtype,rel", [(torch.float32, 1e-4), (torch.bfloat16, 1.5e-2)], ids=["f32", "bf16"]
+)
+@pytest.mark.parametrize("s,c,m", BWD_SHAPES)
+def test_bwd_kernels_match_plain_on_card(s, c, m, dtype, rel, masked):
+    """Passes C and D against ``reference_mlp_grn_bwd`` on the same ``ss``:
+    ragged S; C % 16 != 0 (CUDA-core path in bf16 too); every gradient.
+    Same tolerances as the forward; Pearson r > 0.999 in bf16 (a du
+    rounded one bf16 ulp apart moves a whole weight-gradient product)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        args, mask, g = _grads_case(s, c, m, dtype, masked)
+        x, _, *params = args
+        ss = tfb._reference_ss(x, *params[:4], mask, 1e-6)
+        mask_f = tfb._check_cuda_args(x, g, params, mask)
+        before = tfb.bwd_launches
+        got = tfb._fused_bwd_cuda(x, g, params, mask_f, ss, 1e-6, 1e-6)
+        again = tfb._fused_bwd_cuda(x, g, params, mask_f, ss, 1e-6, 1e-6)
+        want = tfb.reference_mlp_grn_bwd(x, g, *params, ss, mask=mask)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert tfb.bwd_launches == before + 4
+    for name, a, b2, w in zip(GRAD_NAMES, got, again, want):
+        assert torch.equal(a, b2), f"{name} differs between two runs"
+        assert a.shape == w.shape and a.dtype == w.dtype, name
+        assert_rel_close(a.float().cpu().numpy(), w.float().cpu().numpy(), rel,
+                         0.999 if dtype == torch.bfloat16 else None)
+
+
+@pytest.mark.gpu
+def test_cuda_output_carries_grad_fn_and_plain_gradients():
+    """Under grad the CUDA path stays in the autograd graph and its
+    gradients are the plain backward's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    args, mask, g = _grads_case(64, 96, 384, torch.float32, False)
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    out = tfb.fused_mlp_grn(*leaves)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, leaves, g)
+    x, _, *params = args
+    ss = tfb._reference_ss(x, *params[:4], None, 1e-6)
+    want = tfb.reference_mlp_grn_bwd(x, g, *params, ss)
+    for name, a, w in zip(GRAD_NAMES, got, want):
+        assert_rel_close(a.cpu().numpy(), w.cpu().numpy(), 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["zeros", "border", "reflection"])
+@pytest.mark.parametrize(
+    "in_shape,out_shape,offset",
+    [((8, 40, 36), (6, 32, 30), (0.5, 0.0, -0.5)), ((20, 60, 60), (15, 38, 38), "per-sample")],
+    ids=["non-square", "crop"],
+)
+def test_warp_kernel_matches_plain_on_card(in_shape, out_shape, offset, mode):
+    """The warp kernel rounds where the plain version rounds: the two agree
+    to 1e-6 of the input range on the same matrices (non-square planes,
+    tuple and per-sample offsets, flips)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from viscy_tpu_torch.ops import warp as tw
+    from viscy_tpu_torch.ops import warp3d
+
+    gen = torch.Generator().manual_seed(3)
+    b = 4
+    vol = torch.rand((b, 3, *in_shape), generator=gen)
+    rot = (torch.rand((b, 3), generator=gen) - 0.5) * torch.tensor([6.28, 0.3, 0.3])
+    scale = 0.6 + 0.9 * torch.rand((b, 3), generator=gen)
+    shear = (torch.rand((b, 6), generator=gen) - 0.5) * 0.1
+    mats = tw.compose_affine_3d(rotation=rot, scale=scale, shear=shear)
+    off = (torch.rand((b, 3), generator=gen) - 0.5) * 4 if offset == "per-sample" else offset
+    signs = torch.where(torch.rand((b, 3), generator=gen) < 0.5, -1.0, 1.0)
+    for flips in (None, signs):
+        dev = lambda t: t.cuda() if isinstance(t, torch.Tensor) else t
+        before = warp3d.launches
+        got = warp3d.affine_warp_3d(vol.cuda(), mats.cuda(), out_shape, mode, dev(off), dev(flips))
+        want = tw.affine_warp_3d(vol.cuda(), mats.cuda(), out_shape, mode, dev(off), dev(flips))
+        torch.cuda.synchronize()
+        assert warp3d.launches == before + 1
+        assert got.shape == (b, 3, *out_shape)
+        assert float((got - want).abs().max()) <= 1e-6

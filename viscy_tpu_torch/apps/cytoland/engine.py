@@ -1,10 +1,12 @@
-"""Cytoland virtual-staining engine, prediction path (counterpart of
-``viscy_tpu/apps/cytoland/engine.py``).
+"""Cytoland virtual-staining engine (counterpart of
+``viscy_tpu/apps/cytoland/engine.py``), training and prediction.
 
 ``VSUNet`` wraps the FCMAE-based UNeXt2 (``"fcmae"`` / ``"UNeXt2_2D"``)
-with the reference predict step: divisible pad, forward, center crop,
-optional 4-rotation test-time augmentation, and batched YX tiling with
-hat-weight blending for large fields of view.
+with the reference supervised training loss (MixedLoss by default, with
+the optional bf16 loss inputs), its AdamW + schedule, and the reference
+predict step: divisible pad, forward, center crop, optional 4-rotation
+test-time augmentation, and batched YX tiling with hat-weight blending for
+large fields of view.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch.nn.functional as F
 from viscy_tpu_torch.apps.cytoland.prediction import rotation_tta_transforms, tiled_forward_yx
 from viscy_tpu_torch.device import resolve_device
 from viscy_tpu_torch.models.unet.fcmae import FullyConvolutionalMAE
+from viscy_tpu_torch.training.losses.mixed_loss import MixedLoss
 from viscy_tpu_torch.training.module import TrainModule
 
 _UNET_ARCHITECTURE = {
@@ -48,19 +51,27 @@ def _center_crop_to_shape(x: torch.Tensor, spatial: Sequence[int]) -> torch.Tens
 
 
 class VSUNet(TrainModule):
-    """Virtual-staining U-Net engine (prediction).
+    """Virtual-staining U-Net engine.
 
     ``model_config`` takes the JAX engine's keys (lists become tuples;
     ``dtype`` may be a string such as ``"bfloat16"``). Weights are drawn
     from a ``torch.Generator`` seeded with ``seed``; load trained weights
     with ``model.load_state_dict`` (reference torch names). ``device``
     defaults to ``"cuda"`` and raises when no card is visible.
+    ``loss_function`` defaults to ``MixedLoss()``; ``bf16_loss`` feeds it
+    bf16 prediction and target (its math stays float32).
     """
 
     def __init__(
         self,
         architecture: Literal["fcmae", "UNeXt2_2D"],
         model_config: dict | None = None,
+        loss_function=None,
+        lr: float = 1e-3,
+        schedule: Literal["WarmupCosine", "Constant"] = "Constant",
+        warmup_steps: int = 0,
+        warmup_multiplier: float = 1e-3,
+        bf16_loss: bool = False,
         test_time_augmentations: bool = False,
         tta_type: Literal["mean", "median", "product"] = "mean",
         tile_yx: Sequence[int] | None = None,
@@ -89,6 +100,12 @@ class VSUNet(TrainModule):
         self.model_config = model_config
         self.model = net_class(**model_config, generator=torch.Generator().manual_seed(seed))
         self.model.to(device)
+        self.loss_function = loss_function if loss_function is not None else MixedLoss()
+        self.lr = lr
+        self.schedule = schedule
+        self.warmup_steps = warmup_steps
+        self.warmup_multiplier = warmup_multiplier
+        self.bf16_loss = bf16_loss
         self.test_time_augmentations = test_time_augmentations
         self.tta_type = tta_type
         self.tile_yx = tuple(tile_yx) if tile_yx else None
@@ -96,6 +113,31 @@ class VSUNet(TrainModule):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.model(x)
+
+    def _compute_loss(self, pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        if self.bf16_loss and isinstance(self.loss_function, MixedLoss):
+            pred = pred.to(torch.bfloat16)
+            target = target.to(torch.bfloat16)
+        return self.loss_function(pred, target)
+
+    def training_loss(self, batch: dict) -> torch.Tensor:
+        """Supervised loss of the forward on ``batch["source"]`` against
+        ``batch["target"]`` (NCDHW)."""
+        return self._compute_loss(self.forward(batch["source"]), batch["target"])
+
+    def configure_optimizers(self, total_steps: int):
+        """AdamW with the engine's schedule (``warmup_steps=0`` takes the
+        default warmup of 1 % of ``total_steps``)."""
+        from viscy_tpu_torch.training.optimizers import configure_adamw_scheduler
+
+        return configure_adamw_scheduler(
+            self.parameters(),
+            lr=self.lr,
+            schedule=self.schedule,
+            total_steps=total_steps,
+            warmup_steps=self.warmup_steps or None,
+            warmup_multiplier=self.warmup_multiplier,
+        )
 
     def _pad_forward_crop(self, source: torch.Tensor, factor: int | None = None) -> torch.Tensor:
         """Divisible-pad, forward, center-crop. ``factor`` defaults to the

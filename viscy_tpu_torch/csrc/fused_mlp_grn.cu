@@ -1,7 +1,8 @@
-// Fused ConvNeXt-v2 MLP + GRN forward for Hopper (sm_90a), plain C interface.
+// Fused ConvNeXt-v2 MLP + GRN for Hopper (sm_90a), plain C interface: the
+// forward here, the backward (passes C and D) further down.
 //
-// Replaces the TPU Pallas kernels viscy_tpu/ops/pallas/fused_block.py::
-// _stats_kernel (pass A) and ::_apply_kernel (pass B). It computes
+// The forward replaces the TPU Pallas kernels viscy_tpu/ops/pallas/
+// fused_block.py::_stats_kernel (pass A) and ::_apply_kernel (pass B). It computes
 //
 //     out = shortcut + fc2(GRN(gelu(fc1(LN(x)))))        x, shortcut: (B, S, C)
 //
@@ -56,6 +57,7 @@
 #include <stdint.h>
 
 #include <initializer_list>
+#include <type_traits>
 
 namespace {
 
@@ -529,6 +531,537 @@ int launch(int dtype, const Args& a, int B, void* stream) {
                     : launch_kernel(simt::fmg_kernel<bf16, APPLY>, smem, ts, B, a, stream);
 }
 
+// ---------------------------------------------------------------------------
+// backward: passes C and D
+// ---------------------------------------------------------------------------
+//
+// Replaces viscy_tpu/ops/pallas/fused_block.py::_bwd_stats_kernel (pass C)
+// and ::_bwd_main_kernel (pass D). Like the forward, nothing M-wide reaches
+// device memory: every block recomputes fc1 -> GELU for its rows and hidden
+// columns. The TPU kernels carry the weight-gradient sums from one
+// grid step to the next; Hopper blocks run in no order, so here every sum
+// across blocks goes to a per-block partial that the caller reduces in a
+// fixed order (no float atomics: two runs give bit-identical gradients).
+//
+// - A prep grid writes the LayerNorm output, dz and the row statistics once
+//   per call (C-wide scratch), so no grid recomputes the LayerNorm.
+// - Column-ordered grids (pass C, and the weight-gradient half of pass D):
+//   a block owns one 64-wide hidden chunk and a fixed run of row tiles of
+//   one sample (a static schedule: grid = chunks x (B * splits)). Per tile
+//   it computes u = LN(x) . w1_chunk^T and dy = dz . w2_chunk on the tensor
+//   cores, the chunk's elementwise GRN/GELU terms, and accumulates
+//     pass C: P[b, m] = sum dy * v, d grn_beta = sum dy (registers),
+//             d fc2 (C x 64) += dz^T . y, d fc2 bias = sum dz;
+//     pass D: d fc1 (64 x C) += du^T . LN(x), d fc1 bias = sum du.
+//   The weight-gradient slab of a block lives in its own slot of a float
+//   partial (read, added and written back per tile; it stays in L2).
+// - Row-ordered grid (the dx half of pass D): a block owns a row tile,
+//   loops over all hidden chunks to accumulate dln = du . w1 in shared
+//   memory, then runs the LayerNorm backward and writes dx, with per-tile
+//   partials of d ln_scale and d ln_bias.
+//
+// The function needs 8 B S C M operations (dy, d fc2, d fc1, dln); the
+// kernels do 18 (fc1 and dy are each computed in all three grids), so they can reach
+// at most 4/9 of the operation bound. bf16 with C, M multiples of 16 runs
+// every product through nvcuda::wmma (bf16 in, f32 accumulate); float32 (and
+// bf16 at other C) runs them on the CUDA cores in f32.
+namespace bwd {
+
+constexpr int LDU = MC + 4;  // f32 u / dy chunk
+constexpr int LDH = MC + 8;  // y or du chunk in the compute type
+constexpr float kInvSqrt2Pi = 0.3989422804014327f;
+
+enum Mode { kStats = 0, kWgrad = 1, kDx = 2 };
+
+struct BwdArgs {
+  const void* x;
+  const void* g;
+  const float* mask;
+  const float* ln_s;
+  const float* ln_b;
+  const void* w1;  // (M, C) in the compute type
+  const float* b1;
+  const float* nx;  // (B, M)
+  const float* gg;
+  const float* gb;
+  const void* w2;  // (C, M) in the compute type
+  const float* coef1;  // (B, M)
+  const float* coef2;  // (B, M)
+  float* p_part;    // (B * splits, M)
+  float* dbg_part;  // (B * splits, M)
+  float* dw2_part;  // (B * splits, C, M)
+  float* db2_part;  // (B * splits, C)
+  void* dx;         // (B, S, C)
+  float* dw1_part;  // (B * splits, M, C)
+  float* db1_part;  // (B * splits, M)
+  float* dls_part;  // (B * row tiles, C)
+  float* dlb_part;  // (B * row tiles, C)
+  void* ln_buf;     // (B, S, C) LayerNorm output in the compute type
+  void* dz_buf;     // (B, S, C) dz = T(g) * mask in the compute type
+  float* mu_buf;    // (B, S) row means
+  float* rstd_buf;  // (B, S) row 1 / std
+  int S, C, M, splits;
+  float eps_ln;
+};
+
+struct Layout {
+  size_t lns, dzs, ubuf, dybuf, hbuf, rowmask, mu, rstd, dln, total;
+};
+
+__host__ __device__ constexpr size_t align128(size_t b) { return (b + 127) & ~(size_t)127; }
+
+__host__ __device__ inline Layout layout(bool dx, int ts, int c, int elem) {
+  Layout l{};
+  size_t off = 0;
+  l.lns = off;
+  off = align128(off + (size_t)ts * (c + 8) * elem);
+  l.dzs = off;
+  off = align128(off + (size_t)ts * (c + 8) * elem);
+  l.ubuf = off;
+  off = align128(off + (size_t)ts * LDU * sizeof(float));
+  l.dybuf = off;
+  off = align128(off + (size_t)ts * LDU * sizeof(float));
+  l.hbuf = off;
+  off = align128(off + (size_t)ts * LDH * elem);
+  l.rowmask = off;
+  off = align128(off + (size_t)ts * sizeof(float));
+  l.mu = off;
+  off = align128(off + (size_t)ts * sizeof(float));
+  l.rstd = off;
+  off = align128(off + (size_t)ts * sizeof(float));
+  l.dln = off;
+  l.total = off + (dx ? (size_t)ts * (c + 4) * sizeof(float) : 0);
+  return l;
+}
+
+__device__ __forceinline__ float gelu_grad_f32(float u) {
+  const float phi = expf(-0.5f * u * u) * kInvSqrt2Pi;
+  const float cdf = 0.5f * (erff(u / kSqrt2) + 1.0f);
+  return cdf + u * phi;
+}
+
+// acc(i, j) (+)= sum_k a(i, k) b(k, j), i < I, j < J, on the CUDA cores in
+// f32: each thread owns a 4 x 4 output tile and sums k in order
+template <typename FA, typename FB>
+__device__ void simt_gemm(float* acc, int ldc, int I, int J, int K, FA a, FB b, bool zero) {
+  const int ti = (I + 3) / 4, tj = (J + 3) / 4;
+  for (int t = threadIdx.x; t < ti * tj; t += NT) {
+    const int i0 = (t / tj) * 4, j0 = (t % tj) * 4;
+    float c[4][4] = {};
+    for (int k = 0; k < K; ++k) {
+      float av[4], bv[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        av[q] = i0 + q < I ? a(i0 + q, k) : 0.f;
+        bv[q] = j0 + q < J ? b(k, j0 + q) : 0.f;
+      }
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) c[p][q] = fmaf(av[p], bv[q], c[p][q]);
+    }
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (i0 + p < I && j0 + q < J) {
+          float* o = acc + (size_t)(i0 + p) * ldc + j0 + q;
+          *o = zero ? c[p][q] : *o + c[p][q];
+        }
+  }
+}
+
+namespace wmma = nvcuda::wmma;
+
+template <typename L>
+__device__ __forceinline__ const bf16* a_at(const bf16* a, int ld, int i, int k) {
+  if constexpr (std::is_same<L, wmma::row_major>::value)
+    return a + (size_t)i * ld + k;
+  else
+    return a + i + (size_t)k * ld;
+}
+
+template <typename L>
+__device__ __forceinline__ const bf16* b_at(const bf16* b, int ld, int k, int j) {
+  if constexpr (std::is_same<L, wmma::row_major>::value)
+    return b + (size_t)k * ld + j;
+  else
+    return b + k + (size_t)j * ld;
+}
+
+// acc (I x J, row-major float, shared or global) (+)= A (I x K) . B (K x J);
+// I, J, K multiples of 16. A work item is R row fragments of one column
+// fragment: each B fragment is loaded once for the R products. Warp w takes
+// items w, w + 8, ...
+template <typename LA, typename LB, int R>
+__device__ void wmma_gemm_r(float* acc, int ldc, int I, int J, int K, const bf16* A, int lda,
+                            const bf16* B, int ldb, bool zero) {
+  const int warp = threadIdx.x / 32;
+  const int fin = I / 16, fjn = J / 16, groups = (fin + R - 1) / R;
+  for (int item = warp; item < fjn * groups; item += NT / 32) {
+    const int fj = item % fjn, f0 = (item / fjn) * R;
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> fc[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (f0 + r >= fin) continue;
+      if (zero)
+        wmma::fill_fragment(fc[r], 0.f);
+      else
+        wmma::load_matrix_sync(fc[r], acc + (size_t)(f0 + r) * 16 * ldc + fj * 16, ldc,
+                               wmma::mem_row_major);
+    }
+    for (int k = 0; k < K; k += 16) {
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> fb;
+      wmma::load_matrix_sync(fb, b_at<LB>(B, ldb, k, fj * 16), ldb);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (f0 + r >= fin) continue;
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> fa;
+        wmma::load_matrix_sync(fa, a_at<LA>(A, lda, (f0 + r) * 16, k), lda);
+        wmma::mma_sync(fc[r], fa, fb, fc[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (f0 + r >= fin) continue;
+      wmma::store_matrix_sync(acc + (size_t)(f0 + r) * 16 * ldc + fj * 16, fc[r], ldc,
+                              wmma::mem_row_major);
+    }
+  }
+}
+
+// two row fragments share each B fragment when that still keeps all eight
+// warps busy, else one
+template <typename LA, typename LB>
+__device__ void wmma_gemm(float* acc, int ldc, int I, int J, int K, const bf16* A, int lda,
+                          const bf16* B, int ldb, bool zero) {
+  if ((J / 16) * ((I / 16 + 1) / 2) >= NT / 32)
+    wmma_gemm_r<LA, LB, 2>(acc, ldc, I, J, K, A, lda, B, ldb, zero);
+  else
+    wmma_gemm_r<LA, LB, 1>(acc, ldc, I, J, K, A, lda, B, ldb, zero);
+}
+
+// one product of the backward: acc (I x J) (+)= A . B with A and B of the
+// compute type in the given layouts (row_major: element (i, k) at i*ld + k)
+template <typename T, bool TC, typename LA, typename LB>
+__device__ void gemm(float* acc, int ldc, int I, int J, int K, const T* A, int lda, const T* B,
+                     int ldb, bool zero) {
+  if constexpr (TC) {
+    wmma_gemm<LA, LB>(acc, ldc, I, J, K, reinterpret_cast<const bf16*>(A), lda,
+                      reinterpret_cast<const bf16*>(B), ldb, zero);
+  } else {
+    constexpr bool ra = std::is_same<LA, wmma::row_major>::value;
+    constexpr bool rb = std::is_same<LB, wmma::row_major>::value;
+    simt_gemm(
+        acc, ldc, I, J, K,
+        [=](int i, int k) {
+          return Num<T>::load(ra ? A[(size_t)i * lda + k] : A[i + (size_t)k * lda]);
+        },
+        [=](int k, int j) {
+          return Num<T>::load(rb ? B[(size_t)k * ldb + j] : B[k + (size_t)j * ldb]);
+        },
+        zero);
+  }
+}
+
+// LayerNorm output, dz = T(g) * mask and the row statistics of every row,
+// written once per backward call (C-wide: nothing M-wide reaches memory) so
+// that no grid recomputes the LayerNorm per hidden chunk. One warp per row,
+// the arithmetic of ln_tile.
+template <typename T>
+__global__ void __launch_bounds__(NT) prep_kernel(BwdArgs a, long long n_rows) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long r = (long long)blockIdx.x * (NT / 32) + warp;
+  if (r >= n_rows) return;
+  const int C = a.C;
+  const T* xr = static_cast<const T*>(a.x) + r * C;
+  const T* gr = static_cast<const T*>(a.g) + r * C;
+  T* lr = static_cast<T*>(a.ln_buf) + r * C;
+  T* dr = static_cast<T*>(a.dz_buf) + r * C;
+  float s = 0.f, q = 0.f;
+  for (int c = lane; c < C; c += 32) {
+    const float f = Num<T>::load(xr[c]);
+    s += f;
+    q += f * f;
+  }
+  s = warp_sum(s);
+  q = warp_sum(q);
+  const float mu = s / (float)C;
+  const float var = fmaxf(q / (float)C - mu * mu, 0.f);
+  const float rstd = rsqrtf(var + a.eps_ln);
+  const float mk = a.mask ? a.mask[r] : 1.f;
+  for (int c = lane; c < C; c += 32) {
+    const float f = Num<T>::load(xr[c]);
+    lr[c] = Num<T>::store((f - mu) * (rstd * a.ln_s[c]) + a.ln_b[c]);
+    dr[c] = Num<T>::store(Num<T>::rnd(__fmul_rn(Num<T>::load(gr[c]), mk)));
+  }
+  if (lane == 0) {
+    a.mu_buf[r] = mu;
+    a.rstd_buf[r] = rstd;
+  }
+}
+
+// rows [0, rows) of a (., C) array into a (TS, C + 8) shared tile, 16-byte
+// vectors where rows allow; rows past `rows` are zero
+template <typename T, int TS>
+__device__ void copy_rows(T* dst, const T* src, int C, int rows) {
+  const int ldl = C + 8;
+  constexpr int V = 16 / sizeof(T);
+  if (C % V == 0) {
+    const int vpr = C / V;
+    for (int e = threadIdx.x; e < TS * vpr; e += NT) {
+      const int r = e / vpr, v = e % vpr;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (r < rows) val = __ldg(reinterpret_cast<const uint4*>(src + (size_t)r * C) + v);
+      reinterpret_cast<uint4*>(dst + (size_t)r * ldl)[v] = val;
+    }
+  } else {
+    for (int e = threadIdx.x; e < TS * C; e += NT) {
+      const int r = e / C, c = e % C;
+      dst[(size_t)r * ldl + c] = r < rows ? src[(size_t)r * C + c] : Num<T>::store(0.f);
+    }
+  }
+}
+
+// the tile's LayerNorm output into lns, its dz into dzs, its mask values
+// (0 past S), means and 1 / std
+template <typename T, int TS>
+__device__ void load_tile(const BwdArgs& a, int b, int row0, int rows, T* lns, T* dzs,
+                          float* rowmask, float* mu, float* rstd) {
+  const size_t r0 = (size_t)b * a.S + row0;
+  copy_rows<T, TS>(lns, static_cast<const T*>(a.ln_buf) + r0 * a.C, a.C, rows);
+  copy_rows<T, TS>(dzs, static_cast<const T*>(a.dz_buf) + r0 * a.C, a.C, rows);
+  for (int r = threadIdx.x; r < TS; r += NT) {
+    const bool in = r < rows;
+    rowmask[r] = in ? (a.mask ? a.mask[r0 + r] : 1.f) : 0.f;
+    mu[r] = in ? a.mu_buf[r0 + r] : 0.f;
+    rstd[r] = in ? a.rstd_buf[r0 + r] : 0.f;
+  }
+}
+
+// u = LN . w1_chunk^T and dy = dz . w2_chunk for hidden columns [m0, m0 + mw)
+template <typename T, bool TC, int TS>
+__device__ void chunk_products(const BwdArgs& a, const T* lns, const T* dzs, int m0, int mw,
+                               float* ubuf, float* dybuf) {
+  const int C = a.C, M = a.M, ldl = C + 8;
+  const T* w1 = static_cast<const T*>(a.w1);
+  const T* w2 = static_cast<const T*>(a.w2);
+  // w1 rows read in place as B column-major: element (k, n) at w1[(m0 + n) * C + k]
+  gemm<T, TC, wmma::row_major, wmma::col_major>(ubuf, LDU, TS, mw, C, lns, ldl,
+                                                w1 + (size_t)m0 * C, C, true);
+  // w2 as B row-major: element (k, n) at w2[k * M + m0 + n]
+  gemm<T, TC, wmma::row_major, wmma::row_major>(dybuf, LDU, TS, mw, C, dzs, ldl, w2 + m0, M,
+                                                true);
+}
+
+// the chunk's elementwise terms. kStats: hbuf = y, ubuf = dy * v (dybuf
+// keeps dy). kWgrad / kDx: hbuf = T(du), ubuf = du (f32). Zero past the
+// chunk's width and (du) past the tile's rows.
+template <typename T, int MODE, int TS>
+__device__ void chunk_terms(const BwdArgs& a, int b, int m0, int mw, int rows, float* ubuf,
+                            const float* dybuf, T* hbuf, const float* rowmask) {
+  const size_t bm = (size_t)b * a.M;
+  for (int e = threadIdx.x; e < TS * MC; e += NT) {
+    const int r = e / MC, j = e % MC, gm = m0 + j;
+    float h = 0.f, s = 0.f;
+    if (j < mw) {
+      const float u = Num<T>::rnd(__fadd_rn(Num<T>::rnd(ubuf[r * LDU + j]), Num<T>::rnd(a.b1[gm])));
+      const float v = gelu_exact<T>(u);
+      const float dy = dybuf[r * LDU + j];
+      if (MODE == kStats) {
+        const float t = Num<T>::rnd(__fmul_rn(v, Num<T>::rnd(a.nx[bm + gm])));
+        h = Num<T>::rnd(__fadd_rn(__fadd_rn(__fmul_rn(a.gg[gm], t), a.gb[gm]), v));
+        s = __fmul_rn(dy, v);
+      } else if (r < rows) {
+        // the statistics path saw v * mask, so its cotangent carries mask^2
+        const float mk = rowmask[r];
+        const float sv = __fmul_rn(v, __fmul_rn(mk, mk));
+        const float dv = __fadd_rn(__fmul_rn(dy, a.coef1[bm + gm]), __fmul_rn(sv, a.coef2[bm + gm]));
+        s = __fmul_rn(dv, gelu_grad_f32(u));
+        h = Num<T>::rnd(s);
+      }
+    }
+    ubuf[r * LDU + j] = s;
+    hbuf[r * LDH + j] = Num<T>::store(h);
+  }
+}
+
+template <typename T, bool TC, int TS, int MODE>
+__global__ void __launch_bounds__(NT) bwd_kernel(BwdArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int S = a.S, C = a.C, M = a.M, ldl = C + 8, tid = threadIdx.x;
+  const Layout L = layout(MODE == kDx, TS, C, sizeof(T));
+  T* lns = reinterpret_cast<T*>(smem + L.lns);
+  T* dzs = reinterpret_cast<T*>(smem + L.dzs);
+  float* ubuf = reinterpret_cast<float*>(smem + L.ubuf);
+  float* dybuf = reinterpret_cast<float*>(smem + L.dybuf);
+  T* hbuf = reinterpret_cast<T*>(smem + L.hbuf);
+  float* rowmask = reinterpret_cast<float*>(smem + L.rowmask);
+  float* mu = reinterpret_cast<float*>(smem + L.mu);
+  float* rstd = reinterpret_cast<float*>(smem + L.rstd);
+  const int nt = (S + TS - 1) / TS;
+
+  if constexpr (MODE == kDx) {
+    float* dln = reinterpret_cast<float*>(smem + L.dln);
+    const int ldz = C + 4;
+    const int tile = blockIdx.x, b = blockIdx.y;
+    const int row0 = tile * TS, rows = min(TS, S - row0);
+    load_tile<T, TS>(a, b, row0, rows, lns, dzs, rowmask, mu, rstd);
+    for (int i = tid; i < TS * ldz; i += NT) dln[i] = 0.f;
+    __syncthreads();
+    const T* w1 = static_cast<const T*>(a.w1);
+    for (int m0 = 0; m0 < M; m0 += MC) {
+      const int mw = min(MC, M - m0);
+      chunk_products<T, TC, TS>(a, lns, dzs, m0, mw, ubuf, dybuf);
+      __syncthreads();
+      chunk_terms<T, MODE, TS>(a, b, m0, mw, rows, ubuf, dybuf, hbuf, rowmask);
+      __syncthreads();
+      // dln (TS x C) += du (TS x mw) . w1[m0:m0+mw, :] (row-major, ld C)
+      gemm<T, TC, wmma::row_major, wmma::row_major>(dln, ldz, TS, C, mw, hbuf, LDH,
+                                                    w1 + (size_t)m0 * C, C, false);
+      __syncthreads();
+    }
+    const T* xt = static_cast<const T*>(a.x) + ((size_t)b * S + row0) * C;
+    // per-tile partials of d ln_scale = sum dln * xhat and d ln_bias = sum dln
+    const size_t pt = ((size_t)b * nt + tile) * C;
+    for (int c = tid; c < C; c += NT) {
+      float s1 = 0.f, s2 = 0.f;
+      for (int r = 0; r < rows; ++r) {
+        const float xhat = (Num<T>::load(xt[(size_t)r * C + c]) - mu[r]) * rstd[r];
+        const float d = dln[r * ldz + c];
+        s1 += d * xhat;
+        s2 += d;
+      }
+      a.dls_part[pt + c] = s1;
+      a.dlb_part[pt + c] = s2;
+    }
+    // LayerNorm backward, one warp per row
+    const int warp = tid / 32, lane = tid % 32;
+    T* dxt = static_cast<T*>(a.dx) + ((size_t)b * S + row0) * C;
+    for (int r = warp; r < rows; r += NT / 32) {
+      float sd = 0.f, sdx = 0.f;
+      for (int c = lane; c < C; c += 32) {
+        const float xhat = (Num<T>::load(xt[(size_t)r * C + c]) - mu[r]) * rstd[r];
+        const float dxhat = dln[r * ldz + c] * a.ln_s[c];
+        sd += dxhat;
+        sdx += dxhat * xhat;
+      }
+      const float mean_d = warp_sum(sd) / (float)C;
+      const float mean_dx = warp_sum(sdx) / (float)C;
+      for (int c = lane; c < C; c += 32) {
+        const float xhat = (Num<T>::load(xt[(size_t)r * C + c]) - mu[r]) * rstd[r];
+        const float dxhat = dln[r * ldz + c] * a.ln_s[c];
+        dxt[(size_t)r * C + c] = Num<T>::store(rstd[r] * (dxhat - mean_d - xhat * mean_dx));
+      }
+    }
+  } else {
+    const int chunk = blockIdx.x, grp = blockIdx.y;
+    const int b = grp / a.splits, split = grp % a.splits;
+    const int m0 = chunk * MC, mw = min(MC, M - m0);
+    const int per = (nt + a.splits - 1) / a.splits;
+    const int t_begin = split * per, t_end = min(nt, t_begin + per);
+    float acc0 = 0.f, acc1 = 0.f;  // thread tid < MC owns hidden column m0 + tid
+    for (int t = t_begin; t < t_end; ++t) {
+      const int row0 = t * TS, rows = min(TS, S - row0);
+      load_tile<T, TS>(a, b, row0, rows, lns, dzs, rowmask, mu, rstd);
+      __syncthreads();
+      chunk_products<T, TC, TS>(a, lns, dzs, m0, mw, ubuf, dybuf);
+      __syncthreads();
+      chunk_terms<T, MODE, TS>(a, b, m0, mw, rows, ubuf, dybuf, hbuf, rowmask);
+      __syncthreads();
+      if (tid < MC) {
+        float s0 = 0.f, s1 = 0.f;
+        for (int r = 0; r < TS; ++r) {
+          s0 += ubuf[r * LDU + tid];
+          s1 += dybuf[r * LDU + tid];
+        }
+        acc0 += s0;
+        acc1 += s1;
+      }
+      if (MODE == kStats) {
+        // d fc2 slab (C x mw, ld M) += dz^T (C x TS) . y (TS x mw)
+        gemm<T, TC, wmma::col_major, wmma::row_major>(
+            a.dw2_part + (size_t)grp * C * M + m0, M, C, mw, TS, dzs, ldl, hbuf, LDH, false);
+        if (chunk == 0) {
+          for (int c = tid; c < C; c += NT) {
+            float s = 0.f;
+            for (int r = 0; r < TS; ++r) s += Num<T>::load(dzs[r * ldl + c]);
+            a.db2_part[(size_t)grp * C + c] += s;
+          }
+        }
+      } else {
+        // d fc1 slab (mw x C, ld C) += du^T (mw x TS) . LN (TS x C)
+        gemm<T, TC, wmma::col_major, wmma::row_major>(
+            a.dw1_part + ((size_t)grp * M + m0) * C, C, mw, C, TS, hbuf, LDH, lns, ldl, false);
+      }
+      __syncthreads();
+    }
+    if (tid < mw) {
+      const size_t o = (size_t)grp * M + m0 + tid;
+      if (MODE == kStats) {
+        a.p_part[o] = acc0;
+        a.dbg_part[o] = acc1;
+      } else {
+        a.db1_part[o] = acc0;
+      }
+    }
+  }
+}
+
+int sm_count() {
+  int dev = 0, v = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 0;
+  return v;
+}
+
+// rows per block of the column-ordered (dx = false) or row-ordered grid; 0
+// when no tile fits the shared memory
+int tile_rows(int dtype, bool dx, int c) {
+  const size_t limit = (size_t)max_smem();
+  const int elem = dtype == 0 ? 4 : 2;
+  // row-ordered grid: the larger tile that lets two blocks share an SM;
+  // column-ordered grids: the largest tile (both measured faster than the
+  // other choice)
+  if (dx)
+    for (int ts : {64, 32, 16})
+      if (2 * (layout(dx, ts, c, elem).total + 1024) <= limit) return ts;
+  for (int ts : {64, 32, 16})
+    if (layout(dx, ts, c, elem).total <= limit) return ts;
+  return 0;
+}
+
+template <typename T, bool TC, int MODE>
+int launch_ts(int ts, dim3 grid, size_t smem, const BwdArgs& a, void* stream) {
+  auto go = [&](auto kern) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<grid, NT, smem, (cudaStream_t)stream>>>(a);
+    return (int)cudaGetLastError();
+  };
+  if (ts == 64) return go(bwd_kernel<T, TC, 64, MODE>);
+  if (ts == 32) return go(bwd_kernel<T, TC, 32, MODE>);
+  return go(bwd_kernel<T, TC, 16, MODE>);
+}
+
+template <int MODE>
+int launch(int dtype, const BwdArgs& a, int B, void* stream) {
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || B > 65535 || a.S <= 0 || a.C <= 0 || a.M <= 0 || a.splits <= 0)
+    return (int)cudaErrorInvalidValue;
+  const bool dx = MODE == kDx;
+  const int ts = tile_rows(dtype, dx, a.C);
+  if (ts == 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = layout(dx, ts, a.C, dtype == 0 ? 4 : 2).total;
+  const dim3 grid = dx ? dim3((a.S + ts - 1) / ts, B) : dim3((a.M + MC - 1) / MC, B * a.splits);
+  if (use_tc(dtype, a.C, a.M)) return launch_ts<bf16, true, MODE>(ts, grid, smem, a, stream);
+  return dtype == 0 ? launch_ts<float, false, MODE>(ts, grid, smem, a, stream)
+                    : launch_ts<bf16, false, MODE>(ts, grid, smem, a, stream);
+}
+
+}  // namespace bwd
+
 }  // namespace
 
 extern "C" {
@@ -558,6 +1091,76 @@ int fmg_apply(int dtype, const void* x, const void* sc, const float* mask, const
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   Args a{x, sc, mask, ln_s, ln_b, w1, b1, nx, gg, gb, w2, b2, nullptr, out, S, C, M, eps_ln};
   return launch<true>(dtype, a, B, stream);
+}
+
+// backward plan at (dtype, B, S, C, M): plan[0] = splits of each sample's row
+// tiles in the column-ordered grids (enough blocks for two per SM), plan[1]
+// = rows per tile of the row-ordered dx grid. The caller sizes the partials
+// from them. Returns 0 when no tile fits.
+int fmg_bwd_plan(int dtype, int B, int S, int C, int M, int* plan) {
+  if ((dtype != 0 && dtype != 1) || B <= 0 || S <= 0 || C <= 0 || M <= 0) return 0;
+  const int ts_col = bwd::tile_rows(dtype, false, C);
+  const int ts_dx = bwd::tile_rows(dtype, true, C);
+  if (ts_col == 0 || ts_dx == 0) return 0;
+  const int chunks = (M + MC - 1) / MC;
+  const int nt = (S + ts_col - 1) / ts_col;
+  const int want = 2 * bwd::sm_count();
+  int splits = (want + chunks * B - 1) / (chunks * B);
+  splits = splits < 1 ? 1 : (splits > nt ? nt : splits);
+  plan[0] = splits;
+  plan[1] = ts_dx;
+  return 1;
+}
+
+// pass C: first the LayerNorm output, dz and row statistics into the
+// (B, S, C) / (B, S) scratch buffers (pass D reads them too), then the
+// partials of P (B * splits, M), d grn_beta (B * splits, M), d fc2
+// (B * splits, C, M) and d fc2 bias (B * splits, C), all zero on entry
+int fmg_bwd_stats(int dtype, const void* x, const void* g, const float* mask, const float* ln_s,
+                  const float* ln_b, const void* w1, const float* b1, const float* nx,
+                  const float* gg, const float* gb, const void* w2, float* p_part,
+                  float* dbg_part, float* dw2_part, float* db2_part, void* ln_buf, void* dz_buf,
+                  float* mu_buf, float* rstd_buf, int B, int S, int C, int M, int splits,
+                  float eps_ln, void* stream) {
+  bwd::BwdArgs a{};
+  a.ln_buf = ln_buf, a.dz_buf = dz_buf, a.mu_buf = mu_buf, a.rstd_buf = rstd_buf;
+  a.x = x, a.g = g, a.mask = mask, a.ln_s = ln_s, a.ln_b = ln_b, a.w1 = w1, a.b1 = b1;
+  a.nx = nx, a.gg = gg, a.gb = gb, a.w2 = w2;
+  a.p_part = p_part, a.dbg_part = dbg_part, a.dw2_part = dw2_part, a.db2_part = db2_part;
+  a.S = S, a.C = C, a.M = M, a.splits = splits, a.eps_ln = eps_ln;
+  if ((dtype != 0 && dtype != 1) || B <= 0 || S <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
+  const long long n_rows = (long long)B * S;
+  const dim3 grid((unsigned)((n_rows + NT / 32 - 1) / (NT / 32)));
+  if (dtype == 0)
+    bwd::prep_kernel<float><<<grid, NT, 0, (cudaStream_t)stream>>>(a, n_rows);
+  else
+    bwd::prep_kernel<bf16><<<grid, NT, 0, (cudaStream_t)stream>>>(a, n_rows);
+  const int rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  return bwd::launch<bwd::kStats>(dtype, a, B, stream);
+}
+
+// pass D, after pass C on the same stream (it reads pass C's scratch
+// buffers): the column-ordered weight-gradient grid (partials of d fc1
+// (B * splits, M, C) and its bias (B * splits, M), zero on entry), then the
+// row-ordered grid writing dx (B, S, C) and per-tile partials of d
+// ln_scale / d ln_bias (B * ceil(S / plan[1]), C)
+int fmg_bwd_main(int dtype, const void* x, const void* g, const float* mask, const float* ln_s,
+                 const float* ln_b, const void* w1, const float* b1, const void* w2,
+                 const float* coef1, const float* coef2, void* dx, float* dw1_part,
+                 float* db1_part, float* dls_part, float* dlb_part, void* ln_buf, void* dz_buf,
+                 float* mu_buf, float* rstd_buf, int B, int S, int C, int M, int splits,
+                 float eps_ln, void* stream) {
+  bwd::BwdArgs a{};
+  a.ln_buf = ln_buf, a.dz_buf = dz_buf, a.mu_buf = mu_buf, a.rstd_buf = rstd_buf;
+  a.x = x, a.g = g, a.mask = mask, a.ln_s = ln_s, a.ln_b = ln_b, a.w1 = w1, a.b1 = b1;
+  a.w2 = w2, a.coef1 = coef1, a.coef2 = coef2;
+  a.dx = dx, a.dw1_part = dw1_part, a.db1_part = db1_part, a.dls_part = dls_part,
+  a.dlb_part = dlb_part;
+  a.S = S, a.C = C, a.M = M, a.splits = splits, a.eps_ln = eps_ln;
+  const int rc = bwd::launch<bwd::kWgrad>(dtype, a, B, stream);
+  if (rc) return rc;
+  return bwd::launch<bwd::kDx>(dtype, a, B, stream);
 }
 
 }  // extern "C"

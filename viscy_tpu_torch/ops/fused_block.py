@@ -1,18 +1,28 @@
-"""Fused ConvNeXt-v2 MLP + GRN forward (counterpart of
+"""Fused ConvNeXt-v2 MLP + GRN, forward and backward (counterpart of
 ``viscy_tpu/ops/pallas/fused_block.py``).
 
 ``fused_mlp_grn`` computes ``shortcut + fc2(GRN(gelu(fc1(LN(x)))))`` on
-``(B, S, C)`` activations. On a CUDA tensor it launches the hand-written
-Hopper kernel ``csrc/fused_mlp_grn.cu`` (stats pass A, a (B, M) glue step
-in plain torch, apply pass B), which never writes an M-wide tensor to
-device memory; on a CPU tensor it runs :func:`reference_mlp_grn`, the
-plain version the kernel is checked against.
+``(B, S, C)`` activations through :class:`FusedMlpGrn`, an autograd
+Function. On CUDA tensors both directions launch the hand-written Hopper
+kernels of ``csrc/fused_mlp_grn.cu``, none of which writes an M-wide tensor
+to device memory:
+
+- forward: stats pass A, a (B, M) glue step in plain torch, apply pass B;
+  the (B, M) sum of squares ``ss`` is saved for the backward, as the JAX
+  ``_fwd`` saves it;
+- backward: pass C (GRN statistics cotangent ``P``, ``d grn_beta``,
+  ``d fc2``), the (B, M) GRN glue in plain torch, pass D (``d fc1``, the
+  LayerNorm parameter gradients and ``dx``).
+
+On CPU tensors the Function runs the plain versions
+:func:`reference_mlp_grn` and :func:`reference_mlp_grn_bwd`, the functions
+the kernels are checked against. Any other device raises.
 
 Weights use torch's layout: ``w1`` is fc1's ``(M, C)`` and ``w2`` is
 fc2's ``(C, M)`` (``nn.Linear`` weights, or 1x1 conv weights viewed as
-2-D). Activations are in the block's compute dtype; parameters stay
-float32 and are rounded to the compute dtype exactly where the flax
-modules round them.
+2-D), and their gradients come back in the same layout. Activations are
+in the block's compute dtype; parameters stay float32 and are rounded to
+the compute dtype exactly where the flax modules round them.
 """
 
 from __future__ import annotations
@@ -23,11 +33,14 @@ import math
 import torch
 
 _SQRT2 = math.sqrt(2.0)
+_INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL = "fused_mlp_grn"
 
-# kernel launches on CUDA tensors (pass A and pass B count one each)
+# kernel launches on CUDA tensors: forward passes A and B count one each in
+# ``launches``, backward passes C and D one each in ``bwd_launches``
 launches = 0
+bwd_launches = 0
 _lib: ctypes.CDLL | None = None
 
 
@@ -39,11 +52,71 @@ def _gelu_exact(u: torch.Tensor) -> torch.Tensor:
     return (u * (torch.erf(u / sqrt2) + 1) / 2).to(u.dtype)
 
 
+def _gelu_grad_f32(u32: torch.Tensor) -> torch.Tensor:
+    """d gelu / du in float32 (JAX ``_gelu_grad_f32``)."""
+    phi = torch.exp(-0.5 * u32 * u32) * _INV_SQRT_2PI
+    cdf = 0.5 * (torch.erf(u32 / _SQRT2) + 1.0)
+    return cdf + u32 * phi
+
+
 def _grn_coeffs(ss: torch.Tensor, eps_grn: float):
     """``(gx, mean + eps, nx)`` from the (B, M) f32 sum of squares."""
     gx = torch.sqrt(ss)
     mn = gx.mean(dim=-1, keepdim=True) + eps_grn
     return gx, mn, gx / mn
+
+
+def _grn_bwd_coeffs(p: torch.Tensor, ss: torch.Tensor, grn_gamma: torch.Tensor, eps_grn: float):
+    """The (B, M) glue between passes C and D (JAX ``_bwd``): from
+    ``P[b, m] = sum_s dy * v`` the GRN cotangents ``coef1`` (on dy),
+    ``coef2`` (on the statistics path) and ``d grn_gamma``."""
+    gx, mn, nx = _grn_coeffs(ss, eps_grn)
+    gg32 = grn_gamma.float()
+    a_nx = gg32 * p
+    dgg = (p * nx).sum(dim=0)
+    m = ss.shape[-1]
+    # nx = gx / mean(gx + eps): dgx = A/m - sum_k(A_k gx_k)/(M m^2)
+    dgx = a_nx / mn - (a_nx * gx).sum(dim=-1, keepdim=True) / (m * mn * mn)
+    # through gx = sqrt(sum v^2): dv += v * dgx / gx (0 where gx == 0)
+    coef2 = torch.where(gx > 0, dgx / torch.clamp_min(gx, 1e-30), torch.zeros_like(gx))
+    coef1 = gg32 * nx + 1.0
+    return coef1, coef2, dgg
+
+
+def _ln_fc1_gelu(x, ln_scale, ln_bias, w1, b1, eps_ln):
+    """LN -> fc1 -> GELU over the last axis: ``(v, u, ln, xhat, rstd)``
+    with v, u, ln in the compute dtype and xhat, rstd float32."""
+    cdt = x.dtype
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = torch.clamp_min((x32 * x32).mean(dim=-1, keepdim=True) - mu * mu, 0.0)
+    rstd = torch.rsqrt(var + eps_ln)
+    xc = x32 - mu
+    # flax _normalize combines rsqrt * scale before multiplying
+    ln = (xc * (rstd * ln_scale.float()) + ln_bias.float()).to(cdt)
+    u = torch.matmul(ln.float(), w1.to(cdt).float().t()).to(cdt) + b1.to(cdt)
+    return _gelu_exact(u), u, ln, xc * rstd, rstd
+
+
+def _reference_ss(x, ln_scale, ln_bias, w1, b1, mask, eps_ln) -> torch.Tensor:
+    """(B, M) float32 sum over S of the (masked) GELU output squared."""
+    v = _ln_fc1_gelu(x, ln_scale, ln_bias, w1, b1, eps_ln)[0]
+    vs = v if mask is None else v * mask.to(x.dtype)[..., None]
+    vs32 = vs.float()
+    return (vs32 * vs32).sum(dim=1)
+
+
+def _reference_apply(x, shortcut, ln_scale, ln_bias, w1, b1, grn_gamma, grn_beta, w2, b2,
+                     ss, mask, eps_ln, eps_grn) -> torch.Tensor:
+    cdt = x.dtype
+    v = _ln_fc1_gelu(x, ln_scale, ln_bias, w1, b1, eps_ln)[0]
+    nx = _grn_coeffs(ss, eps_grn)[2][:, None, :]
+    t = v * nx.to(cdt)
+    y = (grn_gamma.float() * t.float() + grn_beta.float() + v.float()).to(cdt)
+    z = torch.matmul(y.float(), w2.to(cdt).float().t()).to(cdt) + b2.to(cdt)
+    if mask is not None:
+        z = z * mask.to(cdt)[..., None]
+    return shortcut + z
 
 
 def reference_mlp_grn(
@@ -64,26 +137,69 @@ def reference_mlp_grn(
 ) -> torch.Tensor:
     """Plain version, op for op the JAX ``reference_mlp_grn`` (flax dtype
     promotion included; masked semantics of MaskedConvNeXtV2Block)."""
+    ss = _reference_ss(x, ln_scale, ln_bias, w1, b1, mask, eps_ln)
+    return _reference_apply(x, shortcut, ln_scale, ln_bias, w1, b1, grn_gamma, grn_beta, w2, b2,
+                            ss, mask, eps_ln, eps_grn)
+
+
+def reference_mlp_grn_bwd(
+    x: torch.Tensor,
+    g: torch.Tensor,
+    ln_scale: torch.Tensor,
+    ln_bias: torch.Tensor,
+    w1: torch.Tensor,
+    b1: torch.Tensor,
+    grn_gamma: torch.Tensor,
+    grn_beta: torch.Tensor,
+    w2: torch.Tensor,
+    b2: torch.Tensor,
+    ss: torch.Tensor,
+    *,
+    mask: torch.Tensor | None = None,
+    eps_ln: float = 1e-6,
+    eps_grn: float = 1e-6,
+) -> tuple[torch.Tensor, ...]:
+    """Plain backward, op for op the JAX ``_bwd`` (passes C and D with the
+    (B, M) glue between them): from the output cotangent ``g`` and the
+    forward's sum of squares ``ss``, return ``(dx, dshortcut, dln_scale,
+    dln_bias, dw1, db1, dgrn_gamma, dgrn_beta, dw2, db2)``.
+
+    Rounding sites: dz = g in the compute dtype (times the mask), y rounded
+    before d fc2, du rounded before d fc1 and dln, every parameter gradient
+    accumulated in float32, dx in the compute dtype, dshortcut = g."""
     cdt = x.dtype
-    x32 = x.float()
-    mu = x32.mean(dim=-1, keepdim=True)
-    var = torch.clamp_min((x32 * x32).mean(dim=-1, keepdim=True) - mu * mu, 0.0)
-    ln = (
-        (x32 - mu) * torch.rsqrt(var + eps_ln) * ln_scale.float() + ln_bias.float()
-    ).to(cdt)
-    u = torch.matmul(ln.float(), w1.to(cdt).float().t()).to(cdt) + b1.to(cdt)
-    v = _gelu_exact(u)
+    c, m = x.shape[-1], w1.shape[0]
+    nx = _grn_coeffs(ss, eps_grn)[2][:, None, :]
+    v, u, ln, xhat, rstd = _ln_fc1_gelu(x, ln_scale, ln_bias, w1, b1, eps_ln)
+    dz = g.to(cdt)
     mk = None if mask is None else mask.to(cdt)[..., None]
-    vs = v if mk is None else v * mk
-    vs32 = vs.float()
-    gx = torch.sqrt((vs32 * vs32).sum(dim=1, keepdim=True))
-    nx = gx / (gx.mean(dim=-1, keepdim=True) + eps_grn)
-    t = v * nx.to(cdt)
-    y = (grn_gamma.float() * t.float() + grn_beta.float() + v.float()).to(cdt)
-    z = torch.matmul(y.float(), w2.to(cdt).float().t()).to(cdt) + b2.to(cdt)
     if mk is not None:
-        z = z * mk
-    return shortcut + z
+        dz = dz * mk
+    # pass C
+    dy = torch.matmul(dz.float(), w2.to(cdt).float())
+    v32 = v.float()
+    y = (grn_gamma.float() * (v * nx.to(cdt)).float() + grn_beta.float() + v32).to(cdt)
+    p = (dy * v32).sum(dim=1)
+    dbg = dy.sum(dim=(0, 1))
+    dw2 = torch.matmul(dz.float().reshape(-1, c).t(), y.float().reshape(-1, m))
+    db2 = dz.float().sum(dim=(0, 1))
+    # glue
+    coef1, coef2, dgg = _grn_bwd_coeffs(p, ss, grn_gamma, eps_grn)
+    # pass D: the statistics path saw v * mask, so its cotangent carries mask^2
+    stats_v = v32 if mk is None else v32 * (mk.float() * mk.float())
+    dv32 = dy * coef1[:, None, :] + stats_v * coef2[:, None, :]
+    du32 = dv32 * _gelu_grad_f32(u.float())
+    du = du32.to(cdt)
+    dw1 = torch.matmul(du.float().reshape(-1, m).t(), ln.float().reshape(-1, c))
+    db1 = du32.sum(dim=(0, 1))
+    dln = torch.matmul(du.float(), w1.to(cdt).float())
+    dls = (dln * xhat).sum(dim=(0, 1))
+    dlb = dln.sum(dim=(0, 1))
+    dxhat = dln * ln_scale.float()
+    mean_d = dxhat.mean(dim=-1, keepdim=True)
+    mean_dx = (dxhat * xhat).mean(dim=-1, keepdim=True)
+    dx = (rstd * (dxhat - mean_d - xhat * mean_dx)).to(cdt)
+    return dx, g.to(cdt), dls, dlb, dw1, db1, dgg, dbg, dw2, db2
 
 
 def _check_param(name: str, t: torch.Tensor, shape: tuple, device) -> None:
@@ -117,21 +233,27 @@ def _library() -> ctypes.CDLL:
         lib.fmg_stats.restype = i
         lib.fmg_apply.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, f, p]
         lib.fmg_apply.restype = i
+        lib.fmg_bwd_plan.argtypes = [i, i, i, i, i, p]
+        lib.fmg_bwd_plan.restype = i
+        for fn in (lib.fmg_bwd_stats, lib.fmg_bwd_main):
+            fn.argtypes = [i, *[p] * 19, i, i, i, i, i, f, p]
+            fn.restype = i
         _lib = lib
     return _lib
 
 
-def _fused_cuda(x, shortcut, ln_s, ln_b, w1, b1, gg, gb, w2, b2, mask, eps_ln, eps_grn):
-    global launches
+def _check_cuda_args(x, other, params, mask):
+    """Validate kernel inputs; returns the float mask in the compute dtype's
+    values (or None)."""
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"kernel takes float32 or bfloat16 activations, got {x.dtype}")
-    if shortcut.dtype != x.dtype or shortcut.device != x.device:
-        raise ValueError("shortcut must match x in dtype and device")
-    if not (x.is_contiguous() and shortcut.is_contiguous()):
-        raise ValueError("x and shortcut must be contiguous (B, S, C)")
-    bsz, s, c = x.shape
+    if other.dtype != x.dtype or other.device != x.device:
+        raise ValueError("shortcut / cotangent must match x in dtype and device")
+    if not (x.is_contiguous() and other.is_contiguous()):
+        raise ValueError("activations must be contiguous (B, S, C)")
+    bsz, _, c = x.shape
+    ln_s, ln_b, w1, b1, gg, gb, w2, b2 = params
     m = w1.shape[0]
-    dev = x.device
     for name, t, shape in (
         ("ln_scale", ln_s, (c,)),
         ("ln_bias", ln_b, (c,)),
@@ -142,15 +264,24 @@ def _fused_cuda(x, shortcut, ln_s, ln_b, w1, b1, gg, gb, w2, b2, mask, eps_ln, e
         ("w2", w2, (c, m)),
         ("b2", b2, (c,)),
     ):
-        _check_param(name, t, shape, dev)
+        _check_param(name, t, shape, x.device)
     if not 0 < bsz <= 65535:
         raise ValueError(f"batch {bsz} outside the kernel's grid range (1..65535)")
+    if mask is None:
+        return None
+    # the kernels multiply in the compute dtype, as the flax block does
+    return mask.to(device=x.device, dtype=x.dtype).float().contiguous()
+
+
+def _fused_cuda(x, shortcut, params, mask_f, eps_ln, eps_grn):
+    """Passes A and B; returns ``(out, ss)``."""
+    global launches
+    ln_s, ln_b, w1, b1, gg, gb, w2, b2 = params
+    bsz, s, c = x.shape
+    m = w1.shape[0]
+    dev = x.device
     lib = _library()
     code = _DTYPE_CODE[x.dtype]
-    mask_f = None
-    if mask is not None:
-        # the kernel multiplies in the compute dtype, as the flax block does
-        mask_f = mask.to(device=dev, dtype=x.dtype).float().contiguous()
     with torch.cuda.device(dev):
         tile_rows = lib.fmg_stats_tile_rows(code, c, m)
         if tile_rows == 0 or not lib.fmg_apply_supported(code, c, m):
@@ -168,7 +299,8 @@ def _fused_cuda(x, shortcut, ln_s, ln_b, w1, b1, gg, gb, w2, b2, mask, eps_ln, e
             raise RuntimeError(f"fused_mlp_grn stats pass failed to launch (cudaError {rc})")
         launches += 1
         # fixed-order reduction over tiles: deterministic, no float atomics
-        _, _, nx = _grn_coeffs(partial.sum(dim=1), eps_grn)
+        ss = partial.sum(dim=1)
+        _, _, nx = _grn_coeffs(ss, eps_grn)
         rc = lib.fmg_apply(
             code, _ptr(x), _ptr(shortcut), _ptr(mask_f), _ptr(ln_s), _ptr(ln_b), _ptr(w1c),
             _ptr(b1), _ptr(nx), _ptr(gg), _ptr(gb), _ptr(w2c), _ptr(b2), _ptr(out),
@@ -177,7 +309,109 @@ def _fused_cuda(x, shortcut, ln_s, ln_b, w1, b1, gg, gb, w2, b2, mask, eps_ln, e
         if rc:
             raise RuntimeError(f"fused_mlp_grn apply pass failed to launch (cudaError {rc})")
         launches += 1
-    return out
+    return out, ss
+
+
+def _fused_bwd_cuda(x, g, params, mask_f, ss, eps_ln, eps_grn):
+    """Passes C and D with the (B, M) glue between them; returns the ten
+    gradients of :func:`reference_mlp_grn_bwd`.
+
+    Every cross-block sum goes through a per-block partial (a fixed static
+    schedule of blocks, each owning its slot) and a fixed-order torch sum
+    afterwards: no float atomics, so two runs give bit-identical gradients.
+    """
+    global bwd_launches
+    ln_s, ln_b, w1, b1, gg, gb, w2, b2 = params
+    bsz, s, c = x.shape
+    m = w1.shape[0]
+    dev = x.device
+    lib = _library()
+    code = _DTYPE_CODE[x.dtype]
+    f32 = dict(dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        # plan: [splits per sample of the column-ordered grids, rows per dx tile]
+        plan = (ctypes.c_int * 2)()
+        if not lib.fmg_bwd_plan(code, bsz, s, c, m, plan):
+            raise ValueError(f"C={c} ({x.dtype}) does not fit the backward kernels' tiles")
+        splits, dx_rows = plan[0], plan[1]
+        groups = bsz * splits
+        dx_tiles = bsz * -(-s // dx_rows)
+        w1c, w2c = w1.to(x.dtype), w2.to(x.dtype)
+        nx = _grn_coeffs(ss, eps_grn)[2].contiguous()
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        # pass C writes the LayerNorm output, dz and the row statistics here
+        # (C-wide); pass D reads them
+        scratch = (torch.empty_like(x), torch.empty_like(x),
+                   torch.empty((bsz, s), **f32), torch.empty((bsz, s), **f32))
+        p_part = torch.zeros((groups, m), **f32)
+        dbg_part = torch.zeros((groups, m), **f32)
+        dw2_part = torch.zeros((groups, c, m), **f32)
+        db2_part = torch.zeros((groups, c), **f32)
+        rc = lib.fmg_bwd_stats(
+            code, _ptr(x), _ptr(g), _ptr(mask_f), _ptr(ln_s), _ptr(ln_b), _ptr(w1c), _ptr(b1),
+            _ptr(nx), _ptr(gg), _ptr(gb), _ptr(w2c),
+            _ptr(p_part), _ptr(dbg_part), _ptr(dw2_part), _ptr(db2_part), *map(_ptr, scratch),
+            bsz, s, c, m, splits, eps_ln, stream,
+        )
+        if rc:
+            raise RuntimeError(f"fused_mlp_grn backward pass C failed to launch (cudaError {rc})")
+        bwd_launches += 1
+        p = p_part.view(bsz, splits, m).sum(dim=1)
+        coef1, coef2, dgg = _grn_bwd_coeffs(p, ss, gg, eps_grn)
+        dx = torch.empty_like(x)
+        dw1_part = torch.zeros((groups, m, c), **f32)
+        db1_part = torch.zeros((groups, m), **f32)
+        dls_part = torch.zeros((dx_tiles, c), **f32)
+        dlb_part = torch.zeros((dx_tiles, c), **f32)
+        rc = lib.fmg_bwd_main(
+            code, _ptr(x), _ptr(g), _ptr(mask_f), _ptr(ln_s), _ptr(ln_b), _ptr(w1c), _ptr(b1),
+            _ptr(w2c), _ptr(coef1.contiguous()), _ptr(coef2.contiguous()),
+            _ptr(dx), _ptr(dw1_part), _ptr(db1_part), _ptr(dls_part), _ptr(dlb_part),
+            *map(_ptr, scratch), bsz, s, c, m, splits, eps_ln, stream,
+        )
+        if rc:
+            raise RuntimeError(f"fused_mlp_grn backward pass D failed to launch (cudaError {rc})")
+        bwd_launches += 1
+    return (
+        dx, g, dls_part.sum(dim=0), dlb_part.sum(dim=0), dw1_part.sum(dim=0),
+        db1_part.sum(dim=0), dgg, dbg_part.sum(dim=0), dw2_part.sum(dim=0), db2_part.sum(dim=0),
+    )
+
+
+class FusedMlpGrn(torch.autograd.Function):
+    """The fused block segment with its hand-derived gradient (the JAX
+    ``custom_vjp``). CUDA tensors run kernels in both directions, CPU
+    tensors the plain versions; the mask gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, shortcut, mask, ln_s, ln_b, w1, b1, gg, gb, w2, b2, eps_ln, eps_grn):
+        params = (ln_s, ln_b, w1, b1, gg, gb, w2, b2)
+        if x.device.type == "cuda":
+            mask_f = _check_cuda_args(x, shortcut, params, mask)
+            out, ss = _fused_cuda(x, shortcut, params, mask_f, eps_ln, eps_grn)
+        elif x.device.type == "cpu":
+            ss = _reference_ss(x, ln_s, ln_b, w1, b1, mask, eps_ln)
+            out = _reference_apply(x, shortcut, *params, ss, mask, eps_ln, eps_grn)
+        else:
+            raise RuntimeError(f"fused_mlp_grn runs on cuda (kernel) or cpu (plain), not {x.device}")
+        ctx.save_for_backward(x, mask, ss, *params)
+        ctx.eps = (eps_ln, eps_grn)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mask, ss, *params = ctx.saved_tensors
+        eps_ln, eps_grn = ctx.eps
+        g = g.to(x.dtype).contiguous()
+        if x.device.type == "cuda":
+            mask_f = _check_cuda_args(x, g, params, mask)
+            grads = _fused_bwd_cuda(x, g, params, mask_f, ss, eps_ln, eps_grn)
+        else:
+            grads = reference_mlp_grn_bwd(
+                x, g, *params, ss, mask=mask, eps_ln=eps_ln, eps_grn=eps_grn
+            )
+        dx, dsc, *dparams = grads
+        return (dx, dsc, None, *dparams, None, None)
 
 
 def fused_mlp_grn(
@@ -200,17 +434,17 @@ def fused_mlp_grn(
 
     ``mask`` (0/1, ``(B, S)``) gives the FCMAE masked semantics: GRN
     statistics over mask-zeroed activations and the branch zeroed before
-    the residual add. CUDA tensors go through the kernel (any ``S``; the
-    ragged last tile is masked in the kernel), CPU tensors through
-    :func:`reference_mlp_grn`; any other device raises.
+    the residual add. CUDA tensors go through the kernels (any ``S``; the
+    ragged last tile is masked in the kernels), CPU tensors through the
+    plain versions; any other device raises. The result is differentiable
+    in every argument but the mask.
     """
     if x.ndim != 3 or shortcut.shape != x.shape:
         raise ValueError(f"expected (B, S, C) pairs, got {tuple(x.shape)} / {tuple(shortcut.shape)}")
     if mask is not None and tuple(mask.shape) != tuple(x.shape[:2]):
         raise ValueError(f"mask must be (B, S), got {tuple(mask.shape)}")
-    args = (x, shortcut, ln_scale, ln_bias, w1, b1, grn_gamma, grn_beta, w2, b2)
-    if x.device.type == "cuda":
-        return _fused_cuda(*args, mask, eps_ln, eps_grn)
-    if x.device.type == "cpu":
-        return reference_mlp_grn(*args, mask=mask, eps_ln=eps_ln, eps_grn=eps_grn)
-    raise RuntimeError(f"fused_mlp_grn runs on cuda (kernel) or cpu (plain), not {x.device}")
+    if x.device.type not in ("cuda", "cpu"):
+        raise RuntimeError(f"fused_mlp_grn runs on cuda (kernel) or cpu (plain), not {x.device}")
+    return FusedMlpGrn.apply(
+        x, shortcut, mask, ln_scale, ln_bias, w1, b1, grn_gamma, grn_beta, w2, b2, eps_ln, eps_grn
+    )

@@ -1,5 +1,5 @@
 """Callback protocol (counterpart of ``viscy_tpu/training/callbacks/base.py``),
-prediction hooks."""
+fit and prediction hooks."""
 
 from __future__ import annotations
 
@@ -8,7 +8,15 @@ from typing import Any
 
 class Callback:
     """Base callback; the hooks mirror the Lightning ones the reference's
-    prediction writers use."""
+    callbacks use."""
+
+    def on_fit_start(self, trainer, module) -> None: ...
+
+    def on_train_batch_end(
+        self, trainer, module, metrics: dict, batch: dict, batch_idx: int
+    ) -> None: ...
+
+    def on_fit_end(self, trainer, module) -> None: ...
 
     def on_predict_start(self, trainer, module) -> None: ...
 

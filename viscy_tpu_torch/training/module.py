@@ -1,14 +1,18 @@
 """TrainModule: the engine protocol (counterpart of
-``viscy_tpu/training/module.py``), prediction-facing part.
+``viscy_tpu/training/module.py``).
 
 An engine is an ``nn.Module`` that owns its model and parameters; the
-trainer calls its steps with batches already on the engine's device.
+trainer calls its steps with batches already on the engine's device. There
+is no counterpart of ``viscy_tpu/training/state.py``: the engine holds the
+parameters and the optimizer built by ``configure_optimizers`` holds the
+optimizer state.
 """
 
 from __future__ import annotations
 
 from typing import Any
 
+import torch
 from torch import nn
 
 
@@ -17,5 +21,17 @@ class TrainModule(nn.Module):
 
     model: nn.Module
 
+    def training_loss(self, batch: dict) -> torch.Tensor:
+        """The scalar training loss of one (augmented) batch, differentiable
+        in the engine's parameters."""
+        raise NotImplementedError
+
     def predict_step(self, batch: dict) -> Any:
         raise NotImplementedError
+
+    def configure_optimizers(self, total_steps: int):
+        """``(optimizer, lr_scheduler, schedule_fn)`` over ``self.parameters()``;
+        the default is AdamW at a constant 2e-4."""
+        from viscy_tpu_torch.training.optimizers import configure_adamw_scheduler
+
+        return configure_adamw_scheduler(self.parameters(), total_steps=total_steps)
