@@ -16,7 +16,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
            of the flagship train step at batch 16: all ten gradients against
            ``reference_mlp_grn_bwd`` in f32 (TF32 off) and bf16, one masked
            case, two runs bit-identical; CUDA-event medians of kernel and
-           plain, and the operation bound.
+           plain, the operation bound and a per-kernel profile of one call;
+           at the largest shape the median of each stage (prep, front C,
+           d fc2, glue, front D, d fc1, dln + LN backward) beside
+           ``torch.matmul`` in bf16 on each product's (M, N, K).
 5. warp    the affine-warp kernel at (16,3,20,600,600) -> (16,3,15,384,384)
            with the center-crop offset and production-range matrices,
            against the plain version in zeros and border modes; medians of
@@ -200,7 +203,7 @@ def phase_build() -> None:
         cached = " (library already built; ptxas lines from the build that made it)" if r.cached else ""
         log(f"[build] {r.name}: {r.seconds:.2f} s -> {r.path.name}{cached}")
         for line in r.log.splitlines():
-            if "ptxas" in line:
+            if "ptxas" in line or "spill" in line:
                 log(f"[build]   {line.strip()}")
 
 
@@ -529,6 +532,8 @@ def phase_kernel_bwd() -> dict:
         x, _, *params = args
         ss = fb._reference_ss(x, *params[:4], None, 1e-6)
         kernel_ms = cuda_median_ms(lambda: fb._fused_bwd_cuda(x, g, params, None, ss, 1e-6, 1e-6))
+        profile_call(lambda: fb._fused_bwd_cuda(x, g, params, None, ss, 1e-6, 1e-6),
+                     f"S={s} C={c} M={m} B={batch} bf16 C+glue+D")
         plain_ms = cuda_median_ms(lambda: fb.reference_mlp_grn_bwd(x, g, *params, ss), runs=5)
         # 8 B S C M operations (dy, d fc2, d fc1, dln); bytes: x, g read and dx
         # written once in bf16, f32 parameters read and their gradients written
@@ -545,10 +550,94 @@ def phase_kernel_bwd() -> dict:
         )
         del args, g, x, params, ss
         torch.cuda.empty_cache()
+    bwd_stage_times(*max(distinct, key=lambda k: k[0] * k[1] * k[2]))
     total = {key: sum(v[key] * v["n"] for v in rows.values()) for key in ("ms", "plain_ms", "bound_ms")}
     log(f"[kernel-bwd] per step ({len(per_step)} calls, B={batch}): kernels {total['ms']:.3f} ms "
         f"plain {total['plain_ms']:.3f} ms bound {total['bound_ms']:.3f} ms")
     return dict(total, bound_by="operations", max_abs_err=worst_bf16)
+
+
+def profile_call(fn, tag: str) -> None:
+    """Device time by kernel over one call of ``fn`` (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        log(f"[profile] {tag}: torch.profiler recorded no device time: breakdown not measured")
+        return
+    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    log(f"[profile] {tag}: device busy {busy_ms:.3f} ms over {sum(e.count for e in events)} kernels")
+    for e in events[:8]:
+        name = e.key.replace("(anonymous namespace)::", "")
+        log(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms x{e.count:<3d} {name[:90]}")
+
+
+def bwd_stage_times(s: int, c: int, m: int) -> None:
+    """CUDA-event medians of each stage of the backward at (S, C, M), batch
+    16, bf16, and beside each product ``torch.matmul`` in bf16 on the same
+    (M, N, K) (bf16 out; a yardstick of the main loop the port never calls).
+    A stage's time runs from the previous stage's end event to its own."""
+    from viscy_tpu_torch.ops import fused_block as fb
+
+    args, _ = block_inputs(TRAIN_BATCH, s, c, m, torch.bfloat16, seed=700)
+    g = torch.randn(args[0].shape, generator=torch.Generator(device="cuda").manual_seed(701),
+                    device="cuda").to(torch.bfloat16)
+    x, _, *params = args
+    ss = fb._reference_ss(x, *params[:4], None, 1e-6)
+    torch.cuda.reset_peak_memory_stats()
+    times: dict[str, list[float]] = {}
+    for run in range(TIMED_RUNS + 1):
+        marks = []
+
+        def mark(stage):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((stage, ev))
+
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fb._fused_bwd_cuda(x, g, params, None, ss, 1e-6, 1e-6, mark=mark)
+        torch.cuda.synchronize()
+        if run == 0:
+            continue  # warm-up
+        prev = start
+        for stage, ev in marks:
+            times.setdefault(stage, []).append(prev.elapsed_time(ev))
+            prev = ev
+    del args, g, x, params, ss
+    n = TRAIN_BATCH * s
+
+    def rand(*shape):
+        return torch.randn(shape, device="cuda", dtype=torch.bfloat16)
+
+    ln, dz, h = rand(n, c), rand(n, c), rand(n, m)
+    w1, w2 = rand(m, c), rand(c, m)
+    front = (f"2 x ({n}, {m}, {c})", lambda: (torch.matmul(ln, w1.t()), torch.matmul(dz, w2)))
+    yardsticks = {
+        "front C": front,
+        "d fc2": (f"({c}, {m}, {n})", lambda: torch.matmul(dz.t(), h)),
+        "front D": front,
+        "d fc1": (f"({m}, {c}, {n})", lambda: torch.matmul(h.t(), ln)),
+        "dln + LN backward": (f"({n}, {c}, {m}) for dln", lambda: torch.matmul(h, w1)),
+    }
+    total = 0.0
+    for stage, ts in times.items():
+        med = statistics.median(ts)
+        total += med
+        line = f"[kernel-bwd] stage S={s} C={c} M={m} B={TRAIN_BATCH} bf16 {stage}: {med:.3f} ms"
+        if stage in yardsticks:
+            shape, fn = yardsticks[stage]
+            line += f"; torch.matmul bf16 {shape}: {cuda_median_ms(fn):.3f} ms"
+        log(line)
+    log(f"[kernel-bwd] stages sum {total:.3f} ms; peak device memory of the timed calls, inputs included, "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del ln, dz, h, w1, w2
+    torch.cuda.empty_cache()
 
 
 def library_warp(vol, mats, offset, out_shape, padding_mode):
@@ -775,7 +864,7 @@ def profile_step(trainer, module, datamodule) -> None:
 
     log(f"[profile] one train step: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
         f"({busy_ms / wall_ms:.1%} of wall); fused MLP+GRN forward {share('fmg_kernel'):.1f} ms, "
-        f"backward {share('bwd_kernel'):.1f} ms, warp {share('warp_kernel'):.1f} ms")
+        f"backward {share('bwd::'):.1f} ms, warp {share('warp_kernel'):.1f} ms")
     for e in events[:15]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<4d} {e.key[:100]}")
 

@@ -113,7 +113,13 @@ def _grads_case(s, c, m, dtype, masked, b=3, seed=0):
     return args, mask, g
 
 
-BWD_SHAPES = [(70, 40, 160), (100, 96, 384), (33, 480, 1920), (47, 768, 3072)]
+# (9, 96, 384) at B = 5: S under one row tile and B S not a multiple of it,
+# so row tiles must stop at each sample's end, and the split-K tail is short;
+# (21, 38, 151): rows not a multiple of 16 bytes (tiles load without
+# cp.async) and an odd M (y and du stored one element at a time)
+BWD_SHAPES = [(70, 40, 160), (100, 96, 384), (33, 480, 1920), (47, 768, 3072), (9, 96, 384),
+              (21, 38, 151)]
+BWD_BATCH = {(9, 96, 384): 5}
 GRAD_NAMES = ("dx", "dshortcut", "dln_scale", "dln_bias", "dw1", "db1", "dgrn_gamma",
               "dgrn_beta", "dw2", "db2")
 
@@ -126,7 +132,8 @@ GRAD_NAMES = ("dx", "dshortcut", "dln_scale", "dln_bias", "dw1", "db1", "dgrn_ga
 @pytest.mark.parametrize("s,c,m", BWD_SHAPES)
 def test_bwd_kernels_match_plain_on_card(s, c, m, dtype, rel, masked):
     """Passes C and D against ``reference_mlp_grn_bwd`` on the same ``ss``:
-    ragged S; C % 16 != 0 (CUDA-core path in bf16 too); every gradient.
+    ragged S; C % 16 != 0; S below one row tile; unaligned rows; every
+    gradient.
     Same tolerances as the forward; Pearson r > 0.999 in bf16 (a du
     rounded one bf16 ulp apart moves a whole weight-gradient product)."""
     if not torch.cuda.is_available():
@@ -134,7 +141,7 @@ def test_bwd_kernels_match_plain_on_card(s, c, m, dtype, rel, masked):
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        args, mask, g = _grads_case(s, c, m, dtype, masked)
+        args, mask, g = _grads_case(s, c, m, dtype, masked, b=BWD_BATCH.get((s, c, m), 3))
         x, _, *params = args
         ss = tfb._reference_ss(x, *params[:4], mask, 1e-6)
         mask_f = tfb._check_cuda_args(x, g, params, mask)

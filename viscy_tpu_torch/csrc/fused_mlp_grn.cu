@@ -536,102 +536,307 @@ int launch(int dtype, const Args& a, int B, void* stream) {
 // ---------------------------------------------------------------------------
 //
 // Replaces viscy_tpu/ops/pallas/fused_block.py::_bwd_stats_kernel (pass C)
-// and ::_bwd_main_kernel (pass D). Like the forward, nothing M-wide reaches
-// device memory: every block recomputes fc1 -> GELU for its rows and hidden
-// columns. The TPU kernels carry the weight-gradient sums from one
-// grid step to the next; Hopper blocks run in no order, so here every sum
-// across blocks goes to a per-block partial that the caller reduces in a
-// fixed order (no float atomics: two runs give bit-identical gradients).
+// and ::_bwd_main_kernel (pass D). The TPU kernels recompute fc1 per row
+// tile and carry the weight-gradient sums from one grid step to the next in
+// VMEM. Hopper blocks run in no order and hold at most 227 KB of shared
+// memory, so here the backward is a short chain of ordinary tiled products,
+// each with its elementwise work fused into its epilogue:
 //
-// - A prep grid writes the LayerNorm output, dz and the row statistics once
-//   per call (C-wide scratch), so no grid recomputes the LayerNorm.
-// - Column-ordered grids (pass C, and the weight-gradient half of pass D):
-//   a block owns one 64-wide hidden chunk and a fixed run of row tiles of
-//   one sample (a static schedule: grid = chunks x (B * splits)). Per tile
-//   it computes u = LN(x) . w1_chunk^T and dy = dz . w2_chunk on the tensor
-//   cores, the chunk's elementwise GRN/GELU terms, and accumulates
-//     pass C: P[b, m] = sum dy * v, d grn_beta = sum dy (registers),
-//             d fc2 (C x 64) += dz^T . y, d fc2 bias = sum dz;
-//     pass D: d fc1 (64 x C) += du^T . LN(x), d fc1 bias = sum du.
-//   The weight-gradient slab of a block lives in its own slot of a float
-//   partial (read, added and written back per tile; it stays in L2).
-// - Row-ordered grid (the dx half of pass D): a block owns a row tile,
-//   loops over all hidden chunks to accumulate dln = du . w1 in shared
-//   memory, then runs the LayerNorm backward and writes dx, with per-tile
-//   partials of d ln_scale and d ln_bias.
+//   prep      LayerNorm output, dz = T(g) * mask, row mean and 1 / std,
+//             written once (C wide); per-block column sums of dz (d fc2 bias)
+//   front C   u = LN . w1^T and dy = dz . w2 for one (row tile, hidden tile);
+//             epilogue: v = GELU(u), y in T to an M-wide scratch, per-row-tile
+//             column sums of dy * v (P) and dy (d grn_beta)
+//   d fc2     dz^T . y, split over the rows (K = B S)
+//   (the (B, M) glue runs in torch between the passes)
+//   front D   the same dual product; epilogue: du in T to an M-wide scratch,
+//             per-row-tile column sums of du in f32 (d fc1 bias)
+//   d fc1     du^T . LN, split over the rows
+//   dln       du . w1 (K = M) in f32 to a C-wide scratch
+//   LN bwd    one warp per row: dx, per-block column sums of dln * xhat and
+//             dln (d ln_scale, d ln_bias)
 //
-// The function needs 8 B S C M operations (dy, d fc2, d fc1, dln); the
-// kernels do 18 (fc1 and dy are each computed in all three grids), so they can reach
-// at most 4/9 of the operation bound. bf16 with C, M multiples of 16 runs
-// every product through nvcuda::wmma (bf16 in, f32 accumulate); float32 (and
-// bf16 at other C) runs them on the CUDA cores in f32.
+// Row tiles of the front products never straddle two samples (P is a sum
+// per sample). Every sum across blocks goes to a partial slot of its own,
+// which the caller reduces in a fixed order: no float atomics, and two runs
+// give bit-identical gradients.
+//
+// One main loop serves every product: a block tile of 8 warps (2 along its
+// rows, 4 along its columns), operand tiles brought into a ring of
+// shared-memory stages by cp.async (zero-filled past the valid rows,
+// columns and K), so the next tiles load while the current one is
+// multiplied. bf16 runs on the tensor cores (ldmatrix, transposing where an
+// operand is stored with its M or N dimension contiguous, and mma.sync
+// m16n8k16 with f32 accumulators in registers); float32 runs the same
+// tiling on the CUDA cores, each thread owning exactly the accumulator
+// elements of the mma layout, so the epilogues are shared. The front
+// products take 64 x 128 tiles (two products' accumulators in 64 registers
+// a thread), so two blocks share an SM and one block's long elementwise
+// epilogue overlaps the other's main loop; the others take 128 x 128. Both
+// step K by 64.
+//
+// What bounds it on an H100: the function needs 8 B S C M operations (dy,
+// d fc2, d fc1, dln); these kernels do 14 (front D recomputes u and dy
+// rather than store dy in f32). The M-wide scratch moves 2 B S M elements
+// of T out and 3 B S M back in (y read once, du twice), dln 4 B S C bytes
+// each way: at (B, S, C, M) = (16, 9216, 480, 1920) about 3.4 GB, some 1 ms
+// of HBM time against a 1.1 ms operation bound. mma.sync reaches only part
+// of the tensor cores' wgmma rate; wgmma with TMA is the next step.
 namespace bwd {
 
-constexpr int LDU = MC + 4;  // f32 u / dy chunk
-constexpr int LDH = MC + 8;  // y or du chunk in the compute type
+constexpr int LNR = 64;  // rows per block of the row kernels
+
+// a block tile of BM_ x BN_ with a K step of BK_ and a ring of ST_ stages in
+// bf16 (two in f32), over 8 warps, 2 along its rows and 4 along its
+// columns; each warp owns MT m16 tiles by NT8 n8 tiles
+template <int BM_, int BN_, int BK_, int ST_>
+struct Tiling {
+  static constexpr int BM = BM_, BN = BN_, BK = BK_, WN = 4, MT = BM / 32, NT8 = BN / 32;
+  template <typename T>
+  __host__ __device__ static constexpr int stages() {
+    return std::is_same<T, float>::value ? 2 : ST_;
+  }
+};
+// the front products (two per block): 64 rows, so two blocks share an SM
+// and one block's epilogue overlaps the other's main loop
+using Front = Tiling<64, 128, 64, 2>;
+// the weight-gradient and dln products
+using Wide = Tiling<128, 128, 64, 3>;
 constexpr float kInvSqrt2Pi = 0.3989422804014327f;
 
-enum Mode { kStats = 0, kWgrad = 1, kDx = 2 };
-
-struct BwdArgs {
-  const void* x;
-  const void* g;
-  const float* mask;
-  const float* ln_s;
-  const float* ln_b;
-  const void* w1;  // (M, C) in the compute type
-  const float* b1;
-  const float* nx;  // (B, M)
-  const float* gg;
-  const float* gb;
-  const void* w2;  // (C, M) in the compute type
-  const float* coef1;  // (B, M)
-  const float* coef2;  // (B, M)
-  float* p_part;    // (B * splits, M)
-  float* dbg_part;  // (B * splits, M)
-  float* dw2_part;  // (B * splits, C, M)
-  float* db2_part;  // (B * splits, C)
-  void* dx;         // (B, S, C)
-  float* dw1_part;  // (B * splits, M, C)
-  float* db1_part;  // (B * splits, M)
-  float* dls_part;  // (B * row tiles, C)
-  float* dlb_part;  // (B * row tiles, C)
-  void* ln_buf;     // (B, S, C) LayerNorm output in the compute type
-  void* dz_buf;     // (B, S, C) dz = T(g) * mask in the compute type
-  float* mu_buf;    // (B, S) row means
-  float* rstd_buf;  // (B, S) row 1 / std
-  int S, C, M, splits;
-  float eps_ln;
+template <typename T>
+struct Cfg {  // bf16: 8-element row padding (16 bytes)
+  static constexpr int PAD = 8;
+};
+template <>
+struct Cfg<float> {
+  static constexpr int PAD = 4;
 };
 
-struct Layout {
-  size_t lns, dzs, ubuf, dybuf, hbuf, rowmask, mu, rstd, dln, total;
+// elements of one operand tile (MN rows or columns) in shared memory:
+// K-contiguous operands are stored MN rows x (BK + PAD), the others BK rows
+// x (MN + PAD); either padding keeps the eight rows of an ldmatrix on
+// distinct banks
+template <typename T, bool KC, int MN, int BK>
+__host__ __device__ constexpr int tile_elems() {
+  return KC ? MN * (BK + Cfg<T>::PAD) : BK * (MN + Cfg<T>::PAD);
+}
+
+// one operand of a product, at the block's tile origin and its first K:
+// element (mn, k) at p[mn * ld + k] when K-contiguous, else p[k * ld + mn];
+// mn < mn_valid holds data, the rest of the tile reads as zero
+struct Opnd {
+  const void* p;
+  long long ld;
+  int mn_valid;
 };
 
-__host__ __device__ constexpr size_t align128(size_t b) { return (b + 127) & ~(size_t)127; }
+template <bool KC, typename T>
+__device__ __forceinline__ Opnd opnd(const T* base, long long ld, long long mn0, long long k0,
+                                     int mn_valid) {
+  return {KC ? base + mn0 * ld + k0 : base + k0 * ld + mn0, ld, mn_valid};
+}
 
-__host__ __device__ inline Layout layout(bool dx, int ts, int c, int elem) {
-  Layout l{};
-  size_t off = 0;
-  l.lns = off;
-  off = align128(off + (size_t)ts * (c + 8) * elem);
-  l.dzs = off;
-  off = align128(off + (size_t)ts * (c + 8) * elem);
-  l.ubuf = off;
-  off = align128(off + (size_t)ts * LDU * sizeof(float));
-  l.dybuf = off;
-  off = align128(off + (size_t)ts * LDU * sizeof(float));
-  l.hbuf = off;
-  off = align128(off + (size_t)ts * LDH * elem);
-  l.rowmask = off;
-  off = align128(off + (size_t)ts * sizeof(float));
-  l.mu = off;
-  off = align128(off + (size_t)ts * sizeof(float));
-  l.rstd = off;
-  off = align128(off + (size_t)ts * sizeof(float));
-  l.dln = off;
-  l.total = off + (dx ? (size_t)ts * (c + 4) * sizeof(float) : 0);
-  return l;
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// tile of K steps [k0, k0 + BK) of operand o (k_valid: K extent of this
+// block) into s. vec: 16-byte cp.async (every contiguous extent a multiple
+// of 16 bytes, every pointer aligned); else plain loads.
+template <typename T, bool KC, int MN, int BK>
+__device__ __forceinline__ void load_tile(T* s, const Opnd& o, int k0, int k_valid, bool vec) {
+  constexpr int OUT = KC ? MN : BK;  // shared rows
+  constexpr int IN = KC ? BK : MN;   // valid width of a shared row
+  constexpr int LD = IN + Cfg<T>::PAD;
+  const T* p = static_cast<const T*>(o.p);
+  const int o_valid = KC ? o.mn_valid : k_valid - k0;
+  const int i_valid = KC ? k_valid - k0 : o.mn_valid;
+  const T* g = KC ? p + k0 : p + (long long)k0 * o.ld;
+  if (vec) {
+    constexpr int V = 16 / sizeof(T);
+    constexpr int CPR = IN / V;
+    for (int e = threadIdx.x; e < OUT * CPR; e += NT) {
+      const int r = e / CPR, i = (e % CPR) * V;
+      const bool in = r < o_valid && i < i_valid;
+      cp_async16(s + r * LD + i, in ? g + (long long)r * o.ld + i : p, in);
+    }
+  } else {
+    for (int e = threadIdx.x; e < OUT * IN; e += NT) {
+      const int r = e / IN, i = e % IN;
+      s[r * LD + i] = (r < o_valid && i < i_valid) ? g[(long long)r * o.ld + i] : Num<T>::store(0.f);
+    }
+  }
+}
+
+template <bool TRANS>
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  if constexpr (TRANS)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(a));
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(a));
+}
+
+__device__ __forceinline__ void mma16816(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <class TL>
+using Acc = float[TL::MT][TL::NT8][4];
+
+// warp (wm, wn) accumulator element (mt, nt, e) sits at tile row
+// wm * BM / 2 + mt * 16 + lane / 4 + (e / 2) * 8 and column
+// wn * BN / 4 + nt * 8 + (lane % 4) * 2 + e % 2 (the mma.sync C layout)
+template <class TL>
+__device__ __forceinline__ int acc_row(int wm, int mt, int e) {
+  return wm * (TL::BM / 2) + mt * 16 + (threadIdx.x % 32) / 4 + (e / 2) * 8;
+}
+template <class TL>
+__device__ __forceinline__ int acc_col(int wn, int nt, int e) {
+  return wn * (TL::BN / 4) + nt * 8 + (threadIdx.x % 4) * 2 + e % 2;
+}
+
+// acc += A_tile . B_tile over one K step, tensor cores
+template <class TL, bool AKC, bool BKC>
+__device__ __forceinline__ void tile_product(Acc<TL>& acc, const bf16* As, const bf16* Bs, int wm,
+                                             int wn) {
+  constexpr int MT = TL::MT, NT8 = TL::NT8, BK = TL::BK;
+  constexpr int LDK = BK + 8, LDA = TL::BM + 8, LDB = TL::BN + 8;
+  const int lane = threadIdx.x % 32, q = lane / 8, r = lane % 8;
+#pragma unroll
+  for (int ks = 0; ks < BK; ks += 16) {
+    unsigned a[MT][4], b[NT8][2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int m = wm * (TL::BM / 2) + mt * 16;
+      if constexpr (AKC)
+        ldsm_x4<false>(a[mt], As + (m + lane % 16) * LDK + ks + (lane / 16) * 8);
+      else
+        ldsm_x4<true>(a[mt], As + (ks + r + (q / 2) * 8) * LDA + m + (q % 2) * 8);
+    }
+#pragma unroll
+    for (int np = 0; np < NT8 / 2; ++np) {
+      const int n = wn * (TL::BN / 4) + np * 16;
+      unsigned t[4];
+      if constexpr (BKC)
+        ldsm_x4<false>(t, Bs + (n + r + (q / 2) * 8) * LDK + ks + (q % 2) * 8);
+      else
+        ldsm_x4<true>(t, Bs + (ks + r + (q % 2) * 8) * LDB + n + (q / 2) * 8);
+      b[2 * np][0] = t[0];
+      b[2 * np][1] = t[1];
+      b[2 * np + 1][0] = t[2];
+      b[2 * np + 1][1] = t[3];
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT8; ++nt) mma16816(acc[mt][nt], a[mt], b[nt][0], b[nt][1]);
+  }
+}
+
+// the same on the CUDA cores in f32, K summed in order
+template <class TL, bool AKC, bool BKC>
+__device__ __forceinline__ void tile_product(Acc<TL>& acc, const float* As, const float* Bs,
+                                             int wm, int wn) {
+  constexpr int MT = TL::MT, NT8 = TL::NT8, BK = TL::BK;
+  constexpr int LDK = BK + 4, LDA = TL::BM + 4, LDB = TL::BN + 4;
+  for (int k = 0; k < BK; ++k) {
+    float a[MT][2], b[NT8][2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = acc_row<TL>(wm, mt, 2 * h);
+        a[mt][h] = AKC ? As[m * LDK + k] : As[k * LDA + m];
+      }
+#pragma unroll
+    for (int nt = 0; nt < NT8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = acc_col<TL>(wn, nt, e);
+        b[nt][e] = BKC ? Bs[n * LDK + k] : Bs[k * LDB + n];
+      }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = fmaf(a[mt][e / 2], b[nt][e % 2], acc[mt][nt][e]);
+  }
+}
+
+// shared-memory ring of NP operand pairs (A_p, B_p); AKp / BKp: whether the
+// operand is K-contiguous
+template <typename T, class TL, int NP, bool AK0, bool BK0, bool AK1, bool BK1>
+struct Ring {
+  static constexpr int A0 = 0;
+  static constexpr int B0 = A0 + tile_elems<T, AK0, TL::BM, TL::BK>();
+  static constexpr int A1 = B0 + tile_elems<T, BK0, TL::BN, TL::BK>();
+  static constexpr int B1 = A1 + (NP > 1 ? tile_elems<T, AK1, TL::BM, TL::BK>() : 0);
+  static constexpr int STAGE = B1 + (NP > 1 ? tile_elems<T, BK1, TL::BN, TL::BK>() : 0);
+  static constexpr size_t bytes = (size_t)STAGE * TL::template stages<T>() * sizeof(T);
+};
+
+// acc[p] = sum over K of A_p . B_p for the block's tile, operands ops[2p]
+// (A) and ops[2p + 1] (B); k_valid = the block's K extent. Ends with the
+// ring free for reuse.
+template <typename T, class TL, int NP, bool AK0, bool BK0, bool AK1 = true, bool BK1 = true>
+__device__ __forceinline__ void gemm_loop(Acc<TL> (&acc)[NP], const Opnd* ops, int k_valid,
+                                          bool vec, T* ring) {
+  using R = Ring<T, TL, NP, AK0, BK0, AK1, BK1>;
+  constexpr int S = TL::template stages<T>(), MT = TL::MT, NT8 = TL::NT8, BK = TL::BK;
+  const int warp = threadIdx.x / 32, wm = warp / TL::WN, wn = warp % TL::WN;
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[p][mt][nt][e] = 0.f;
+  const int nk = (k_valid + BK - 1) / BK;
+  auto load = [&](int kt) {
+    T* st = ring + (kt % S) * R::STAGE;
+    load_tile<T, AK0, TL::BM, BK>(st + R::A0, ops[0], kt * BK, k_valid, vec);
+    load_tile<T, BK0, TL::BN, BK>(st + R::B0, ops[1], kt * BK, k_valid, vec);
+    if constexpr (NP > 1) {
+      load_tile<T, AK1, TL::BM, BK>(st + R::A1, ops[2], kt * BK, k_valid, vec);
+      load_tile<T, BK1, TL::BN, BK>(st + R::B1, ops[3], kt * BK, k_valid, vec);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < nk) load(s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<S - 2>();
+    __syncthreads();  // tile kt landed; every warp is done with tile kt - 1
+    if (kt + S - 1 < nk) load(kt + S - 1);
+    cp_async_commit();
+    const T* st = ring + (kt % S) * R::STAGE;
+    tile_product<TL, AK0, BK0>(acc[0], st + R::A0, st + R::B0, wm, wn);
+    if constexpr (NP > 1) tile_product<TL, AK1, BK1>(acc[1], st + R::A1, st + R::B1, wm, wn);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
 }
 
 __device__ __forceinline__ float gelu_grad_f32(float u) {
@@ -640,424 +845,342 @@ __device__ __forceinline__ float gelu_grad_f32(float u) {
   return cdf + u * phi;
 }
 
-// acc(i, j) (+)= sum_k a(i, k) b(k, j), i < I, j < J, on the CUDA cores in
-// f32: each thread owns a 4 x 4 output tile and sums k in order
-template <typename FA, typename FB>
-__device__ void simt_gemm(float* acc, int ldc, int I, int J, int K, FA a, FB b, bool zero) {
-  const int ti = (I + 3) / 4, tj = (J + 3) / 4;
-  for (int t = threadIdx.x; t < ti * tj; t += NT) {
-    const int i0 = (t / tj) * 4, j0 = (t % tj) * 4;
-    float c[4][4] = {};
-    for (int k = 0; k < K; ++k) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        av[q] = i0 + q < I ? a(i0 + q, k) : 0.f;
-        bv[q] = j0 + q < J ? b(k, j0 + q) : 0.f;
-      }
-#pragma unroll
-      for (int p = 0; p < 4; ++p)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) c[p][q] = fmaf(av[p], bv[q], c[p][q]);
-    }
-#pragma unroll
-    for (int p = 0; p < 4; ++p)
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        if (i0 + p < I && j0 + q < J) {
-          float* o = acc + (size_t)(i0 + p) * ldc + j0 + q;
-          *o = zero ? c[p][q] : *o + c[p][q];
-        }
-  }
-}
-
-namespace wmma = nvcuda::wmma;
-
-template <typename L>
-__device__ __forceinline__ const bf16* a_at(const bf16* a, int ld, int i, int k) {
-  if constexpr (std::is_same<L, wmma::row_major>::value)
-    return a + (size_t)i * ld + k;
-  else
-    return a + i + (size_t)k * ld;
-}
-
-template <typename L>
-__device__ __forceinline__ const bf16* b_at(const bf16* b, int ld, int k, int j) {
-  if constexpr (std::is_same<L, wmma::row_major>::value)
-    return b + (size_t)k * ld + j;
-  else
-    return b + k + (size_t)j * ld;
-}
-
-// acc (I x J, row-major float, shared or global) (+)= A (I x K) . B (K x J);
-// I, J, K multiples of 16. A work item is R row fragments of one column
-// fragment: each B fragment is loaded once for the R products. Warp w takes
-// items w, w + 8, ...
-template <typename LA, typename LB, int R>
-__device__ void wmma_gemm_r(float* acc, int ldc, int I, int J, int K, const bf16* A, int lda,
-                            const bf16* B, int ldb, bool zero) {
-  const int warp = threadIdx.x / 32;
-  const int fin = I / 16, fjn = J / 16, groups = (fin + R - 1) / R;
-  for (int item = warp; item < fjn * groups; item += NT / 32) {
-    const int fj = item % fjn, f0 = (item / fjn) * R;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> fc[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if (f0 + r >= fin) continue;
-      if (zero)
-        wmma::fill_fragment(fc[r], 0.f);
-      else
-        wmma::load_matrix_sync(fc[r], acc + (size_t)(f0 + r) * 16 * ldc + fj * 16, ldc,
-                               wmma::mem_row_major);
-    }
-    for (int k = 0; k < K; k += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> fb;
-      wmma::load_matrix_sync(fb, b_at<LB>(B, ldb, k, fj * 16), ldb);
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        if (f0 + r >= fin) continue;
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> fa;
-        wmma::load_matrix_sync(fa, a_at<LA>(A, lda, (f0 + r) * 16, k), lda);
-        wmma::mma_sync(fc[r], fa, fb, fc[r]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if (f0 + r >= fin) continue;
-      wmma::store_matrix_sync(acc + (size_t)(f0 + r) * 16 * ldc + fj * 16, fc[r], ldc,
-                              wmma::mem_row_major);
-    }
-  }
-}
-
-// two row fragments share each B fragment when that still keeps all eight
-// warps busy, else one
-template <typename LA, typename LB>
-__device__ void wmma_gemm(float* acc, int ldc, int I, int J, int K, const bf16* A, int lda,
-                          const bf16* B, int ldb, bool zero) {
-  if ((J / 16) * ((I / 16 + 1) / 2) >= NT / 32)
-    wmma_gemm_r<LA, LB, 2>(acc, ldc, I, J, K, A, lda, B, ldb, zero);
-  else
-    wmma_gemm_r<LA, LB, 1>(acc, ldc, I, J, K, A, lda, B, ldb, zero);
-}
-
-// one product of the backward: acc (I x J) (+)= A . B with A and B of the
-// compute type in the given layouts (row_major: element (i, k) at i*ld + k)
-template <typename T, bool TC, typename LA, typename LB>
-__device__ void gemm(float* acc, int ldc, int I, int J, int K, const T* A, int lda, const T* B,
-                     int ldb, bool zero) {
-  if constexpr (TC) {
-    wmma_gemm<LA, LB>(acc, ldc, I, J, K, reinterpret_cast<const bf16*>(A), lda,
-                      reinterpret_cast<const bf16*>(B), ldb, zero);
-  } else {
-    constexpr bool ra = std::is_same<LA, wmma::row_major>::value;
-    constexpr bool rb = std::is_same<LB, wmma::row_major>::value;
-    simt_gemm(
-        acc, ldc, I, J, K,
-        [=](int i, int k) {
-          return Num<T>::load(ra ? A[(size_t)i * lda + k] : A[i + (size_t)k * lda]);
-        },
-        [=](int k, int j) {
-          return Num<T>::load(rb ? B[(size_t)k * ldb + j] : B[k + (size_t)j * ldb]);
-        },
-        zero);
-  }
-}
-
-// LayerNorm output, dz = T(g) * mask and the row statistics of every row,
-// written once per backward call (C-wide: nothing M-wide reaches memory) so
-// that no grid recomputes the LayerNorm per hidden chunk. One warp per row,
-// the arithmetic of ln_tile.
+// p[0], p[1] = T(v[0]), T(v[1]): one 4- or 8-byte store when pair (p aligned
+// for it), else p[0] alone and p[1] if second
 template <typename T>
-__global__ void __launch_bounds__(NT) prep_kernel(BwdArgs a, long long n_rows) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long long r = (long long)blockIdx.x * (NT / 32) + warp;
-  if (r >= n_rows) return;
-  const int C = a.C;
-  const T* xr = static_cast<const T*>(a.x) + r * C;
-  const T* gr = static_cast<const T*>(a.g) + r * C;
-  T* lr = static_cast<T*>(a.ln_buf) + r * C;
-  T* dr = static_cast<T*>(a.dz_buf) + r * C;
-  float s = 0.f, q = 0.f;
-  for (int c = lane; c < C; c += 32) {
-    const float f = Num<T>::load(xr[c]);
-    s += f;
-    q += f * f;
+__device__ __forceinline__ void store_pair(T* p, const float (&v)[2], bool pair, bool second) {
+  if (pair) {
+    if constexpr (std::is_same<T, bf16>::value)
+      *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[0], v[1]);
+    else
+      *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+    return;
   }
-  s = warp_sum(s);
-  q = warp_sum(q);
-  const float mu = s / (float)C;
-  const float var = fmaxf(q / (float)C - mu * mu, 0.f);
-  const float rstd = rsqrtf(var + a.eps_ln);
-  const float mk = a.mask ? a.mask[r] : 1.f;
-  for (int c = lane; c < C; c += 32) {
-    const float f = Num<T>::load(xr[c]);
-    lr[c] = Num<T>::store((f - mu) * (rstd * a.ln_s[c]) + a.ln_b[c]);
-    dr[c] = Num<T>::store(Num<T>::rnd(__fmul_rn(Num<T>::load(gr[c]), mk)));
-  }
-  if (lane == 0) {
-    a.mu_buf[r] = mu;
-    a.rstd_buf[r] = rstd;
-  }
+  p[0] = Num<T>::store(v[0]);
+  if (second) p[1] = Num<T>::store(v[1]);
 }
 
-// rows [0, rows) of a (., C) array into a (TS, C + 8) shared tile, 16-byte
-// vectors where rows allow; rows past `rows` are zero
-template <typename T, int TS>
-__device__ void copy_rows(T* dst, const T* src, int C, int rows) {
-  const int ldl = C + 8;
-  constexpr int V = 16 / sizeof(T);
-  if (C % V == 0) {
-    const int vpr = C / V;
-    for (int e = threadIdx.x; e < TS * vpr; e += NT) {
-      const int r = e / vpr, v = e % vpr;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (r < rows) val = __ldg(reinterpret_cast<const uint4*>(src + (size_t)r * C) + v);
-      reinterpret_cast<uint4*>(dst + (size_t)r * ldl)[v] = val;
+// column sums of a warp's 64 rows (cs: this thread's rows, summed in row
+// order) -> red[wm][column] in shared memory; lanes 0-3 hold the result of
+// the fixed butterfly
+template <class TL>
+__device__ __forceinline__ void warp_col_sums(float (&cs)[TL::NT8][2], float* red, int wm, int wn) {
+#pragma unroll
+  for (int nt = 0; nt < TL::NT8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v = cs[nt][e];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (threadIdx.x % 32 < 4) red[wm * TL::BN + acc_col<TL>(wn, nt, e)] = v;
     }
-  } else {
-    for (int e = threadIdx.x; e < TS * C; e += NT) {
-      const int r = e / C, c = e % C;
-      dst[(size_t)r * ldl + c] = r < rows ? src[(size_t)r * C + c] : Num<T>::store(0.f);
+}
+
+// LayerNorm output, dz = T(g) * mask and the row statistics, one warp per
+// row (the arithmetic of ln_tile); block k of LNR rows also writes the
+// column sums of its dz (f32) to db2_part[k]
+struct PrepArgs {
+  const void* x;
+  const void* g;
+  const float* mask;
+  const float* ln_s;
+  const float* ln_b;
+  void* ln;
+  void* dz;
+  float* mu;
+  float* rstd;
+  float* db2_part;
+  long long n_rows;
+  int C;
+  float eps_ln;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(NT) prep_kernel(PrepArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* colacc = reinterpret_cast<float*>(smem);  // (8 warps, C)
+  const int C = a.C, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* wacc = colacc + (size_t)warp * C;
+  for (int c = lane; c < C; c += 32) wacc[c] = 0.f;
+  const long long row0 = (long long)blockIdx.x * LNR;
+  for (int i = warp; i < LNR; i += NT / 32) {
+    const long long r = row0 + i;
+    if (r >= a.n_rows) break;
+    const T* xr = static_cast<const T*>(a.x) + r * C;
+    const T* gr = static_cast<const T*>(a.g) + r * C;
+    T* lr = static_cast<T*>(a.ln) + r * C;
+    T* dr = static_cast<T*>(a.dz) + r * C;
+    float s = 0.f, q = 0.f;
+    for (int c = lane; c < C; c += 32) {
+      const float f = Num<T>::load(xr[c]);
+      s += f;
+      q += f * f;
+    }
+    s = warp_sum(s);
+    q = warp_sum(q);
+    const float mu = s / (float)C;
+    const float var = fmaxf(q / (float)C - mu * mu, 0.f);
+    const float rstd = rsqrtf(var + a.eps_ln);
+    const float mk = a.mask ? a.mask[r] : 1.f;
+    for (int c = lane; c < C; c += 32) {
+      const float f = Num<T>::load(xr[c]);
+      lr[c] = Num<T>::store((f - mu) * (rstd * a.ln_s[c]) + a.ln_b[c]);
+      const float d = Num<T>::rnd(__fmul_rn(Num<T>::load(gr[c]), mk));
+      dr[c] = Num<T>::store(d);
+      wacc[c] += d;
+    }
+    if (lane == 0) {
+      a.mu[r] = mu;
+      a.rstd[r] = rstd;
     }
   }
-}
-
-// the tile's LayerNorm output into lns, its dz into dzs, its mask values
-// (0 past S), means and 1 / std
-template <typename T, int TS>
-__device__ void load_tile(const BwdArgs& a, int b, int row0, int rows, T* lns, T* dzs,
-                          float* rowmask, float* mu, float* rstd) {
-  const size_t r0 = (size_t)b * a.S + row0;
-  copy_rows<T, TS>(lns, static_cast<const T*>(a.ln_buf) + r0 * a.C, a.C, rows);
-  copy_rows<T, TS>(dzs, static_cast<const T*>(a.dz_buf) + r0 * a.C, a.C, rows);
-  for (int r = threadIdx.x; r < TS; r += NT) {
-    const bool in = r < rows;
-    rowmask[r] = in ? (a.mask ? a.mask[r0 + r] : 1.f) : 0.f;
-    mu[r] = in ? a.mu_buf[r0 + r] : 0.f;
-    rstd[r] = in ? a.rstd_buf[r0 + r] : 0.f;
+  __syncthreads();
+  for (int c = threadIdx.x; c < C; c += NT) {
+    float s = 0.f;
+    for (int w = 0; w < NT / 32; ++w) s += colacc[(size_t)w * C + c];
+    a.db2_part[(size_t)blockIdx.x * C + c] = s;
   }
 }
 
-// u = LN . w1_chunk^T and dy = dz . w2_chunk for hidden columns [m0, m0 + mw)
-template <typename T, bool TC, int TS>
-__device__ void chunk_products(const BwdArgs& a, const T* lns, const T* dzs, int m0, int mw,
-                               float* ubuf, float* dybuf) {
-  const int C = a.C, M = a.M, ldl = C + 8;
-  const T* w1 = static_cast<const T*>(a.w1);
-  const T* w2 = static_cast<const T*>(a.w2);
-  // w1 rows read in place as B column-major: element (k, n) at w1[(m0 + n) * C + k]
-  gemm<T, TC, wmma::row_major, wmma::col_major>(ubuf, LDU, TS, mw, C, lns, ldl,
-                                                w1 + (size_t)m0 * C, C, true);
-  // w2 as B row-major: element (k, n) at w2[k * M + m0 + n]
-  gemm<T, TC, wmma::row_major, wmma::row_major>(dybuf, LDU, TS, mw, C, dzs, ldl, w2 + m0, M,
-                                                true);
-}
+// front C (kStats) / front D (kMain): block (hidden tile x, row tile y) of
+// sample y / tiles_per_sample
+enum FrontMode { kStats = 0, kMain = 1 };
 
-// the chunk's elementwise terms. kStats: hbuf = y, ubuf = dy * v (dybuf
-// keeps dy). kWgrad / kDx: hbuf = T(du), ubuf = du (f32). Zero past the
-// chunk's width and (du) past the tile's rows.
-template <typename T, int MODE, int TS>
-__device__ void chunk_terms(const BwdArgs& a, int b, int m0, int mw, int rows, float* ubuf,
-                            const float* dybuf, T* hbuf, const float* rowmask) {
-  const size_t bm = (size_t)b * a.M;
-  for (int e = threadIdx.x; e < TS * MC; e += NT) {
-    const int r = e / MC, j = e % MC, gm = m0 + j;
-    float h = 0.f, s = 0.f;
-    if (j < mw) {
-      const float u = Num<T>::rnd(__fadd_rn(Num<T>::rnd(ubuf[r * LDU + j]), Num<T>::rnd(a.b1[gm])));
-      const float v = gelu_exact<T>(u);
-      const float dy = dybuf[r * LDU + j];
-      if (MODE == kStats) {
-        const float t = Num<T>::rnd(__fmul_rn(v, Num<T>::rnd(a.nx[bm + gm])));
-        h = Num<T>::rnd(__fadd_rn(__fadd_rn(__fmul_rn(a.gg[gm], t), a.gb[gm]), v));
-        s = __fmul_rn(dy, v);
-      } else if (r < rows) {
-        // the statistics path saw v * mask, so its cotangent carries mask^2
-        const float mk = rowmask[r];
-        const float sv = __fmul_rn(v, __fmul_rn(mk, mk));
-        const float dv = __fadd_rn(__fmul_rn(dy, a.coef1[bm + gm]), __fmul_rn(sv, a.coef2[bm + gm]));
-        s = __fmul_rn(dv, gelu_grad_f32(u));
-        h = Num<T>::rnd(s);
-      }
-    }
-    ubuf[r * LDU + j] = s;
-    hbuf[r * LDH + j] = Num<T>::store(h);
-  }
-}
+struct FrontArgs {
+  const void* ln;  // (B S, C) LayerNorm output
+  const void* dz;  // (B S, C)
+  const void* w1;  // (M, C)
+  const void* w2;  // (C, M)
+  const float* mask;
+  const float* b1;
+  const float* nx;     // (B, M), front C
+  const float* gg;
+  const float* gb;
+  const float* coef1;  // (B, M), front D
+  const float* coef2;  // (B, M), front D
+  void* hout;          // (B S, M): y (front C) or du (front D) in T
+  float* part0;        // (row tiles, M): dy * v (C) or du (D)
+  float* part1;        // (row tiles, M): dy (C)
+  int S, C, M, vec;
+};
 
-template <typename T, bool TC, int TS, int MODE>
-__global__ void __launch_bounds__(NT) bwd_kernel(BwdArgs a) {
+template <typename T, int MODE>
+__global__ void __launch_bounds__(NT, 2) front_kernel(FrontArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int S = a.S, C = a.C, M = a.M, ldl = C + 8, tid = threadIdx.x;
-  const Layout L = layout(MODE == kDx, TS, C, sizeof(T));
-  T* lns = reinterpret_cast<T*>(smem + L.lns);
-  T* dzs = reinterpret_cast<T*>(smem + L.dzs);
-  float* ubuf = reinterpret_cast<float*>(smem + L.ubuf);
-  float* dybuf = reinterpret_cast<float*>(smem + L.dybuf);
-  T* hbuf = reinterpret_cast<T*>(smem + L.hbuf);
-  float* rowmask = reinterpret_cast<float*>(smem + L.rowmask);
-  float* mu = reinterpret_cast<float*>(smem + L.mu);
-  float* rstd = reinterpret_cast<float*>(smem + L.rstd);
-  const int nt = (S + TS - 1) / TS;
+  using TL = Front;
+  constexpr int BM = TL::BM, BN = TL::BN, MT = TL::MT, NT8 = TL::NT8;
+  const int S = a.S, C = a.C, M = a.M;
+  const int tps = (S + BM - 1) / BM;
+  const int b = blockIdx.y / tps, t = blockIdx.y % tps;
+  const int rows = min(BM, S - t * BM);
+  const long long r0 = (long long)b * S + (long long)t * BM;
+  const int n0 = blockIdx.x * BN, nv = min(BN, M - n0);
+  const T* ln = static_cast<const T*>(a.ln);
+  const T* dz = static_cast<const T*>(a.dz);
+  const Opnd ops[4] = {
+      opnd<true>(ln, C, r0, 0, rows),
+      opnd<true>(static_cast<const T*>(a.w1), C, n0, 0, nv),
+      opnd<true>(dz, C, r0, 0, rows),
+      opnd<false>(static_cast<const T*>(a.w2), M, n0, 0, nv),
+  };
+  Acc<TL> acc[2];  // u, dy
+  gemm_loop<T, TL, 2, true, true, true, false>(acc, ops, C, a.vec, reinterpret_cast<T*>(smem));
 
-  if constexpr (MODE == kDx) {
-    float* dln = reinterpret_cast<float*>(smem + L.dln);
-    const int ldz = C + 4;
-    const int tile = blockIdx.x, b = blockIdx.y;
-    const int row0 = tile * TS, rows = min(TS, S - row0);
-    load_tile<T, TS>(a, b, row0, rows, lns, dzs, rowmask, mu, rstd);
-    for (int i = tid; i < TS * ldz; i += NT) dln[i] = 0.f;
-    __syncthreads();
-    const T* w1 = static_cast<const T*>(a.w1);
-    for (int m0 = 0; m0 < M; m0 += MC) {
-      const int mw = min(MC, M - m0);
-      chunk_products<T, TC, TS>(a, lns, dzs, m0, mw, ubuf, dybuf);
-      __syncthreads();
-      chunk_terms<T, MODE, TS>(a, b, m0, mw, rows, ubuf, dybuf, hbuf, rowmask);
-      __syncthreads();
-      // dln (TS x C) += du (TS x mw) . w1[m0:m0+mw, :] (row-major, ld C)
-      gemm<T, TC, wmma::row_major, wmma::row_major>(dln, ldz, TS, C, mw, hbuf, LDH,
-                                                    w1 + (size_t)m0 * C, C, false);
-      __syncthreads();
+  const int warp = threadIdx.x / 32, wm = warp / TL::WN, wn = warp % TL::WN;
+  const size_t bm = (size_t)b * M;
+  const bool pairs = M % 2 == 0;  // two neighbouring columns share one aligned store
+  float mk[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = acc_row<TL>(wm, mt, 2 * h);
+      mk[mt][h] = MODE == kMain && a.mask && r < rows ? a.mask[r0 + r] : 1.f;
     }
-    const T* xt = static_cast<const T*>(a.x) + ((size_t)b * S + row0) * C;
-    // per-tile partials of d ln_scale = sum dln * xhat and d ln_bias = sum dln
-    const size_t pt = ((size_t)b * nt + tile) * C;
-    for (int c = tid; c < C; c += NT) {
-      float s1 = 0.f, s2 = 0.f;
-      for (int r = 0; r < rows; ++r) {
-        const float xhat = (Num<T>::load(xt[(size_t)r * C + c]) - mu[r]) * rstd[r];
-        const float d = dln[r * ldz + c];
-        s1 += d * xhat;
-        s2 += d;
-      }
-      a.dls_part[pt + c] = s1;
-      a.dlb_part[pt + c] = s2;
-    }
-    // LayerNorm backward, one warp per row
-    const int warp = tid / 32, lane = tid % 32;
-    T* dxt = static_cast<T*>(a.dx) + ((size_t)b * S + row0) * C;
-    for (int r = warp; r < rows; r += NT / 32) {
-      float sd = 0.f, sdx = 0.f;
-      for (int c = lane; c < C; c += 32) {
-        const float xhat = (Num<T>::load(xt[(size_t)r * C + c]) - mu[r]) * rstd[r];
-        const float dxhat = dln[r * ldz + c] * a.ln_s[c];
-        sd += dxhat;
-        sdx += dxhat * xhat;
-      }
-      const float mean_d = warp_sum(sd) / (float)C;
-      const float mean_dx = warp_sum(sdx) / (float)C;
-      for (int c = lane; c < C; c += 32) {
-        const float xhat = (Num<T>::load(xt[(size_t)r * C + c]) - mu[r]) * rstd[r];
-        const float dxhat = dln[r * ldz + c] * a.ln_s[c];
-        dxt[(size_t)r * C + c] = Num<T>::store(rstd[r] * (dxhat - mean_d - xhat * mean_dx));
-      }
-    }
-  } else {
-    const int chunk = blockIdx.x, grp = blockIdx.y;
-    const int b = grp / a.splits, split = grp % a.splits;
-    const int m0 = chunk * MC, mw = min(MC, M - m0);
-    const int per = (nt + a.splits - 1) / a.splits;
-    const int t_begin = split * per, t_end = min(nt, t_begin + per);
-    float acc0 = 0.f, acc1 = 0.f;  // thread tid < MC owns hidden column m0 + tid
-    for (int t = t_begin; t < t_end; ++t) {
-      const int row0 = t * TS, rows = min(TS, S - row0);
-      load_tile<T, TS>(a, b, row0, rows, lns, dzs, rowmask, mu, rstd);
-      __syncthreads();
-      chunk_products<T, TC, TS>(a, lns, dzs, m0, mw, ubuf, dybuf);
-      __syncthreads();
-      chunk_terms<T, MODE, TS>(a, b, m0, mw, rows, ubuf, dybuf, hbuf, rowmask);
-      __syncthreads();
-      if (tid < MC) {
-        float s0 = 0.f, s1 = 0.f;
-        for (int r = 0; r < TS; ++r) {
-          s0 += ubuf[r * LDU + tid];
-          s1 += dybuf[r * LDU + tid];
-        }
-        acc0 += s0;
-        acc1 += s1;
-      }
+  float cs0[NT8][2], cs1[NT8][2];
+#pragma unroll
+  for (int nt = 0; nt < NT8; ++nt) {
+    // this thread's two columns: their parameters once, then its rows in order
+    const int gm0 = n0 + acc_col<TL>(wn, nt, 0);
+    float pb[2] = {}, p1[2] = {}, p2[2] = {}, p3[2] = {};
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      cs0[nt][e] = cs1[nt][e] = 0.f;
+      const int gm = gm0 + e;
+      if (gm >= M) continue;
+      pb[e] = Num<T>::rnd(a.b1[gm]);
       if (MODE == kStats) {
-        // d fc2 slab (C x mw, ld M) += dz^T (C x TS) . y (TS x mw)
-        gemm<T, TC, wmma::col_major, wmma::row_major>(
-            a.dw2_part + (size_t)grp * C * M + m0, M, C, mw, TS, dzs, ldl, hbuf, LDH, false);
-        if (chunk == 0) {
-          for (int c = tid; c < C; c += NT) {
-            float s = 0.f;
-            for (int r = 0; r < TS; ++r) s += Num<T>::load(dzs[r * ldl + c]);
-            a.db2_part[(size_t)grp * C + c] += s;
+        p1[e] = Num<T>::rnd(a.nx[bm + gm]);
+        p2[e] = a.gg[gm];
+        p3[e] = a.gb[gm];
+      } else {
+        p1[e] = a.coef1[bm + gm];
+        p2[e] = a.coef2[bm + gm];
+      }
+    }
+    if (gm0 >= M) continue;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = acc_row<TL>(wm, mt, 2 * h);
+        if (r >= rows) continue;
+        float o[2] = {};
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (gm0 + e >= M) continue;
+          const float dy = acc[1][mt][nt][2 * h + e];
+          const float u = Num<T>::rnd(__fadd_rn(Num<T>::rnd(acc[0][mt][nt][2 * h + e]), pb[e]));
+          const float v = gelu_exact<T>(u);
+          if (MODE == kStats) {
+            const float tt = Num<T>::rnd(__fmul_rn(v, p1[e]));
+            o[e] = Num<T>::rnd(__fadd_rn(__fadd_rn(__fmul_rn(p2[e], tt), p3[e]), v));
+            cs0[nt][e] += __fmul_rn(dy, v);
+            cs1[nt][e] += dy;
+          } else {
+            // the statistics path saw v * mask, so its cotangent carries mask^2
+            const float sv = __fmul_rn(v, __fmul_rn(mk[mt][h], mk[mt][h]));
+            o[e] = __fmul_rn(__fadd_rn(__fmul_rn(dy, p1[e]), __fmul_rn(sv, p2[e])), gelu_grad_f32(u));
+            cs0[nt][e] += o[e];
           }
         }
-      } else {
-        // d fc1 slab (mw x C, ld C) += du^T (mw x TS) . LN (TS x C)
-        gemm<T, TC, wmma::col_major, wmma::row_major>(
-            a.dw1_part + ((size_t)grp * M + m0) * C, C, mw, C, TS, hbuf, LDH, lns, ldl, false);
+        store_pair<T>(static_cast<T*>(a.hout) + (r0 + r) * M + gm0, o, pairs && gm0 + 1 < M,
+                      gm0 + 1 < M);
       }
-      __syncthreads();
-    }
-    if (tid < mw) {
-      const size_t o = (size_t)grp * M + m0 + tid;
-      if (MODE == kStats) {
-        a.p_part[o] = acc0;
-        a.dbg_part[o] = acc1;
-      } else {
-        a.db1_part[o] = acc0;
-      }
-    }
+  }
+  // the ring is free (gemm_loop ended on a barrier): per-warp column sums,
+  // then the two row halves of the tile added in order
+  float* red = reinterpret_cast<float*>(smem);
+  warp_col_sums<TL>(cs0, red, wm, wn);
+  if (MODE == kStats) warp_col_sums<TL>(cs1, red + 2 * BN, wm, wn);
+  __syncthreads();
+  const int j = threadIdx.x;
+  if (j < nv) {
+    const size_t o = (size_t)blockIdx.y * M + n0 + j;
+    a.part0[o] = red[j] + red[BN + j];
+    if (MODE == kStats) a.part1[o] = red[2 * BN + j] + red[3 * BN + j];
   }
 }
 
-int sm_count() {
-  int dev = 0, v = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 0;
-  return v;
-}
+// out[z] (I x J, f32, row stride ldo) = A . B over K steps
+// [z * kps, min(K, (z + 1) * kps)); block (column tile x, row tile y, split z)
+struct GemmArgs {
+  const void* a;
+  const void* b;
+  float* out;
+  long long lda, ldb, ldo, zstride;
+  int I, J, K, kps, vec;
+};
 
-// rows per block of the column-ordered (dx = false) or row-ordered grid; 0
-// when no tile fits the shared memory
-int tile_rows(int dtype, bool dx, int c) {
-  const size_t limit = (size_t)max_smem();
-  const int elem = dtype == 0 ? 4 : 2;
-  // row-ordered grid: the larger tile that lets two blocks share an SM;
-  // column-ordered grids: the largest tile (both measured faster than the
-  // other choice)
-  if (dx)
-    for (int ts : {64, 32, 16})
-      if (2 * (layout(dx, ts, c, elem).total + 1024) <= limit) return ts;
-  for (int ts : {64, 32, 16})
-    if (layout(dx, ts, c, elem).total <= limit) return ts;
-  return 0;
-}
-
-template <typename T, bool TC, int MODE>
-int launch_ts(int ts, dim3 grid, size_t smem, const BwdArgs& a, void* stream) {
-  auto go = [&](auto kern) {
-    cudaError_t err =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    kern<<<grid, NT, smem, (cudaStream_t)stream>>>(a);
-    return (int)cudaGetLastError();
+template <typename T, bool AKC, bool BKC>
+__global__ void __launch_bounds__(NT, 2) gemm_kernel(GemmArgs g) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  using TL = Wide;
+  constexpr int BM = TL::BM, BN = TL::BN;
+  const int i0 = blockIdx.y * BM, j0 = blockIdx.x * BN;
+  const long long k0 = (long long)blockIdx.z * g.kps;
+  const int kv = (int)min((long long)g.kps, g.K - k0);
+  const Opnd ops[2] = {
+      opnd<AKC>(static_cast<const T*>(g.a), g.lda, i0, k0, min(BM, g.I - i0)),
+      opnd<BKC>(static_cast<const T*>(g.b), g.ldb, j0, k0, min(BN, g.J - j0)),
   };
-  if (ts == 64) return go(bwd_kernel<T, TC, 64, MODE>);
-  if (ts == 32) return go(bwd_kernel<T, TC, 32, MODE>);
-  return go(bwd_kernel<T, TC, 16, MODE>);
+  Acc<TL> acc[1];
+  gemm_loop<T, TL, 1, AKC, BKC>(acc, ops, kv, g.vec, reinterpret_cast<T*>(smem));
+  const int warp = threadIdx.x / 32, wm = warp / TL::WN, wn = warp % TL::WN;
+  float* out = g.out + blockIdx.z * g.zstride;
+#pragma unroll
+  for (int mt = 0; mt < TL::MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < TL::NT8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = i0 + acc_row<TL>(wm, mt, e), j = j0 + acc_col<TL>(wn, nt, e);
+        if (i < g.I && j < g.J) out[(long long)i * g.ldo + j] = acc[0][mt][nt][e];
+      }
 }
 
-template <int MODE>
-int launch(int dtype, const BwdArgs& a, int B, void* stream) {
-  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
-  if (B <= 0 || B > 65535 || a.S <= 0 || a.C <= 0 || a.M <= 0 || a.splits <= 0)
-    return (int)cudaErrorInvalidValue;
-  const bool dx = MODE == kDx;
-  const int ts = tile_rows(dtype, dx, a.C);
-  if (ts == 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = layout(dx, ts, a.C, dtype == 0 ? 4 : 2).total;
-  const dim3 grid = dx ? dim3((a.S + ts - 1) / ts, B) : dim3((a.M + MC - 1) / MC, B * a.splits);
-  if (use_tc(dtype, a.C, a.M)) return launch_ts<bf16, true, MODE>(ts, grid, smem, a, stream);
-  return dtype == 0 ? launch_ts<float, false, MODE>(ts, grid, smem, a, stream)
-                    : launch_ts<bf16, false, MODE>(ts, grid, smem, a, stream);
+// LayerNorm backward, one warp per row (from dln in f32, C wide): dx in T;
+// block k of LNR rows writes the column sums of dln * xhat and dln
+struct LnbArgs {
+  const void* x;
+  const float* dln;
+  const float* mu;
+  const float* rstd;
+  const float* ln_s;
+  void* dx;
+  float* dls_part;
+  float* dlb_part;
+  long long n_rows;
+  int C;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(NT) lnb_kernel(LnbArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int C = a.C, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  constexpr int W = NT / 32;
+  float* acc_s = reinterpret_cast<float*>(smem);  // (8 warps, C): sum dln * xhat
+  float* acc_b = acc_s + (size_t)W * C;           // (8 warps, C): sum dln
+  float* ws = acc_s + (size_t)warp * C;
+  float* wb = acc_b + (size_t)warp * C;
+  for (int c = lane; c < C; c += 32) ws[c] = wb[c] = 0.f;
+  const long long row0 = (long long)blockIdx.x * LNR;
+  for (int i = warp; i < LNR; i += W) {
+    const long long r = row0 + i;
+    if (r >= a.n_rows) break;
+    const T* xr = static_cast<const T*>(a.x) + r * C;
+    const float* dr = a.dln + r * C;
+    const float mu = a.mu[r], rstd = a.rstd[r];
+    float sd = 0.f, sdx = 0.f;
+    for (int c = lane; c < C; c += 32) {
+      const float xhat = (Num<T>::load(xr[c]) - mu) * rstd;
+      const float d = dr[c];
+      const float dxhat = d * a.ln_s[c];
+      sd += dxhat;
+      sdx += dxhat * xhat;
+      ws[c] += d * xhat;
+      wb[c] += d;
+    }
+    const float mean_d = warp_sum(sd) / (float)C;
+    const float mean_dx = warp_sum(sdx) / (float)C;
+    T* dxr = static_cast<T*>(a.dx) + r * C;
+    for (int c = lane; c < C; c += 32) {
+      const float xhat = (Num<T>::load(xr[c]) - mu) * rstd;
+      const float dxhat = dr[c] * a.ln_s[c];
+      dxr[c] = Num<T>::store(rstd * (dxhat - mean_d - xhat * mean_dx));
+    }
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < C; c += NT) {
+    float s1 = 0.f, s2 = 0.f;
+    for (int w = 0; w < W; ++w) {
+      s1 += acc_s[(size_t)w * C + c];
+      s2 += acc_b[(size_t)w * C + c];
+    }
+    a.dls_part[(size_t)blockIdx.x * C + c] = s1;
+    a.dlb_part[(size_t)blockIdx.x * C + c] = s2;
+  }
+}
+
+template <typename K, typename A>
+int launch_with(K kern, dim3 grid, size_t smem, void* stream, const A& args) {
+  if (smem > (size_t)max_smem()) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // the products hold large rings: ask for the largest shared-memory share
+  // of the SM, so that two blocks fit
+  if (err == cudaSuccess && smem > 48 * 1024)
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<grid, NT, smem, (cudaStream_t)stream>>>(args);
+  return (int)cudaGetLastError();
+}
+
+bool aligned16(std::initializer_list<const void*> ps) {
+  for (const void* p : ps)
+    if (p && reinterpret_cast<uintptr_t>(p) % 16) return false;
+  return true;
 }
 
 }  // namespace bwd
@@ -1093,74 +1216,99 @@ int fmg_apply(int dtype, const void* x, const void* sc, const float* mask, const
   return launch<true>(dtype, a, B, stream);
 }
 
-// backward plan at (dtype, B, S, C, M): plan[0] = splits of each sample's row
-// tiles in the column-ordered grids (enough blocks for two per SM), plan[1]
-// = rows per tile of the row-ordered dx grid. The caller sizes the partials
-// from them. Returns 0 when no tile fits.
-int fmg_bwd_plan(int dtype, int B, int S, int C, int M, int* plan) {
-  if ((dtype != 0 && dtype != 1) || B <= 0 || S <= 0 || C <= 0 || M <= 0) return 0;
-  const int ts_col = bwd::tile_rows(dtype, false, C);
-  const int ts_dx = bwd::tile_rows(dtype, true, C);
-  if (ts_col == 0 || ts_dx == 0) return 0;
-  const int chunks = (M + MC - 1) / MC;
-  const int nt = (S + ts_col - 1) / ts_col;
-  const int want = 2 * bwd::sm_count();
-  int splits = (want + chunks * B - 1) / (chunks * B);
-  splits = splits < 1 ? 1 : (splits > nt ? nt : splits);
-  plan[0] = splits;
-  plan[1] = ts_dx;
-  return 1;
+// the backward's tiling, for the caller's plan: rows of a front-product
+// tile, rows and columns of a weight-gradient product's tile, the K step,
+// rows per block of the row kernels
+void fmg_bwd_geometry(int* geo) {
+  geo[0] = bwd::Front::BM;
+  geo[1] = bwd::Wide::BM;
+  geo[2] = bwd::Wide::BK;
+  geo[3] = bwd::LNR;
 }
 
-// pass C: first the LayerNorm output, dz and row statistics into the
-// (B, S, C) / (B, S) scratch buffers (pass D reads them too), then the
-// partials of P (B * splits, M), d grn_beta (B * splits, M), d fc2
-// (B * splits, C, M) and d fc2 bias (B * splits, C), all zero on entry
-int fmg_bwd_stats(int dtype, const void* x, const void* g, const float* mask, const float* ln_s,
-                  const float* ln_b, const void* w1, const float* b1, const float* nx,
-                  const float* gg, const float* gb, const void* w2, float* p_part,
-                  float* dbg_part, float* dw2_part, float* db2_part, void* ln_buf, void* dz_buf,
-                  float* mu_buf, float* rstd_buf, int B, int S, int C, int M, int splits,
-                  float eps_ln, void* stream) {
-  bwd::BwdArgs a{};
-  a.ln_buf = ln_buf, a.dz_buf = dz_buf, a.mu_buf = mu_buf, a.rstd_buf = rstd_buf;
-  a.x = x, a.g = g, a.mask = mask, a.ln_s = ln_s, a.ln_b = ln_b, a.w1 = w1, a.b1 = b1;
-  a.nx = nx, a.gg = gg, a.gb = gb, a.w2 = w2;
-  a.p_part = p_part, a.dbg_part = dbg_part, a.dw2_part = dw2_part, a.db2_part = db2_part;
-  a.S = S, a.C = C, a.M = M, a.splits = splits, a.eps_ln = eps_ln;
-  if ((dtype != 0 && dtype != 1) || B <= 0 || S <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
-  const long long n_rows = (long long)B * S;
-  const dim3 grid((unsigned)((n_rows + NT / 32 - 1) / (NT / 32)));
-  if (dtype == 0)
-    bwd::prep_kernel<float><<<grid, NT, 0, (cudaStream_t)stream>>>(a, n_rows);
-  else
-    bwd::prep_kernel<bf16><<<grid, NT, 0, (cudaStream_t)stream>>>(a, n_rows);
-  const int rc = (int)cudaGetLastError();
-  if (rc) return rc;
-  return bwd::launch<bwd::kStats>(dtype, a, B, stream);
+// prep: LayerNorm output and dz (B S, C) in the compute type, row mean and
+// 1 / std (B S), column sums of dz per block of LNR rows (blocks, C)
+int fmg_bwd_prep(int dtype, const void* x, const void* g, const float* mask, const float* ln_s,
+                 const float* ln_b, void* ln, void* dz, float* mu, float* rstd, float* db2_part,
+                 long long n_rows, int C, float eps_ln, void* stream) {
+  if ((dtype != 0 && dtype != 1) || n_rows <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
+  bwd::PrepArgs a{x, g, mask, ln_s, ln_b, ln, dz, mu, rstd, db2_part, n_rows, C, eps_ln};
+  const dim3 grid((unsigned)((n_rows + bwd::LNR - 1) / bwd::LNR));
+  const size_t smem = (size_t)(NT / 32) * C * sizeof(float);
+  return dtype == 0 ? bwd::launch_with(bwd::prep_kernel<float>, grid, smem, stream, a)
+                    : bwd::launch_with(bwd::prep_kernel<bf16>, grid, smem, stream, a);
 }
 
-// pass D, after pass C on the same stream (it reads pass C's scratch
-// buffers): the column-ordered weight-gradient grid (partials of d fc1
-// (B * splits, M, C) and its bias (B * splits, M), zero on entry), then the
-// row-ordered grid writing dx (B, S, C) and per-tile partials of d
-// ln_scale / d ln_bias (B * ceil(S / plan[1]), C)
-int fmg_bwd_main(int dtype, const void* x, const void* g, const float* mask, const float* ln_s,
-                 const float* ln_b, const void* w1, const float* b1, const void* w2,
-                 const float* coef1, const float* coef2, void* dx, float* dw1_part,
-                 float* db1_part, float* dls_part, float* dlb_part, void* ln_buf, void* dz_buf,
-                 float* mu_buf, float* rstd_buf, int B, int S, int C, int M, int splits,
-                 float eps_ln, void* stream) {
-  bwd::BwdArgs a{};
-  a.ln_buf = ln_buf, a.dz_buf = dz_buf, a.mu_buf = mu_buf, a.rstd_buf = rstd_buf;
-  a.x = x, a.g = g, a.mask = mask, a.ln_s = ln_s, a.ln_b = ln_b, a.w1 = w1, a.b1 = b1;
-  a.w2 = w2, a.coef1 = coef1, a.coef2 = coef2;
-  a.dx = dx, a.dw1_part = dw1_part, a.db1_part = db1_part, a.dls_part = dls_part,
-  a.dlb_part = dlb_part;
-  a.S = S, a.C = C, a.M = M, a.splits = splits, a.eps_ln = eps_ln;
-  const int rc = bwd::launch<bwd::kWgrad>(dtype, a, B, stream);
-  if (rc) return rc;
-  return bwd::launch<bwd::kDx>(dtype, a, B, stream);
+// front C (mode 0): y (B S, M) in the compute type, per-row-tile column sums
+// of dy * v (part0) and dy (part1), (B ceil(S / 64), M) each. front D (mode
+// 1): du (B S, M) and per-row-tile column sums of du in f32 (part0).
+int fmg_bwd_front(int dtype, int mode, const void* ln, const void* dz, const void* w1,
+                  const void* w2, const float* mask, const float* b1, const float* nx,
+                  const float* gg, const float* gb, const float* coef1, const float* coef2,
+                  void* hout, float* part0, float* part1, int B, int S, int C, int M,
+                  void* stream) {
+  if ((dtype != 0 && dtype != 1) || (mode != 0 && mode != 1) || B <= 0 || S <= 0 || C <= 0 ||
+      M <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int V = dtype == 0 ? 4 : 8;
+  const int vec = C % V == 0 && M % V == 0 && bwd::aligned16({ln, dz, w1, w2});
+  bwd::FrontArgs a{ln, dz, w1, w2, mask, b1, nx, gg, gb, coef1, coef2, hout, part0, part1,
+                   S, C, M, vec};
+  using namespace bwd;
+  const long long tiles = (long long)B * ((S + Front::BM - 1) / Front::BM);
+  if (tiles > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((M + Front::BN - 1) / Front::BN, (unsigned)tiles);
+  if (dtype == 0) {
+    const size_t smem = Ring<float, Front, 2, true, true, true, false>::bytes;
+    return mode == 0 ? launch_with(front_kernel<float, kStats>, grid, smem, stream, a)
+                     : launch_with(front_kernel<float, kMain>, grid, smem, stream, a);
+  }
+  const size_t smem = Ring<bf16, Front, 2, true, true, true, false>::bytes;
+  return mode == 0 ? launch_with(front_kernel<bf16, kStats>, grid, smem, stream, a)
+                   : launch_with(front_kernel<bf16, kMain>, grid, smem, stream, a);
+}
+
+// out (splits, I, J) in f32: split z holds A . B over K steps
+// [z * kps, min(K, (z + 1) * kps)). kind 0 (weight gradients): A stored
+// (K, I) and B stored (K, J), both row-major; kind 1 (dln): A stored (I, K),
+// B stored (K, J). kps is a multiple of the K step.
+int fmg_bwd_gemm(int dtype, int kind, const void* A, long long lda, const void* Bm,
+                 long long ldb, float* out, int I, int J, int K, int kps, int splits,
+                 void* stream) {
+  if ((dtype != 0 && dtype != 1) || (kind != 0 && kind != 1) || I <= 0 || J <= 0 || K <= 0 ||
+      kps <= 0 || kps % bwd::Wide::BK || splits <= 0 || splits > 65535 ||
+      (long long)(splits - 1) * kps >= K)
+    return (int)cudaErrorInvalidValue;
+  const int V = dtype == 0 ? 4 : 8;
+  const int vec = lda % V == 0 && ldb % V == 0 && bwd::aligned16({A, Bm});
+  bwd::GemmArgs g{A, Bm, out, lda, ldb, (long long)J, (long long)I * J, I, J, K, kps, vec};
+  using namespace bwd;
+  const long long ti = (I + Wide::BM - 1) / Wide::BM;
+  if (ti > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((J + Wide::BN - 1) / Wide::BN, (unsigned)ti, splits);
+  if (dtype == 0) {
+    return kind == 0 ? launch_with(gemm_kernel<float, false, false>, grid,
+                                   Ring<float, Wide, 1, false, false, true, true>::bytes, stream, g)
+                     : launch_with(gemm_kernel<float, true, false>, grid,
+                                   Ring<float, Wide, 1, true, false, true, true>::bytes, stream, g);
+  }
+  return kind == 0 ? launch_with(gemm_kernel<bf16, false, false>, grid,
+                                 Ring<bf16, Wide, 1, false, false, true, true>::bytes, stream, g)
+                   : launch_with(gemm_kernel<bf16, true, false>, grid,
+                                 Ring<bf16, Wide, 1, true, false, true, true>::bytes, stream, g);
+}
+
+// LayerNorm backward: dx (B S, C) in the compute type from dln (B S, C) in
+// f32; column sums of dln * xhat and dln per block of LNR rows (blocks, C)
+int fmg_bwd_lnb(int dtype, const void* x, const float* dln, const float* mu, const float* rstd,
+                const float* ln_s, void* dx, float* dls_part, float* dlb_part, long long n_rows,
+                int C, void* stream) {
+  if ((dtype != 0 && dtype != 1) || n_rows <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
+  bwd::LnbArgs a{x, dln, mu, rstd, ln_s, dx, dls_part, dlb_part, n_rows, C};
+  const dim3 grid((unsigned)((n_rows + bwd::LNR - 1) / bwd::LNR));
+  const size_t smem = 2 * (size_t)(NT / 32) * C * sizeof(float);
+  return dtype == 0 ? bwd::launch_with(bwd::lnb_kernel<float>, grid, smem, stream, a)
+                    : bwd::launch_with(bwd::lnb_kernel<bf16>, grid, smem, stream, a);
 }
 
 }  // extern "C"

@@ -4,15 +4,16 @@
 ``fused_mlp_grn`` computes ``shortcut + fc2(GRN(gelu(fc1(LN(x)))))`` on
 ``(B, S, C)`` activations through :class:`FusedMlpGrn`, an autograd
 Function. On CUDA tensors both directions launch the hand-written Hopper
-kernels of ``csrc/fused_mlp_grn.cu``, none of which writes an M-wide tensor
-to device memory:
+kernels of ``csrc/fused_mlp_grn.cu``:
 
-- forward: stats pass A, a (B, M) glue step in plain torch, apply pass B;
-  the (B, M) sum of squares ``ss`` is saved for the backward, as the JAX
-  ``_fwd`` saves it;
+- forward: stats pass A, a (B, M) glue step in plain torch, apply pass B,
+  writing nothing M-wide (M = 4C) to device memory; the (B, M) sum of
+  squares ``ss`` is saved for the backward, as the JAX ``_fwd`` saves it;
 - backward: pass C (GRN statistics cotangent ``P``, ``d grn_beta``,
   ``d fc2``), the (B, M) GRN glue in plain torch, pass D (``d fc1``, the
-  LayerNorm parameter gradients and ``dx``).
+  LayerNorm parameter gradients and ``dx``), as tiled tensor-core products
+  over an M-wide scratch that lives for the call (see
+  :func:`_fused_bwd_cuda`).
 
 On CPU tensors the Function runs the plain versions
 :func:`reference_mlp_grn` and :func:`reference_mlp_grn_bwd`, the functions
@@ -29,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from dataclasses import dataclass
 
 import torch
 
@@ -36,6 +38,15 @@ _SQRT2 = math.sqrt(2.0)
 _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL = "fused_mlp_grn"
+# the backward kernels' tiling (checked against the library when it loads):
+# rows of a front-product tile, rows and columns of a weight-gradient
+# product's tile, the K step, rows per block of the row kernels; and the
+# fewest rows a split of a weight-gradient product gets
+BWD_ROW_TILE = 64
+BWD_TILE = 128
+BWD_K_STEP = 64
+BWD_LN_ROWS = 64
+BWD_MIN_SPLIT_ROWS = 256
 
 # kernel launches on CUDA tensors: forward passes A and B count one each in
 # ``launches``, backward passes C and D one each in ``bwd_launches``
@@ -233,11 +244,21 @@ def _library() -> ctypes.CDLL:
         lib.fmg_stats.restype = i
         lib.fmg_apply.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, f, p]
         lib.fmg_apply.restype = i
-        lib.fmg_bwd_plan.argtypes = [i, i, i, i, i, p]
-        lib.fmg_bwd_plan.restype = i
-        for fn in (lib.fmg_bwd_stats, lib.fmg_bwd_main):
-            fn.argtypes = [i, *[p] * 19, i, i, i, i, i, f, p]
-            fn.restype = i
+        ll = ctypes.c_longlong
+        lib.fmg_bwd_geometry.argtypes = [p]
+        lib.fmg_bwd_geometry.restype = None
+        lib.fmg_bwd_prep.argtypes = [i, *[p] * 10, ll, i, f, p]
+        lib.fmg_bwd_prep.restype = i
+        lib.fmg_bwd_front.argtypes = [i, i, *[p] * 14, i, i, i, i, p]
+        lib.fmg_bwd_front.restype = i
+        lib.fmg_bwd_gemm.argtypes = [i, i, p, ll, p, ll, p, i, i, i, i, i, p]
+        lib.fmg_bwd_gemm.restype = i
+        lib.fmg_bwd_lnb.argtypes = [i, *[p] * 8, ll, i, p]
+        lib.fmg_bwd_lnb.restype = i
+        geo = (ctypes.c_int * 4)()
+        lib.fmg_bwd_geometry(geo)
+        if tuple(geo) != (BWD_ROW_TILE, BWD_TILE, BWD_K_STEP, BWD_LN_ROWS):
+            raise RuntimeError(f"kernel library tiles {tuple(geo)} differ from the wrapper's plan")
         _lib = lib
     return _lib
 
@@ -312,65 +333,137 @@ def _fused_cuda(x, shortcut, params, mask_f, eps_ln, eps_grn):
     return out, ss
 
 
-def _fused_bwd_cuda(x, g, params, mask_f, ss, eps_ln, eps_grn):
+@dataclass(frozen=True)
+class BwdPlan:
+    """Grid sizes and scratch shapes of the backward kernels for one call.
+
+    ``row_tiles`` front-product row tiles (``tiles_per_sample`` per sample,
+    none straddling two samples) each own one slot of the (row_tiles, M)
+    column partials; the weight-gradient products split their K = B S rows
+    into ``splits`` ranges of ``k_per_split`` (a multiple of the K step),
+    each owning one (I, J) partial; ``ln_blocks`` blocks of ``BWD_LN_ROWS``
+    rows each own one C-wide partial of the row kernels. Every partial is
+    summed in torch over its leading axis, a fixed order."""
+
+    tiles_per_sample: int
+    row_tiles: int
+    splits: int
+    k_per_split: int
+    ln_blocks: int
+
+
+def _split_k(k: int, tiles: int, n_sm: int) -> tuple[int, int]:
+    """``(splits, rows per split)`` for a product of ``tiles`` output tiles
+    over ``k`` rows: at least two blocks per SM where the rows allow, the
+    count of splits (up to four times that) that fills its last wave best,
+    whole K steps and at least ``BWD_MIN_SPLIT_ROWS`` rows per split."""
+
+    def split(n: int) -> tuple[int, int]:
+        per = -(-(-(-k // n)) // BWD_K_STEP) * BWD_K_STEP
+        return -(-k // per), per
+
+    def fill(n: int) -> float:
+        return tiles * n / (-(-tiles * n // n_sm) * n_sm)
+
+    most = max(1, min(-(-8 * n_sm // tiles), k // BWD_MIN_SPLIT_ROWS))
+    least = min(most, max(1, -(-2 * n_sm // tiles)))
+    return max((split(n) for n in range(least, most + 1)), key=lambda sp: (fill(sp[0]), -sp[0]))
+
+
+def bwd_plan(bsz: int, s: int, c: int, m: int, n_sm: int) -> BwdPlan:
+    """The backward's plan at (B, S, C, M) on a card with ``n_sm`` SMs."""
+    tps = -(-s // BWD_ROW_TILE)
+    tiles = -(-c // BWD_TILE) * -(-m // BWD_TILE)  # d fc2 (C, M) and d fc1 (M, C) alike
+    splits, per = _split_k(bsz * s, tiles, n_sm)
+    return BwdPlan(tps, bsz * tps, splits, per, -(-(bsz * s) // BWD_LN_ROWS))
+
+
+def _fused_bwd_cuda(x, g, params, mask_f, ss, eps_ln, eps_grn, mark=None):
     """Passes C and D with the (B, M) glue between them; returns the ten
     gradients of :func:`reference_mlp_grn_bwd`.
 
-    Every cross-block sum goes through a per-block partial (a fixed static
-    schedule of blocks, each owning its slot) and a fixed-order torch sum
-    afterwards: no float atomics, so two runs give bit-identical gradients.
+    Pass C: prep (LayerNorm output, dz, row statistics, d fc2 bias
+    partials), front C (y to an M-wide scratch, P and d grn_beta partials),
+    d fc2. Pass D: front D (du to an M-wide scratch, d fc1 bias partials),
+    d fc1, dln, the LayerNorm backward. Every cross-block sum goes through
+    per-block partials (:func:`bwd_plan`) summed in a fixed order: no float
+    atomics, so two runs give bit-identical gradients. ``mark(stage)``, if
+    given, is called after each stage is enqueued (for timing).
     """
     global bwd_launches
     ln_s, ln_b, w1, b1, gg, gb, w2, b2 = params
     bsz, s, c = x.shape
     m = w1.shape[0]
+    n = bsz * s
     dev = x.device
     lib = _library()
     code = _DTYPE_CODE[x.dtype]
     f32 = dict(dtype=torch.float32, device=dev)
+    mark = mark or (lambda stage: None)
+
+    def check(rc, what):
+        if rc:
+            raise RuntimeError(f"fused_mlp_grn backward {what} failed to launch (cudaError {rc})")
+
     with torch.cuda.device(dev):
-        # plan: [splits per sample of the column-ordered grids, rows per dx tile]
-        plan = (ctypes.c_int * 2)()
-        if not lib.fmg_bwd_plan(code, bsz, s, c, m, plan):
-            raise ValueError(f"C={c} ({x.dtype}) does not fit the backward kernels' tiles")
-        splits, dx_rows = plan[0], plan[1]
-        groups = bsz * splits
-        dx_tiles = bsz * -(-s // dx_rows)
+        plan = bwd_plan(bsz, s, c, m, torch.cuda.get_device_properties(dev).multi_processor_count)
         w1c, w2c = w1.to(x.dtype), w2.to(x.dtype)
         nx = _grn_coeffs(ss, eps_grn)[2].contiguous()
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-        # pass C writes the LayerNorm output, dz and the row statistics here
-        # (C-wide); pass D reads them
-        scratch = (torch.empty_like(x), torch.empty_like(x),
-                   torch.empty((bsz, s), **f32), torch.empty((bsz, s), **f32))
-        p_part = torch.zeros((groups, m), **f32)
-        dbg_part = torch.zeros((groups, m), **f32)
-        dw2_part = torch.zeros((groups, c, m), **f32)
-        db2_part = torch.zeros((groups, c), **f32)
-        rc = lib.fmg_bwd_stats(
-            code, _ptr(x), _ptr(g), _ptr(mask_f), _ptr(ln_s), _ptr(ln_b), _ptr(w1c), _ptr(b1),
-            _ptr(nx), _ptr(gg), _ptr(gb), _ptr(w2c),
-            _ptr(p_part), _ptr(dbg_part), _ptr(dw2_part), _ptr(db2_part), *map(_ptr, scratch),
-            bsz, s, c, m, splits, eps_ln, stream,
-        )
-        if rc:
-            raise RuntimeError(f"fused_mlp_grn backward pass C failed to launch (cudaError {rc})")
+
+        def front(mode, hout, part0, part1, coef1=None, coef2=None):
+            check(lib.fmg_bwd_front(
+                code, mode, _ptr(ln), _ptr(dz), _ptr(w1c), _ptr(w2c), _ptr(mask_f), _ptr(b1),
+                _ptr(nx), _ptr(gg), _ptr(gb), _ptr(coef1), _ptr(coef2), _ptr(hout), _ptr(part0),
+                _ptr(part1), bsz, s, c, m, stream,
+            ), f"front {'CD'[mode]}")
+
+        def gemm(kind, a, b, out, i, j, k, kps, splits):
+            check(lib.fmg_bwd_gemm(code, kind, _ptr(a), a.shape[1], _ptr(b), b.shape[1], _ptr(out),
+                                   i, j, k, kps, splits, stream), "product")
+
+        # pass C
+        ln, dz = torch.empty_like(x), torch.empty_like(x)
+        mu, rstd = torch.empty((n,), **f32), torch.empty((n,), **f32)
+        db2_part = torch.empty((plan.ln_blocks, c), **f32)
+        check(lib.fmg_bwd_prep(code, _ptr(x), _ptr(g), _ptr(mask_f), _ptr(ln_s), _ptr(ln_b),
+                               _ptr(ln), _ptr(dz), _ptr(mu), _ptr(rstd), _ptr(db2_part), n, c,
+                               eps_ln, stream), "prep")
+        mark("prep")
+        ln, dz = ln.view(n, c), dz.view(n, c)
+        y = torch.empty((n, m), dtype=x.dtype, device=dev)
+        p_part = torch.empty((plan.row_tiles, m), **f32)
+        dbg_part = torch.empty((plan.row_tiles, m), **f32)
+        front(0, y, p_part, dbg_part)
+        mark("front C")
+        dw2_part = torch.empty((plan.splits, c, m), **f32)
+        gemm(0, dz, y, dw2_part, c, m, n, plan.k_per_split, plan.splits)
+        mark("d fc2")
         bwd_launches += 1
-        p = p_part.view(bsz, splits, m).sum(dim=1)
+        del y
+        # glue
+        p = p_part.view(bsz, plan.tiles_per_sample, m).sum(dim=1)
         coef1, coef2, dgg = _grn_bwd_coeffs(p, ss, gg, eps_grn)
+        coef1, coef2 = coef1.contiguous(), coef2.contiguous()
+        mark("glue")
+        # pass D
+        du = torch.empty((n, m), dtype=x.dtype, device=dev)
+        db1_part = torch.empty((plan.row_tiles, m), **f32)
+        front(1, du, db1_part, None, coef1, coef2)
+        mark("front D")
+        dw1_part = torch.empty((plan.splits, m, c), **f32)
+        gemm(0, du, ln, dw1_part, m, c, n, plan.k_per_split, plan.splits)
+        mark("d fc1")
+        dln = torch.empty((n, c), **f32)
+        gemm(1, du, w1c, dln, n, c, m, -(-m // BWD_K_STEP) * BWD_K_STEP, 1)
+        del du
         dx = torch.empty_like(x)
-        dw1_part = torch.zeros((groups, m, c), **f32)
-        db1_part = torch.zeros((groups, m), **f32)
-        dls_part = torch.zeros((dx_tiles, c), **f32)
-        dlb_part = torch.zeros((dx_tiles, c), **f32)
-        rc = lib.fmg_bwd_main(
-            code, _ptr(x), _ptr(g), _ptr(mask_f), _ptr(ln_s), _ptr(ln_b), _ptr(w1c), _ptr(b1),
-            _ptr(w2c), _ptr(coef1.contiguous()), _ptr(coef2.contiguous()),
-            _ptr(dx), _ptr(dw1_part), _ptr(db1_part), _ptr(dls_part), _ptr(dlb_part),
-            *map(_ptr, scratch), bsz, s, c, m, splits, eps_ln, stream,
-        )
-        if rc:
-            raise RuntimeError(f"fused_mlp_grn backward pass D failed to launch (cudaError {rc})")
+        dls_part = torch.empty((plan.ln_blocks, c), **f32)
+        dlb_part = torch.empty((plan.ln_blocks, c), **f32)
+        check(lib.fmg_bwd_lnb(code, _ptr(x), _ptr(dln), _ptr(mu), _ptr(rstd), _ptr(ln_s),
+                              _ptr(dx), _ptr(dls_part), _ptr(dlb_part), n, c, stream),
+              "LayerNorm backward")
+        mark("dln + LN backward")
         bwd_launches += 1
     return (
         dx, g, dls_part.sum(dim=0), dlb_part.sum(dim=0), dw1_part.sum(dim=0),
