@@ -9,9 +9,14 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 2. build   compile every ``viscy_tpu_torch/csrc/*.cu`` with nvcc (one process
            per source, started together); print seconds and ``-Xptxas -v``.
 3. kernel  for every distinct (S, C, M) the flagship gives the fused
-           ConvNeXt-v2 MLP+GRN kernel at tile 320 and the slice's tile batch:
-           kernel vs ``reference_mlp_grn`` in f32 (TF32 off) and bf16, one
-           masked case, and CUDA-event medians of kernel and plain.
+           ConvNeXt-v2 MLP+GRN forward (prep, pass A, glue, pass B) at tile
+           320 and the slice's tile batch: kernels vs ``reference_mlp_grn``
+           in f32 (TF32 off) and bf16, unmasked and masked, two runs
+           bit-identical, and CUDA-event medians of kernels and plain; the
+           same checks, times and bounds at the train step's shapes (batch
+           16, 384^2); at the largest shape the median of each stage beside
+           ``torch.matmul`` in bf16 on fc1's and fc2's (M, N, K), and a
+           per-kernel profile of one call.
 4. kernel-bwd  the fused MLP+GRN backward (passes C and D) at every (S, C, M)
            of the flagship train step at batch 16: all ten gradients against
            ``reference_mlp_grn_bwd`` in f32 (TF32 off) and bf16, one masked
@@ -207,6 +212,47 @@ def phase_build() -> None:
                 log(f"[build]   {line.strip()}")
 
 
+def check_forward(batch, s, c, m, seed, masked_cases, worst) -> None:
+    """The forward kernels against ``reference_mlp_grn`` at (batch, S, C, M)
+    in f32 (max|d| <= 1e-4 of range) and bf16 (1.5e-2 of range, r > 0.9999),
+    each case run twice and bit-identical; raises on failure. ``worst`` maps
+    each dtype to the largest (max|d|, share of range) seen so far."""
+    from viscy_tpu_torch.ops import fused_block as fb
+
+    for masked in masked_cases:
+        for dtype, rel in ((torch.float32, 1e-4), (torch.bfloat16, 1.5e-2)):
+            args, mask = block_inputs(batch, s, c, m, dtype, seed=seed, masked=masked)
+            got = fb.fused_mlp_grn(*args, mask=mask)
+            again = fb.fused_mlp_grn(*args, mask=mask)
+            want = fb.reference_mlp_grn(*args, mask=mask)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"two forward runs differ at S={s} C={c} M={m} B={batch} {dtype}")
+            gotf, wantf = got.float(), want.float()
+            err = float((gotf - wantf).abs().max())
+            rng = float(wantf.max() - wantf.min())
+            r = pearson(gotf, wantf)
+            ok = torch.isfinite(gotf).all().item() and err <= rel * rng
+            if dtype == torch.bfloat16:
+                ok = ok and r > 0.9999
+            share = err / max(rng, 1e-30)
+            worst[dtype] = max(worst.get(dtype, (0.0, 0.0)), (err, share), key=lambda w: w[1])
+            tag = f"S={s} C={c} M={m} B={batch} {str(dtype)[6:]}{' masked' if masked else ''}"
+            log(
+                f"[kernel] {tag}: max|d|={err:.3e} range={rng:.3e} "
+                f"({share:.2e} of range, bound {rel:g}) r={r:.7f}, two runs bit-identical"
+            )
+            if not ok:
+                raise AssertionError(f"kernel disagrees with the plain version at {tag}")
+            del args, mask, got, again, want, gotf, wantf
+    torch.cuda.empty_cache()
+
+
+def log_worst(where: str, worst: dict) -> None:
+    log(f"[kernel] worst at {where}: " + "; ".join(
+        f"{str(dt)[6:]} max|d|={e:.3e} ({share:.2e} of range)" for dt, (e, share) in worst.items()))
+
+
 def phase_kernel() -> dict:
     from viscy_tpu_torch.ops import fused_block as fb
 
@@ -214,31 +260,9 @@ def phase_kernel() -> dict:
     per_forward = kernel_shapes(FLAGSHIP, TILE)
     distinct = sorted(set(per_forward), key=per_forward.index)
     rows = {}
-    worst_bf16 = 0.0
+    worst: dict = {}
     for k, (s, c, m) in enumerate(distinct):
-        masked_cases = [False, True] if k == 1 else [False]
-        for masked in masked_cases:
-            for dtype, rel in ((torch.float32, 1e-4), (torch.bfloat16, 1.5e-2)):
-                args, mask = block_inputs(batch, s, c, m, dtype, seed=100 + k, masked=masked)
-                got = fb.fused_mlp_grn(*args, mask=mask)
-                want = fb.reference_mlp_grn(*args, mask=mask)
-                torch.cuda.synchronize()
-                gotf, wantf = got.float(), want.float()
-                err = float((gotf - wantf).abs().max())
-                rng = float(wantf.max() - wantf.min())
-                r = pearson(gotf, wantf)
-                ok = torch.isfinite(gotf).all().item() and err <= rel * rng
-                if dtype == torch.bfloat16:
-                    ok = ok and r > 0.9999
-                    worst_bf16 = max(worst_bf16, err)
-                tag = f"S={s} C={c} M={m} B={batch} {str(dtype)[6:]}{' masked' if masked else ''}"
-                log(
-                    f"[kernel] {tag}: max|d|={err:.3e} range={rng:.3e} "
-                    f"({err / max(rng, 1e-30):.2e} of range, bound {rel:g}) r={r:.7f}"
-                )
-                if not ok:
-                    raise AssertionError(f"kernel disagrees with the plain version at {tag}")
-                del got, want, gotf, wantf
+        check_forward(batch, s, c, m, 100 + k, (False, True), worst)
         # timing at the flagship dtype, unmasked
         args, _ = block_inputs(batch, s, c, m, torch.bfloat16, seed=200 + k)
         kernel_ms = cuda_median_ms(lambda: fb.fused_mlp_grn(*args))
@@ -259,11 +283,108 @@ def phase_kernel() -> dict:
         f"[kernel] per forward ({len(per_forward)} calls, B={batch}): kernel {total['ms']:.3f} ms "
         f"plain {total['plain_ms']:.3f} ms bound {total['bound_ms']:.3f} ms"
     )
+    log_worst(f"the serving shapes (B={batch})", worst)
+    worst_train = fwd_train_checks()
+    fwd_stage_times(*max(distinct, key=lambda k: k[0] * k[1] * k[2]))
     return dict(
         total,
         bound_by="operations" if by_ops >= total["bound_ms"] / 2 else "bytes",
-        max_abs_err=worst_bf16,
+        max_abs_err=max(worst[torch.bfloat16][0], worst_train[torch.bfloat16][0]),
     )
+
+
+def fwd_train_checks() -> dict:
+    """Passes A + B at the train step's shapes (batch 16, 384^2 patches):
+    at each, the kernels against the plain version (:func:`check_forward`,
+    one masked case), then CUDA-event medians of kernels and plain, and the
+    bound, per call and per step (bf16, unmasked). Returns the worst errors."""
+    from viscy_tpu_torch.ops import fused_block as fb
+
+    batch = TRAIN_BATCH
+    per_step = kernel_shapes(FLAGSHIP, TRAIN_PATCH[-1])
+    distinct = sorted(set(per_step), key=per_step.index)
+    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    worst: dict = {}
+    for k, (s, c, m) in enumerate(distinct):
+        check_forward(batch, s, c, m, 150 + k, (False, True), worst)
+        args, _ = block_inputs(batch, s, c, m, torch.bfloat16, seed=250 + k)
+        kernel_ms = cuda_median_ms(lambda: fb.fused_mlp_grn(*args))
+        plain_ms = cuda_median_ms(lambda: fb.reference_mlp_grn(*args), runs=5)
+        bound, bound_by = block_bound_ms(batch, s, c, m, torch.bfloat16)
+        n = per_step.count((s, c, m))
+        for key, val in (("ms", kernel_ms), ("plain_ms", plain_ms), ("bound_ms", bound)):
+            total[key] += val * n
+        log(
+            f"[kernel] train time S={s} C={c} M={m} B={batch} bf16 x{n}/step: kernel {kernel_ms:.3f} ms "
+            f"plain {plain_ms:.3f} ms bound {bound:.4f} ms ({bound_by}) = {bound / kernel_ms:.3f} of bound"
+        )
+        del args
+        torch.cuda.empty_cache()
+    log(f"[kernel] per step ({len(per_step)} calls, B={batch}, forward): kernel {total['ms']:.3f} ms "
+        f"plain {total['plain_ms']:.3f} ms bound {total['bound_ms']:.3f} ms")
+    log_worst(f"the train shapes (B={batch})", worst)
+    return worst
+
+
+def fwd_stage_times(s: int, c: int, m: int) -> None:
+    """CUDA-event medians of each stage of the forward at (S, C, M), batch
+    49, bf16, and beside each product ``torch.matmul`` in bf16 on the same
+    (M, N, K) (bf16 out; a yardstick of the main loop the port never calls);
+    then a per-kernel profile of one call. A stage's time runs from the
+    previous stage's end event to its own."""
+    from viscy_tpu_torch.ops import fused_block as fb
+
+    args, _ = block_inputs(TILE_BATCH, s, c, m, torch.bfloat16, seed=210)
+    x, sc, *params = args
+    torch.cuda.reset_peak_memory_stats()
+    times: dict[str, list[float]] = {}
+    for run in range(TIMED_RUNS + 1):
+        marks = []
+
+        def mark(stage):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((stage, ev))
+
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fb._fused_cuda(x, sc, params, None, 1e-6, 1e-6, mark=mark)
+        torch.cuda.synchronize()
+        if run == 0:
+            continue  # warm-up
+        prev = start
+        for stage, ev in marks:
+            times.setdefault(stage, []).append(prev.elapsed_time(ev))
+            prev = ev
+    peak = torch.cuda.max_memory_allocated()
+    profile_call(lambda: fb.fused_mlp_grn(*args), f"S={s} C={c} M={m} B={TILE_BATCH} bf16 prep+A+glue+B")
+    del args, x, sc, params
+    n = TILE_BATCH * s
+
+    def rand(*shape):
+        return torch.randn(shape, device="cuda", dtype=torch.bfloat16)
+
+    ln, w1, v, w2 = rand(n, c), rand(m, c), rand(n, m), rand(c, m)
+    yardsticks = {
+        "pass A": (f"({n}, {m}, {c})", lambda: torch.matmul(ln, w1.t())),
+        "pass B": (f"({n}, {c}, {m})", lambda: torch.matmul(v, w2.t())),
+    }
+    tflop = 2.0 * n * c * m / 1e12
+    total = 0.0
+    for stage, ts in times.items():
+        med = statistics.median(ts)
+        total += med
+        line = f"[kernel] stage S={s} C={c} M={m} B={TILE_BATCH} bf16 {stage}: {med:.3f} ms"
+        if stage in yardsticks:
+            shape, fn = yardsticks[stage]
+            lib_ms = cuda_median_ms(fn)
+            line += (f" ({tflop / med * 1e3:.0f} TFLOP/s); torch.matmul bf16 {shape}: {lib_ms:.3f} ms "
+                     f"({tflop / lib_ms * 1e3:.0f} TFLOP/s)")
+        log(line)
+    log(f"[kernel] stages sum {total:.3f} ms; peak device memory of the timed calls, inputs included, "
+        f"{peak / 2**30:.2f} GiB")
+    del ln, w1, v, w2
+    torch.cuda.empty_cache()
 
 
 class _FovDataModule:
@@ -319,9 +440,9 @@ def profile_request(trainer, module) -> None:
         return
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    fused_ms = sum(e.self_device_time_total for e in events if "fmg_kernel" in e.key) / 1e3
+    fused_ms = sum(e.self_device_time_total for e in events if "fwd::" in e.key) / 1e3
     log(f"[profile] one request: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
-        f"({busy_ms / wall_ms:.1%} of wall), fused MLP+GRN kernel {fused_ms:.1f} ms "
+        f"({busy_ms / wall_ms:.1%} of wall), fused MLP+GRN forward kernels {fused_ms:.1f} ms "
         f"({fused_ms / busy_ms:.1%} of busy)")
     for e in events[:12]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<4d} {e.key[:100]}")
@@ -863,7 +984,7 @@ def profile_step(trainer, module, datamodule) -> None:
         return sum(e.self_device_time_total for e in events if pat in e.key) / 1e3
 
     log(f"[profile] one train step: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
-        f"({busy_ms / wall_ms:.1%} of wall); fused MLP+GRN forward {share('fmg_kernel'):.1f} ms, "
+        f"({busy_ms / wall_ms:.1%} of wall); fused MLP+GRN forward {share('fwd::'):.1f} ms, "
         f"backward {share('bwd::'):.1f} ms, warp {share('warp_kernel'):.1f} ms")
     for e in events[:15]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<4d} {e.key[:100]}")

@@ -57,23 +57,32 @@ def _card_case(s, c, m, dtype, masked, b=3, seed=0):
     return args, mask
 
 
+# (9, 96, 384) at B = 5: S under one row tile, so pass A's row tiles stop at
+# each sample's end and pass B's tiles straddle samples; (21, 38, 151): rows
+# not a multiple of 16 bytes (tiles load without cp.async) and an odd M;
+# (2304, 192, 768) at B = 16 (a training shape): 256-wide pass-B tiles on an
+# H100 (the other shapes fit one wave of 128-wide tiles)
+FWD_SHAPES = [(70, 40, 160), (100, 96, 384), (33, 200, 800), (47, 768, 3072), (9, 96, 384),
+              (21, 38, 151), (2304, 192, 768)]
+FWD_BATCH = {(9, 96, 384): 5, (2304, 192, 768): 16}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
 @pytest.mark.parametrize(
     "dtype,rel", [(torch.float32, 1e-4), (torch.bfloat16, 1.5e-2)], ids=["f32", "bf16"]
 )
-@pytest.mark.parametrize(
-    "s,c,m", [(70, 40, 160), (100, 96, 384), (33, 200, 800), (47, 768, 3072)]
-)
+@pytest.mark.parametrize("s,c,m", FWD_SHAPES)
 def test_kernel_matches_plain_on_card(s, c, m, dtype, rel, masked):
-    """Ragged S tiles; C % 16 != 0 (CUDA-core path in bf16 too); 64- and
-    32-row tensor-core tiles in bf16 (C = 96 and C = 768)."""
+    """Ragged S tiles; C and M off the tile widths (C = 40, 200; M = 160,
+    800); both pass-B tile widths; samples under one row tile; unaligned
+    rows and an odd M."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        args, mask = _card_case(s, c, m, dtype, masked)
+        args, mask = _card_case(s, c, m, dtype, masked, b=FWD_BATCH.get((s, c, m), 3))
         before = tfb.launches
         got = tfb.fused_mlp_grn(*args, mask=mask)
         want = tfb.reference_mlp_grn(*args, mask=mask)
@@ -88,6 +97,22 @@ def test_kernel_matches_plain_on_card(s, c, m, dtype, rel, masked):
         rel,
         0.9999 if dtype == torch.bfloat16 else None,
     )
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_forward_runs_are_bit_identical_on_card(dtype):
+    """No float atomics: two forward calls give the same output and ``ss``
+    to the bit (masked, several row tiles per sample, ragged tiles)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    args, mask = _card_case(200, 96, 384, dtype, True)
+    x, sc, *params = args
+    mask_f = tfb._check_cuda_args(x, sc, params, mask)
+    out1, ss1 = tfb._fused_cuda(x, sc, params, mask_f, 1e-6, 1e-6)
+    out2, ss2 = tfb._fused_cuda(x, sc, params, mask_f, 1e-6, 1e-6)
+    torch.cuda.synchronize()
+    assert torch.equal(out1, out2) and torch.equal(ss1, ss2)
 
 
 @pytest.mark.gpu

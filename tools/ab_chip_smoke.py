@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run phases of ``chip_smoke.py`` from two source trees in turns on one card.
 
-    python3 tools/ab_chip_smoke.py OLD_TREE NEW_TREE [--phases kernel_bwd,train] [--out DIR]
+    python3 tools/ab_chip_smoke.py OLD_TREE NEW_TREE [--phases kernel,slice,train] [--out DIR]
 
 Each tree is a directory holding its own ``chip_smoke.py`` and
 ``viscy_tpu_torch/`` (for example ``git archive`` of a commit unpacked into
@@ -20,8 +20,9 @@ import subprocess
 import sys
 from pathlib import Path
 
-KEEP = ("[env] nvidia-smi", "per step", "time S=", "stage S=", "stages sum", "patches/s median",
-        "[profile] one train step", "[done]")
+KEEP = ("[env] nvidia-smi", "per step", "per forward", "time S=", "stage S=", "stages sum",
+        "patches/s median", "FOVs/s median", "[profile] one train step", "[profile] one request",
+        "[done]")
 
 
 def turn_code(phases: list[str]) -> str:

@@ -1,23 +1,32 @@
 // Fused ConvNeXt-v2 MLP + GRN for Hopper (sm_90a), plain C interface: the
-// forward here, the backward (passes C and D) further down.
+// forward (passes A and B) and the backward (passes C and D), every product
+// on one pipelined tensor-core main loop (namespace mm).
 //
 // The forward replaces the TPU Pallas kernels viscy_tpu/ops/pallas/
-// fused_block.py::_stats_kernel (pass A) and ::_apply_kernel (pass B). It computes
+// fused_block.py::_stats_kernel (pass A) and ::_apply_kernel (pass B). It
+// computes
 //
 //     out = shortcut + fc2(GRN(gelu(fc1(LN(x)))))        x, shortcut: (B, S, C)
 //
-// without ever writing an M-wide (M = 4C hidden) tensor to device memory:
+// as a short chain of kernels (namespace fwd):
 //
-// - pass A (stats): one block per (row tile, sample). It runs LN -> fc1 ->
-//   exact-erf GELU on chip, M in chunks of 64, and writes the tile's sum over
-//   rows of v^2 (v masked if a mask is given) to a (B, nTiles, M) float
-//   scratch. Blocks run in no order, so there is no cross-block carry and no
-//   float atomics: the caller reduces the scratch over tiles in a fixed order
-//   (deterministic), then forms nx = gx / (mean_m gx + eps) on (B, M).
-// - pass B (apply): the block recomputes its tile's v chunk by chunk,
-//   applies GRN with nx, and accumulates fc2 over M into a float (rows, C)
-//   accumulator in shared memory; the epilogue adds b2, applies the mask and
-//   the residual, and writes the output tile once.
+//   prep     one warp per row writes the LayerNorm output ln (B S, C) in T
+//   pass A   u = ln . w1^T for one (row tile, hidden tile); epilogue:
+//            v = GELU(T(u) + T(b1)) in T to an M-wide (B S, M) scratch, and
+//            per-row-tile column sums of (v * mask)^2 in f32. Row tiles stop
+//            at each sample's end, since the GRN statistics are per sample.
+//   (torch, on (B, M): ss = the partials summed per sample in a fixed
+//   order, nx = gx / (mean_m gx + eps))
+//   pass B   z = y . w2^T with K = M. y = GRN(v) is formed on each v tile in
+//            shared memory right after it lands (each thread rewrites the
+//            elements it loaded, before the barrier the main loop takes
+//            anyway); epilogue: out = shortcut + mask * T(T(z) + T(b2)),
+//            written once. Row tiles run over B S flat (a tile may straddle
+//            samples: each row finds its own nx row); C is split over blocks
+//            in column tiles of 128 or 256, the wrapper's choice.
+//
+// No float atomics: every cross-block sum goes to a partial of its own, so
+// two runs give bit-identical outputs.
 //
 // Value semantics follow the flax modules op for op: LN statistics in f32
 // with the fast variance max(E[x^2] - mu^2, 0); every intermediate rounded
@@ -27,33 +36,24 @@
 // them, as flax casts its f32 parameters to the compute dtype); biases, LN
 // and GRN parameters arrive in f32 and are rounded to T where flax rounds.
 //
-// What bounds it on an H100: the function needs 4 B S C M operations (fc1
-// and fc2 once each) against about 3 B S C activation elements moved once
-// (x, shortcut, out) plus the weights, i.e. ~1.3k FLOP/byte at (S, C, M) =
-// (6400, 480, 1920) in bf16: compute. This kernel does 6 B S C M, because
-// pass B recomputes fc1 rather than write the M-wide v to memory and read
-// it back (2 B S M bytes each way; with the activations about 0.99 ms of
-// HBM traffic at that shape, against its 1.17 ms operation bound), so it
-// can reach at most 2/3 of the bound. Two paths:
+// What bounds the forward on an H100: 4 B S C M operations (fc1 and fc2
+// once each) against the activations (x, shortcut, out: 3 B S C elements)
+// and the v scratch, 2 B S M bytes of bf16 written by pass A and read back
+// by pass B. At (B, S, C, M) = (49, 6400, 480, 1920) that is 1.17 ms of
+// operations against about 0.9 ms of HBM traffic: compute, by a little.
+// The design spends the scratch (1.2 GB there, freed on return) to do fc1
+// once, where the first port recomputed it in pass B (6 B S C M), and puts
+// both products on the tensor cores through a cp.async ring with ldmatrix
+// and mma.sync, with every elementwise step fused into a product's operand
+// load or epilogue. f32 runs the same tiling on the CUDA cores.
 //
-// - bf16 with C and M multiples of 16 (every flagship block): both products
-//   on the tensor cores through nvcuda::wmma (16x16x16 bf16, f32
-//   accumulate). A fragments (LN output, GRN output) come from shared
-//   memory; each warp loads its weight (B) fragments straight from L2, so
-//   the fc1 loop has no staging and no barriers. Tiles of 64 or 32 rows,
-//   the larger that lets two blocks share an SM (the fc2 accumulator is a
-//   rows x C float tile in shared memory).
-// - float32 (and bf16 at other C): products on the CUDA cores in f32, 2x4
-//   register micro tiles over shared-memory tiles, 32-row tiles. TF32
-//   tensor cores would not keep the f32 model exact, so f32 stays here.
-//
-// Every block reads all of w1 and w2 from L2. Moving to wgmma with TMA-fed,
-// multi-stage weight tiles and register-resident fc2 accumulators is the
-// way to the bound and is left to a later change.
+// The backward (namespace bwd) is described at its section. mma.sync
+// reaches only part of the tensor cores' rate; wgmma with TMA-fed stages is
+// the next step for both directions.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include <initializer_list>
@@ -63,9 +63,8 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int NT = 256;  // threads per block (8 warps) on both paths
-constexpr int MC = 64;   // hidden columns per chunk
-constexpr int CC = 64;   // fc2 output columns staged per step
+constexpr int NT = 256;  // threads per block (8 warps) in every kernel
+constexpr int LNR = 64;  // rows per block of the row kernels
 constexpr float kSqrt2 = 1.4142135623730951f;
 
 template <typename T>
@@ -100,383 +99,55 @@ __device__ __forceinline__ float gelu_exact(float u) {
   return Num<T>::rnd(p * 0.5f);
 }
 
+// fc1 output (f32 sum) and T(b1) -> v = GELU(T(T(u) + T(b1)))
+template <typename T>
+__device__ __forceinline__ float hidden_value(float acc, float b1r) {
+  return gelu_exact<T>(Num<T>::rnd(__fadd_rn(Num<T>::rnd(acc), b1r)));
+}
+
+// GRN output y = T(gamma * T(v * T(nx)) + beta + v), nxr = T(nx)
+template <typename T>
+__device__ __forceinline__ float grn_value(float v, float nxr, float gg, float gb) {
+  const float t = Num<T>::rnd(__fmul_rn(v, nxr));
+  return Num<T>::rnd(__fadd_rn(__fadd_rn(__fmul_rn(gg, t), gb), v));
+}
+
+// block output from the fc2 sum: shortcut + T(T(T(z) + T(b2)) * mask), in f32
+template <typename T>
+__device__ __forceinline__ float store_out(float acc, float b2r, float mk, float sc) {
+  float z = Num<T>::rnd(__fadd_rn(Num<T>::rnd(acc), b2r));
+  z = Num<T>::rnd(__fmul_rn(z, mk));
+  return __fadd_rn(sc, z);
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
-// LayerNorm of the tile's rows into lns (row stride ldl), one warp per row;
-// rowmask[r] = mask value (1 without a mask) for rows inside S, 0 past it
-template <typename T, int TS>
-__device__ void ln_tile(const T* __restrict__ xt, const float* __restrict__ mrow,
-                        const float* __restrict__ ln_s, const float* __restrict__ ln_b,
-                        T* lns, int ldl, float* rowmask, int rows, int C, float eps_ln) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < TS; r += NT / 32) {
-    T* lrow = lns + (size_t)r * ldl;
-    if (r < rows) {
-      const T* xr = xt + (size_t)r * C;
-      float s = 0.f, q = 0.f;
-      for (int c = lane; c < C; c += 32) {
-        T v = xr[c];
-        float f = Num<T>::load(v);
-        s += f;
-        q += f * f;
-        lrow[c] = v;
-      }
-      s = warp_sum(s);
-      q = warp_sum(q);
-      const float mu = s / (float)C;
-      const float var = fmaxf(q / (float)C - mu * mu, 0.f);
-      const float rstd = rsqrtf(var + eps_ln);
-      __syncwarp();
-      for (int c = lane; c < C; c += 32) {
-        float f = Num<T>::load(lrow[c]);
-        lrow[c] = Num<T>::store((f - mu) * (rstd * ln_s[c]) + ln_b[c]);
-      }
-    } else {
-      for (int c = lane; c < C; c += 32) lrow[c] = Num<T>::store(0.f);
-    }
-    if (lane == 0) rowmask[r] = r < rows ? (mrow ? mrow[r] : 1.f) : 0.f;
-  }
-}
-
-// fc1 output (f32 sum) of hidden column gm -> pass A value (v * mask)^2 or
-// pass B value y = T(gamma * T(v * T(nx)) + beta + v)
-template <typename T, bool APPLY>
-__device__ __forceinline__ float hidden_value(float acc, int gm, float rmask, size_t bm,
-                                              const float* __restrict__ b1,
-                                              const float* __restrict__ nx,
-                                              const float* __restrict__ gg,
-                                              const float* __restrict__ gb) {
-  const float u = Num<T>::rnd(__fadd_rn(Num<T>::rnd(acc), Num<T>::rnd(b1[gm])));
-  const float v = gelu_exact<T>(u);
-  if (!APPLY) {
-    const float vm = Num<T>::rnd(__fmul_rn(v, rmask));
-    return vm * vm;
-  }
-  const float t = Num<T>::rnd(__fmul_rn(v, Num<T>::rnd(nx[bm + gm])));
-  return Num<T>::rnd(__fadd_rn(__fadd_rn(__fmul_rn(gg[gm], t), gb[gm]), v));
-}
-
-// out = shortcut + mask * T(T(z) + T(b2)), one coalesced pass over the tile
+// LayerNorm of one row xr (C wide) into lr, by one warp; returns (mean,
+// 1 / std). Used by both directions' prep kernels.
 template <typename T>
-__device__ void store_out(const float* zacc, int ldz, const T* __restrict__ sct,
-                          T* __restrict__ outt, const float* __restrict__ b2,
-                          const float* rowmask, int rows, int C) {
-  for (int e = threadIdx.x; e < rows * C; e += NT) {
-    const int r = e / C, c = e % C;
-    float z = Num<T>::rnd(zacc[r * ldz + c]);
-    z = Num<T>::rnd(__fadd_rn(z, Num<T>::rnd(b2[c])));
-    z = Num<T>::rnd(__fmul_rn(z, rowmask[r]));
-    outt[e] = Num<T>::store(__fadd_rn(Num<T>::load(sct[e]), z));
+__device__ __forceinline__ float2 ln_row(const T* __restrict__ xr, T* __restrict__ lr,
+                                         const float* __restrict__ ln_s,
+                                         const float* __restrict__ ln_b, int C, float eps_ln) {
+  const int lane = threadIdx.x % 32;
+  float s = 0.f, q = 0.f;
+  for (int c = lane; c < C; c += 32) {
+    const float f = Num<T>::load(xr[c]);
+    s += f;
+    q += f * f;
   }
+  s = warp_sum(s);
+  q = warp_sum(q);
+  const float mu = s / (float)C;
+  const float var = fmaxf(q / (float)C - mu * mu, 0.f);
+  const float rstd = rsqrtf(var + eps_ln);
+  for (int c = lane; c < C; c += 32)
+    lr[c] = Num<T>::store((Num<T>::load(xr[c]) - mu) * (rstd * ln_s[c]) + ln_b[c]);
+  return make_float2(mu, rstd);
 }
-
-struct Args {
-  const void* x;
-  const void* sc;
-  const float* mask;
-  const float* ln_s;
-  const float* ln_b;
-  const void* w1;  // (M, C) in the compute type
-  const float* b1;
-  const float* nx;
-  const float* gg;
-  const float* gb;
-  const void* w2;  // (C, M) in the compute type
-  const float* b2;
-  float* partial;
-  void* out;
-  int S, C, M;
-  float eps_ln;
-};
-
-// ---------------------------------------------------------------------------
-// CUDA-core path (float32; bf16 when C % 16 != 0)
-// ---------------------------------------------------------------------------
-namespace simt {
-
-constexpr int TS = 32;  // rows per block
-constexpr int KC = 32;  // fc1 reduction depth staged per step
-constexpr int WBUF = (KC * (MC + 1) > MC * (CC + 1)) ? KC * (MC + 1) : MC * (CC + 1);
-
-__host__ __device__ constexpr size_t smem_bytes(bool apply, int elem, int c) {
-  return (size_t)(apply ? TS * c : 0) * sizeof(float)  // fc2 accumulator
-         + (size_t)TS * MC * sizeof(float)              // y / v^2 chunk
-         + (size_t)WBUF * sizeof(float)                 // weight tile
-         + (size_t)TS * sizeof(float)                   // row mask
-         + (size_t)TS * c * elem;                       // LN output tile
-}
-
-template <typename T, bool APPLY>
-__global__ void __launch_bounds__(NT) fmg_kernel(Args a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int S = a.S, C = a.C, M = a.M;
-  float* zacc = reinterpret_cast<float*>(smem_raw);
-  float* ys = zacc + (APPLY ? TS * C : 0);
-  float* wbuf = ys + TS * MC;
-  float* rowmask = wbuf + WBUF;
-  T* lns = reinterpret_cast<T*>(rowmask + TS);
-
-  const int tile = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  const int row0 = tile * TS;
-  const int rows = min(TS, S - row0);
-  const size_t base = ((size_t)b * S + row0) * C;
-  const T* w1 = static_cast<const T*>(a.w1);
-  const T* w2 = static_cast<const T*>(a.w2);
-
-  ln_tile<T, TS>(static_cast<const T*>(a.x) + base, a.mask ? a.mask + (size_t)b * S + row0 : nullptr,
-                 a.ln_s, a.ln_b, lns, C, rowmask, rows, C, a.eps_ln);
-  if (APPLY) {
-    for (int i = tid; i < TS * C; i += NT) zacc[i] = 0.f;
-  }
-  __syncthreads();
-
-  const int ty = tid / 16, tx = tid % 16;
-  const int r0 = ty * 2;
-  const int j0 = tx * 4;
-
-  for (int m0 = 0; m0 < M; m0 += MC) {
-    // fc1 chunk: u[TS, MC] = ln[TS, C] . w1[m0:m0+MC, :]^T
-    float acc[2][4] = {};
-    for (int k0 = 0; k0 < C; k0 += KC) {
-      for (int e = tid; e < MC * KC; e += NT) {
-        const int mm = e / KC, kk = e % KC;
-        const int gm = m0 + mm, gk = k0 + kk;
-        wbuf[kk * (MC + 1) + mm] = (gm < M && gk < C) ? Num<T>::load(w1[(size_t)gm * C + gk]) : 0.f;
-      }
-      __syncthreads();
-      const int kmax = min(KC, C - k0);
-      const T* a0p = lns + (size_t)r0 * C + k0;
-      const T* a1p = a0p + C;
-      for (int kk = 0; kk < kmax; ++kk) {
-        const float a0 = Num<T>::load(a0p[kk]);
-        const float a1 = Num<T>::load(a1p[kk]);
-        const float* wr = wbuf + kk * (MC + 1) + j0;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          acc[0][j] = fmaf(a0, wr[j], acc[0][j]);
-          acc[1][j] = fmaf(a1, wr[j], acc[1][j]);
-        }
-      }
-      __syncthreads();
-    }
-
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int gm = m0 + j0 + j;
-        ys[(r0 + i) * MC + j0 + j] =
-            gm < M ? hidden_value<T, APPLY>(acc[i][j], gm, rowmask[r0 + i], (size_t)b * M,
-                                            a.b1, a.nx, a.gg, a.gb)
-                   : 0.f;
-      }
-    }
-    __syncthreads();
-
-    if (!APPLY) {
-      // column sums over the tile's rows in a fixed order
-      if (tid < MC && m0 + tid < M) {
-        float s = 0.f;
-        for (int r = 0; r < TS; ++r) s += ys[r * MC + tid];
-        a.partial[((size_t)b * gridDim.x + tile) * M + m0 + tid] = s;
-      }
-      __syncthreads();
-      continue;
-    }
-
-    // fc2 chunk: zacc[TS, C] += y[TS, MC] . w2[:, m0:m0+MC]^T
-    const int mmax = min(MC, M - m0);
-    for (int c0 = 0; c0 < C; c0 += CC) {
-      for (int e = tid; e < CC * MC; e += NT) {
-        const int cc = e / MC, mm = e % MC;
-        const int gc = c0 + cc, gm = m0 + mm;
-        wbuf[mm * (CC + 1) + cc] = (gc < C && gm < M) ? Num<T>::load(w2[(size_t)gc * M + gm]) : 0.f;
-      }
-      __syncthreads();
-      float z[2][4] = {};
-      const float* y0p = ys + r0 * MC;
-      const float* y1p = y0p + MC;
-      for (int mm = 0; mm < mmax; ++mm) {
-        const float a0 = y0p[mm];
-        const float a1 = y1p[mm];
-        const float* wr = wbuf + mm * (CC + 1) + j0;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          z[0][j] = fmaf(a0, wr[j], z[0][j]);
-          z[1][j] = fmaf(a1, wr[j], z[1][j]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int gc = c0 + j0 + j;
-          if (gc < C) zacc[(r0 + i) * C + gc] += z[i][j];
-        }
-      }
-      __syncthreads();
-    }
-  }
-
-  if (APPLY) {
-    store_out<T>(zacc, C, static_cast<const T*>(a.sc) + base, static_cast<T*>(a.out) + base,
-                 a.b2, rowmask, rows, C);
-  }
-}
-
-}  // namespace simt
-
-// ---------------------------------------------------------------------------
-// tensor-core path (bf16, C % 16 == 0)
-// ---------------------------------------------------------------------------
-namespace tc {
-
-namespace wmma = nvcuda::wmma;
-
-constexpr int LDU = MC + 4;  // f32 fc1 output chunk
-constexpr int LDY = MC + 8;  // bf16 y chunk
-
-__host__ __device__ constexpr size_t align128(size_t b) { return (b + 127) & ~(size_t)127; }
-
-struct Layout {
-  size_t zacc, lns, ubuf, ybuf, rowmask, total;
-};
-
-// byte offsets of the shared buffers; every wmma pointer is 32-byte aligned
-__host__ __device__ inline Layout layout(bool apply, int ts, int c) {
-  Layout l{};
-  size_t off = 0;
-  l.zacc = off;
-  off = align128(off + (apply ? (size_t)ts * (c + 4) * sizeof(float) : 0));
-  l.lns = off;
-  off = align128(off + (size_t)ts * (c + 8) * sizeof(bf16));
-  l.ubuf = off;
-  off = align128(off + (size_t)ts * LDU * sizeof(float));
-  l.ybuf = off;
-  off = align128(off + (apply ? (size_t)ts * LDY * sizeof(bf16) : 0));
-  l.rowmask = off;
-  l.total = off + (size_t)ts * sizeof(float);
-  return l;
-}
-
-template <int TS, bool APPLY>
-__global__ void __launch_bounds__(NT) fmg_kernel(Args a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int S = a.S, C = a.C, M = a.M;
-  const Layout L = layout(APPLY, TS, C);
-  const int ldz = C + 4, ldl = C + 8;
-  float* zacc = reinterpret_cast<float*>(smem + L.zacc);
-  bf16* lns = reinterpret_cast<bf16*>(smem + L.lns);
-  float* ubuf = reinterpret_cast<float*>(smem + L.ubuf);
-  bf16* ybuf = reinterpret_cast<bf16*>(smem + L.ybuf);
-  float* rowmask = reinterpret_cast<float*>(smem + L.rowmask);
-
-  const int tile = blockIdx.x, b = blockIdx.y, tid = threadIdx.x, warp = tid / 32;
-  const int row0 = tile * TS;
-  const int rows = min(TS, S - row0);
-  const size_t base = ((size_t)b * S + row0) * C;
-  const bf16* w1 = static_cast<const bf16*>(a.w1);
-  const bf16* w2 = static_cast<const bf16*>(a.w2);
-
-  ln_tile<bf16, TS>(static_cast<const bf16*>(a.x) + base,
-                    a.mask ? a.mask + (size_t)b * S + row0 : nullptr, a.ln_s, a.ln_b, lns, ldl,
-                    rowmask, rows, C, a.eps_ln);
-  if (APPLY) {
-    for (int i = tid; i < TS * ldz; i += NT) zacc[i] = 0.f;
-  }
-  __syncthreads();
-
-  using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-  using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-  using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-  // fc1: a (TS x 64) chunk is RF x 4 fragments; warp w owns column fragment
-  // w % 4 and row fragments w / 4, w / 4 + 2, ... so its B fragment serves
-  // all its rows
-  constexpr int RF = TS / 16;
-  constexpr int RPW = RF / 2;
-  const int cf = warp % 4;
-
-  for (int m0 = 0; m0 < M; m0 += MC) {
-    // fc1 chunk: u[TS, 64] = ln[TS, C] . w1[m0:m0+64, :]^T; w1's rows read
-    // in place as B in column-major order (element (k, n) at w1[n * C + k])
-    FragC acc[RPW];
-#pragma unroll
-    for (int i = 0; i < RPW; ++i) wmma::fill_fragment(acc[i], 0.f);
-    if (m0 + cf * 16 < M) {
-      const bf16* w1p = w1 + (size_t)(m0 + cf * 16) * C;
-      for (int k = 0; k < C; k += 16) {
-        FragB fb;
-        wmma::load_matrix_sync(fb, w1p + k, C);
-#pragma unroll
-        for (int i = 0; i < RPW; ++i) {
-          FragA fa;
-          wmma::load_matrix_sync(fa, lns + (warp / 4 + 2 * i) * 16 * ldl + k, ldl);
-          wmma::mma_sync(acc[i], fa, fb, acc[i]);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < RPW; ++i) {
-      wmma::store_matrix_sync(ubuf + (warp / 4 + 2 * i) * 16 * LDU + cf * 16, acc[i], LDU,
-                              wmma::mem_row_major);
-    }
-    __syncthreads();
-
-    for (int e = tid; e < TS * MC; e += NT) {
-      const int r = e / MC, j = e % MC, gm = m0 + j;
-      const float val = gm < M ? hidden_value<bf16, APPLY>(ubuf[r * LDU + j], gm, rowmask[r],
-                                                           (size_t)b * M, a.b1, a.nx, a.gg, a.gb)
-                               : 0.f;
-      if (APPLY)
-        ybuf[r * LDY + j] = __float2bfloat16_rn(val);
-      else
-        ubuf[r * LDU + j] = val;
-    }
-    __syncthreads();
-
-    if (!APPLY) {
-      if (tid < MC && m0 + tid < M) {
-        float s = 0.f;
-        for (int r = 0; r < TS; ++r) s += ubuf[r * LDU + tid];
-        a.partial[((size_t)b * gridDim.x + tile) * M + m0 + tid] = s;
-      }
-      __syncthreads();
-      continue;
-    }
-
-    // fc2 chunk: zacc[TS, C] += y[TS, 64] . w2[:, m0:m0+64]^T; fragment f =
-    // (row rf, column cz) goes to warp f % 8, neighbours share a B fragment
-    // (w2 read in place, element (k, n) at w2[n * M + k])
-    const int kend = min(MC, M - m0);
-    for (int f = warp; f < RF * (C / 16); f += NT / 32) {
-      const int rf = f % RF, cz = f / RF;
-      float* zp = zacc + rf * 16 * ldz + cz * 16;
-      const bf16* w2p = w2 + (size_t)cz * 16 * M + m0;
-      FragC fz;
-      wmma::load_matrix_sync(fz, zp, ldz, wmma::mem_row_major);
-      for (int kk = 0; kk < kend; kk += 16) {
-        FragA fa;
-        FragB fb;
-        wmma::load_matrix_sync(fa, ybuf + rf * 16 * LDY + kk, LDY);
-        wmma::load_matrix_sync(fb, w2p + kk, M);
-        wmma::mma_sync(fz, fa, fb, fz);
-      }
-      wmma::store_matrix_sync(zp, fz, ldz, wmma::mem_row_major);
-    }
-    __syncthreads();
-  }
-
-  if (APPLY) {
-    store_out<bf16>(zacc, ldz, static_cast<const bf16*>(a.sc) + base,
-                    static_cast<bf16*>(a.out) + base, a.b2, rowmask, rows, C);
-  }
-}
-
-}  // namespace tc
 
 // largest dynamic shared memory a block may take (H100: 227 KB)
 int max_smem() {
@@ -487,104 +158,19 @@ int max_smem() {
   return v;
 }
 
-bool use_tc(int dtype, int c, int m) { return dtype == 1 && c % 16 == 0 && m % 16 == 0; }
-
-// rows per block for pass `apply` at (dtype, C, M); 0 when no path fits.
-// Tensor-core path: the larger tile that lets two blocks share an SM, else
-// the larger that fits at all.
-int tile_rows(int dtype, bool apply, int c, int m) {
-  const size_t limit = (size_t)max_smem();
-  if (use_tc(dtype, c, m)) {
-    for (int ts : {64, 32})
-      if (2 * (tc::layout(apply, ts, c).total + 1024) <= limit) return ts;
-    for (int ts : {64, 32})
-      if (tc::layout(apply, ts, c).total <= limit) return ts;
-    return 0;
-  }
-  if (dtype == 0 || dtype == 1)
-    return simt::smem_bytes(apply, dtype == 0 ? 4 : 2, c) <= limit ? simt::TS : 0;
-  return 0;
-}
-
-template <typename K>
-int launch_kernel(K kern, size_t smem, int ts, int B, const Args& a, void* stream) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((a.S + ts - 1) / ts, B);
-  kern<<<grid, NT, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-template <bool APPLY>
-int launch(int dtype, const Args& a, int B, void* stream) {
-  if (B <= 0 || B > 65535 || a.S <= 0 || a.C <= 0 || a.M <= 0) return (int)cudaErrorInvalidValue;
-  const int ts = tile_rows(dtype, APPLY, a.C, a.M);
-  if (ts == 0) return (int)cudaErrorInvalidValue;
-  if (use_tc(dtype, a.C, a.M)) {
-    const size_t smem = tc::layout(APPLY, ts, a.C).total;
-    return ts == 64 ? launch_kernel(tc::fmg_kernel<64, APPLY>, smem, ts, B, a, stream)
-                    : launch_kernel(tc::fmg_kernel<32, APPLY>, smem, ts, B, a, stream);
-  }
-  const size_t smem = simt::smem_bytes(APPLY, dtype == 0 ? 4 : 2, a.C);
-  return dtype == 0 ? launch_kernel(simt::fmg_kernel<float, APPLY>, smem, ts, B, a, stream)
-                    : launch_kernel(simt::fmg_kernel<bf16, APPLY>, smem, ts, B, a, stream);
-}
-
 // ---------------------------------------------------------------------------
-// backward: passes C and D
+// the main loop every product runs on
 // ---------------------------------------------------------------------------
 //
-// Replaces viscy_tpu/ops/pallas/fused_block.py::_bwd_stats_kernel (pass C)
-// and ::_bwd_main_kernel (pass D). The TPU kernels recompute fc1 per row
-// tile and carry the weight-gradient sums from one grid step to the next in
-// VMEM. Hopper blocks run in no order and hold at most 227 KB of shared
-// memory, so here the backward is a short chain of ordinary tiled products,
-// each with its elementwise work fused into its epilogue:
-//
-//   prep      LayerNorm output, dz = T(g) * mask, row mean and 1 / std,
-//             written once (C wide); per-block column sums of dz (d fc2 bias)
-//   front C   u = LN . w1^T and dy = dz . w2 for one (row tile, hidden tile);
-//             epilogue: v = GELU(u), y in T to an M-wide scratch, per-row-tile
-//             column sums of dy * v (P) and dy (d grn_beta)
-//   d fc2     dz^T . y, split over the rows (K = B S)
-//   (the (B, M) glue runs in torch between the passes)
-//   front D   the same dual product; epilogue: du in T to an M-wide scratch,
-//             per-row-tile column sums of du in f32 (d fc1 bias)
-//   d fc1     du^T . LN, split over the rows
-//   dln       du . w1 (K = M) in f32 to a C-wide scratch
-//   LN bwd    one warp per row: dx, per-block column sums of dln * xhat and
-//             dln (d ln_scale, d ln_bias)
-//
-// Row tiles of the front products never straddle two samples (P is a sum
-// per sample). Every sum across blocks goes to a partial slot of its own,
-// which the caller reduces in a fixed order: no float atomics, and two runs
-// give bit-identical gradients.
-//
-// One main loop serves every product: a block tile of 8 warps (2 along its
-// rows, 4 along its columns), operand tiles brought into a ring of
-// shared-memory stages by cp.async (zero-filled past the valid rows,
-// columns and K), so the next tiles load while the current one is
-// multiplied. bf16 runs on the tensor cores (ldmatrix, transposing where an
-// operand is stored with its M or N dimension contiguous, and mma.sync
-// m16n8k16 with f32 accumulators in registers); float32 runs the same
-// tiling on the CUDA cores, each thread owning exactly the accumulator
-// elements of the mma layout, so the epilogues are shared. The front
-// products take 64 x 128 tiles (two products' accumulators in 64 registers
-// a thread), so two blocks share an SM and one block's long elementwise
-// epilogue overlaps the other's main loop; the others take 128 x 128. Both
-// step K by 64.
-//
-// What bounds it on an H100: the function needs 8 B S C M operations (dy,
-// d fc2, d fc1, dln); these kernels do 14 (front D recomputes u and dy
-// rather than store dy in f32). The M-wide scratch moves 2 B S M elements
-// of T out and 3 B S M back in (y read once, du twice), dln 4 B S C bytes
-// each way: at (B, S, C, M) = (16, 9216, 480, 1920) about 3.4 GB, some 1 ms
-// of HBM time against a 1.1 ms operation bound. mma.sync reaches only part
-// of the tensor cores' wgmma rate; wgmma with TMA is the next step.
-namespace bwd {
-
-constexpr int LNR = 64;  // rows per block of the row kernels
+// A block tile of 8 warps (2 along its rows, 4 along its columns), operand
+// tiles brought into a ring of shared-memory stages by cp.async (zero-filled
+// past the valid rows, columns and K), so the next tiles load while the
+// current one is multiplied. bf16 runs on the tensor cores (ldmatrix,
+// transposing where an operand is stored with its M or N dimension
+// contiguous, and mma.sync m16n8k16 with f32 accumulators in registers);
+// float32 runs the same tiling on the CUDA cores, each thread owning exactly
+// the accumulator elements of the mma layout, so the epilogues are shared.
+namespace mm {
 
 // a block tile of BM_ x BN_ with a K step of BK_ and a ring of ST_ stages in
 // bf16 (two in f32), over 8 warps, 2 along its rows and 4 along its
@@ -597,12 +183,6 @@ struct Tiling {
     return std::is_same<T, float>::value ? 2 : ST_;
   }
 };
-// the front products (two per block): 64 rows, so two blocks share an SM
-// and one block's epilogue overlaps the other's main loop
-using Front = Tiling<64, 128, 64, 2>;
-// the weight-gradient and dln products
-using Wide = Tiling<128, 128, 64, 3>;
-constexpr float kInvSqrt2Pi = 0.3989422804014327f;
 
 template <typename T>
 struct Cfg {  // bf16: 8-element row padding (16 bytes)
@@ -650,7 +230,9 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // tile of K steps [k0, k0 + BK) of operand o (k_valid: K extent of this
 // block) into s. vec: 16-byte cp.async (every contiguous extent a multiple
-// of 16 bytes, every pointer aligned); else plain loads.
+// of 16 bytes, every pointer aligned); else plain loads. Thread t moves the
+// chunks (vec) or elements e = t, t + NT, ... of the tile, row e / (chunks
+// or elements per row): a Fix of gemm_loop relies on this map.
 template <typename T, bool KC, int MN, int BK>
 __device__ __forceinline__ void load_tile(T* s, const Opnd& o, int k0, int k_valid, bool vec) {
   constexpr int OUT = KC ? MN : BK;  // shared rows
@@ -794,12 +376,21 @@ struct Ring {
   static constexpr size_t bytes = (size_t)STAGE * TL::template stages<T>() * sizeof(T);
 };
 
+// leaves the landed A tiles as they are
+struct NoFix {
+  template <typename T>
+  __device__ __forceinline__ void operator()(T*, int) const {}
+};
+
 // acc[p] = sum over K of A_p . B_p for the block's tile, operands ops[2p]
-// (A) and ops[2p + 1] (B); k_valid = the block's K extent. Ends with the
-// ring free for reuse.
-template <typename T, class TL, int NP, bool AK0, bool BK0, bool AK1 = true, bool BK1 = true>
+// (A) and ops[2p + 1] (B); k_valid = the block's K extent. fix(A0 tile, k0)
+// runs on each landed tile of the first A operand before the barrier that
+// publishes it, so a thread may rewrite the elements it loaded itself (the
+// map of load_tile). Ends with the ring free for reuse.
+template <typename T, class TL, int NP, bool AK0, bool BK0, bool AK1 = true, bool BK1 = true,
+          class Fix = NoFix>
 __device__ __forceinline__ void gemm_loop(Acc<TL> (&acc)[NP], const Opnd* ops, int k_valid,
-                                          bool vec, T* ring) {
+                                          bool vec, T* ring, const Fix& fix = Fix()) {
   using R = Ring<T, TL, NP, AK0, BK0, AK1, BK1>;
   constexpr int S = TL::template stages<T>(), MT = TL::MT, NT8 = TL::NT8, BK = TL::BK;
   const int warp = threadIdx.x / 32, wm = warp / TL::WN, wn = warp % TL::WN;
@@ -827,22 +418,17 @@ __device__ __forceinline__ void gemm_loop(Acc<TL> (&acc)[NP], const Opnd* ops, i
     cp_async_commit();
   }
   for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<S - 2>();
-    __syncthreads();  // tile kt landed; every warp is done with tile kt - 1
+    cp_async_wait<S - 2>();  // this thread's part of tile kt landed
+    T* st = ring + (kt % S) * R::STAGE;
+    fix(st + R::A0, kt * BK);
+    __syncthreads();  // tile kt complete; every warp is done with tile kt - 1
     if (kt + S - 1 < nk) load(kt + S - 1);
     cp_async_commit();
-    const T* st = ring + (kt % S) * R::STAGE;
     tile_product<TL, AK0, BK0>(acc[0], st + R::A0, st + R::B0, wm, wn);
     if constexpr (NP > 1) tile_product<TL, AK1, BK1>(acc[1], st + R::A1, st + R::B1, wm, wn);
   }
   cp_async_wait<0>();
   __syncthreads();
-}
-
-__device__ __forceinline__ float gelu_grad_f32(float u) {
-  const float phi = expf(-0.5f * u * u) * kInvSqrt2Pi;
-  const float cdf = 0.5f * (erff(u / kSqrt2) + 1.0f);
-  return cdf + u * phi;
 }
 
 // p[0], p[1] = T(v[0]), T(v[1]): one 4- or 8-byte store when pair (p aligned
@@ -860,7 +446,7 @@ __device__ __forceinline__ void store_pair(T* p, const float (&v)[2], bool pair,
   if (second) p[1] = Num<T>::store(v[1]);
 }
 
-// column sums of a warp's 64 rows (cs: this thread's rows, summed in row
+// column sums of a warp's rows (cs: this thread's rows, summed in row
 // order) -> red[wm][column] in shared memory; lanes 0-3 hold the result of
 // the fixed butterfly
 template <class TL>
@@ -877,9 +463,327 @@ __device__ __forceinline__ void warp_col_sums(float (&cs)[TL::NT8][2], float* re
     }
 }
 
+template <typename K, typename A>
+int launch_with(K kern, dim3 grid, size_t smem, void* stream, const A& args) {
+  if (smem > (size_t)max_smem()) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // the products hold large rings: ask for the largest shared-memory share
+  // of the SM, so that two blocks fit
+  if (err == cudaSuccess && smem > 48 * 1024)
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<grid, NT, smem, (cudaStream_t)stream>>>(args);
+  return (int)cudaGetLastError();
+}
+
+bool aligned16(std::initializer_list<const void*> ps) {
+  for (const void* p : ps)
+    if (p && reinterpret_cast<uintptr_t>(p) % 16) return false;
+  return true;
+}
+
+}  // namespace mm
+
+// ---------------------------------------------------------------------------
+// forward: prep, pass A, pass B
+// ---------------------------------------------------------------------------
+namespace fwd {
+
+using namespace mm;
+
+// pass A: one product, so 128 x 128 tiles with a 3-stage ring still let two
+// blocks share an SM and one block's GELU epilogue overlap the other's main
+// loop (with 64-row tiles pass A took 22 % longer at (B, S, C, M) =
+// (49, 6400, 480, 1920) on an H100)
+using StatsTL = Tiling<128, 128, 64, 3>;
+// pass B: 64 rows by 128 or 256 output columns (the wrapper picks the width
+// that fills the card with the fewest padded columns); two blocks an SM
+constexpr int APPLY_BM = 64;
+template <int BN>
+using ApplyTL = Tiling<APPLY_BM, BN, 64, BN == 256 ? 2 : 3>;
+
+struct PrepArgs {
+  const void* x;
+  const float* ln_s;
+  const float* ln_b;
+  void* ln;
+  long long n_rows;
+  int C;
+  float eps_ln;
+};
+
+// LayerNorm output (B S, C) in T, one warp per row, LNR rows a block
+template <typename T>
+__global__ void __launch_bounds__(NT) prep_kernel(PrepArgs a) {
+  const long long row0 = (long long)blockIdx.x * LNR;
+  for (int i = threadIdx.x / 32; i < LNR; i += NT / 32) {
+    const long long r = row0 + i;
+    if (r >= a.n_rows) break;
+    ln_row<T>(static_cast<const T*>(a.x) + r * a.C, static_cast<T*>(a.ln) + r * a.C, a.ln_s,
+              a.ln_b, a.C, a.eps_ln);
+  }
+}
+
+struct StatsArgs {
+  const void* ln;  // (B S, C)
+  const void* w1;  // (M, C)
+  const float* mask;
+  const float* b1;
+  void* v;      // (B S, M) in T
+  float* part;  // (row tiles, M): column sums of (v * mask)^2
+  int S, C, M, vec;
+};
+
+// block (hidden tile x, row tile y) of sample y / tiles_per_sample
+template <typename T>
+__global__ void __launch_bounds__(NT, 2) stats_kernel(StatsArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  using TL = StatsTL;
+  constexpr int BM = TL::BM, BN = TL::BN, MT = TL::MT, NT8 = TL::NT8;
+  const int S = a.S, C = a.C, M = a.M;
+  const int tps = (S + BM - 1) / BM;
+  const int b = blockIdx.y / tps, t = blockIdx.y % tps;
+  const int rows = min(BM, S - t * BM);
+  const long long r0 = (long long)b * S + (long long)t * BM;
+  const int n0 = blockIdx.x * BN, nv = min(BN, M - n0);
+  const Opnd ops[2] = {
+      opnd<true>(static_cast<const T*>(a.ln), C, r0, 0, rows),
+      opnd<true>(static_cast<const T*>(a.w1), C, n0, 0, nv),
+  };
+  Acc<TL> acc[1];  // u
+  gemm_loop<T, TL, 1, true, true>(acc, ops, C, a.vec, reinterpret_cast<T*>(smem));
+
+  const int warp = threadIdx.x / 32, wm = warp / TL::WN, wn = warp % TL::WN;
+  const bool pairs = M % 2 == 0;  // two neighbouring columns share one aligned store
+  float mk[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = acc_row<TL>(wm, mt, 2 * h);
+      mk[mt][h] = a.mask && r < rows ? a.mask[r0 + r] : 1.f;
+    }
+  float cs[NT8][2];
+#pragma unroll
+  for (int nt = 0; nt < NT8; ++nt) {
+    // this thread's two columns: their bias once, then its rows in order
+    const int gm0 = n0 + acc_col<TL>(wn, nt, 0);
+    float pb[2] = {};
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      cs[nt][e] = 0.f;
+      if (gm0 + e < M) pb[e] = Num<T>::rnd(a.b1[gm0 + e]);
+    }
+    if (gm0 >= M) continue;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = acc_row<TL>(wm, mt, 2 * h);
+        if (r >= rows) continue;
+        float o[2] = {};
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (gm0 + e >= M) continue;
+          o[e] = hidden_value<T>(acc[0][mt][nt][2 * h + e], pb[e]);
+          const float vm = Num<T>::rnd(__fmul_rn(o[e], mk[mt][h]));
+          cs[nt][e] += vm * vm;
+        }
+        store_pair<T>(static_cast<T*>(a.v) + (r0 + r) * M + gm0, o, pairs && gm0 + 1 < M,
+                      gm0 + 1 < M);
+      }
+  }
+  // the ring is free (gemm_loop ended on a barrier): per-warp column sums,
+  // then the two row halves of the tile added in order
+  float* red = reinterpret_cast<float*>(smem);
+  warp_col_sums<TL>(cs, red, wm, wn);
+  __syncthreads();
+  const int j = threadIdx.x;
+  if (j < nv) a.part[(size_t)blockIdx.y * M + n0 + j] = red[j] + red[BN + j];
+}
+
+// y = GRN(v) in place on each landed v tile of pass B (APPLY_BM rows of K =
+// hidden columns, K-contiguous), each thread on the chunks or elements it
+// loaded (load_tile's map)
+template <class TL>
+struct GrnFix {
+  const float* nx;  // (B, M)
+  const float* gg;
+  const float* gb;
+  const int* rowb;  // shared: offset sample * M of each tile row into nx
+  int rows, M;
+  bool vec;
+
+  template <typename T>
+  __device__ __forceinline__ void operator()(T* As, int k0) const {
+    constexpr int BK = TL::BK, LD = BK + Cfg<T>::PAD;
+    const int kv = M - k0;
+    if (vec) {  // M % V == 0: a chunk lies wholly inside or outside K
+      constexpr int V = 16 / sizeof(T), CPR = BK / V;
+      for (int e = threadIdx.x; e < TL::BM * CPR; e += NT) {
+        const int r = e / CPR, i = (e % CPR) * V;
+        if (r >= rows || i >= kv) continue;
+        uint4* p = reinterpret_cast<uint4*>(As + r * LD + i);
+        uint4 raw = *p;
+        T* vals = reinterpret_cast<T*>(&raw);
+        const int k = k0 + i;
+        float pn[V], pg[V], pbt[V];
+#pragma unroll
+        for (int q = 0; q < V; q += 4) {
+          *reinterpret_cast<float4*>(pn + q) = *reinterpret_cast<const float4*>(nx + rowb[r] + k + q);
+          *reinterpret_cast<float4*>(pg + q) = *reinterpret_cast<const float4*>(gg + k + q);
+          *reinterpret_cast<float4*>(pbt + q) = *reinterpret_cast<const float4*>(gb + k + q);
+        }
+#pragma unroll
+        for (int q = 0; q < V; ++q)
+          vals[q] = Num<T>::store(grn_value<T>(Num<T>::load(vals[q]), Num<T>::rnd(pn[q]), pg[q], pbt[q]));
+        *p = raw;
+      }
+    } else {
+      for (int e = threadIdx.x; e < TL::BM * BK; e += NT) {
+        const int r = e / BK, i = e % BK, k = k0 + i;
+        if (r >= rows || i >= kv) continue;
+        T* p = As + r * LD + i;
+        *p = Num<T>::store(grn_value<T>(Num<T>::load(*p), Num<T>::rnd(nx[rowb[r] + k]), gg[k], gb[k]));
+      }
+    }
+  }
+};
+
+struct ApplyArgs {
+  const void* v;   // (B S, M) pass A's GELU output
+  const void* w2;  // (C, M)
+  const void* sc;  // (B S, C)
+  const float* mask;
+  const float* nx;  // (B, M)
+  const float* gg;
+  const float* gb;
+  const float* b2;
+  void* out;  // (B S, C)
+  long long n_rows;
+  int S, C, M, vec;
+};
+
+// block (column tile x, row tile y) over the B S rows
+template <typename T, int BN>
+__global__ void __launch_bounds__(NT, 2) apply_kernel(ApplyArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  using TL = ApplyTL<BN>;
+  using R = Ring<T, TL, 1, true, true, true, true>;
+  constexpr int BM = TL::BM, MT = TL::MT, NT8 = TL::NT8;
+  const int C = a.C, M = a.M;
+  const long long r0 = (long long)blockIdx.y * BM;
+  const int rows = (int)min((long long)BM, a.n_rows - r0);
+  const int n0 = blockIdx.x * BN, nv = min(BN, C - n0);
+  int* rowb = reinterpret_cast<int*>(smem + R::bytes);
+  for (int r = threadIdx.x; r < BM; r += NT) rowb[r] = r < rows ? (int)((r0 + r) / a.S) * M : 0;
+  __syncthreads();
+  const Opnd ops[2] = {
+      opnd<true>(static_cast<const T*>(a.v), M, r0, 0, rows),
+      opnd<true>(static_cast<const T*>(a.w2), M, n0, 0, nv),
+  };
+  Acc<TL> acc[1];  // z
+  const GrnFix<TL> fix{a.nx, a.gg, a.gb, rowb, rows, M, a.vec != 0};
+  gemm_loop<T, TL, 1, true, true>(acc, ops, M, a.vec, reinterpret_cast<T*>(smem), fix);
+
+  const int warp = threadIdx.x / 32, wm = warp / TL::WN, wn = warp % TL::WN;
+  const bool pairs = C % 2 == 0;
+  const T* sc = static_cast<const T*>(a.sc);
+  T* out = static_cast<T*>(a.out);
+  float pb[NT8][2];
+#pragma unroll
+  for (int nt = 0; nt < NT8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = n0 + acc_col<TL>(wn, nt, e);
+      pb[nt][e] = c < C ? Num<T>::rnd(a.b2[c]) : 0.f;
+    }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = acc_row<TL>(wm, mt, 2 * h);
+      if (r >= rows) continue;
+      const long long gr = r0 + r;
+      const float mk = a.mask ? a.mask[gr] : 1.f;
+#pragma unroll
+      for (int nt = 0; nt < NT8; ++nt) {
+        const int c0 = n0 + acc_col<TL>(wn, nt, 0);
+        if (c0 >= C) continue;
+        float o[2] = {};
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (c0 + e < C)
+            o[e] = store_out<T>(acc[0][mt][nt][2 * h + e], pb[nt][e], mk,
+                                Num<T>::load(sc[gr * C + c0 + e]));
+        store_pair<T>(out + gr * C + c0, o, pairs && c0 + 1 < C, c0 + 1 < C);
+      }
+    }
+}
+
+}  // namespace fwd
+
+// ---------------------------------------------------------------------------
+// backward: passes C and D
+// ---------------------------------------------------------------------------
+//
+// Replaces viscy_tpu/ops/pallas/fused_block.py::_bwd_stats_kernel (pass C)
+// and ::_bwd_main_kernel (pass D). The TPU kernels recompute fc1 per row
+// tile and carry the weight-gradient sums from one grid step to the next in
+// VMEM. Hopper blocks run in no order and hold at most 227 KB of shared
+// memory, so here the backward is a short chain of ordinary tiled products,
+// each with its elementwise work fused into its epilogue:
+//
+//   prep      LayerNorm output, dz = T(g) * mask, row mean and 1 / std,
+//             written once (C wide); per-block column sums of dz (d fc2 bias)
+//   front C   u = LN . w1^T and dy = dz . w2 for one (row tile, hidden tile);
+//             epilogue: v = GELU(u), y in T to an M-wide scratch, per-row-tile
+//             column sums of dy * v (P) and dy (d grn_beta)
+//   d fc2     dz^T . y, split over the rows (K = B S)
+//   (the (B, M) glue runs in torch between the passes)
+//   front D   the same dual product; epilogue: du in T to an M-wide scratch,
+//             per-row-tile column sums of du in f32 (d fc1 bias)
+//   d fc1     du^T . LN, split over the rows
+//   dln       du . w1 (K = M) in f32 to a C-wide scratch
+//   LN bwd    one warp per row: dx, per-block column sums of dln * xhat and
+//             dln (d ln_scale, d ln_bias)
+//
+// Row tiles of the front products never straddle two samples (P is a sum
+// per sample). Every sum across blocks goes to a partial slot of its own,
+// which the caller reduces in a fixed order: no float atomics, and two runs
+// give bit-identical gradients. Every product runs on the main loop of
+// namespace mm. The front products take 64 x 128 tiles (two products'
+// accumulators in 64 registers a thread), so two blocks share an SM and one
+// block's long elementwise epilogue overlaps the other's main loop; the
+// others take 128 x 128. Both step K by 64.
+//
+// What bounds it on an H100: the function needs 8 B S C M operations (dy,
+// d fc2, d fc1, dln); these kernels do 14 (front D recomputes u and dy
+// rather than store dy in f32). The M-wide scratch moves 2 B S M elements
+// of T out and 3 B S M back in (y read once, du twice), dln 4 B S C bytes
+// each way: at (B, S, C, M) = (16, 9216, 480, 1920) about 3.4 GB, some 1 ms
+// of HBM time against a 1.1 ms operation bound.
+namespace bwd {
+
+using namespace mm;
+
+// the front products (two per block): 64 rows, so two blocks share an SM
+// and one block's epilogue overlaps the other's main loop
+using Front = Tiling<64, 128, 64, 2>;
+// the weight-gradient and dln products
+using Wide = Tiling<128, 128, 64, 3>;
+constexpr float kInvSqrt2Pi = 0.3989422804014327f;
+
+__device__ __forceinline__ float gelu_grad_f32(float u) {
+  const float phi = expf(-0.5f * u * u) * kInvSqrt2Pi;
+  const float cdf = 0.5f * (erff(u / kSqrt2) + 1.0f);
+  return cdf + u * phi;
+}
+
 // LayerNorm output, dz = T(g) * mask and the row statistics, one warp per
-// row (the arithmetic of ln_tile); block k of LNR rows also writes the
-// column sums of its dz (f32) to db2_part[k]
+// row (ln_row); block k of LNR rows also writes the column sums of its dz
+// (f32) to db2_part[k]
 struct PrepArgs {
   const void* x;
   const void* g;
@@ -907,32 +811,19 @@ __global__ void __launch_bounds__(NT) prep_kernel(PrepArgs a) {
   for (int i = warp; i < LNR; i += NT / 32) {
     const long long r = row0 + i;
     if (r >= a.n_rows) break;
-    const T* xr = static_cast<const T*>(a.x) + r * C;
+    const float2 st = ln_row<T>(static_cast<const T*>(a.x) + r * C, static_cast<T*>(a.ln) + r * C,
+                                a.ln_s, a.ln_b, C, a.eps_ln);
     const T* gr = static_cast<const T*>(a.g) + r * C;
-    T* lr = static_cast<T*>(a.ln) + r * C;
     T* dr = static_cast<T*>(a.dz) + r * C;
-    float s = 0.f, q = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float f = Num<T>::load(xr[c]);
-      s += f;
-      q += f * f;
-    }
-    s = warp_sum(s);
-    q = warp_sum(q);
-    const float mu = s / (float)C;
-    const float var = fmaxf(q / (float)C - mu * mu, 0.f);
-    const float rstd = rsqrtf(var + a.eps_ln);
     const float mk = a.mask ? a.mask[r] : 1.f;
     for (int c = lane; c < C; c += 32) {
-      const float f = Num<T>::load(xr[c]);
-      lr[c] = Num<T>::store((f - mu) * (rstd * a.ln_s[c]) + a.ln_b[c]);
       const float d = Num<T>::rnd(__fmul_rn(Num<T>::load(gr[c]), mk));
       dr[c] = Num<T>::store(d);
       wacc[c] += d;
     }
     if (lane == 0) {
-      a.mu[r] = mu;
-      a.rstd[r] = rstd;
+      a.mu[r] = st.x;
+      a.rstd[r] = st.y;
     }
   }
   __syncthreads();
@@ -1034,8 +925,7 @@ __global__ void __launch_bounds__(NT, 2) front_kernel(FrontArgs a) {
           const float u = Num<T>::rnd(__fadd_rn(Num<T>::rnd(acc[0][mt][nt][2 * h + e]), pb[e]));
           const float v = gelu_exact<T>(u);
           if (MODE == kStats) {
-            const float tt = Num<T>::rnd(__fmul_rn(v, p1[e]));
-            o[e] = Num<T>::rnd(__fadd_rn(__fadd_rn(__fmul_rn(p2[e], tt), p3[e]), v));
+            o[e] = grn_value<T>(v, p1[e], p2[e], p3[e]);
             cs0[nt][e] += __fmul_rn(dy, v);
             cs1[nt][e] += dy;
           } else {
@@ -1163,57 +1053,84 @@ __global__ void __launch_bounds__(NT) lnb_kernel(LnbArgs a) {
   }
 }
 
-template <typename K, typename A>
-int launch_with(K kern, dim3 grid, size_t smem, void* stream, const A& args) {
-  if (smem > (size_t)max_smem()) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  // the products hold large rings: ask for the largest shared-memory share
-  // of the SM, so that two blocks fit
-  if (err == cudaSuccess && smem > 48 * 1024)
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return (int)err;
-  kern<<<grid, NT, smem, (cudaStream_t)stream>>>(args);
-  return (int)cudaGetLastError();
-}
-
-bool aligned16(std::initializer_list<const void*> ps) {
-  for (const void* p : ps)
-    if (p && reinterpret_cast<uintptr_t>(p) % 16) return false;
-  return true;
-}
-
 }  // namespace bwd
 
 }  // namespace
 
 extern "C" {
 
-// rows per block of the stats pass: the caller sizes the (B, ceil(S / rows),
-// M) scratch from it. 0 means no path takes this (dtype, C, M).
-int fmg_stats_tile_rows(int dtype, int c, int m) { return tile_rows(dtype, false, c, m); }
-
-// 1 when the apply pass has a path for (dtype, C, M)
-int fmg_apply_supported(int dtype, int c, int m) { return tile_rows(dtype, true, c, m) > 0; }
-
-// dtype: 0 = float32, 1 = bfloat16 for x, shortcut, out, w1 (M, C) and
-// w2 (C, M); everything else float32
-int fmg_stats(int dtype, const void* x, const float* mask, const float* ln_s,
-              const float* ln_b, const void* w1, const float* b1, float* partial, int B,
-              int S, int C, int M, float eps_ln, void* stream) {
-  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
-  Args a{x, nullptr, mask, ln_s, ln_b, w1, b1, nullptr, nullptr, nullptr, nullptr, nullptr,
-         partial, nullptr, S, C, M, eps_ln};
-  return launch<false>(dtype, a, B, stream);
+// the forward's tiling, for the caller's plan: rows and hidden columns of a
+// pass-A tile, rows of a pass-B tile, rows per block of the row kernels
+void fmg_fwd_geometry(int* geo) {
+  geo[0] = fwd::StatsTL::BM;
+  geo[1] = fwd::StatsTL::BN;
+  geo[2] = fwd::APPLY_BM;
+  geo[3] = LNR;
 }
 
-int fmg_apply(int dtype, const void* x, const void* sc, const float* mask, const float* ln_s,
-              const float* ln_b, const void* w1, const float* b1, const float* nx,
-              const float* gg, const float* gb, const void* w2, const float* b2, void* out,
-              int B, int S, int C, int M, float eps_ln, void* stream) {
-  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
-  Args a{x, sc, mask, ln_s, ln_b, w1, b1, nx, gg, gb, w2, b2, nullptr, out, S, C, M, eps_ln};
-  return launch<true>(dtype, a, B, stream);
+// dtype: 0 = float32, 1 = bfloat16 for every activation, scratch and weight
+// (w1 (M, C), w2 (C, M)); every other parameter float32.
+// forward prep: LayerNorm output ln (n_rows, C)
+int fmg_fwd_prep(int dtype, const void* x, const float* ln_s, const float* ln_b, void* ln,
+                 long long n_rows, int C, float eps_ln, void* stream) {
+  if ((dtype != 0 && dtype != 1) || n_rows <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
+  fwd::PrepArgs a{x, ln_s, ln_b, ln, n_rows, C, eps_ln};
+  const dim3 grid((unsigned)((n_rows + LNR - 1) / LNR));
+  return dtype == 0 ? mm::launch_with(fwd::prep_kernel<float>, grid, 0, stream, a)
+                    : mm::launch_with(fwd::prep_kernel<bf16>, grid, 0, stream, a);
+}
+
+// pass A: v = GELU(ln . w1^T + b1) (B S, M) and per-row-tile column sums of
+// (v * mask)^2, (B ceil(S / 128), M) in f32; mask (B S) or NULL
+int fmg_fwd_stats(int dtype, const void* ln, const void* w1, const float* mask, const float* b1,
+                  void* v, float* part, int B, int S, int C, int M, void* stream) {
+  if ((dtype != 0 && dtype != 1) || B <= 0 || S <= 0 || C <= 0 || M <= 0)
+    return (int)cudaErrorInvalidValue;
+  using namespace fwd;
+  const long long tiles = (long long)B * ((S + StatsTL::BM - 1) / StatsTL::BM);
+  if (tiles > 65535) return (int)cudaErrorInvalidValue;
+  const int V = dtype == 0 ? 4 : 8;
+  const int vec = C % V == 0 && aligned16({ln, w1});
+  StatsArgs a{ln, w1, mask, b1, v, part, S, C, M, vec};
+  const dim3 grid((M + StatsTL::BN - 1) / StatsTL::BN, (unsigned)tiles);
+  if (dtype == 0)
+    return launch_with(stats_kernel<float>, grid, Ring<float, StatsTL, 1, true, true, true, true>::bytes,
+                       stream, a);
+  return launch_with(stats_kernel<bf16>, grid, Ring<bf16, StatsTL, 1, true, true, true, true>::bytes,
+                     stream, a);
+}
+
+// pass B: out = shortcut + mask * fc2(GRN(v)) (B S, C) from pass A's v and
+// nx (B, M); bn: output columns of a block tile, 128 or 256
+int fmg_fwd_apply(int dtype, int bn, const void* v, const void* w2, const void* sc,
+                  const float* mask, const float* nx, const float* gg, const float* gb,
+                  const float* b2, void* out, int B, int S, int C, int M, void* stream) {
+  if ((dtype != 0 && dtype != 1) || (bn != 128 && bn != 256) || B <= 0 || S <= 0 || C <= 0 ||
+      M <= 0 || (long long)B * M > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  using namespace fwd;
+  const long long n_rows = (long long)B * S;
+  const long long tiles = (n_rows + APPLY_BM - 1) / APPLY_BM;
+  if (tiles > 65535) return (int)cudaErrorInvalidValue;
+  const int V = dtype == 0 ? 4 : 8;
+  const int vec = M % V == 0 && aligned16({v, w2, nx, gg, gb});
+  ApplyArgs a{v, w2, sc, mask, nx, gg, gb, b2, out, n_rows, S, C, M, vec};
+  const dim3 grid((C + bn - 1) / bn, (unsigned)tiles);
+  const size_t rowb = APPLY_BM * sizeof(int);
+  if (dtype == 0) {
+    return bn == 128 ? launch_with(apply_kernel<float, 128>, grid,
+                                   Ring<float, ApplyTL<128>, 1, true, true, true, true>::bytes + rowb,
+                                   stream, a)
+                     : launch_with(apply_kernel<float, 256>, grid,
+                                   Ring<float, ApplyTL<256>, 1, true, true, true, true>::bytes + rowb,
+                                   stream, a);
+  }
+  return bn == 128 ? launch_with(apply_kernel<bf16, 128>, grid,
+                                 Ring<bf16, ApplyTL<128>, 1, true, true, true, true>::bytes + rowb,
+                                 stream, a)
+                   : launch_with(apply_kernel<bf16, 256>, grid,
+                                 Ring<bf16, ApplyTL<256>, 1, true, true, true, true>::bytes + rowb,
+                                 stream, a);
 }
 
 // the backward's tiling, for the caller's plan: rows of a front-product
@@ -1223,7 +1140,7 @@ void fmg_bwd_geometry(int* geo) {
   geo[0] = bwd::Front::BM;
   geo[1] = bwd::Wide::BM;
   geo[2] = bwd::Wide::BK;
-  geo[3] = bwd::LNR;
+  geo[3] = LNR;
 }
 
 // prep: LayerNorm output and dz (B S, C) in the compute type, row mean and
@@ -1233,10 +1150,10 @@ int fmg_bwd_prep(int dtype, const void* x, const void* g, const float* mask, con
                  long long n_rows, int C, float eps_ln, void* stream) {
   if ((dtype != 0 && dtype != 1) || n_rows <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
   bwd::PrepArgs a{x, g, mask, ln_s, ln_b, ln, dz, mu, rstd, db2_part, n_rows, C, eps_ln};
-  const dim3 grid((unsigned)((n_rows + bwd::LNR - 1) / bwd::LNR));
+  const dim3 grid((unsigned)((n_rows + LNR - 1) / LNR));
   const size_t smem = (size_t)(NT / 32) * C * sizeof(float);
-  return dtype == 0 ? bwd::launch_with(bwd::prep_kernel<float>, grid, smem, stream, a)
-                    : bwd::launch_with(bwd::prep_kernel<bf16>, grid, smem, stream, a);
+  return dtype == 0 ? mm::launch_with(bwd::prep_kernel<float>, grid, smem, stream, a)
+                    : mm::launch_with(bwd::prep_kernel<bf16>, grid, smem, stream, a);
 }
 
 // front C (mode 0): y (B S, M) in the compute type, per-row-tile column sums
@@ -1250,11 +1167,11 @@ int fmg_bwd_front(int dtype, int mode, const void* ln, const void* dz, const voi
   if ((dtype != 0 && dtype != 1) || (mode != 0 && mode != 1) || B <= 0 || S <= 0 || C <= 0 ||
       M <= 0)
     return (int)cudaErrorInvalidValue;
-  const int V = dtype == 0 ? 4 : 8;
-  const int vec = C % V == 0 && M % V == 0 && bwd::aligned16({ln, dz, w1, w2});
-  bwd::FrontArgs a{ln, dz, w1, w2, mask, b1, nx, gg, gb, coef1, coef2, hout, part0, part1,
-                   S, C, M, vec};
   using namespace bwd;
+  const int V = dtype == 0 ? 4 : 8;
+  const int vec = C % V == 0 && M % V == 0 && aligned16({ln, dz, w1, w2});
+  FrontArgs a{ln, dz, w1, w2, mask, b1, nx, gg, gb, coef1, coef2, hout, part0, part1,
+              S, C, M, vec};
   const long long tiles = (long long)B * ((S + Front::BM - 1) / Front::BM);
   if (tiles > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid((M + Front::BN - 1) / Front::BN, (unsigned)tiles);
@@ -1279,10 +1196,10 @@ int fmg_bwd_gemm(int dtype, int kind, const void* A, long long lda, const void* 
       kps <= 0 || kps % bwd::Wide::BK || splits <= 0 || splits > 65535 ||
       (long long)(splits - 1) * kps >= K)
     return (int)cudaErrorInvalidValue;
-  const int V = dtype == 0 ? 4 : 8;
-  const int vec = lda % V == 0 && ldb % V == 0 && bwd::aligned16({A, Bm});
-  bwd::GemmArgs g{A, Bm, out, lda, ldb, (long long)J, (long long)I * J, I, J, K, kps, vec};
   using namespace bwd;
+  const int V = dtype == 0 ? 4 : 8;
+  const int vec = lda % V == 0 && ldb % V == 0 && aligned16({A, Bm});
+  GemmArgs g{A, Bm, out, lda, ldb, (long long)J, (long long)I * J, I, J, K, kps, vec};
   const long long ti = (I + Wide::BM - 1) / Wide::BM;
   if (ti > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid((J + Wide::BN - 1) / Wide::BN, (unsigned)ti, splits);
@@ -1305,10 +1222,10 @@ int fmg_bwd_lnb(int dtype, const void* x, const float* dln, const float* mu, con
                 int C, void* stream) {
   if ((dtype != 0 && dtype != 1) || n_rows <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
   bwd::LnbArgs a{x, dln, mu, rstd, ln_s, dx, dls_part, dlb_part, n_rows, C};
-  const dim3 grid((unsigned)((n_rows + bwd::LNR - 1) / bwd::LNR));
+  const dim3 grid((unsigned)((n_rows + LNR - 1) / LNR));
   const size_t smem = 2 * (size_t)(NT / 32) * C * sizeof(float);
-  return dtype == 0 ? bwd::launch_with(bwd::lnb_kernel<float>, grid, smem, stream, a)
-                    : bwd::launch_with(bwd::lnb_kernel<bf16>, grid, smem, stream, a);
+  return dtype == 0 ? mm::launch_with(bwd::lnb_kernel<float>, grid, smem, stream, a)
+                    : mm::launch_with(bwd::lnb_kernel<bf16>, grid, smem, stream, a);
 }
 
 }  // extern "C"

@@ -6,9 +6,12 @@
 Function. On CUDA tensors both directions launch the hand-written Hopper
 kernels of ``csrc/fused_mlp_grn.cu``:
 
-- forward: stats pass A, a (B, M) glue step in plain torch, apply pass B,
-  writing nothing M-wide (M = 4C) to device memory; the (B, M) sum of
-  squares ``ss`` is saved for the backward, as the JAX ``_fwd`` saves it;
+- forward: a LayerNorm prep, pass A (fc1 and GELU, with the GRN
+  statistics' per-row-tile partials), the (B, M) GRN glue in plain torch,
+  pass B (GRN, fc2, mask and residual), as tiled tensor-core products over
+  an M-wide (M = 4C) scratch that lives for the call (see
+  :func:`_fused_cuda`); the (B, M) sum of squares ``ss`` is saved for the
+  backward, as the JAX ``_fwd`` saves it;
 - backward: pass C (GRN statistics cotangent ``P``, ``d grn_beta``,
   ``d fc2``), the (B, M) GRN glue in plain torch, pass D (``d fc1``, the
   LayerNorm parameter gradients and ``dx``), as tiled tensor-core products
@@ -38,6 +41,15 @@ _SQRT2 = math.sqrt(2.0)
 _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL = "fused_mlp_grn"
+# the forward kernels' tiling (checked against the library when it loads):
+# rows and hidden columns of a pass-A tile, rows of a pass-B tile and the
+# output columns it may take
+FWD_ROW_TILE = 128
+FWD_HIDDEN_TILE = 128
+FWD_APPLY_ROWS = 64
+FWD_APPLY_COLS = (128, 256)
+# the grid's row-tile limit (blockIdx.y) of passes A and B
+MAX_ROW_TILES = 65535
 # the backward kernels' tiling (checked against the library when it loads):
 # rows of a front-product tile, rows and columns of a weight-gradient
 # product's tile, the K step, rows per block of the row kernels; and the
@@ -45,11 +57,13 @@ _KERNEL = "fused_mlp_grn"
 BWD_ROW_TILE = 64
 BWD_TILE = 128
 BWD_K_STEP = 64
-BWD_LN_ROWS = 64
+BWD_LN_ROWS = 64  # also the forward prep's
 BWD_MIN_SPLIT_ROWS = 256
 
-# kernel launches on CUDA tensors: forward passes A and B count one each in
-# ``launches``, backward passes C and D one each in ``bwd_launches``
+# kernel launches on CUDA tensors, counted per pass: forward passes A and B
+# one each in ``launches`` (the LayerNorm prep kernel is counted with pass A),
+# backward passes C and D one each in ``bwd_launches`` (each pass runs several
+# kernels and counts once, at its last)
 launches = 0
 bwd_launches = 0
 _lib: ctypes.CDLL | None = None
@@ -236,15 +250,15 @@ def _library() -> ctypes.CDLL:
 
         lib = _build.load(_KERNEL)
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.fmg_stats_tile_rows.argtypes = [i, i, i]
-        lib.fmg_stats_tile_rows.restype = i
-        lib.fmg_apply_supported.argtypes = [i, i, i]
-        lib.fmg_apply_supported.restype = i
-        lib.fmg_stats.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, f, p]
-        lib.fmg_stats.restype = i
-        lib.fmg_apply.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, f, p]
-        lib.fmg_apply.restype = i
         ll = ctypes.c_longlong
+        lib.fmg_fwd_geometry.argtypes = [p]
+        lib.fmg_fwd_geometry.restype = None
+        lib.fmg_fwd_prep.argtypes = [i, p, p, p, p, ll, i, f, p]
+        lib.fmg_fwd_prep.restype = i
+        lib.fmg_fwd_stats.argtypes = [i, *[p] * 6, i, i, i, i, p]
+        lib.fmg_fwd_stats.restype = i
+        lib.fmg_fwd_apply.argtypes = [i, i, *[p] * 9, i, i, i, i, p]
+        lib.fmg_fwd_apply.restype = i
         lib.fmg_bwd_geometry.argtypes = [p]
         lib.fmg_bwd_geometry.restype = None
         lib.fmg_bwd_prep.argtypes = [i, *[p] * 10, ll, i, f, p]
@@ -255,10 +269,14 @@ def _library() -> ctypes.CDLL:
         lib.fmg_bwd_gemm.restype = i
         lib.fmg_bwd_lnb.argtypes = [i, *[p] * 8, ll, i, p]
         lib.fmg_bwd_lnb.restype = i
-        geo = (ctypes.c_int * 4)()
-        lib.fmg_bwd_geometry(geo)
-        if tuple(geo) != (BWD_ROW_TILE, BWD_TILE, BWD_K_STEP, BWD_LN_ROWS):
-            raise RuntimeError(f"kernel library tiles {tuple(geo)} differ from the wrapper's plan")
+        for geometry, want in (
+            (lib.fmg_fwd_geometry, (FWD_ROW_TILE, FWD_HIDDEN_TILE, FWD_APPLY_ROWS, BWD_LN_ROWS)),
+            (lib.fmg_bwd_geometry, (BWD_ROW_TILE, BWD_TILE, BWD_K_STEP, BWD_LN_ROWS)),
+        ):
+            geo = (ctypes.c_int * 4)()
+            geometry(geo)
+            if tuple(geo) != want:
+                raise RuntimeError(f"kernel library tiles {tuple(geo)} differ from the wrapper's plan")
         _lib = lib
     return _lib
 
@@ -294,8 +312,80 @@ def _check_cuda_args(x, other, params, mask):
     return mask.to(device=x.device, dtype=x.dtype).float().contiguous()
 
 
-def _fused_cuda(x, shortcut, params, mask_f, eps_ln, eps_grn):
-    """Passes A and B; returns ``(out, ss)``."""
+@dataclass(frozen=True)
+class FwdPlan:
+    """Grid sizes and scratch shapes of the forward kernels for one call.
+
+    Prep: ``ln_blocks`` blocks of ``BWD_LN_ROWS`` rows write the LayerNorm
+    output (``ln_shape``). Pass A: ``row_tiles`` tiles of ``FWD_ROW_TILE``
+    rows (``tiles_per_sample`` per sample, none straddling two samples) by
+    ``hidden_tiles`` tiles of ``FWD_HIDDEN_TILE`` hidden columns; row tile
+    ``y`` writes its rows of the GELU output (``v_shape``) and row ``y`` of
+    the ``(row_tiles, M)`` column partials of ``(v * mask)^2``. Pass B:
+    ``apply_row_tiles`` tiles of ``FWD_APPLY_ROWS`` rows over all B S rows
+    (a tile may straddle samples) by ``apply_col_tiles`` tiles of
+    ``apply_cols`` output columns."""
+
+    tiles_per_sample: int
+    row_tiles: int
+    hidden_tiles: int
+    apply_row_tiles: int
+    apply_cols: int
+    apply_col_tiles: int
+    ln_blocks: int
+    ln_shape: tuple[int, int]
+    v_shape: tuple[int, int]
+
+    def sample_sums(self, part: torch.Tensor) -> torch.Tensor:
+        """(B, M) per-sample sums of pass A's (row_tiles, M) partials, each
+        over its sample's tiles in tile order: a fixed order."""
+        return part.view(-1, self.tiles_per_sample, part.shape[-1]).sum(dim=1)
+
+
+def _apply_cols(rows: int, c: int, n_sm: int) -> int:
+    """Pass B's tile width: of ``FWD_APPLY_COLS``, the one whose grid takes
+    the least time counted as waves of two blocks per SM, each block's work
+    its output columns plus the v tile it loads and turns into y (as many
+    again as its rows); the wider on a tie, which forms each y tile fewer
+    times. On an H100, 128-column tiles alone made pass B 46 % slower at
+    (B, S, C, M) = (49, 6400, 480, 1920), where this picks 256."""
+
+    def cost(bn: int) -> int:
+        blocks = -(-rows // FWD_APPLY_ROWS) * -(-c // bn)
+        return -(-blocks // (2 * n_sm)) * (bn + FWD_APPLY_ROWS)
+
+    return min(sorted(FWD_APPLY_COLS, reverse=True), key=cost)
+
+
+def fwd_plan(bsz: int, s: int, c: int, m: int, n_sm: int) -> FwdPlan:
+    """The forward's plan at (B, S, C, M) on a card with ``n_sm`` SMs."""
+    n = bsz * s
+    tps = -(-s // FWD_ROW_TILE)
+    cols = _apply_cols(n, c, n_sm)
+    return FwdPlan(
+        tiles_per_sample=tps,
+        row_tiles=bsz * tps,
+        hidden_tiles=-(-m // FWD_HIDDEN_TILE),
+        apply_row_tiles=-(-n // FWD_APPLY_ROWS),
+        apply_cols=cols,
+        apply_col_tiles=-(-c // cols),
+        ln_blocks=-(-n // BWD_LN_ROWS),
+        ln_shape=(n, c),
+        v_shape=(n, m),
+    )
+
+
+def _fused_cuda(x, shortcut, params, mask_f, eps_ln, eps_grn, mark=None):
+    """Prep, pass A, the (B, M) glue and pass B; returns ``(out, ss)``.
+
+    Prep writes the LayerNorm output; pass A writes the GELU output v to an
+    M-wide scratch that lives for the call and the per-row-tile partials of
+    ``(v * mask)^2`` (:func:`fwd_plan`), which the glue sums per sample in
+    a fixed order (no float atomics: two runs give bit-identical outputs)
+    before forming ``nx``; pass B forms ``y = GRN(v)`` on each v tile it
+    loads, multiplies by fc2 and writes ``out`` once. ``mark(stage)``, if
+    given, is called after each stage is enqueued (for timing).
+    """
     global launches
     ln_s, ln_b, w1, b1, gg, gb, w2, b2 = params
     bsz, s, c = x.shape
@@ -303,33 +393,39 @@ def _fused_cuda(x, shortcut, params, mask_f, eps_ln, eps_grn):
     dev = x.device
     lib = _library()
     code = _DTYPE_CODE[x.dtype]
+    mark = mark or (lambda stage: None)
+
+    def check(rc, what):
+        if rc:
+            raise RuntimeError(f"fused_mlp_grn {what} failed to launch (cudaError {rc})")
+
     with torch.cuda.device(dev):
-        tile_rows = lib.fmg_stats_tile_rows(code, c, m)
-        if tile_rows == 0 or not lib.fmg_apply_supported(code, c, m):
-            raise ValueError(f"C={c} ({x.dtype}) does not fit the kernel's shared-memory tiles")
+        plan = fwd_plan(bsz, s, c, m, torch.cuda.get_device_properties(dev).multi_processor_count)
+        if max(plan.row_tiles, plan.apply_row_tiles) > MAX_ROW_TILES or bsz * m >= 2**31:
+            raise ValueError(f"(B, S, C, M) = {(bsz, s, c, m)} exceeds the kernels' grid")
         # weights in the compute dtype, as JAX's _fwd casts them (no copy in f32)
         w1c, w2c = w1.to(x.dtype), w2.to(x.dtype)
-        partial = torch.empty((bsz, -(-s // tile_rows), m), dtype=torch.float32, device=dev)
-        out = torch.empty_like(x)
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-        rc = lib.fmg_stats(
-            code, _ptr(x), _ptr(mask_f), _ptr(ln_s), _ptr(ln_b), _ptr(w1c), _ptr(b1),
-            _ptr(partial), bsz, s, c, m, eps_ln, stream,
-        )
-        if rc:
-            raise RuntimeError(f"fused_mlp_grn stats pass failed to launch (cudaError {rc})")
+        ln = torch.empty(plan.ln_shape, dtype=x.dtype, device=dev)
+        check(lib.fmg_fwd_prep(code, _ptr(x), _ptr(ln_s), _ptr(ln_b), _ptr(ln), bsz * s, c, eps_ln,
+                               stream), "prep")
+        mark("prep")
+        v = torch.empty(plan.v_shape, dtype=x.dtype, device=dev)
+        part = torch.empty((plan.row_tiles, m), dtype=torch.float32, device=dev)
+        check(lib.fmg_fwd_stats(code, _ptr(ln), _ptr(w1c), _ptr(mask_f), _ptr(b1), _ptr(v),
+                                _ptr(part), bsz, s, c, m, stream), "pass A")
         launches += 1
-        # fixed-order reduction over tiles: deterministic, no float atomics
-        ss = partial.sum(dim=1)
-        _, _, nx = _grn_coeffs(ss, eps_grn)
-        rc = lib.fmg_apply(
-            code, _ptr(x), _ptr(shortcut), _ptr(mask_f), _ptr(ln_s), _ptr(ln_b), _ptr(w1c),
-            _ptr(b1), _ptr(nx), _ptr(gg), _ptr(gb), _ptr(w2c), _ptr(b2), _ptr(out),
-            bsz, s, c, m, eps_ln, stream,
-        )
-        if rc:
-            raise RuntimeError(f"fused_mlp_grn apply pass failed to launch (cudaError {rc})")
+        mark("pass A")
+        del ln
+        ss = plan.sample_sums(part)
+        nx = _grn_coeffs(ss, eps_grn)[2].contiguous()
+        mark("glue")
+        out = torch.empty_like(x)
+        check(lib.fmg_fwd_apply(code, plan.apply_cols, _ptr(v), _ptr(w2c), _ptr(shortcut),
+                                _ptr(mask_f), _ptr(nx), _ptr(gg), _ptr(gb), _ptr(b2), _ptr(out),
+                                bsz, s, c, m, stream), "pass B")
         launches += 1
+        mark("pass B")
     return out, ss
 
 
