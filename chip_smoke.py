@@ -27,9 +27,13 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
            ``torch.matmul`` in bf16 on each product's (M, N, K).
 5. warp    the affine-warp kernel at (16,3,20,600,600) -> (16,3,15,384,384)
            with the center-crop offset and production-range matrices,
-           against the plain version in zeros and border modes; medians of
-           kernel, plain and ``F.affine_grid`` + ``F.grid_sample``; bounds
-           from the full input and from the input voxels the maps touch.
+           against the plain version in zeros, border and reflection modes,
+           with flip signs, and as the affine member calls it (source and
+           target keys, apply mask), two runs bit-identical, direct-path
+           blocks against ``warp_plan``; medians of kernel, plain and
+           ``F.affine_grid`` + ``F.grid_sample``, and of the whole affine
+           member at the production draws; bounds from the full input and
+           from the input voxels the maps touch, and the member's bound.
 6. slice   the flagship VSUNet (FCMAE UNeXt2, dims 96-768, bf16, seeded
            weights with non-zero GRN gamma/beta) serves three 2048^2 x 15
            FOVs through ``Trainer.predict`` with YX tiling, in five timed
@@ -44,10 +48,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
            bf16 inputs, the fused backward kernels, AdamW + WarmupCosine.
            One warm-up step, then five timed rounds of four steps (patches/s
            per round, step latency, peak memory); checks the loss at every
-           step, that parameters moved and the launch counts per step; one
-           profiled step; then one f32 step (batch 1, (20,160,160) ->
-           (15,128,128), fixed draws) on the card against the CPU: the
-           augmented batch, the loss and every parameter gradient.
+           step, that parameters moved and the launch counts per step; the
+           warp's direct-path share; one profiled step; then one f32 step
+           (batch 1, (20,160,160) -> (15,128,128), fixed draws) on the card
+           against the CPU: the augmented batch, the loss and every
+           parameter gradient.
 
 The last two lines are a JSON ``kernels`` record and the JSON result line.
 Needs ``torch.cuda.is_available()`` and the repo's ``viscy_tpu_torch``
@@ -784,8 +789,10 @@ def touched_input_voxels(mats, offset, in_shape, out_shape) -> int:
     output point whose coordinates lie inside the volume, counted once."""
     from viscy_tpu_torch.ops import warp as tw
 
+    b = mats.shape[0]
+    if b == 0:
+        return 0
     grids = tw.affine_grid_3d(mats, in_shape, out_shape, offset)
-    b = grids.shape[0]
     zi, yi, xi = in_shape
     n_in = zi * yi * xi
     inside = torch.ones(grids.shape[:1] + grids.shape[2:], dtype=torch.bool, device=grids.device)
@@ -806,36 +813,39 @@ def touched_input_voxels(mats, offset, in_shape, out_shape) -> int:
     return int(read[:, :n_in].sum())
 
 
-def phase_warp() -> dict:
+def warp_inputs():
+    """Seeded (16, 3, 20, 600, 600) stacks in [0, 1], the production affine
+    member (center crop fused) with its draws, their maps and crop offset."""
     from viscy_tpu_torch.ops import warp as tw
-    from viscy_tpu_torch.ops import warp3d
 
-    b, c = TRAIN_BATCH, 3
     gen = torch.Generator(device="cuda").manual_seed(50)
-    vol = torch.rand((b, c, *TRAIN_STACK), generator=gen, device="cuda")
+    vol = torch.rand((TRAIN_BATCH, 3, *TRAIN_STACK), generator=gen, device="cuda")
     affine = production_aug(TRAIN_PATCH).transforms[0]
     d = affine.draw({"source": vol}, gen)
     mats = tw.compose_affine_3d(rotation=d["rotation"], scale=d["scale"], shear=d["shear"],
                                 translate=d["translate"])
     offset = tuple((s - r) // 2 - (s - r) / 2.0 for r, s in zip(TRAIN_PATCH, TRAIN_STACK))
-    worst = 0.0
-    for mode in ("zeros", "border"):
-        got = warp3d.affine_warp_3d(vol, mats, TRAIN_PATCH, mode, offset)
-        want = tw.affine_warp_3d(vol, mats, TRAIN_PATCH, mode, offset)
-        lib = library_warp(vol, mats, offset, TRAIN_PATCH, mode)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        lib_err = float((lib - got).abs().max())
-        worst = max(worst, err)
-        log(f"[warp] {mode}: kernel vs plain max|d|={err:.3e} (bound 1e-6, inputs in [0, 1]); "
-            f"grid_sample vs kernel max|d|={lib_err:.3e}")
-        if not (bool(torch.isfinite(got).all()) and err <= 1e-6):
-            raise AssertionError(f"warp kernel disagrees with the plain version ({mode})")
-        del got, want, lib
+    return vol, affine, d, mats, offset
+
+
+def phase_warp_time() -> dict:
+    """Times of the warp kernel (every sample warped, zeros, one 3-channel
+    key: the shape earlier versions of the kernel were timed at), its
+    plain version and ``grid_sample``, and of the whole affine member
+    (``BatchedRandAffined.apply``: source and target keys, its own
+    application mask) at the production draws, each beside its bound.
+    Uses only what every version of the port has (``affine_warp_3d`` and
+    the transform), so an A/B can run it on an older tree."""
+    from viscy_tpu_torch.ops import warp as tw
+    from viscy_tpu_torch.ops import warp3d
+
+    vol, affine, d, mats, offset = warp_inputs()
+    b, c = vol.shape[:2]
     kernel_ms = cuda_median_ms(lambda: warp3d.affine_warp_3d(vol, mats, TRAIN_PATCH, "zeros", offset))
     plain_ms = cuda_median_ms(lambda: tw.affine_warp_3d(vol, mats, TRAIN_PATCH, "zeros", offset), runs=5)
     library_ms = cuda_median_ms(lambda: library_warp(vol, mats, offset, TRAIN_PATCH, "zeros"))
-    n_out = b * c * math.prod(TRAIN_PATCH)
+    n_patch = math.prod(TRAIN_PATCH)
+    n_out = b * c * n_patch
     full_bytes = (b * c * math.prod(TRAIN_STACK) + n_out) * 4
     touched = touched_input_voxels(mats, offset, TRAIN_STACK, TRAIN_PATCH)
     touched_bytes = (touched * c + n_out) * 4 + mats.numel() * 4
@@ -846,10 +856,79 @@ def phase_warp() -> dict:
         f"{touched} touched input voxels x {c} ch = {touched / (b * math.prod(TRAIN_STACK)):.1%} of "
         f"the input, read once, + output) = {bound / kernel_ms:.3f} of bound; the whole input read "
         f"once + output: {full_bytes / 1e9:.3f} GB, {full_ms:.4f} ms")
+    # the member as the train step runs it: two keys, 20 % of samples unapplied
+    data = {"source": vol[:, :1].contiguous(), "target": vol[:, 1:].contiguous()}
     del vol
     torch.cuda.empty_cache()
+    member_ms = cuda_median_ms(lambda: affine.apply(dict(data), d))
+    compose_ms = cuda_median_ms(lambda: tw.compose_affine_3d(rotation=d["rotation"], scale=d["scale"],
+                                                             shear=d["shear"], translate=d["translate"]))
+    mask = d["mask"]
+    n_kept = int((~mask).sum())
+    touched_applied = touched_input_voxels(mats[mask], offset, TRAIN_STACK, TRAIN_PATCH)
+    member_bytes = (touched_applied * c + n_kept * c * n_patch + n_out) * 4
+    member_bound = member_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"[warp] affine member (BatchedRandAffined.apply, source 1 ch + target 2 ch, "
+        f"{b - n_kept} of {b} samples applied): median {member_ms:.3f} ms; member bound "
+        f"{member_bound:.4f} ms (bytes: touched voxels of the applied samples + crops of the "
+        f"others, read once, + output) = {member_bound / member_ms:.3f} of bound; of it "
+        f"compose_affine_3d (the maps) {compose_ms:.3f} ms")
+    del data
+    torch.cuda.empty_cache()
     return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
-                bound_by="bytes", max_abs_err=worst)
+                bound_by="bytes")
+
+
+def phase_warp() -> dict:
+    """The warp kernel against its plain version at the train shapes in
+    every mode, with flip signs, and as the affine member calls it (source
+    and target keys in one launch, the member's apply mask): max|d| <= 1e-6,
+    two runs bit-identical, direct-path blocks as ``warp_plan`` predicts;
+    then :func:`phase_warp_time`."""
+    from viscy_tpu_torch.ops import warp as tw
+    from viscy_tpu_torch.ops import warp3d
+
+    vol, _, d, mats, offset = warp_inputs()
+    b, c = vol.shape[:2]
+    g = torch.Generator(device="cuda").manual_seed(51)
+    signs = torch.where(torch.rand((b, 3), generator=g, device="cuda") < 0.5, -1.0, 1.0)
+    keys = [vol[:, :1].contiguous(), vol[:, 1:].contiguous()]
+    cases = [("zeros", "zeros", [vol], None, None), ("border", "border", [vol], None, None),
+             ("reflection", "reflection", [vol], None, None),
+             ("zeros, flip signs", "zeros", [vol], signs, None),
+             ("zeros, member call (source 1 ch + target 2 ch, apply mask)", "zeros", keys, None, d["mask"])]
+    counters = warp3d.direct_counter("cuda")
+    n_tiles = warp3d.tiles(TRAIN_PATCH)
+    worst = 0.0
+    for label, mode, vols, flips, mask in cases:
+        counters.zero_()
+        got = warp3d.affine_warp_3d_keys(vols, mats, TRAIN_PATCH, mode, offset, flips, mask)
+        seen = counters.tolist()
+        again = warp3d.affine_warp_3d_keys(vols, mats, TRAIN_PATCH, mode, offset, flips, mask)
+        want = tw.affine_warp_3d_keys(vols, mats, TRAIN_PATCH, mode, offset, flips, mask)
+        torch.cuda.synchronize()
+        err = max(float((a - w).abs().max()) for a, w in zip(got, want))
+        same = all(torch.equal(a, r) for a, r in zip(got, again))
+        finite = all(bool(torch.isfinite(a).all()) for a in got)
+        worst = max(worst, err)
+        plan = warp3d.warp_plan(mats, TRAIN_STACK, TRAIN_PATCH, mode, offset, flips, channels=c)
+        applied = torch.ones(b, dtype=torch.bool, device="cuda") if mask is None else mask
+        expected = int(plan.direct_blocks[applied].sum())
+        line = (f"[warp] {label}: kernel vs plain max|d|={err:.3e} (bound 1e-6, inputs in [0, 1]), "
+                f"two runs {'bit-identical' if same else 'DIFFER'}; direct-path blocks {seen[0]} of "
+                f"{seen[2] * n_tiles} ({seen[0] / max(seen[2] * n_tiles, 1):.1%}; plan {expected}), "
+                f"voxels of staged slices read directly {seen[1]}")
+        if mask is None and mode != "reflection" and flips is None:
+            lib = library_warp(vol, mats, offset, TRAIN_PATCH, mode)
+            line += f"; grid_sample vs kernel max|d|={float((lib - got[0]).abs().max()):.3e}"
+            del lib
+        log(line)
+        if not (finite and same and err <= 1e-6 and seen[0] == expected and seen[2] == int(applied.sum())):
+            raise AssertionError(f"warp kernel check failed ({label})")
+        del got, again, want
+    del vol, keys
+    torch.cuda.empty_cache()
+    return dict(phase_warp_time(), max_abs_err=worst)
 
 
 def _stack_datamodule(batch: dict, steps: int, aug):
@@ -1011,12 +1090,19 @@ def phase_train(card: str) -> dict:
              "encoder.stages.3.blocks.0.mlp.grn.weight", "decoder.decoder_stages.2.conv.blocks.1.mlp.fc2.weight"]
     before = {n: watched[n].detach().clone() for n in names}
     torch.cuda.reset_peak_memory_stats()
+    direct = warp3d.direct_counter("cuda")
+    direct.zero_()
     fb.launches = fb.bwd_launches = warp3d.launches = 0
     t0 = time.perf_counter()
     trainer.fit(module, dm)
     torch.cuda.synchronize()
     counts = dict(fwd=fb.launches, bwd=fb.bwd_launches, warp=warp3d.launches)
     total_s = time.perf_counter() - t0
+    d_blocks, d_voxels, warped = direct.tolist()
+    warp_blocks = warped * warp3d.tiles(TRAIN_PATCH)
+    log(f"[train] warp: {warped} samples warped, {n_steps * TRAIN_BATCH - warped} copied as crops; "
+        f"direct-path blocks {d_blocks} of {warp_blocks} ({d_blocks / max(warp_blocks, 1):.1%}), "
+        f"voxels of staged slices read directly {d_voxels}")
     per_fwd = len(kernel_shapes(FLAGSHIP, TRAIN_PATCH[-1]))
     want = dict(fwd=2 * per_fwd * n_steps, bwd=2 * per_fwd * n_steps, warp=n_steps)
     log(f"[train] {n_steps} steps in {total_s:.1f} s; launches A+B {counts['fwd']}, C+D {counts['bwd']}, "

@@ -237,3 +237,125 @@ def test_warp_kernel_matches_plain_on_card(in_shape, out_shape, offset, mode):
         assert warp3d.launches == before + 1
         assert got.shape == (b, 3, *out_shape)
         assert float((got - want).abs().max()) <= 1e-6
+
+
+def _warp_keys_case(in_shape, b, seed, scale=None):
+    """Two keys (1 and 2 channels), production-range maps (or the given
+    per-axis scale), per-sample offsets, flip signs, an apply mask that
+    leaves samples 1 and 3 alone."""
+    from viscy_tpu_torch.ops import warp as tw
+
+    gen = torch.Generator().manual_seed(seed)
+    keys = [torch.rand((b, 1, *in_shape), generator=gen), torch.rand((b, 2, *in_shape), generator=gen)]
+    rot = (torch.rand((b, 3), generator=gen) - 0.5) * torch.tensor([6.28, 0.0, 0.0])
+    if scale is None:
+        lo, hi = torch.tensor([0.7, 0.5, 0.5]), torch.tensor([1.3, 1.5, 1.5])
+        scale = lo + (hi - lo) * torch.rand((b, 3), generator=gen)
+    else:
+        scale = torch.tensor(scale).expand(b, 3)
+    shear = torch.zeros((b, 6))
+    shear[:, 1:3] = (torch.rand((b, 2), generator=gen) - 0.5) * torch.tensor([0.1 * in_shape[0] / in_shape[1], 0.1])
+    mats = tw.compose_affine_3d(rotation=rot, scale=scale, shear=shear)
+    off = (torch.rand((b, 3), generator=gen) - 0.5) * 2
+    signs = torch.where(torch.rand((b, 3), generator=gen) < 0.5, -1.0, 1.0)
+    mask = torch.ones(b, dtype=torch.bool)
+    mask[1::2] = False
+    return keys, mats, off, signs, mask
+
+
+def _check_warp_keys_on_card(keys, mats, out_shape, mode, off, signs, mask):
+    """Kernel vs plain on the card: max|d| <= 1e-6 (inputs in [0, 1]), one
+    launch, two runs bit-identical, direct-path blocks as the plan says.
+    Returns the kernel's counters."""
+    from viscy_tpu_torch.ops import warp as tw
+    from viscy_tpu_torch.ops import warp3d
+
+    dev = lambda t: None if t is None else t.cuda()
+    cuda_keys = [k.cuda() for k in keys]
+    vec = keys[0].shape[-1] % 4 == 0 and all(k.data_ptr() % 16 == 0 for k in cuda_keys)
+    args = (cuda_keys, mats.cuda(), out_shape, mode, dev(off), dev(signs))
+    counters = warp3d.direct_counter("cuda")
+    counters.zero_()
+    before = warp3d.launches
+    got = warp3d.affine_warp_3d_keys(*args, apply_mask=dev(mask))
+    torch.cuda.synchronize()
+    assert warp3d.launches == before + 1
+    seen = counters.cpu().tolist()
+    again = warp3d.affine_warp_3d_keys(*args, apply_mask=dev(mask))
+    want = tw.affine_warp_3d_keys(*args, apply_mask=dev(mask))
+    torch.cuda.synchronize()
+    for g, a, w, k in zip(got, again, want, keys):
+        assert g.shape == (k.shape[0], k.shape[1], *out_shape)
+        assert torch.equal(g, a)
+        assert float((g - w).abs().max()) <= 1e-6
+    plan = warp3d.warp_plan(mats, keys[0].shape[-3:], out_shape, mode, off, signs,
+                            channels=sum(k.shape[1] for k in keys), vec=vec)
+    applied = torch.ones(len(mats), dtype=torch.bool) if mask is None else mask
+    assert seen[0] == int(plan.direct_blocks[applied].sum())
+    assert seen[2] == int(applied.sum())
+    return seen
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["zeros", "border", "reflection"])
+@pytest.mark.parametrize("flip", [False, True], ids=["noflip", "flip"])
+@pytest.mark.parametrize(
+    "in_shape,out_shape",
+    [((9, 50, 41), (6, 45, 38)), ((20, 60, 64), (15, 38, 41))],
+    ids=["ragged-4B", "crop-16B"],
+)
+def test_warp_keys_kernel_matches_plain_on_card(in_shape, out_shape, mode, flip):
+    """Two keys (1 + 2 channels) in one launch, an apply mask leaving two
+    samples as exact crops, tiles ragged at both edges; the 4-byte (Xi =
+    41) and 16-byte (Xi = 64) staging."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    keys, mats, off, signs, mask = _warp_keys_case(in_shape, b=4, seed=5)
+    seen = _check_warp_keys_on_card(keys, mats, out_shape, mode, off, signs if flip else None, mask)
+    if mode != "reflection":
+        assert seen[0] == 0 and seen[1] == 0  # production-range maps stage every read
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("zoom", [3, 10])
+def test_warp_kernel_large_boxes_match_plain_on_card(zoom):
+    """Zoomed out 3x in y and x, a tile's box holds one slice's planes of
+    one channel but not of three: the blocks stage one channel per pass.
+    At 10x it holds neither: interior blocks take the direct path. The
+    result is the plain version's either way; an unaligned source takes
+    the 4-byte staging."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    keys, mats, off, signs, mask = _warp_keys_case((10, 200, 200), b=3, seed=6,
+                                                   scale=[0.7, 1 / zoom, 1 / zoom])
+    from viscy_tpu_torch.ops import warp3d
+
+    plan = warp3d.warp_plan(mats, (10, 200, 200), (8, 48, 48), "zeros", off, signs, channels=3)
+    assert (plan.cpass == 1).any()
+    seen = _check_warp_keys_on_card(keys, mats, (8, 48, 48), "zeros", off, signs, None)
+    assert (seen[0] > 0) == (zoom == 10)
+    flat = torch.empty(keys[1].numel() + 1, device="cuda")
+    shifted = flat[1:].view(keys[1].shape)  # 4 bytes off 16-byte alignment
+    shifted.copy_(keys[1])
+    _check_warp_keys_on_card([keys[0], shifted], mats, (8, 48, 48), "border", off, signs, mask)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "channels,in_shape,out_shape",
+    [((1,), (9, 50, 44), (6, 45, 38)), ((2,), (9, 50, 44), (6, 45, 38)),
+     ((1, 3), (9, 50, 44), (6, 45, 38)), ((2, 3), (9, 50, 44), (6, 45, 38)),
+     ((1, 2), (134, 30, 28), (130, 20, 18))],
+    ids=["1ch", "2ch", "4ch", "5ch-any-count", "130-slices"],
+)
+def test_warp_kernel_channel_counts_and_long_runs_on_card(channels, in_shape, out_shape):
+    """Every instance of the kernel (1-4 channels, and any count) and a run
+    of output slices longer than a block has threads (the slice table is
+    filled in strides), against the plain version with an apply mask."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    _, mats, off, signs, mask = _warp_keys_case(in_shape, b=4, seed=7)
+    gen = torch.Generator().manual_seed(8)
+    keys = [torch.rand((4, c, *in_shape), generator=gen) for c in channels]
+    seen = _check_warp_keys_on_card(keys, mats, out_shape, "zeros", off, signs, mask)
+    assert seen[0] == 0 and seen[1] == 0

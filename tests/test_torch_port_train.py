@@ -153,6 +153,20 @@ def test_two_fit_steps_match_two_jax_steps(setup):
         assert not torch.equal(p.detach(), before[name]), name
 
 
+def test_training_loss_refuses_an_fg_mask_batch(setup):
+    """A batch with ``fg_mask`` raises (its loss, SpotlightLoss, is not
+    ported, so the mask would be dropped); the same batch without it trains
+    as before."""
+    params, _, value_and_grad = setup
+    batch = _batch(seed=3)
+    tmod = _torch_engine(params)
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    with pytest.raises(NotImplementedError, match="SpotlightLoss"):
+        tmod.training_loss(dict(tbatch, fg_mask=torch.ones_like(tbatch["target"], dtype=torch.bool)))
+    jloss, _ = value_and_grad(params, {k: jnp.asarray(v) for k, v in batch.items()})
+    np.testing.assert_allclose(float(tmod.training_loss(tbatch)), float(jloss), rtol=1e-5)
+
+
 def test_fit_runs_the_device_transform_with_the_seeded_generator():
     """Trainer.fit hands the datamodule's device transform its generator
     (seeded with seed + 1) at every step; no kernel launches on the CPU."""

@@ -22,7 +22,7 @@ from pathlib import Path
 
 KEEP = ("[env] nvidia-smi", "per step", "per forward", "time S=", "stage S=", "stages sum",
         "patches/s median", "FOVs/s median", "[profile] one train step", "[profile] one request",
-        "[done]")
+        "[warp]", "[train] warp", "[done]")
 
 
 def turn_code(phases: list[str]) -> str:

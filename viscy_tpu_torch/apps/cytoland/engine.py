@@ -122,7 +122,14 @@ class VSUNet(TrainModule):
 
     def training_loss(self, batch: dict) -> torch.Tensor:
         """Supervised loss of the forward on ``batch["source"]`` against
-        ``batch["target"]`` (NCDHW)."""
+        ``batch["target"]`` (NCDHW). A batch with an ``fg_mask`` raises: the
+        reference routes it to ``SpotlightLoss``, which is not ported, and
+        dropping it would train unmasked."""
+        if "fg_mask" in batch:
+            raise NotImplementedError(
+                "batch carries fg_mask, but its loss (SpotlightLoss) is not ported; "
+                "the mask would be ignored"
+            )
         return self._compute_loss(self.forward(batch["source"]), batch["target"])
 
     def configure_optimizers(self, total_steps: int):

@@ -94,6 +94,42 @@ def _per_sample_offsets(out_offset, b: int, device) -> torch.Tensor:
     return torch.tensor([float(o) for o in out_offset], device=device).expand(b, 3)
 
 
+def grid_points(
+    matrices: torch.Tensor,
+    in_shape: Sequence[int],
+    out_shape: Sequence[int],
+    index: Sequence[torch.Tensor],
+    out_offset: Sequence[float] | torch.Tensor | None = None,
+    flip_signs: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Input voxel coordinates ``(z, y, x)``, each ``(B, len(iz), len(iy),
+    len(ix))``, of the output voxels at the index vectors ``index = (iz, iy,
+    ix)``: the arithmetic of :func:`affine_grid_3d` (and of the kernel) at
+    chosen points, so a corner's coordinate here equals that voxel's in the
+    full grid bit for bit."""
+    m = matrices.float()
+    b, dev = m.shape[0], m.device
+    off = _per_sample_offsets(out_offset, b, dev)
+    signs = torch.ones((b, 3), device=dev) if flip_signs is None else flip_signs.float()
+
+    def axis(a, shape):
+        n = out_shape[a]
+        centered = index[a].to(device=dev, dtype=torch.float32) - (n - 1) / 2.0
+        q = signs[:, a, None] * centered[None] + off[:, a, None]
+        return q.reshape(b, *shape)
+
+    qz = axis(0, (-1, 1, 1))
+    qy = axis(1, (1, -1, 1))
+    qx = axis(2, (1, 1, -1))
+    shape = (b, len(index[0]), len(index[1]), len(index[2]))
+    rows = []
+    for a in range(3):
+        mm = m[:, a].reshape(b, 4, 1, 1, 1)
+        p = mm[:, 0] * qz + mm[:, 1] * qy + mm[:, 2] * qx + mm[:, 3] + (in_shape[a] - 1) / 2.0
+        rows.append(p.expand(shape))
+    return tuple(rows)
+
+
 def affine_grid_3d(
     matrices: torch.Tensor,
     in_shape: Sequence[int],
@@ -108,28 +144,8 @@ def affine_grid_3d(
     + off_a``: ``out_offset`` (a per-axis tuple, or a per-sample ``(B, 3)``
     tensor) shifts it, as a fused crop does; ``flip_signs`` (``(B, 3)`` of
     +-1) mirrors it first, as a fused flip does."""
-    zo, yo, xo = out_shape
-    zi, yi, xi = in_shape
-    m = matrices.float()
-    b, dev = m.shape[0], m.device
-    off = _per_sample_offsets(out_offset, b, dev)
-    signs = torch.ones((b, 3), device=dev) if flip_signs is None else flip_signs.float()
-
-    def axis(n, a, shape):
-        centered = torch.arange(n, dtype=torch.float32, device=dev) - (n - 1) / 2.0
-        q = signs[:, a, None] * centered[None] + off[:, a, None]
-        return q.reshape(b, *shape)
-
-    qz = axis(zo, 0, (zo, 1, 1))
-    qy = axis(yo, 1, (1, yo, 1))
-    qx = axis(xo, 2, (1, 1, xo))
-    center_in = ((zi - 1) / 2.0, (yi - 1) / 2.0, (xi - 1) / 2.0)
-    rows = []
-    for a in range(3):
-        mm = m[:, a].reshape(b, 4, 1, 1, 1)
-        p = mm[:, 0] * qz + mm[:, 1] * qy + mm[:, 2] * qx + mm[:, 3] + center_in[a]
-        rows.append(p.expand(b, zo, yo, xo))
-    return torch.stack(rows, dim=1)
+    index = [torch.arange(n, dtype=torch.float32, device=matrices.device) for n in out_shape]
+    return torch.stack(grid_points(matrices, in_shape, out_shape, index, out_offset, flip_signs), dim=1)
 
 
 def affine_warp_3d(
@@ -147,6 +163,38 @@ def affine_warp_3d(
     out_shape = in_shape if out_shape is None else tuple(out_shape)
     grids = affine_grid_3d(matrices, in_shape, out_shape, out_offset, flip_signs)
     return batched_trilinear_sample(vol, grids, padding_mode)
+
+
+def crop_start(in_shape: Sequence[int], out_shape: Sequence[int]) -> tuple[int, int, int]:
+    """The integer center-crop start ``(n_in - n_out) // 2`` per axis, as
+    ``transforms.crop.center_crop`` takes it."""
+    return tuple((i - o) // 2 for i, o in zip(in_shape, out_shape))
+
+
+def affine_warp_3d_keys(
+    vols: Sequence[torch.Tensor],
+    matrices: torch.Tensor,
+    out_shape: Sequence[int] | None = None,
+    padding_mode: Padding = "zeros",
+    out_offset: Sequence[float] | torch.Tensor | None = None,
+    flip_signs: torch.Tensor | None = None,
+    apply_mask: torch.Tensor | None = None,
+) -> list[torch.Tensor]:
+    """:func:`affine_warp_3d` of several ``(B, C_k, Z, Y, X)`` keys on one
+    set of coordinates. Where ``apply_mask`` (``(B,)`` bool) is False, a
+    sample's output is instead the exact integer crop ``x[..., s:s+r]`` of
+    its input, ``s =`` :func:`crop_start`."""
+    in_shape = tuple(vols[0].shape[-3:])
+    out_shape = in_shape if out_shape is None else tuple(out_shape)
+    grids = affine_grid_3d(matrices, in_shape, out_shape, out_offset, flip_signs)
+    outs = [batched_trilinear_sample(v, grids, padding_mode) for v in vols]
+    del grids
+    if apply_mask is not None:
+        crop = tuple(slice(a, a + n) for a, n in zip(crop_start(in_shape, out_shape), out_shape))
+        keep = ~apply_mask.to(device=vols[0].device, dtype=torch.bool)
+        for v, o in zip(vols, outs):
+            o[keep] = v[(Ellipsis, *crop)][keep].to(o.dtype)
+    return outs
 
 
 def compose_affine_3d(
@@ -191,7 +239,10 @@ def compose_affine_3d(
         fwd = torch.matmul(rz, torch.matmul(ry, torch.matmul(rx, fwd)))
     if scale is not None:
         fwd = fwd * scale[:, :, None]
-    inv = torch.linalg.inv(fwd.float())
+    # inv_ex: the same inverse without inv's singularity check, which reads
+    # a status back from the card (a host sync per call); jnp.linalg.inv
+    # does not raise either
+    inv = torch.linalg.inv_ex(fwd.float()).inverse
     if translate is not None:
         t = -torch.matmul(inv, translate.float()[:, :, None])[:, :, 0]
     else:

@@ -3,9 +3,9 @@
 
 Per-sample rotate / shear / translate / scale draws shared across keys, MONAI
 (Z, Y, X) parameter order, an optional fused downstream center crop, and
-one warp for all keys stacked along channels. The warp goes through
-:func:`viscy_tpu_torch.ops.warp3d.affine_warp_3d`: the hand-written kernel
-on the card, its plain version on the CPU.
+one warp for all keys, the apply mask included. The warp goes through
+:func:`viscy_tpu_torch.ops.warp3d.affine_warp_3d_keys`: one launch of the
+hand-written kernel on the card, its plain version on the CPU.
 """
 
 from __future__ import annotations
@@ -15,9 +15,8 @@ from typing import Iterable, Sequence
 import torch
 
 from viscy_tpu_torch.ops.warp import compose_affine_3d
-from viscy_tpu_torch.ops.warp3d import affine_warp_3d
+from viscy_tpu_torch.ops.warp3d import affine_warp_3d_keys
 from viscy_tpu_torch.transforms.base import RandTransform
-from viscy_tpu_torch.transforms.crop import center_crop
 
 __all__ = ["BatchedRandAffined"]
 
@@ -177,17 +176,12 @@ class BatchedRandAffined(RandTransform):
             # the integer crop start (s - r) // 2 sits half a voxel off the
             # exact center when s - r is odd; the grid offset absorbs it
             offset = tuple((s - r) // 2 - (s - r) / 2.0 for r, s in zip(out_shape, spatial))
-        # every key in ONE warp: channels stacked, one set of coordinates
+        # every key in one launch on one set of coordinates; a sample the
+        # mask leaves alone gets the integer center crop (center_crop's
+        # start), copied by the same launch
         keys = list(self.key_iterator(data))
-        splits = [data[k].shape[1] for k in keys]
-        stacked = torch.cat([data[k] for k in keys], dim=1)
-        warped = affine_warp_3d(stacked, matrices, out_shape, self.padding_mode, offset)
-        start = 0
-        for k, c in zip(keys, splits):
-            x = data[k]
-            new = warped[:, start : start + c]
-            start += c
-            if self.crop_size is not None:
-                x = center_crop(x, out_shape)
-            data[k] = self._where(draws["mask"], new.to(x.dtype), x)
+        outs = affine_warp_3d_keys([data[k] for k in keys], matrices, out_shape, self.padding_mode,
+                                   offset, apply_mask=draws["mask"])
+        for k, out in zip(keys, outs):
+            data[k] = out
         return data
