@@ -359,3 +359,74 @@ def test_warp_kernel_channel_counts_and_long_runs_on_card(channels, in_shape, ou
     keys = [torch.rand((4, c, *in_shape), generator=gen) for c in channels]
     seen = _check_warp_keys_on_card(keys, mats, out_shape, "zeros", off, signs, mask)
     assert seen[0] == 0 and seen[1] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", ["none", "flip", "randcrop"])
+def test_warp_kernel_on_the_recipe_member_with_a_bool_mask_on_card(monkeypatch, fused):
+    """The VSCyto3D fit recipe's affine (in == out (15, 64, 64)) with a
+    bool ``fg_mask`` key beside source and target: as the recipe runs it
+    (the member's apply mask), with a fused in-plane flip, and with a fused
+    random crop to (7, 47, 45) (odd S - R on every axis). With a fusion the
+    apply mask goes into the maps: an unapplied sample is warped by the
+    identity, so it is its input (random crop) exactly, flipped where its
+    draw says. One launch; the kernel equals the plain version on the card
+    on the arguments the member passed, floats to 1e-6 and the bool key
+    exactly (nonzero -> True after the f32 warp)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from viscy_tpu_torch import transforms as T
+    from viscy_tpu_torch.ops import warp as tw
+    from viscy_tpu_torch.ops import warp3d
+    from viscy_tpu_torch.transforms import affine as taffine
+
+    calls = []
+
+    def spy(*args, **kwargs):
+        calls.append((args, kwargs))
+        return warp3d.affine_warp_3d_keys(*args, **kwargs)
+
+    monkeypatch.setattr(taffine, "affine_warp_3d_keys", spy)
+    keys = ["source", "target", "fg_mask"]
+    members = [T.BatchedRandAffined(keys=keys, prob=0.5, rotate_range=[3.14, 0.0, 0.0],
+                                    scale_range=[[1.0, 1.3], [0.75, 1.3], [0.75, 1.3]])]
+    if fused == "flip":
+        members.append(T.BatchedRandFlipd(keys=keys, spatial_axes=(1, 2), prob=0.5))
+    elif fused == "randcrop":
+        members.append(T.BatchedRandSpatialCropd(keys=keys, roi_size=[7, 47, 45]))
+    compose = T.Compose(members)
+    assert len(compose) == 1
+    member = compose.transforms[0]
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    b, shape = 8, (15, 64, 64)
+    data = {"source": torch.rand((b, 1, *shape), generator=gen, device="cuda"),
+            "target": torch.rand((b, 2, *shape), generator=gen, device="cuda"),
+            "fg_mask": torch.rand((b, 1, *shape), generator=gen, device="cuda") > 0.7}
+    draws = member.draw(data, gen)
+    draws["mask"][:2] = False
+    draws["mask"][2:4] = True
+    if fused == "flip":
+        draws["flips"][:2] = torch.tensor([[True, False], [True, True]], device="cuda")
+    before = warp3d.launches
+    got = member(dict(data), draws=draws)
+    torch.cuda.synchronize()
+    assert warp3d.launches == before + 1 and len(calls) == 1
+    args, kwargs = calls[0]
+    # the mask went into the maps exactly when a flip or random crop is fused
+    assert (kwargs.get("apply_mask") is None) == (fused != "none")
+    want = dict(zip(keys, tw.affine_warp_3d_keys(*args, **kwargs)))
+    for k in keys:
+        assert got[k].dtype == data[k].dtype and got[k].shape == want[k].shape
+        if k == "fg_mask":
+            assert torch.equal(got[k], want[k])
+        else:
+            assert float((got[k] - want[k]).abs().max()) <= 1e-6
+    for k in keys:
+        if fused == "randcrop":
+            crops = T.batched_crop_at(data[k], draws["starts"], (7, 47, 45))
+            assert torch.equal(got[k][:2], crops[:2])
+        elif fused == "flip":
+            assert torch.equal(got[k][0], data[k][0].flip(-2))
+            assert torch.equal(got[k][1], data[k][1].flip(-2, -1))
+        else:
+            assert torch.equal(got[k][:2], data[k][:2])

@@ -119,7 +119,7 @@ class _Losses(Callback):
         self.events.append("end")
 
 
-def test_two_fit_steps_match_two_jax_steps(setup):
+def test_two_fit_steps_match_two_jax_steps(setup, tmp_path):
     params, jmod, value_and_grad = setup
     batch = _batch(seed=1)
     tx, sched = jmod.configure_optimizers(total_steps=2)
@@ -137,7 +137,8 @@ def test_two_fit_steps_match_two_jax_steps(setup):
     before = {n: p.detach().clone() for n, p in tmod.model.named_parameters()}
     rec = _Losses()
     dm = _InMemory(batch, steps=5)
-    trainer = Trainer(max_steps=2, callbacks=[rec], log_every_n_steps=1, device="cpu")
+    trainer = Trainer(max_steps=2, callbacks=[rec], log_every_n_steps=1, default_root_dir=tmp_path,
+                      device="cpu")
     trainer.fit(tmod, dm)
     assert dm.stages == ["fit"] and trainer.global_step == 2
     assert rec.events[0] == "start" and rec.events[-1] == "end"
@@ -153,21 +154,7 @@ def test_two_fit_steps_match_two_jax_steps(setup):
         assert not torch.equal(p.detach(), before[name]), name
 
 
-def test_training_loss_refuses_an_fg_mask_batch(setup):
-    """A batch with ``fg_mask`` raises (its loss, SpotlightLoss, is not
-    ported, so the mask would be dropped); the same batch without it trains
-    as before."""
-    params, _, value_and_grad = setup
-    batch = _batch(seed=3)
-    tmod = _torch_engine(params)
-    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
-    with pytest.raises(NotImplementedError, match="SpotlightLoss"):
-        tmod.training_loss(dict(tbatch, fg_mask=torch.ones_like(tbatch["target"], dtype=torch.bool)))
-    jloss, _ = value_and_grad(params, {k: jnp.asarray(v) for k, v in batch.items()})
-    np.testing.assert_allclose(float(tmod.training_loss(tbatch)), float(jloss), rtol=1e-5)
-
-
-def test_fit_runs_the_device_transform_with_the_seeded_generator():
+def test_fit_runs_the_device_transform_with_the_seeded_generator(tmp_path):
     """Trainer.fit hands the datamodule's device transform its generator
     (seeded with seed + 1) at every step; no kernel launches on the CPU."""
     from viscy_tpu_torch.transforms import BatchedRandGaussianNoised, Compose
@@ -187,7 +174,7 @@ def test_fit_runs_the_device_transform_with_the_seeded_generator():
 
     tmod = tengine.VSUNet("fcmae", dict(TINY), device="cpu", lr=1e-4)
     before = (tfb.launches, tfb.bwd_launches)
-    trainer = Trainer(max_epochs=1, seed=7, device="cpu")
+    trainer = Trainer(max_epochs=1, seed=7, default_root_dir=tmp_path, device="cpu")
     trainer.fit(tmod, Spy())
     assert seen == [("train", 8)] * 3 and trainer.global_step == 3
     assert (tfb.launches, tfb.bwd_launches) == before

@@ -2,11 +2,12 @@
 ``viscy_tpu/apps/cytoland/engine.py``), training and prediction.
 
 ``VSUNet`` wraps the FCMAE-based UNeXt2 (``"fcmae"`` / ``"UNeXt2_2D"``)
-with the reference supervised training loss (MixedLoss by default, with
-the optional bf16 loss inputs), its AdamW + schedule, and the reference
-predict step: divisible pad, forward, center crop, optional 4-rotation
-test-time augmentation, and batched YX tiling with hat-weight blending for
-large fields of view.
+with the reference supervised training and validation losses (MixedLoss by
+default, with the optional bf16 loss inputs; a batch's ``fg_mask`` goes to
+the loss, e.g. ``SpotlightLoss``), its AdamW + schedule (optionally with
+the encoder frozen), and the reference predict step: divisible pad,
+forward, center crop, optional 4-rotation test-time augmentation, and
+batched YX tiling with hat-weight blending for large fields of view.
 """
 
 from __future__ import annotations
@@ -59,7 +60,9 @@ class VSUNet(TrainModule):
     with ``model.load_state_dict`` (reference torch names). ``device``
     defaults to ``"cuda"`` and raises when no card is visible.
     ``loss_function`` defaults to ``MixedLoss()``; ``bf16_loss`` feeds it
-    bf16 prediction and target (its math stays float32).
+    bf16 prediction and target (its math stays float32). ``freeze_encoder``
+    leaves every ``encoder.*`` parameter out of the optimizer: no update,
+    no weight decay (``optax.set_to_zero`` on the JAX side).
     """
 
     def __init__(
@@ -69,6 +72,7 @@ class VSUNet(TrainModule):
         loss_function=None,
         lr: float = 1e-3,
         schedule: Literal["WarmupCosine", "Constant"] = "Constant",
+        freeze_encoder: bool = False,
         warmup_steps: int = 0,
         warmup_multiplier: float = 1e-3,
         bf16_loss: bool = False,
@@ -103,6 +107,7 @@ class VSUNet(TrainModule):
         self.loss_function = loss_function if loss_function is not None else MixedLoss()
         self.lr = lr
         self.schedule = schedule
+        self.freeze_encoder = freeze_encoder
         self.warmup_steps = warmup_steps
         self.warmup_multiplier = warmup_multiplier
         self.bf16_loss = bf16_loss
@@ -114,7 +119,9 @@ class VSUNet(TrainModule):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.model(x)
 
-    def _compute_loss(self, pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    def _compute_loss(self, pred: torch.Tensor, target: torch.Tensor, batch: dict) -> torch.Tensor:
+        if "fg_mask" in batch:
+            return self.loss_function(pred, target, fg_mask=batch["fg_mask"])
         if self.bf16_loss and isinstance(self.loss_function, MixedLoss):
             pred = pred.to(torch.bfloat16)
             target = target.to(torch.bfloat16)
@@ -122,23 +129,33 @@ class VSUNet(TrainModule):
 
     def training_loss(self, batch: dict) -> torch.Tensor:
         """Supervised loss of the forward on ``batch["source"]`` against
-        ``batch["target"]`` (NCDHW). A batch with an ``fg_mask`` raises: the
-        reference routes it to ``SpotlightLoss``, which is not ported, and
-        dropping it would train unmasked."""
-        if "fg_mask" in batch:
+        ``batch["target"]`` (NCDHW); a batch's ``fg_mask`` goes to the loss
+        as ``fg_mask=``. Stochastic depth is not ported, so a model with
+        ``encoder_drop_path_rate > 0`` refuses to train (its eval-mode
+        forward, which has no drop path, runs)."""
+        if self.model_config.get("encoder_drop_path_rate", 0.0) > 0:
             raise NotImplementedError(
-                "batch carries fg_mask, but its loss (SpotlightLoss) is not ported; "
-                "the mask would be ignored"
+                "stochastic depth (encoder_drop_path_rate > 0) is not ported; set it to 0 to train"
             )
-        return self._compute_loss(self.forward(batch["source"]), batch["target"])
+        return self._compute_loss(self.forward(batch["source"]), batch["target"], batch)
+
+    def validation_loss(self, batch: dict) -> torch.Tensor:
+        """The loss of the deterministic forward (the trainer runs it in eval
+        mode under ``torch.no_grad()``)."""
+        return self._compute_loss(self.forward(batch["source"]), batch["target"], batch)
 
     def configure_optimizers(self, total_steps: int):
         """AdamW with the engine's schedule (``warmup_steps=0`` takes the
-        default warmup of 1 % of ``total_steps``)."""
+        default warmup of 1 % of ``total_steps``), over every parameter but
+        the encoder's when ``freeze_encoder``."""
         from viscy_tpu_torch.training.optimizers import configure_adamw_scheduler
 
+        params = [
+            p for name, p in self.named_parameters()
+            if not (self.freeze_encoder and "encoder" in name.split("."))
+        ]
         return configure_adamw_scheduler(
-            self.parameters(),
+            params,
             lr=self.lr,
             schedule=self.schedule,
             total_steps=total_steps,

@@ -166,7 +166,8 @@ class FullyConvolutionalMAE(nn.Module):
     drawn from ``generator`` (default: a generator seeded with 0) with the
     flax initializers. ``fused_mlp`` is accepted for config compatibility:
     every block runs the fused MLP+GRN segment, there is no unfused path.
-    ``encoder_drop_path_rate`` only affects training and is ignored here.
+    ``encoder_drop_path_rate`` only affects training: this forward is the
+    deterministic one, and ``VSUNet.training_loss`` refuses a rate above 0.
     """
 
     def __init__(

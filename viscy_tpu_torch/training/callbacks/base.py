@@ -1,5 +1,5 @@
-"""Callback protocol (counterpart of ``viscy_tpu/training/callbacks/base.py``),
-fit and prediction hooks."""
+"""Callback protocol (counterpart of ``viscy_tpu/training/callbacks/base.py``):
+fit, epoch, validation and prediction hooks."""
 
 from __future__ import annotations
 
@@ -8,15 +8,31 @@ from typing import Any
 
 class Callback:
     """Base callback; the hooks mirror the Lightning ones the reference's
-    callbacks use."""
+    callbacks use. ``Trainer.fit`` calls them in this order: ``on_fit_start``;
+    per epoch ``on_train_epoch_start``, ``on_train_batch_end`` per step, then
+    (on a validation epoch) ``on_validation_epoch_start``,
+    ``on_validation_batch_end`` per batch and ``on_validation_epoch_end``,
+    then ``on_train_epoch_end``; last ``on_fit_end``."""
 
     def on_fit_start(self, trainer, module) -> None: ...
 
+    def on_fit_end(self, trainer, module) -> None: ...
+
+    def on_train_epoch_start(self, trainer, module, epoch: int) -> None: ...
+
     def on_train_batch_end(
-        self, trainer, module, metrics: dict, batch: dict, batch_idx: int
+        self, trainer, module, outputs: dict, batch: dict, batch_idx: int
     ) -> None: ...
 
-    def on_fit_end(self, trainer, module) -> None: ...
+    def on_train_epoch_end(self, trainer, module, epoch: int) -> None: ...
+
+    def on_validation_epoch_start(self, trainer, module) -> None: ...
+
+    def on_validation_batch_end(
+        self, trainer, module, outputs: dict, batch: dict, batch_idx: int
+    ) -> None: ...
+
+    def on_validation_epoch_end(self, trainer, module, metrics: dict) -> None: ...
 
     def on_predict_start(self, trainer, module) -> None: ...
 

@@ -26,6 +26,11 @@ class TrainModule(nn.Module):
         in the engine's parameters."""
         raise NotImplementedError
 
+    def validation_loss(self, batch: dict) -> torch.Tensor:
+        """The scalar validation loss of one batch (the trainer calls it in
+        eval mode under ``torch.no_grad()``)."""
+        raise NotImplementedError
+
     def predict_step(self, batch: dict) -> Any:
         raise NotImplementedError
 
@@ -35,3 +40,6 @@ class TrainModule(nn.Module):
         from viscy_tpu_torch.training.optimizers import configure_adamw_scheduler
 
         return configure_adamw_scheduler(self.parameters(), total_steps=total_steps)
+
+    def on_epoch_start(self, epoch: int) -> None:
+        """Per-epoch hook, called before the epoch's first step."""

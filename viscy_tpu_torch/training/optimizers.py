@@ -8,7 +8,9 @@ warmup_multiplier`` to ``lr`` over ``warmup_steps``, then a cosine decay to
 optimizer's k-th step uses the schedule at count k - 1, as optax reads its
 count before incrementing it: ``LambdaLR`` sets ``lambda(0)`` at
 construction and the trainer steps the scheduler after the optimizer.
-Weight decay applies to every parameter (no mask); eps is 1e-8.
+Weight decay applies to every parameter it is given (no mask); eps is 1e-8.
+Clipping (``optax.clip_by_global_norm`` and ``optax.clip``) is the
+trainer's ``gradient_clip_val``, applied before the optimizer's step.
 """
 
 from __future__ import annotations
@@ -17,6 +19,34 @@ import math
 from typing import Iterable, Literal
 
 import torch
+
+
+def _grads(params: Iterable[torch.nn.Parameter]) -> list[torch.Tensor]:
+    return [p.grad for p in params if p.grad is not None]
+
+
+@torch.no_grad()
+def clip_by_global_norm_(params: Iterable[torch.nn.Parameter], max_norm: float) -> torch.Tensor:
+    """``optax.clip_by_global_norm`` in place on the gradients of ``params``:
+    with ``n`` the global L2 norm of all of them, every gradient becomes
+    ``g`` if ``n < max_norm`` else ``(g / n) * max_norm``. (Unlike
+    ``torch.nn.utils.clip_grad_norm_``, which scales by ``max_norm / (n +
+    1e-6)``.) Returns ``n``; reads nothing back to the host."""
+    grads = _grads(params)
+    if not grads:
+        return torch.zeros(())
+    norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, g / norm.to(g.dtype) * max_norm))
+    return norm
+
+
+@torch.no_grad()
+def clip_by_value_(params: Iterable[torch.nn.Parameter], max_delta: float) -> None:
+    """``optax.clip``: clamp every gradient of ``params`` to [-max_delta, max_delta]."""
+    for g in _grads(params):
+        g.clamp_(-max_delta, max_delta)
 
 
 def warmup_cosine(lr: float, warmup_steps: int, total_steps: int, warmup_multiplier: float):

@@ -1,17 +1,23 @@
 """Trainer (counterpart of ``viscy_tpu/training/trainer.py``): the fit loop
-and the predict loop.
+with validation, checkpoints and the CSV logger, ``validate`` and the
+predict loop.
 
 PyTorch runs eagerly, so there is no compiled step. A fit step moves the
 batch to the trainer's device, runs the datamodule's device transform with
-the trainer's seeded ``torch.Generator``, then ``training_loss``,
-``backward``, ``optimizer.step`` and ``scheduler.step``. Validation,
-checkpoints, gradient clipping and accumulation, and the CSV logger are not
-ported.
+the trainer's seeded ``torch.Generator``, then ``training_loss`` and
+``backward``; every ``accumulate_grad_batches`` steps the (mean) gradient
+is clipped and AdamW and its scheduler step. Multi-device meshes,
+``Trainer.test``, the prefetch thread and the TensorBoard and W&B sinks are
+not ported.
 """
 
 from __future__ import annotations
 
+import json
+import logging
+import os
 import time
+from pathlib import Path
 from typing import Any, Sequence
 
 import numpy as np
@@ -20,12 +26,19 @@ import torch
 from viscy_tpu_torch.device import resolve_device
 from viscy_tpu_torch.training.callbacks.base import Callback
 from viscy_tpu_torch.training.module import TrainModule
+from viscy_tpu_torch.training.optimizers import clip_by_global_norm_, clip_by_value_
+
+_logger = logging.getLogger("viscy_tpu_torch")
 
 
 def _to_device(batch: dict, device: torch.device) -> dict:
+    """Numpy arrays and tensors of ``batch`` (nested dicts too, such as
+    ``norm_meta``) on ``device``; other leaves as they are."""
     out = {}
     for key, value in batch.items():
-        if isinstance(value, np.ndarray):
+        if isinstance(value, dict):
+            value = _to_device(value, device)
+        elif isinstance(value, np.ndarray):
             value = torch.from_numpy(value)
         if isinstance(value, torch.Tensor):
             value = value.to(device, non_blocking=True)
@@ -33,15 +46,63 @@ def _to_device(batch: dict, device: torch.device) -> dict:
     return out
 
 
+class CSVLogger:
+    """Metrics sink: ``<log_dir>/metrics.csv``, one JSON line
+    ``{"step": step, <metric>: value, ...}`` per logged step (opened at the
+    first line). TensorBoard is not ported: ``use_tensorboard=True`` raises."""
+
+    def __init__(self, log_dir: str | Path, use_tensorboard: bool = False) -> None:
+        if use_tensorboard:
+            raise NotImplementedError("the TensorBoard sink is not ported; use_tensorboard=False")
+        self.log_dir = Path(log_dir)
+        self._csv = None
+
+    def log_metrics(self, metrics: dict[str, float], step: int) -> None:
+        if self._csv is None:
+            self.log_dir.mkdir(parents=True, exist_ok=True)
+            self._csv = open(self.log_dir / "metrics.csv", "a")
+        payload = {"step": step, **{k: float(v) for k, v in metrics.items()}}
+        self._csv.write(json.dumps(payload) + "\n")
+        self._csv.flush()
+
+    def close(self) -> None:
+        if self._csv is not None:
+            self._csv.close()
+            self._csv = None
+
+
 class Trainer:
     """Drives TrainModule engines over DataModules on one device.
 
-    ``max_steps`` ends the fit (and sets the schedule's length); without it
-    the fit runs ``max_epochs`` passes over ``train_dataloader()``, whose
-    length (or the datamodule's ``steps_per_epoch``) sets the schedule.
-    Every ``log_every_n_steps`` steps ``logged_metrics`` takes the step's
-    loss, learning rate and mean step time (reading the loss waits for the
-    device). The augmentation generator is seeded with ``seed + 1``.
+    - ``max_steps`` ends the fit (and sets the schedule's length); without
+      it the fit runs ``max_epochs`` passes over ``train_dataloader()``
+      (at most ``limit_train_batches`` batches each), whose length (or the
+      datamodule's ``steps_per_epoch``) sets the schedule.
+    - Every ``log_every_n_steps`` steps ``metrics.csv`` and
+      ``logged_metrics`` take the step's loss, the learning rate at
+      ``global_step`` and the mean step time (reading the loss waits for
+      the device).
+    - Every ``check_val_every_n_epoch`` epochs ``val_dataloader()`` (at most
+      ``limit_val_batches`` batches) runs ``validation_loss`` in eval mode;
+      its mean ``loss/validate`` is logged. Validation draws its device
+      transforms from a generator of its own, so the training augmentation
+      stream does not depend on it.
+    - Every ``checkpoint_every_n_epochs`` epochs a checkpoint goes to
+      ``<default_root_dir>/checkpoints/epoch=E-step=S[-loss=L]`` (``L``
+      the ``checkpoint_monitor`` value), ``last`` links to it, and only the
+      ``checkpoint_top_k`` lowest monitored ones are kept (never ``last``'s
+      target). ``fit(..., ckpt_path=...)`` resumes from one.
+    - ``gradient_clip_val`` clips the gradient before AdamW, by global norm
+      (``optax.clip_by_global_norm``) or by value (``optax.clip``);
+      ``accumulate_grad_batches = k`` applies the mean gradient of k steps
+      every k steps (``optax.MultiSteps``): ``global_step`` counts steps,
+      AdamW and the schedule count updates.
+    - ``profile_dir``: a ``torch.profiler`` trace of steps
+      ``profile_steps[0]`` to ``profile_steps[1]``, written there.
+    - ``fast_dev_run``: one epoch of one train and one val batch, every
+      step logged, no checkpoint.
+
+    The augmentation generator is seeded with ``seed + 1`` at every fit start.
     """
 
     def __init__(
@@ -49,16 +110,46 @@ class Trainer:
         max_epochs: int = 1,
         max_steps: int | None = None,
         callbacks: Sequence[Callback] | None = None,
+        default_root_dir: str | Path = "lightning_logs",
+        fast_dev_run: bool = False,
+        limit_train_batches: int | None = None,
+        limit_val_batches: int | None = None,
         log_every_n_steps: int = 10,
+        checkpoint_every_n_epochs: int = 1,
+        checkpoint_monitor: str = "loss/validate",
+        checkpoint_top_k: int = 5,
         seed: int = 42,
+        use_tensorboard: bool = False,
+        gradient_clip_val: float | None = None,
+        gradient_clip_algorithm: str = "norm",
+        accumulate_grad_batches: int = 1,
+        check_val_every_n_epoch: int = 1,
+        profile_dir: str | None = None,
+        profile_steps: tuple[int, int] = (10, 15),
         device: str | torch.device = "cuda",
     ) -> None:
+        if gradient_clip_algorithm not in ("norm", "value"):
+            raise ValueError(f"gradient_clip_algorithm must be 'norm' or 'value', got {gradient_clip_algorithm!r}")
         self.max_epochs = max_epochs
         self.max_steps = max_steps
         self.callbacks = list(callbacks or [])
+        self.default_root_dir = Path(default_root_dir)
+        self.fast_dev_run = fast_dev_run
+        self.limit_train_batches = 1 if fast_dev_run else limit_train_batches
+        self.limit_val_batches = 1 if fast_dev_run else limit_val_batches
         self.log_every_n_steps = log_every_n_steps
+        self.checkpoint_every_n_epochs = checkpoint_every_n_epochs
+        self.checkpoint_monitor = checkpoint_monitor
+        self.checkpoint_top_k = checkpoint_top_k
         self.seed = seed
+        self.gradient_clip_val = gradient_clip_val
+        self.gradient_clip_algorithm = gradient_clip_algorithm
+        self.accumulate_grad_batches = max(1, int(accumulate_grad_batches or 1))
+        self.check_val_every_n_epoch = max(1, int(check_val_every_n_epoch or 1))
+        self.profile_dir = profile_dir
+        self.profile_steps = profile_steps
         self.device = resolve_device(device)
+        self.logger = CSVLogger(self.default_root_dir, use_tensorboard)
         self.optimizer = None
         self.scheduler = None
         self._schedule = None
@@ -66,23 +157,92 @@ class Trainer:
         self.current_epoch = 0
         self.global_step = 0
         self.logged_metrics: dict[str, float] = {}
+        self._ckpt_scores: list[tuple[float, str]] = []
+        # optax.MultiSteps state: the mini-step and the running mean gradient
+        self._mini_step = 0
+        self._acc: dict[str, torch.Tensor] = {}
+        self._profiler = None
 
+    # -- helpers ----------------------------------------------------------------
     def _total_steps(self, datamodule, loader) -> int:
-        if self.max_steps:
-            return self.max_steps
         try:
             steps_per_epoch = len(loader)
         except TypeError:
             steps_per_epoch = getattr(datamodule, "steps_per_epoch", None)
-            if steps_per_epoch is None:
+            if steps_per_epoch is None and not self.max_steps:
                 raise ValueError(
                     "train_dataloader has no len() and the datamodule defines no "
                     "steps_per_epoch: set one of them or Trainer(max_steps=...)"
                 ) from None
+        if self.max_steps:
+            return self.max_steps
+        if self.limit_train_batches:
+            steps_per_epoch = min(steps_per_epoch, self.limit_train_batches)
         return steps_per_epoch * self.max_epochs
 
-    def fit(self, module: TrainModule, datamodule) -> None:
-        """Train ``module`` on ``datamodule.train_dataloader()`` batches."""
+    def _train_step(self, module: TrainModule, batch: dict) -> torch.Tensor:
+        """Forward and backward of one batch; the optimizer steps on every
+        ``accumulate_grad_batches``-th call, on the mean gradient."""
+        module.zero_grad(set_to_none=True)
+        loss = module.training_loss(batch)
+        loss.backward()
+        k = self.accumulate_grad_batches
+        if k > 1:
+            n = self._mini_step
+            with torch.no_grad():
+                for name, p in module.named_parameters():
+                    if p.grad is None:
+                        continue
+                    if n == 0:
+                        self._acc[name] = p.grad
+                    else:  # optax: acc + (g - acc) / (n + 1)
+                        acc = self._acc[name]
+                        acc.add_((p.grad - acc) / (n + 1))
+                    p.grad = None
+            self._mini_step = (n + 1) % k
+            if self._mini_step:
+                return loss
+            for name, p in module.named_parameters():
+                p.grad = self._acc.pop(name, None)
+        if self.gradient_clip_val:
+            if self.gradient_clip_algorithm == "value":
+                clip_by_value_(module.parameters(), self.gradient_clip_val)
+            else:
+                clip_by_global_norm_(module.parameters(), self.gradient_clip_val)
+        self.optimizer.step()
+        self.scheduler.step()
+        return loss
+
+    def _profile_start(self) -> None:
+        """Start the step trace before step ``profile_steps[0]``."""
+        if self.profile_dir and self._profiler is None and self.global_step == self.profile_steps[0]:
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            self._profiler = profile(activities=activities)
+            self._profiler.start()
+
+    def _profile_stop(self, fit_end: bool = False) -> None:
+        """Stop the trace after step ``profile_steps[1]`` (or at the fit's
+        end) and write it to ``profile_dir``."""
+        if self._profiler is None or not (fit_end or self.global_step == self.profile_steps[1]):
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._profiler.stop()
+        Path(self.profile_dir).mkdir(parents=True, exist_ok=True)
+        self._profiler.export_chrome_trace(
+            str(Path(self.profile_dir) / f"trace_steps_{self.profile_steps[0]}-{self.global_step}.json")
+        )
+        self._profiler = None
+
+    # -- fit ----------------------------------------------------------------------
+    def fit(self, module: TrainModule, datamodule, ckpt_path: str | Path | None = None) -> None:
+        """Train ``module`` on ``datamodule.train_dataloader()`` batches,
+        validating and checkpointing at epoch ends; ``ckpt_path`` resumes
+        from a checkpoint (the epoch after its epoch, at its step)."""
         prepare = getattr(datamodule, "prepare_data", None)
         if prepare is not None:
             prepare()
@@ -91,45 +251,106 @@ class Trainer:
         if self.optimizer is None:
             total = self._total_steps(datamodule, datamodule.train_dataloader())
             self.optimizer, self.scheduler, self._schedule = module.configure_optimizers(total)
-            self.generator = torch.Generator(device=self.device).manual_seed(self.seed + 1)
+        if ckpt_path is not None:
+            self.load_checkpoint(ckpt_path, module)
         transform = getattr(datamodule, "device_transform", None)
         for cb in self.callbacks:
             cb.on_fit_start(self, module)
-        step_t0 = time.perf_counter()
-        done = False
-        for epoch in range(self.current_epoch, self.max_epochs):
+        self.generator = torch.Generator(device=self.device).manual_seed(self.seed + 1)
+        max_epochs = 1 if self.fast_dev_run else self.max_epochs
+        for epoch in range(self.current_epoch, max_epochs):
             self.current_epoch = epoch
+            module.on_epoch_start(epoch)
+            if hasattr(datamodule, "set_epoch"):
+                datamodule.set_epoch(epoch)
+            for cb in self.callbacks:
+                cb.on_train_epoch_start(self, module, epoch)
+            step_t0 = time.perf_counter()
             for i, batch in enumerate(datamodule.train_dataloader()):
+                if self.limit_train_batches is not None and i >= self.limit_train_batches:
+                    break
+                self._profile_start()
                 batch = _to_device(batch, self.device)
                 if transform is not None:
                     batch = transform(batch, self.generator, "train")
-                loss = module.training_loss(batch)
-                self.optimizer.zero_grad(set_to_none=True)
-                loss.backward()
-                self.optimizer.step()
-                self.scheduler.step()
+                loss = self._train_step(module, batch)
+                self._profile_stop()
                 self.global_step += 1
                 metrics = {"loss/train": loss.detach()}
-                if self.global_step % self.log_every_n_steps == 0:
+                if self.global_step % self.log_every_n_steps == 0 or self.fast_dev_run:
                     now = time.perf_counter()
-                    self.logged_metrics.update(
-                        {
-                            "loss/train": float(loss),
-                            "lr": float(self._schedule(self.global_step)),
-                            "step_time_ms": (now - step_t0) / self.log_every_n_steps * 1e3,
-                        }
-                    )
+                    host = {
+                        "loss/train": float(loss.detach()),
+                        "lr": float(self._schedule(self.global_step)),
+                        "step_time_ms": (now - step_t0) / max(self.log_every_n_steps, 1) * 1e3,
+                    }
                     step_t0 = now
+                    self.logged_metrics.update(host)
+                    self.logger.log_metrics(host, self.global_step)
                 for cb in self.callbacks:
                     cb.on_train_batch_end(self, module, metrics, batch, i)
                 if self.max_steps and self.global_step >= self.max_steps:
-                    done = True
                     break
-            if done:
+            val_metrics = {}
+            if (epoch + 1) % self.check_val_every_n_epoch == 0 or self.fast_dev_run:
+                val_gen = torch.Generator(device=self.device).manual_seed(self.seed + 2 + epoch)
+                val_metrics = self._run_validation(module, datamodule, val_gen)
+            for cb in self.callbacks:
+                cb.on_train_epoch_end(self, module, epoch)
+            if (epoch + 1) % self.checkpoint_every_n_epochs == 0 and not self.fast_dev_run:
+                self._save_checkpoint(module, val_metrics)
+            if self.max_steps and self.global_step >= self.max_steps:
                 break
+        self._profile_stop(fit_end=True)
         for cb in self.callbacks:
             cb.on_fit_end(self, module)
 
+    def _run_validation(self, module: TrainModule, datamodule, generator: torch.Generator) -> dict:
+        loader_fn = getattr(datamodule, "val_dataloader", None)
+        loader = loader_fn() if loader_fn is not None else None
+        if loader is None:
+            return {}
+        transform = getattr(datamodule, "device_transform", None)
+        for cb in self.callbacks:
+            cb.on_validation_epoch_start(self, module)
+        agg: dict[str, list[float]] = {}
+        was_training = module.training
+        module.eval()
+        with torch.no_grad():
+            for i, batch in enumerate(loader):
+                if self.limit_val_batches is not None and i >= self.limit_val_batches:
+                    break
+                batch = _to_device(batch, self.device)
+                if transform is not None:
+                    batch = transform(batch, generator, "val")
+                host = {"loss/validate": float(module.validation_loss(batch))}
+                for k, v in host.items():
+                    agg.setdefault(k, []).append(v)
+                for cb in self.callbacks:
+                    cb.on_validation_batch_end(self, module, host, batch, i)
+        module.train(was_training)
+        mean_metrics = {k: float(np.mean(v)) for k, v in agg.items()}
+        if mean_metrics:
+            self.logged_metrics.update(mean_metrics)
+            self.logger.log_metrics(mean_metrics, self.global_step)
+        for cb in self.callbacks:
+            cb.on_validation_epoch_end(self, module, mean_metrics)
+        return mean_metrics
+
+    def validate(self, module: TrainModule, datamodule, ckpt_path: str | Path | None = None) -> dict:
+        """Mean validation metrics of ``module`` over ``val_dataloader()``
+        (device transforms drawn from a generator seeded with 0)."""
+        prepare = getattr(datamodule, "prepare_data", None)
+        if prepare is not None:
+            prepare()
+        datamodule.setup("validate")
+        module.to(self.device)
+        if ckpt_path:
+            self.load_checkpoint(ckpt_path, module)
+        generator = torch.Generator(device=self.device).manual_seed(0)
+        return self._run_validation(module, datamodule, generator)
+
+    # -- predict --------------------------------------------------------------------
     def predict(
         self, module: TrainModule, datamodule, return_predictions: bool = False
     ) -> list[Any] | None:
@@ -157,3 +378,93 @@ class Trainer:
         for cb in self.callbacks:
             cb.on_predict_end(self, module)
         return outputs if return_predictions else None
+
+    # -- checkpoints -------------------------------------------------------------------
+    def _ckpt_dir(self) -> Path:
+        d = self.default_root_dir / "checkpoints"
+        d.mkdir(parents=True, exist_ok=True)
+        return d
+
+    def _save_checkpoint(self, module: TrainModule, val_metrics: dict) -> Path:
+        """Save a checkpoint laid out as a Lightning one: ``state_dict``
+        (``model.<reference name>``, float32 on the CPU), ``optimizer`` and
+        ``scheduler`` state dicts, ``step`` and ``epoch``; with accumulation
+        also the mini-step and the running mean gradient."""
+        score = val_metrics.get(self.checkpoint_monitor)
+        name = f"epoch={self.current_epoch}-step={self.global_step}"
+        if score is not None:
+            name += f"-loss={score:.3f}"
+        path = self._ckpt_dir() / name
+        payload = {
+            "state_dict": {f"model.{k}": v.detach().cpu() for k, v in module.model.state_dict().items()},
+            "optimizer": self.optimizer.state_dict(),
+            "scheduler": self.scheduler.state_dict(),
+            "step": self.global_step,
+            "epoch": self.current_epoch,
+        }
+        if self.accumulate_grad_batches > 1:
+            payload["accumulation"] = {"mini_step": self._mini_step, "grads": dict(self._acc)}
+        tmp = path.with_name(path.name + ".tmp")
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+        last = self._ckpt_dir() / "last"
+        if last.is_symlink() or last.exists():
+            last.unlink()
+        last.symlink_to(path.absolute())
+        if score is not None:
+            # top-k by the monitored value (lower is better); never prune
+            # the checkpoint "last" points at
+            self._ckpt_scores.append((score, str(path)))
+            self._ckpt_scores.sort(key=lambda t: t[0])
+            last_target = str(path.absolute())
+            keep: list[tuple[float, str]] = []
+            while len(self._ckpt_scores) - len(keep) > self.checkpoint_top_k:
+                worst_score, worst = self._ckpt_scores.pop()
+                if str(Path(worst).absolute()) == last_target:
+                    keep.append((worst_score, worst))
+                    continue
+                Path(worst).unlink(missing_ok=True)
+            self._ckpt_scores.extend(keep)
+            self._ckpt_scores.sort(key=lambda t: t[0])
+        return path
+
+    def load_checkpoint(self, path: str | Path, module: TrainModule) -> None:
+        """Load a checkpoint (a port one, a Lightning one, or a bare
+        ``state_dict``) into ``module`` and the trainer: the weights always;
+        the optimizer, scheduler and accumulation state when the payload has
+        them and they fit this trainer (else a warning and the fresh
+        optimizer); the epoch after the saved one and the saved step."""
+        path = Path(path)
+        if path.name == "last" and path.is_symlink():
+            resolved = path.resolve()
+            if not resolved.exists():
+                raise FileNotFoundError(
+                    f"'last' checkpoint symlink {path} points at {resolved}, which no longer "
+                    "exists (it may have been pruned); pass an epoch=*-step=* checkpoint instead"
+                )
+            path = resolved
+        payload = torch.load(path, map_location="cpu", weights_only=True)
+        state = payload.get("state_dict", payload)
+        if any(k.startswith("model.") for k in state):
+            state = {k[len("model."):]: v for k, v in state.items() if k.startswith("model.")}
+        module.model.load_state_dict(state, strict=True)
+        if "optimizer" in payload and self.optimizer is not None:
+            accumulating = self.accumulate_grad_batches > 1
+            try:
+                if accumulating != ("accumulation" in payload):
+                    raise ValueError("gradient accumulation differs")
+                self.optimizer.load_state_dict(payload["optimizer"])
+                self.scheduler.load_state_dict(payload["scheduler"])
+            except (ValueError, KeyError) as e:
+                _logger.warning(
+                    "checkpoint %s: optimizer state does not fit the current trainer (%s); "
+                    "restoring weights only (fresh optimizer state)", path, e,
+                )
+            else:
+                if accumulating:
+                    acc = payload["accumulation"]
+                    self._mini_step = int(acc["mini_step"])
+                    self._acc = {k: v.to(self.device) for k, v in acc["grads"].items()}
+        # the payload records the finished epoch: resume at the next one
+        self.current_epoch = int(payload.get("epoch", -1)) + 1
+        self.global_step = int(payload.get("step", 0))

@@ -2,8 +2,9 @@
 ``viscy_tpu/transforms/affine.py``, ``BatchedRandAffined``).
 
 Per-sample rotate / shear / translate / scale draws shared across keys, MONAI
-(Z, Y, X) parameter order, an optional fused downstream center crop, and
-one warp for all keys, the apply mask included. The warp goes through
+(Z, Y, X) parameter order, the safe-crop scale clamp, the downstream crops
+and in-plane flip that ``Compose`` fuses into it, and one warp for all
+keys. The warp goes through
 :func:`viscy_tpu_torch.ops.warp3d.affine_warp_3d_keys`: one launch of the
 hand-written kernel on the card, its plain version on the CPU.
 """
@@ -17,6 +18,7 @@ import torch
 from viscy_tpu_torch.ops.warp import compose_affine_3d
 from viscy_tpu_torch.ops.warp3d import affine_warp_3d_keys
 from viscy_tpu_torch.transforms.base import RandTransform
+from viscy_tpu_torch.transforms.crop import draw_crop_starts, rand_crop_roi
 
 __all__ = ["BatchedRandAffined"]
 
@@ -54,8 +56,23 @@ class BatchedRandAffined(RandTransform):
     - ``scale_range``: absolute scale factor range, shared or per axis;
       ``isotropic_scale`` draws one factor for all axes.
 
+    - ``safe_crop_size`` / ``safe_crop_coverage``: the draw clamps the
+      scale from below so the rotated source covers a downstream center
+      crop of that size.
+
+    ``Compose`` fuses a following crop or in-plane flip into the warp:
+    ``crop_size`` (a center crop: the grid covers only the crop),
+    ``_rand_crop_size`` (a random crop: per-sample starts become per-sample
+    grid offsets) and ``_flip_axes`` / ``_flip_prob`` (a flip: sign flips
+    of the centered output coordinate). With a fused random crop or flip
+    the application mask goes into the maps: an unapplied sample is warped
+    by the identity, at exact integer coordinates, so it comes out as its
+    own random crop, flipped where its flip draw says.
+
     Draws (``draw``): ``mask`` (B,) bool, ``rotation`` (B, 3), ``scale``
-    (B, 3), ``shear`` (B, 6) or None, ``translate`` (B, 3).
+    (B, 3), ``shear`` (B, 6) or None, ``translate`` (B, 3); with a fused
+    random crop ``starts`` (B, 3) int, with a fused flip ``flips``
+    (B, len(_flip_axes)) bool.
     """
 
     is_spatial = True
@@ -73,15 +90,19 @@ class BatchedRandAffined(RandTransform):
         mode: str = "bilinear",
         padding_mode: str = "zeros",
         safe_crop_size: Sequence[int] | None = None,
+        safe_crop_coverage: float = 1.0,
         crop_size: Sequence[int] | None = None,
         allow_missing_keys: bool = False,
     ) -> None:
         super().__init__(keys, prob, allow_missing_keys)
         if mode != "bilinear":
             raise ValueError(f"only trilinear ('bilinear') sampling exists, got {mode!r}")
-        if safe_crop_size is not None:
-            raise NotImplementedError("safe_crop_size scale clamping is not ported")
+        self.safe_crop_size = tuple(safe_crop_size) if safe_crop_size else None
+        self.safe_crop_coverage = safe_crop_coverage
         self.crop_size = tuple(crop_size) if crop_size else None
+        self._rand_crop_size: tuple | None = None
+        self._flip_axes: tuple[int, ...] | None = None
+        self._flip_prob = 0.5
         self.rotate_range = _as_range3(rotate_range)
         self.translate_range = _as_range3(translate_range)
         self.scale_range = _as_range3(scale_range, default=1.0) if scale_range is not None else None
@@ -149,16 +170,42 @@ class BatchedRandAffined(RandTransform):
             shlo, shhi = rng(self.shear_range)
             shear = torch.zeros((b, 6), device=device)
             shear[:, :3] = uniform((b, 3)) * (shhi - shlo) + shlo
+        if self.safe_crop_size is not None:
+            scale = self.clamp_scale_for_crop(rotation, scale, spatial)
         return rotation, scale, shear, translate
+
+    def clamp_scale_for_crop(self, rotation: torch.Tensor, scale: torch.Tensor, spatial) -> torch.Tensor:
+        """Lower-bound ``scale`` so the rotated source covers the safe crop:
+        ``max(scale, coverage * |R| (crop / 2) / (spatial / 2))``."""
+        b, dev = rotation.shape[0], rotation.device
+        d = torch.tensor(self.safe_crop_size, dtype=torch.float32, device=dev) / 2.0
+        h = torch.tensor(tuple(spatial), dtype=torch.float32, device=dev) / 2.0
+        az, ay, ax = rotation[:, 0], rotation[:, 1], rotation[:, 2]
+        cz, sz = torch.cos(az), torch.sin(az)
+        cy, sy = torch.cos(ay), torch.sin(ay)
+        cx, sx = torch.cos(ax), torch.sin(ax)
+        zero, one = torch.zeros_like(cz), torch.ones_like(cz)
+        rz = torch.stack([one, zero, zero, zero, cz, -sz, zero, sz, cz], -1).reshape(b, 3, 3)
+        ry = torch.stack([cy, zero, -sy, zero, one, zero, sy, zero, cy], -1).reshape(b, 3, 3)
+        rx = torch.stack([cx, -sx, zero, sx, cx, zero, zero, zero, one], -1).reshape(b, 3, 3)
+        rot = torch.matmul(rz, torch.matmul(ry, rx))
+        smin = self.safe_crop_coverage * (rot.abs() * d).sum(-1) / h[None, :]
+        return torch.maximum(scale, smin)
 
     def draw(self, data: dict, generator: torch.Generator) -> dict:
         first = data[self.first_key(data)]
         b, dev = first.shape[0], first.device
         mask = self._apply_mask(generator, b, dev)
-        rotation, scale, shear, translate = self._sample_params(
-            generator, b, tuple(first.shape[-3:]), dev
-        )
-        return dict(mask=mask, rotation=rotation, scale=scale, shear=shear, translate=translate)
+        spatial = tuple(first.shape[-3:])
+        rotation, scale, shear, translate = self._sample_params(generator, b, spatial, dev)
+        draws = dict(mask=mask, rotation=rotation, scale=scale, shear=shear, translate=translate)
+        if self._rand_crop_size is not None:
+            roi = rand_crop_roi(self._rand_crop_size, spatial)
+            draws["starts"] = draw_crop_starts(generator, b, spatial, roi, dev)
+        if self._flip_axes is not None:
+            n = len(self._flip_axes)
+            draws["flips"] = torch.rand((b, n), generator=generator, device=dev) < self._flip_prob
+        return draws
 
     def apply(self, data: dict, draws: dict) -> dict:
         first = data[self.first_key(data)]
@@ -169,19 +216,42 @@ class BatchedRandAffined(RandTransform):
             shear=draws.get("shear"),
             translate=draws["translate"],
         )
-        if self.crop_size is None:
+        mask = draws["mask"]
+        signs = None
+        if self._flip_axes is not None:
+            flips = draws["flips"]
+            signs = torch.ones((flips.shape[0], 3), device=matrices.device)
+            for j, ax in enumerate(self._flip_axes):
+                signs[:, ax] = torch.where(flips[:, j].to(signs.device), -1.0, 1.0)
+        fold = signs is not None or self._rand_crop_size is not None
+        if fold:
+            # the mask goes into the maps: an unapplied sample is warped by
+            # the identity at exact integer coordinates (start - (S - R) / 2
+            # plus the half-integer centers), i.e. it is its random crop,
+            # still flipped
+            eye = torch.eye(3, 4, device=matrices.device).expand_as(matrices)
+            matrices = torch.where(mask.reshape(-1, 1, 1).to(matrices.device), matrices, eye)
+        if self._rand_crop_size is not None:
+            out_shape = rand_crop_roi(self._rand_crop_size, spatial)
+            # output voxel q of the crop sits at q + start in warp-output
+            # space: the centered coordinate shifts by start - (S - R) / 2
+            center = torch.tensor([(s - r) / 2.0 for r, s in zip(out_shape, spatial)],
+                                  device=matrices.device)
+            offset = draws["starts"].to(device=matrices.device, dtype=torch.float32) - center
+        elif self.crop_size is None:
             out_shape, offset = spatial, None
         else:
             out_shape = tuple(s if r < 0 else min(r, s) for r, s in zip(self.crop_size, spatial))
             # the integer crop start (s - r) // 2 sits half a voxel off the
             # exact center when s - r is odd; the grid offset absorbs it
             offset = tuple((s - r) // 2 - (s - r) / 2.0 for r, s in zip(out_shape, spatial))
-        # every key in one launch on one set of coordinates; a sample the
-        # mask leaves alone gets the integer center crop (center_crop's
-        # start), copied by the same launch
         keys = list(self.key_iterator(data))
-        outs = affine_warp_3d_keys([data[k] for k in keys], matrices, out_shape, self.padding_mode,
-                                   offset, apply_mask=draws["mask"])
+        vols = [data[k] for k in keys]
+        # every key in one launch on one set of coordinates; without a fold,
+        # a sample the mask leaves alone gets the integer center crop,
+        # copied by the same launch
+        outs = affine_warp_3d_keys(vols, matrices, out_shape, self.padding_mode, offset, signs,
+                                   apply_mask=None if fold else mask)
         for k, out in zip(keys, outs):
             data[k] = out
         return data

@@ -95,10 +95,54 @@ class RandTransform(MapTransform):
 
 
 def _fuse_affine_crop(transforms: list) -> list:
-    """Peephole: ``BatchedRandAffined`` followed by a
-    ``BatchedCenterSpatialCropd`` on the same keys fuses into one
-    output-space warp: the sample grid covers only the crop region
-    (``BatchedRandAffined.crop_size``), equal to warp-then-crop."""
+    """Peephole: ``BatchedRandAffined`` followed by a crop on the same keys
+    fuses into one output-space warp, then :func:`_fuse_affine_flip` runs.
+
+    - ``BatchedCenterSpatialCropd``: the sample grid covers only the crop
+      region (``BatchedRandAffined.crop_size``), equal to warp-then-crop.
+    - ``BatchedRandSpatialCropd`` with ``random_center``: the per-sample
+      starts become per-sample grid offsets
+      (``BatchedRandAffined._rand_crop_size``); the fused member draws the
+      starts too."""
+    out: list = []
+    i = 0
+    while i < len(transforms):
+        t = transforms[i]
+        nxt = transforms[i + 1] if i + 1 < len(transforms) else None
+        fusable_affine = (
+            nxt is not None
+            and type(t).__name__ == "BatchedRandAffined"
+            and getattr(t, "crop_size", None) is None
+            and getattr(t, "_rand_crop_size", None) is None
+            and set(getattr(t, "keys", ())) == set(getattr(nxt, "keys", ()))
+        )
+        if fusable_affine and type(nxt).__name__ == "BatchedCenterSpatialCropd":
+            fused = copy.copy(t)
+            fused.crop_size = tuple(nxt.roi_size)
+            out.append(fused)
+            i += 2
+            continue
+        if (
+            fusable_affine
+            and type(nxt).__name__ == "BatchedRandSpatialCropd"
+            and getattr(nxt, "random_center", False)
+        ):
+            fused = copy.copy(t)
+            fused._rand_crop_size = tuple(nxt.roi_size)
+            out.append(fused)
+            i += 2
+            continue
+        out.append(t)
+        i += 1
+    return _fuse_affine_flip(out)
+
+
+def _fuse_affine_flip(transforms: list) -> list:
+    """Peephole: ``BatchedRandAffined`` (plain or crop-fused) followed by an
+    in-plane ``BatchedRandFlipd`` (spatial axes within {1, 2}) on the same
+    keys folds the flip into the warp's grid: mirroring an output index is
+    a sign flip of the centered output coordinate. The fused member draws
+    the flips too. Z flips stay a member of their own."""
     out: list = []
     i = 0
     while i < len(transforms):
@@ -107,12 +151,15 @@ def _fuse_affine_crop(transforms: list) -> list:
         if (
             nxt is not None
             and type(t).__name__ == "BatchedRandAffined"
-            and getattr(t, "crop_size", None) is None
-            and type(nxt).__name__ == "BatchedCenterSpatialCropd"
-            and set(t.keys) == set(nxt.keys)
+            and getattr(t, "_flip_axes", "missing") is None
+            and type(nxt).__name__ == "BatchedRandFlipd"
+            and set(getattr(nxt, "spatial_axes", ())) <= {1, 2}
+            and len(getattr(nxt, "spatial_axes", ())) > 0
+            and set(getattr(t, "keys", ())) == set(getattr(nxt, "keys", ()))
         ):
             fused = copy.copy(t)
-            fused.crop_size = tuple(nxt.roi_size)
+            fused._flip_axes = tuple(nxt.spatial_axes)
+            fused._flip_prob = nxt.prob
             out.append(fused)
             i += 2
             continue
@@ -156,12 +203,12 @@ def _fuse_smooth_crop(transforms: list) -> list:
 
 
 class Compose(Transform):
-    """Compose transforms (with the affine+crop and smooth+crop fusions).
+    """Compose transforms (with the affine+crop, affine+flip and smooth+crop
+    fusions, which yield the JAX ``Compose``'s member list).
 
     Random members draw in pipeline order from one generator; ``draws``
-    instead gives one draws dict per random member, in the order the JAX
-    ``Compose`` hands its members their PRNG subkeys (every member here
-    consumes one)."""
+    instead gives one draws dict per random member, in pipeline order (a
+    fused member's dict holds the draws of every member it took in)."""
 
     def __init__(self, transforms: Sequence[Transform]) -> None:
         self.transforms = _fuse_smooth_crop(
