@@ -70,8 +70,31 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
            peak memory. Then the warp kernel as the recipe's affine member
            calls it (in == out (16,1+2,15,384,384), apply mask) against its
            plain version, as in phase 5, and its time beside its bound. The
-           recipe's ``encoder_drop_path_rate: 0.1`` is left out: stochastic
-           depth is not ported and the engine refuses to train with it.
+           model trains with the recipe's ``encoder_drop_path_rate: 0.1``;
+           then the cost of stochastic depth: CUDA-event medians of the
+           forward + backward of one batch at rate 0.1 and at rate 0, in
+           alternation on the same engine.
+9. cli     the port's real entry points, in process through
+           ``viscy_tpu_torch.training.cli.main(argv)``, at the flagship's
+           full width. Writes a seeded fit plate (4 FOVs of (1, 3, 23,
+           1024, 1024) f32: Phase3D, Nucleus, Membrane) and a predict plate
+           (2 FOVs of (1, 1, 20, 2048, 2048)) with the port's
+           ``build_hcs_plate``; copies the fit plate through the port's
+           reader and writer (bit-exact round trip, write and read rates);
+           ``preprocess`` both; ``fit -c configs/vscyto3d_fit.yml`` with
+           overrides of the data path, ``num_workers``, the root dir and one
+           epoch of 3 train and 2 validation batches (drop path, weighted
+           crop, flip, affine, contrast and noise as configured); ``predict
+           -c configs/vscyto3d_predict.yml`` from ``last`` into a new store.
+           Checks launch counts of all five kernels over the two
+           subcommands; the store's shape and channels; one FOV against
+           ``VSUNet.predict_step`` on its six z-windows (same batches)
+           blended with the plain ``blend_in`` (max|d| <= 1e-6 of range);
+           then the forward kernels at the predict path's shapes (B = 2,
+           full 2048^2 frames) against their plain version. Prints write
+           and read rates, preprocess seconds, fit patches/s with the host
+           crop, the loader-wait share, predict FOVs/s disk to disk and the
+           writer's flush seconds.
 
 The last two lines are a JSON ``kernels`` record and the JSON result line.
 Needs ``torch.cuda.is_available()`` and the repo's ``viscy_tpu_torch``
@@ -88,6 +111,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -128,6 +152,14 @@ XCHECK_PATCH = (15, 128, 128)
 # the fit recipe: epochs of FIT_STEPS train steps and FIT_VAL validation batches
 FIT_STEPS = 3
 FIT_VAL = 2
+FIT_CONFIG = dict(FLAGSHIP, encoder_drop_path_rate=0.1)
+# the cli phase's plates: the fit plate's 23 slices give 4 widened (20-deep)
+# training windows per FOV, so 3 training FOVs fill 3 batches of 4 stacks
+CLI_FIT_FOVS = ("0", "1", "2", "3")
+CLI_FIT_ZYX = (23, 1024, 1024)
+CLI_PREDICT_FOVS = ("0", "1")
+CLI_PREDICT_ZYX = (20, 2048, 2048)
+CLI_CHANNELS = ("Phase3D", "Nucleus", "Membrane")
 
 
 def log(msg: str) -> None:
@@ -1362,7 +1394,7 @@ def phase_fit(card: str) -> dict:
     shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    module = train_engine(FLAGSHIP, "cuda", bf16_loss=False)
+    module = train_engine(FIT_CONFIG, "cuda", bf16_loss=False)
     randomize_grn(module, seed=3)
     train = fit_batch(80)
     val = [fit_batch(81 + i) for i in range(FIT_VAL)]
@@ -1374,7 +1406,7 @@ def phase_fit(card: str) -> dict:
     fb.launches = fb.bwd_launches = warp3d.launches = 0
     t0 = time.perf_counter()
     trainer.fit(module, dm)
-    resumed_module = train_engine(FLAGSHIP, "cuda", bf16_loss=False)
+    resumed_module = train_engine(FIT_CONFIG, "cuda", bf16_loss=False)
     resume_callbacks = _fit_callbacks(saved=(module, trainer))
     resume_callbacks[2] = timer
     resumed = _fit_trainer(max_epochs=3, callbacks=resume_callbacks, **kw)
@@ -1418,6 +1450,7 @@ def phase_fit(card: str) -> dict:
         f"{saves[0][1] / 2**20:.1f} MiB each (weights, AdamW and scheduler state); load "
         f"{resumed.loads[0]:.3f} s; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
         f"({card})")
+    drop_path_cost(resumed_module, train, card)
     del module, resumed_module, trainer, resumed, dm, val
     shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -1425,6 +1458,224 @@ def phase_fit(card: str) -> dict:
     del train
     torch.cuda.empty_cache()
     return dict(counts, warp_max_abs_err=err)
+
+
+def drop_path_cost(module, batch: dict, card: str) -> None:
+    """CUDA-event medians of one batch's forward + backward (``training_loss``
+    with the engine's drop-path generator, no optimizer step) with every
+    encoder block's stochastic depth at the recipe's 0.1 and at 0, in
+    alternation on the same engine and batch."""
+    from viscy_tpu_torch.models.components.blocks import DropPath
+
+    blocks = [m for m in module.modules() if isinstance(m, DropPath)]
+    gen = torch.Generator(device="cuda").manual_seed(90)
+    data = {"source": batch["source"], "target": batch["target"]}
+    module.train()
+
+    def step():
+        module.zero_grad(set_to_none=True)
+        module.training_loss(data, gen).backward()
+
+    times: dict[float, list[float]] = {0.1: [], 0.0: []}
+    for _ in range(5):
+        for rate in times:
+            for b in blocks:
+                b.rate = rate
+            times[rate].append(cuda_median_ms(step, runs=3))
+    for b in blocks:
+        b.rate = 0.1
+    module.zero_grad(set_to_none=True)
+    on, off = statistics.median(times[0.1]), statistics.median(times[0.0])
+    log(f"[fit] stochastic depth (0.1 in all {len(blocks)} encoder blocks) vs none, forward + backward of one "
+        f"batch of {TRAIN_BATCH} {TRAIN_PATCH}, alternating, 5 x median of 3: {on:.2f} ms vs {off:.2f} ms "
+        f"({on - off:+.2f} ms, {on / off - 1:+.2%}) ({card})")
+
+
+def _cli_config(path: Path, override: dict, base: Path | None = None) -> str:
+    """A config file: ``override`` on top of ``base`` (when given)."""
+    import yaml
+
+    path.write_text(yaml.safe_dump({"base": [str(base)], **override} if base else override))
+    return str(path)
+
+
+def plate_round_trip(plate: Path, copy: Path, card: str) -> None:
+    """Read every FOV of ``plate`` with the port's reader, write it into a new
+    store with the port's writer, read that back: bit-exact, with rates."""
+    from viscy_tpu_torch.zarr_io.store import open_ome_zarr
+
+    src = open_ome_zarr(plate)
+    dst = open_ome_zarr(copy, layout="hcs", mode="w", channel_names=list(CLI_CHANNELS))
+    nbytes, read_s, write_s = 0, 0.0, 0.0
+    for name, pos in src.positions():
+        t0 = time.perf_counter()
+        data = pos["0"][:]
+        t1 = time.perf_counter()
+        img = dst.create_position(*name.split("/")).create_zeros("0", data.shape, data.dtype,
+                                                                  chunks=pos["0"].chunks)
+        img[:] = data
+        t2 = time.perf_counter()
+        if not np.array_equal(open_ome_zarr(copy)[name]["0"][:], data):
+            raise AssertionError(f"plate round trip of {name} is not bit-exact")
+        nbytes += data.nbytes
+        read_s += t1 - t0
+        write_s += t2 - t1
+    log(f"[cli] fit plate round trip through the port's reader and writer: bit-exact; "
+        f"read {nbytes / read_s / 1e6:.1f} MB/s, write {nbytes / write_s / 1e6:.1f} MB/s "
+        f"({nbytes / 2**20:.0f} MiB, uncompressed chunks of {pos['0'].chunks}) ({card})")
+    import shutil
+
+    shutil.rmtree(copy)
+
+
+def recompute_fov(store: Path, ckpt: Path, config: Path, fov: str) -> tuple[float, float]:
+    """One FOV of the prediction store against ``VSUNet.predict_step`` on its
+    z-windows, batched as the predict loader batches them, blended with the
+    plain ``blend_in``. Returns (max|d|, range)."""
+    from viscy_tpu_torch.training.callbacks.prediction_writer import blend_in
+    from viscy_tpu_torch.training.compose import load_composed_config
+    from viscy_tpu_torch.training.instantiate import instantiate
+    from viscy_tpu_torch.training.trainer import Trainer
+    from viscy_tpu_torch.zarr_io.store import open_ome_zarr
+
+    cfg = load_composed_config(config)
+    module = instantiate(cfg["model"])
+    dm = instantiate(cfg["data"])
+    Trainer(device="cuda", default_root_dir=ckpt.parent).load_checkpoint(ckpt, module)
+    module.eval()
+    dm.setup("predict")
+    z_total = CLI_PREDICT_ZYX[0]
+    want, windows = None, 0
+    with torch.inference_mode():
+        for batch in dm.predict_dataloader():
+            rows = [i for i, idx in enumerate(batch["index"]) if idx[0].strip("/").startswith(fov + "/")]
+            if not rows:
+                continue
+            pred = module.predict_step({"source": torch.from_numpy(batch["source"]).cuda()}).cpu().numpy()
+            for i in rows:
+                _, t, z = batch["index"][i]
+                if want is None:
+                    want = np.zeros((pred.shape[1], z_total, *pred.shape[-2:]), np.float32)
+                zs = slice(z, z + pred.shape[2])
+                want[:, zs] = blend_in(want[:, zs], pred[i], zs)
+                windows += 1
+    got = open_ome_zarr(store)[fov]["0"][0]
+    err = float(np.abs(got - want).max())
+    rng = float(want.max() - want.min())
+    log(f"[cli] {fov}: the store against predict_step on its {windows} z-windows + plain blend_in: "
+        f"max|d|={err:.3e} range={rng:.3e} ({err / rng:.2e} of range, bound 1e-6)")
+    if windows != z_total - 15 + 1 or not err <= 1e-6 * rng:
+        raise AssertionError(f"prediction store disagrees with its recomputation ({windows} windows)")
+    return err, rng
+
+
+def phase_cli(card: str) -> dict:
+    """``viscy-torch preprocess / fit / predict`` on seeded plates (see the
+    module docstring)."""
+    import tempfile
+
+    from viscy_tpu_torch.ops import fused_block as fb
+    from viscy_tpu_torch.ops import warp3d
+    from viscy_tpu_torch.training import cli
+    from viscy_tpu_torch.zarr_io.store import open_ome_zarr
+    from viscy_tpu_torch.zarr_io.synthetic import build_hcs_plate
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="viscy-cli-") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        fit_plate = build_hcs_plate(tmp / "fit.zarr", CLI_CHANNELS, zyx_shape=CLI_FIT_ZYX, num_timepoints=1,
+                                    rows=("A",), cols=("1",), fovs=CLI_FIT_FOVS, seed=7)
+        pred_plate = build_hcs_plate(tmp / "predict.zarr", CLI_CHANNELS[:1], zyx_shape=CLI_PREDICT_ZYX,
+                                     num_timepoints=1, rows=("B",), cols=("2",), fovs=CLI_PREDICT_FOVS, seed=8)
+        log(f"[cli] seeded plates written in {time.perf_counter() - t0:.1f} s: {len(CLI_FIT_FOVS)} FOVs of "
+            f"(1, 3, {', '.join(map(str, CLI_FIT_ZYX))}) and {len(CLI_PREDICT_FOVS)} of "
+            f"(1, 1, {', '.join(map(str, CLI_PREDICT_ZYX))}) float32 ({card})")
+        plate_round_trip(fit_plate, tmp / "copy.zarr", card)
+
+        t0 = time.perf_counter()
+        for plate in (fit_plate, pred_plate):
+            cli.main(["preprocess", "-c", _cli_config(tmp / f"pp_{plate.stem}.yml",
+                                                       {"data_path": str(plate), "num_workers": 8})])
+        pp_s = time.perf_counter() - t0
+        stats = open_ome_zarr(fit_plate)["A/1/0"].zattrs["normalization"]["Phase3D"]["fov_statistics"]
+        if not 0.45 < stats["mean"] < 0.55:
+            raise AssertionError(f"preprocess statistics off: {stats}")
+        log(f"[cli] preprocess of both plates: {pp_s:.2f} s (fov mean of A/1/0 Phase3D {stats['mean']:.4f}) "
+            f"({card})")
+
+        root = tmp / "fit"
+        fit_cfg = _cli_config(tmp / "fit.yml", {
+            "data": {"init_args": {"data_path": str(fit_plate), "num_workers": 8}},
+            "trainer": {"default_root_dir": str(root), "max_epochs": 1, "limit_train_batches": FIT_STEPS,
+                        "limit_val_batches": FIT_VAL},
+        }, ROOT / "configs/vscyto3d_fit.yml")
+        store = tmp / "prediction.zarr"
+        pred_cfg = _cli_config(tmp / "predict.yml", {
+            "data": {"init_args": {"data_path": str(pred_plate), "num_workers": 8}},
+            "trainer": {"callbacks": [{"class_path": "viscy_utils.callbacks.HCSPredictionWriter",
+                                       "init_args": {"output_store": str(store), "overwrite": False}}]},
+        }, ROOT / "configs/vscyto3d_predict.yml")
+        ckpt = root / "checkpoints" / "last"
+        torch.cuda.synchronize()
+        fb.launches = fb.bwd_launches = warp3d.launches = 0
+        t0 = time.perf_counter()
+        trainer = cli.main(["fit", "-c", fit_cfg])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        fit_counts = dict(fwd=fb.launches, bwd=fb.bwd_launches, warp=warp3d.launches)
+        fb.launches = fb.bwd_launches = warp3d.launches = 0
+        t0 = time.perf_counter()
+        predictor = cli.main(["predict", "-c", pred_cfg, "--ckpt_path", str(ckpt)])
+        torch.cuda.synchronize()
+        pred_s = time.perf_counter() - t0
+        pred_counts = dict(fwd=fb.launches, bwd=fb.bwd_launches, warp=warp3d.launches)
+
+        per_fwd = len(kernel_shapes(FLAGSHIP, TRAIN_PATCH[-1]))
+        want_fit = dict(fwd=2 * per_fwd * (FIT_STEPS + FIT_VAL), bwd=2 * per_fwd * FIT_STEPS, warp=FIT_STEPS)
+        n_windows = len(CLI_PREDICT_FOVS) * (CLI_PREDICT_ZYX[0] - 15 + 1)
+        want_pred = dict(fwd=2 * len(kernel_shapes(FLAGSHIP, CLI_PREDICT_ZYX[-1])) * math.ceil(n_windows / 2),
+                         bwd=0, warp=0)
+        log(f"[cli] launches: fit A+B {fit_counts['fwd']}, C+D {fit_counts['bwd']}, warp {fit_counts['warp']} "
+            f"(expected {want_fit['fwd']}/{want_fit['bwd']}/{want_fit['warp']}); predict A+B "
+            f"{pred_counts['fwd']} (expected {want_pred['fwd']}), C+D {pred_counts['bwd']}, warp "
+            f"{pred_counts['warp']}")
+        if fit_counts != want_fit or pred_counts != want_pred:
+            raise AssertionError(f"cli paths launched {fit_counts} / {pred_counts}, expected {want_fit} / {want_pred}")
+        feed = trainer.feed_stats
+        if feed["steps"] != FIT_STEPS or not ckpt.resolve().exists():
+            raise AssertionError(f"fit ran {feed['steps']} steps; last -> {ckpt.resolve()}")
+        val = trainer.logged_metrics.get("loss/validate")
+        if val is None or not math.isfinite(val):
+            raise AssertionError(f"fit validation loss {val}")
+        patches = FIT_STEPS * TRAIN_BATCH
+        log(f"[cli] fit (configs/vscyto3d_fit.yml, drop path 0.1, host weighted crop of 4 x 4 patches from "
+            f"(3, 20, 1024, 1024) windows): {fit_s:.1f} s in all; train loop {feed['seconds']:.2f} s for "
+            f"{FIT_STEPS} steps = {patches / feed['seconds']:.2f} patches/s (first step included); waited "
+            f"{feed['wait_s']:.2f} s for batches = {feed['wait_s'] / feed['seconds']:.1%} of the loop; "
+            f"loss/validate {val:.5f} ({card})")
+        writer = next(cb for cb in predictor.callbacks if hasattr(cb, "flush_s"))
+        out = open_ome_zarr(store)
+        names = [n for n, _ in out.positions()]
+        shape = (1, 2, *CLI_PREDICT_ZYX)
+        if out.channel_names != ["Nucleus", "Membrane"] or names != [f"B/2/{f}" for f in CLI_PREDICT_FOVS]:
+            raise AssertionError(f"prediction store channels {out.channel_names} positions {names}")
+        for n in names:
+            if out[n]["0"].shape != shape:
+                raise AssertionError(f"prediction {n} has shape {out[n]['0'].shape}, expected {shape}")
+        log(f"[cli] predict (configs/vscyto3d_predict.yml, f32, full {CLI_PREDICT_ZYX[-1]}^2 frames, batch 2, "
+            f"{n_windows} windows): {pred_s:.2f} s = {len(names) / pred_s:.4f} FOVs/s disk to disk; writer "
+            f"flushes {writer.flush_s:.2f} s on its pool, of which the loop waited {writer.flush_wait_s:.2f} s; "
+            f"store {shape} x {len(names)}, channels {out.channel_names} ({card})")
+        recompute_fov(store, ckpt, Path(pred_cfg), names[0])
+        del trainer, predictor
+    torch.cuda.empty_cache()
+    worst: dict = {}
+    shapes = kernel_shapes(FLAGSHIP, CLI_PREDICT_ZYX[-1])
+    for k, (s, c, m) in enumerate(sorted(set(shapes), key=shapes.index)):
+        check_forward(2, s, c, m, 300 + k, (False,), worst)
+    log_worst("the predict path's shapes (B=2, full frames)", worst)
+    return dict(fit=fit_counts, predict=pred_counts, max_abs_err=worst[torch.float32][0])
 
 
 def main() -> None:
@@ -1446,6 +1697,7 @@ def main() -> None:
     sl = phase_slice(card)
     tr = phase_train(card)
     fit = phase_fit(card)
+    cli = phase_cli(card)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")

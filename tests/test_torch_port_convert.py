@@ -96,7 +96,8 @@ def test_bridge_rejects_unknown_leaves(narrow_flax):
 def test_port_imports_no_jax_flax_or_viscy_tpu():
     """Import every viscy_tpu_torch module and chip_smoke.py in a fresh
     interpreter; whatever the environment pre-imports, they must add none
-    of these."""
+    of these, nor the zarr stacks the card's machine lacks (tensorstore,
+    zarr, numcodecs). (yaml and click are on that machine.)"""
     code = """
 import importlib, pkgutil, sys
 before = set(sys.modules)
@@ -105,7 +106,8 @@ for m in pkgutil.walk_packages(viscy_tpu_torch.__path__, "viscy_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
 added = set(sys.modules) - before
-bad = sorted(n for n in added if n.split(".")[0] in ("jax", "jaxlib", "flax", "viscy_tpu"))
+bad = sorted(n for n in added if n.split(".")[0] in ("jax", "jaxlib", "flax", "viscy_tpu", "tensorstore",
+                                                    "zarr", "numcodecs"))
 print("MODULES", len([n for n in added if n.startswith("viscy_tpu_torch")]))
 print("BAD", bad)
 """
@@ -115,7 +117,7 @@ print("BAD", bad)
                          cwd=REPO, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     lines = dict(line.split(" ", 1) for line in out.stdout.splitlines() if line.startswith(("MODULES", "BAD")))
-    assert int(lines["MODULES"]) >= 15
+    assert int(lines["MODULES"]) >= 54
     assert lines["BAD"] == "[]"
 
 

@@ -1,245 +1,45 @@
-"""The port's fit recipe (Trainer validation, checkpoints and resume, the CSV
-logger, hooks, gradient clipping and accumulation, freeze_encoder; the
-fg_mask route with SpotlightLoss) against viscy_tpu.
+"""The port's trainer features (validation, checkpoints and resume, the
+CSV logger, hooks, gradient clipping and accumulation, freeze_encoder, the
+profiler and fast_dev_run) against viscy_tpu's own ``Trainer``.
 
-The tiny FCMAE-UNeXt2 of tests/test_torch_port_train.py (blocks (1, 1, 2,
-1), dims 16-128, depth 5, 1 -> 2 channels; the port fused, the JAX side
-unfused) with seeded JAX weights carried across by the weight bridge, on
-numpy-seeded batches with no random transforms, TF32 off. The JAX side runs
-its own ``Trainer`` with those weights in its state. Tolerances, float32:
-losses to 1e-5 relative (SpotlightLoss alone to 1e-6); every gradient to
-2e-3 of its range with Pearson r > 0.9999 (the torch-parity bound);
-parameters after the steps to 1e-5 absolute (1 % of lr = 1e-3, see
-test_torch_port_train.py); frozen parameters, checkpoint round trips and
-resumed state bit for bit.
+The tiny FCMAE of tests/_torch_port_fit_common.py with seeded JAX weights
+in both packages, on numpy-seeded batches with no random transforms, TF32
+off. Tolerances, float32: losses to 1e-5 relative; parameters after the
+steps to 1e-5 absolute (1 % of lr = 1e-3, see test_torch_port_train.py);
+frozen parameters, checkpoint round trips and resumed state bit for bit.
 """
 
 import json
 import logging
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from viscy_tpu.apps.cytoland import engine as jengine
 from viscy_tpu.models.unet.fcmae import FullyConvolutionalMAE as JFCMAE
 from viscy_tpu.training import convert as jconvert
 from viscy_tpu.training.callbacks.base import Callback as JCallback
-from viscy_tpu.training.losses.mixed_loss import MixedLoss as JMixedLoss
-from viscy_tpu.training.losses.spotlight import SpotlightLoss as JSpotlightLoss
-from viscy_tpu.training.losses.spotlight import otsu_threshold_batch as j_otsu
 from viscy_tpu.training.trainer import Trainer as JTrainer
 from viscy_tpu_torch import transforms as T
-from viscy_tpu_torch.apps.cytoland import engine as tengine
 from viscy_tpu_torch.data.gpu_aug import DeviceTransformDataModule
 from viscy_tpu_torch.training.callbacks.base import Callback
 from viscy_tpu_torch.training.callbacks.checkpoint import LearningRateMonitor, ModelCheckpoint
-from viscy_tpu_torch.training.convert import fcmae_state_dict_from_flax, load_flax_params
-from viscy_tpu_torch.training.losses.mixed_loss import MixedLoss
-from viscy_tpu_torch.training.losses.spotlight import SpotlightLoss, otsu_threshold_batch
-from viscy_tpu_torch.training.optimizers import clip_by_global_norm_, configure_adamw_scheduler
 from viscy_tpu_torch.training.trainer import CSVLogger, Trainer
 
-from _torch_port_helpers import assert_rel_close, flax_params
-
-TINY = dict(
-    in_channels=1,
-    out_channels=2,
-    encoder_blocks=(1, 1, 2, 1),
-    dims=(16, 32, 64, 128),
-    stem_kernel_size=(5, 4, 4),
-    in_stack_depth=5,
-    decoder_conv_blocks=2,
-    pretraining=False,
+from _torch_port_fit_common import (  # noqa: F401  (fixtures)
+    TINY,
+    _assert_params_match,
+    _batch,
+    _Data,
+    _jax_engine,
+    _no_tf32,
+    _torch_engine,
+    jax_fit,
+    params,
+    port_fit,
 )
-ENGINE = dict(lr=1e-3, schedule="WarmupCosine", warmup_steps=1)
-UNBRIDGED = {"encoder.stem.conv2d.weight", "encoder.stem.conv2d.bias"}
-NEVER = 10**6  # checkpoint_every_n_epochs that never saves
-
-
-@pytest.fixture(autouse=True)
-def _no_tf32():
-    before = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    yield
-    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = before
-
-
-def _batch(seed, n=2, mask=False):
-    rng = np.random.default_rng(seed)
-    out = {
-        "source": rng.random((n, 1, 5, 64, 64), np.float32),
-        "target": rng.random((n, 2, 5, 64, 64), np.float32),
-    }
-    if mask:
-        out["fg_mask"] = rng.random((n, 2, 5, 64, 64)) > 0.7
-    return out
-
-
-@pytest.fixture(scope="module")
-def params():
-    return flax_params(JFCMAE(**TINY), 31, jnp.zeros((1, 1, 5, 64, 64)))
-
-
-class _Data:
-    """Datamodule of fixed numpy batches for either package's trainer."""
-
-    def __init__(self, train, val=None):
-        self.train, self.val = train, val
-
-    def prepare_data(self):
-        pass
-
-    def setup(self, stage):
-        pass
-
-    def train_dataloader(self):
-        return list(self.train)
-
-    def val_dataloader(self):
-        return None if self.val is None else list(self.val)
-
-
-def _jax_engine(params, loss=None, **kw):
-    jmod = jengine.VSUNet("fcmae", dict(TINY, fused_mlp=False), loss_function=loss or JMixedLoss(0.5, 0.0, 0.5),
-                          **ENGINE, **kw)
-    jmod.init_variables = lambda rng, batch: {"params": jax.tree_util.tree_map(jnp.asarray, params)}
-    return jmod
-
-
-def _torch_engine(params, loss=None, **kw):
-    tmod = tengine.VSUNet("fcmae", dict(TINY, fused_mlp=True), loss_function=loss or MixedLoss(0.5, 0.0, 0.5),
-                          device="cpu", **ENGINE, **kw)
-    load_flax_params(tmod.model, params)
-    return tmod
-
-
-def jax_fit(params, root, train, val=None, engine_kw=None, callbacks=(), **trainer_kw):
-    jmod = _jax_engine(params, **(engine_kw or {}))
-    trainer = JTrainer(default_root_dir=root, use_tensorboard=False, seed=0, checkpoint_every_n_epochs=NEVER,
-                       callbacks=list(callbacks), **trainer_kw)
-    trainer.fit(jmod, _Data(train, val))
-    return trainer
-
-
-def port_fit(params, root, train, val=None, engine_kw=None, callbacks=(), **trainer_kw):
-    tmod = _torch_engine(params, **(engine_kw or {}))
-    trainer_kw.setdefault("checkpoint_every_n_epochs", NEVER)
-    trainer = Trainer(default_root_dir=root, seed=0, callbacks=list(callbacks), device="cpu", **trainer_kw)
-    trainer.fit(tmod, _Data(train, val))
-    return trainer, tmod
-
-
-def _assert_params_match(jtrainer, tmod, frozen_unchanged_from=None):
-    want = fcmae_state_dict_from_flax(jax.tree_util.tree_map(np.asarray, jtrainer.state.params))
-    for name, p in tmod.model.named_parameters():
-        if name in UNBRIDGED:
-            continue
-        np.testing.assert_allclose(p.detach().numpy(), want[name].numpy(), atol=1e-5, rtol=0, err_msg=name)
-        if frozen_unchanged_from is not None and name.startswith("encoder."):
-            assert torch.equal(p.detach(), frozen_unchanged_from[name]), name
-
-
-# -- SpotlightLoss and the fg_mask route --------------------------------------------
-
-
-def _pred_target(seed, shape=(2, 2, 5, 16, 16)):
-    rng = np.random.default_rng(seed)
-    return rng.normal(0.3, 0.5, shape).astype(np.float32), rng.random(shape).astype(np.float32)
-
-
-def _bimodal(shape, seed):
-    """A fluorescence-like target: 70 % background near 0.15, 30 %
-    foreground near 0.7, each (sample, channel) spanning exactly [0, 1].
-
-    Otsu's last bin (an empty upper class) divides the rounding error of
-    ``cumsum[-1] - sum`` by 1e-10 in both packages (viscy_tpu
-    ``losses/spotlight.py:_otsu_1d``), so where those sums round, the pick
-    follows the summation order, which XLA and torch do not share. With a
-    [0, 1] span the bin centers are dyadic and every sum is exact, so the
-    two packages compare what the formula computes. (That formula puts
-    this target's threshold near 0.045, where ``preprocess/stats.py``'s
-    skimage rule puts it near 0.40: ROADMAP Queue 3.)"""
-    rng = np.random.default_rng(seed)
-    fg = rng.random(shape) < 0.3
-    x = np.where(fg, rng.normal(0.7, 0.1, shape), rng.normal(0.15, 0.05, shape))
-    x = np.clip(x, 0.0, 1.0).astype(np.float32)
-    flat = x.reshape(shape[0] * shape[1], -1)
-    flat[:, 0], flat[:, 1] = 0.0, 1.0
-    return flat.reshape(shape)
-
-
-@pytest.mark.parametrize("case", ["fg_mask", "threshold", "otsu", "otsu-tied", "empty-mask"])
-def test_spotlight_loss_matches_jax(case):
-    pred, target = _pred_target(1)
-    kw, mask = {}, None
-    if case == "fg_mask":
-        mask = target > 0.6
-    elif case == "empty-mask":
-        mask = np.zeros_like(target, bool)
-        mask[0, 0] = True  # one all-foreground channel, the rest empty
-    elif case == "threshold":
-        kw = dict(fg_threshold=0.4)
-    elif case == "otsu":
-        target = _bimodal(target.shape, 1)
-    elif case == "otsu-tied":
-        target = (target > 0.5).astype(np.float32)  # two values: every split ties
-    want = JSpotlightLoss(lambda_mse=0.3, **kw)(jnp.asarray(pred), jnp.asarray(target),
-                                                 None if mask is None else jnp.asarray(mask))
-    got = SpotlightLoss(lambda_mse=0.3, **kw)(torch.from_numpy(pred), torch.from_numpy(target),
-                                              None if mask is None else torch.from_numpy(mask))
-    np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
-
-
-def test_otsu_thresholds_match_jax_with_tied_maxima():
-    target = _bimodal((2, 2, 5, 16, 16), 2)
-    target[0, 0] = (target[0, 0] > 0.5)  # tied maxima: the first wins on both sides
-    target[1, 1] = 0.25  # constant channel
-    want = np.asarray(j_otsu(jnp.asarray(target)))
-    got = otsu_threshold_batch(torch.from_numpy(target)).numpy()
-    assert got.shape == want.shape == (2, 2, 1, 1, 1)
-    np.testing.assert_array_equal(got, want)
-    assert got[0, 0].item() < 0.01  # the first tied bin, not the last
-
-
-def test_training_loss_routes_fg_mask_to_spotlight(params):
-    """``VSUNet.training_loss`` on an fg_mask batch: the loss and every
-    parameter gradient against ``jax.grad`` of the JAX engine's."""
-    batch = _batch(3, mask=True)
-    jmod = _jax_engine(params, loss=JSpotlightLoss())
-
-    @jax.jit
-    def value_and_grad(p, b):
-        return jax.value_and_grad(lambda p: jmod.training_loss({"params": p}, b, jax.random.PRNGKey(0))[0])(p)
-
-    jloss, jgrads = value_and_grad(jax.tree_util.tree_map(jnp.asarray, params),
-                                   {k: jnp.asarray(v) for k, v in batch.items()})
-    tmod = _torch_engine(params, loss=SpotlightLoss())
-    loss = tmod.training_loss({k: torch.from_numpy(v) for k, v in batch.items()})
-    loss.backward()
-    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-5)
-    want = fcmae_state_dict_from_flax(jax.tree_util.tree_map(np.asarray, jgrads))
-    for name, p in tmod.model.named_parameters():
-        if name not in UNBRIDGED:
-            assert_rel_close(p.grad.numpy(), want[name].numpy(), 2e-3, 0.9999)
-
-
-def test_training_refuses_encoder_drop_path(params):
-    """Stochastic depth is not ported: training a model that asks for it
-    raises, while its eval-mode loss (no drop path on either side) equals
-    that of the same weights at rate 0, to 1e-6 relative."""
-    batch = {k: torch.from_numpy(v) for k, v in _batch(4).items()}
-    tmod = _torch_engine(params)
-    tmod.model_config["encoder_drop_path_rate"] = 0.1
-    with pytest.raises(NotImplementedError, match="encoder_drop_path_rate"):
-        tmod.training_loss(batch)
-    tmod.eval()
-    with torch.no_grad():
-        got = float(tmod.validation_loss(batch))
-        want = float(_torch_engine(params).eval().validation_loss(batch))
-    np.testing.assert_allclose(got, want, rtol=1e-6)
+from _torch_port_helpers import assert_rel_close
 
 
 @pytest.mark.parametrize("kw", [dict(mode="max"), dict(save_last=False), dict(filename="{epoch}")],
@@ -474,70 +274,6 @@ def test_last_pointing_at_a_pruned_checkpoint_raises(params, tmp_path):
         trainer.load_checkpoint(last, tmod)
 
 
-# -- the recipe end to end on the CPU, and the rest of the trainer's surface ----------
-
-
-def _recipe_aug(keys):
-    return T.Compose([
-        T.NormalizeSampled(keys=["source", "target"], level="fov_statistics"),
-        T.BatchedRandFlipd(keys=keys, prob=0.5),
-        T.BatchedRandAffined(keys=keys, prob=0.5, rotate_range=[3.14, 0.0, 0.0],
-                             scale_range=[[1.0, 1.3], [0.75, 1.3], [0.75, 1.3]]),
-        T.BatchedRandAdjustContrastd(keys=["source"], gamma=[0.8, 1.2], prob=0.3),
-        T.BatchedRandGaussianNoised(keys=["source"], prob=0.5, std=0.5),
-    ])
-
-
-def _with_meta(batch, seed):
-    rng = np.random.default_rng(seed)
-    n = batch["source"].shape[0]
-    meta = {k: {"fov_statistics": {"mean": rng.random(n).astype(np.float32),
-                                   "std": 0.5 + rng.random(n).astype(np.float32)}}
-            for k in ("source", "target")}
-    return dict(batch, norm_meta=meta)
-
-
-@pytest.mark.parametrize("loss", ["mixed", "spotlight-fg_mask"])
-def test_recipe_fit_and_resume_run_on_the_cpu(params, tmp_path, loss):
-    """The VSCyto3D fit recipe through ``Trainer(device="cpu")``:
-    NormalizeSampled and the config's flip, affine, contrast and noise,
-    validation, ModelCheckpoint, LearningRateMonitor, the CSV log,
-    clipping, accumulation and freeze_encoder; then a resume from ``last``."""
-    spot = loss != "mixed"
-    keys = ["source", "target", "fg_mask"] if spot else ["source", "target"]
-
-    class Recipe(DeviceTransformDataModule):
-        train_device_transforms = _recipe_aug(keys)
-
-        def train_dataloader(self):
-            return [_with_meta(_batch(100 + i, mask=spot), i) for i in range(2)]
-
-        def val_dataloader(self):
-            return [_with_meta(_batch(110, mask=spot), 9)]
-
-    def engine():
-        return _torch_engine(params, loss=SpotlightLoss() if spot else None, freeze_encoder=True)
-
-    tmod = engine()
-    frozen = tmod.model.encoder.stem.conv3d.weight.detach().clone()
-    kw = dict(default_root_dir=tmp_path, seed=3, log_every_n_steps=1, gradient_clip_val=0.5,
-              accumulate_grad_batches=2, device="cpu")
-    trainer = Trainer(max_epochs=2, callbacks=[ModelCheckpoint(save_top_k=5), LearningRateMonitor()], **kw)
-    trainer.fit(tmod, Recipe())
-    assert trainer.global_step == 4 and trainer.scheduler.last_epoch == 2
-    assert torch.equal(tmod.model.encoder.stem.conv3d.weight, frozen)
-    lines = [json.loads(s) for s in (tmp_path / "metrics.csv").read_text().splitlines()]
-    assert any("loss/validate" in line for line in lines) and any("lr" in line for line in lines)
-    assert all(np.isfinite(v) for line in lines for v in line.values())
-    names = sorted(p.name for p in (tmp_path / "checkpoints").iterdir())
-    assert len(names) == 3 and names[-1] == "last" and names[0].startswith("epoch=0-step=2-loss=")
-    resumed = Trainer(max_epochs=3, **kw)
-    fresh = engine()
-    resumed.fit(fresh, Recipe(), ckpt_path=tmp_path / "checkpoints" / "last")
-    assert resumed.global_step == 6 and resumed.current_epoch == 2
-    assert torch.equal(fresh.model.encoder.stem.conv3d.weight, frozen)
-
-
 def test_fit_without_validation_keeps_the_train_augmentation_stream(params, tmp_path):
     """Validation draws from a generator of its own: the train batches'
     augmentation, and so the weights, are the same with or without a val
@@ -565,32 +301,6 @@ def test_fit_without_validation_keeps_the_train_augmentation_stream(params, tmp_
         runs.append(tmod.model.state_dict())
     for name, a in runs[0].items():
         assert torch.equal(a, runs[1][name]), name
-
-
-def test_clip_by_global_norm_then_adamw_matches_optax():
-    """``clip_by_global_norm_`` before the AdamW step is
-    ``optax.chain(optax.clip_by_global_norm(c), optax.adamw(...))`` on a
-    gradient above the bound and one below it, to 1e-6."""
-    import optax
-
-    rng = np.random.default_rng(5)
-    w = [rng.normal(size=(3, 4)).astype(np.float32), rng.normal(size=(5,)).astype(np.float32)]
-    gs = [[rng.normal(size=x.shape).astype(np.float32) * s for x in w] for s in (3.0, 0.01)]
-    tx = optax.chain(optax.clip_by_global_norm(0.5), optax.adamw(1e-2, weight_decay=1e-2))
-    jp = [jnp.asarray(x) for x in w]
-    state = tx.init(jp)
-    tp = [torch.nn.Parameter(torch.from_numpy(x.copy())) for x in w]
-    opt, sched, _ = configure_adamw_scheduler(tp, lr=1e-2)
-    for g in gs:  # the first clipped, the second not
-        upd, state = tx.update([jnp.asarray(x) for x in g], state, jp)
-        jp = optax.apply_updates(jp, upd)
-        for p, x in zip(tp, g):
-            p.grad = torch.from_numpy(x.copy())
-        clip_by_global_norm_(tp, 0.5)
-        opt.step()
-        sched.step()
-    for p, x in zip(tp, jp):
-        np.testing.assert_allclose(p.detach().numpy(), np.asarray(x), atol=1e-6, rtol=0)
 
 
 def test_tensorboard_is_refused_and_the_profiler_writes_a_trace(params, tmp_path):

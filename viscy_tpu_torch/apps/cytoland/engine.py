@@ -4,7 +4,8 @@
 ``VSUNet`` wraps the FCMAE-based UNeXt2 (``"fcmae"`` / ``"UNeXt2_2D"``)
 with the reference supervised training and validation losses (MixedLoss by
 default, with the optional bf16 loss inputs; a batch's ``fg_mask`` goes to
-the loss, e.g. ``SpotlightLoss``), its AdamW + schedule (optionally with
+the loss, e.g. ``SpotlightLoss``; stochastic depth in the encoder while
+training), its AdamW + schedule (optionally with
 the encoder frozen), and the reference predict step: divisible pad,
 forward, center crop, optional 4-rotation test-time augmentation, and
 batched YX tiling with hat-weight blending for large fields of view.
@@ -127,17 +128,14 @@ class VSUNet(TrainModule):
             target = target.to(torch.bfloat16)
         return self.loss_function(pred, target)
 
-    def training_loss(self, batch: dict) -> torch.Tensor:
+    def training_loss(self, batch: dict, generator: torch.Generator | None = None) -> torch.Tensor:
         """Supervised loss of the forward on ``batch["source"]`` against
         ``batch["target"]`` (NCDHW); a batch's ``fg_mask`` goes to the loss
-        as ``fg_mask=``. Stochastic depth is not ported, so a model with
-        ``encoder_drop_path_rate > 0`` refuses to train (its eval-mode
-        forward, which has no drop path, runs)."""
-        if self.model_config.get("encoder_drop_path_rate", 0.0) > 0:
-            raise NotImplementedError(
-                "stochastic depth (encoder_drop_path_rate > 0) is not ported; set it to 0 to train"
-            )
-        return self._compute_loss(self.forward(batch["source"]), batch["target"], batch)
+        as ``fg_mask=``. ``generator`` draws the encoder's stochastic-depth
+        masks (``encoder_drop_path_rate``) in training mode; a model with a
+        rate above 0 in training mode needs it."""
+        pred = self.model(batch["source"], generator=generator)
+        return self._compute_loss(pred, batch["target"], batch)
 
     def validation_loss(self, batch: dict) -> torch.Tensor:
         """The loss of the deterministic forward (the trainer runs it in eval

@@ -1,0 +1,21 @@
+"""Sample and index types of the HCS data path (the part of
+``viscy_tpu/data/typing.py`` the port's datamodule uses)."""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Sequence, TypedDict, Union
+
+
+class HCSStackIndex(NamedTuple):
+    """(image array path, time index, z index) of a sliding window."""
+
+    image: str
+    time: int
+    z: int
+
+
+class ChannelMap(TypedDict, total=False):
+    """Source and target channel names."""
+
+    source: Union[str, Sequence[str]]
+    target: Union[str, Sequence[str]]

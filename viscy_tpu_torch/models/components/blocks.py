@@ -229,6 +229,45 @@ def mlp_grn_residual(
     return out.reshape(b, h, w, c)
 
 
+class DropPath(nn.Module):
+    """Per-sample stochastic depth on a residual branch (counterpart of
+    ``viscy_tpu/models/components/blocks.py``'s ``DropPath``).
+
+    In training at ``rate > 0`` each sample's branch is kept with
+    probability ``1 - rate`` and scaled by ``1 / (1 - rate)``, else zeroed:
+    ``where(keep, x / keep_prob, 0)``, the division in ``x``'s dtype (the
+    keep probability rounded to it first, as JAX rounds a Python float to a
+    bf16 array's dtype). The keep mask is drawn from an explicit
+    ``torch.Generator`` (never from global RNG state), or given as a
+    ``(B,)`` tensor. In eval mode, or at rate 0, the branch passes as is."""
+
+    def __init__(self, rate: float = 0.0) -> None:
+        super().__init__()
+        self.rate = float(rate)
+
+    @property
+    def active(self) -> bool:
+        return self.training and self.rate > 0.0
+
+    def keep_mask(self, batch: int, generator: torch.Generator) -> torch.Tensor:
+        """A ``(B,)`` bool mask, each entry kept with probability ``1 - rate``."""
+        return torch.rand((batch,), generator=generator, device=generator.device) < 1.0 - self.rate
+
+    def forward(
+        self, x: torch.Tensor, generator: torch.Generator | None = None, keep: torch.Tensor | None = None
+    ) -> torch.Tensor:
+        if not self.active:
+            return x
+        if keep is None:
+            if generator is None:
+                raise ValueError("DropPath in training needs a torch.Generator or a keep mask")
+            keep = self.keep_mask(x.shape[0], generator)
+        keep = keep.to(device=x.device, dtype=torch.bool).reshape((-1,) + (1,) * (x.ndim - 1))
+        # filled on the device: no host-to-device copy, no sync
+        keep_prob = torch.full((), 1.0 - self.rate, dtype=x.dtype, device=x.device)
+        return torch.where(keep, x / keep_prob, x.new_zeros(()))
+
+
 class ConvNeXtBlock(nn.Module):
     """timm ConvNeXt-v2 block with 1x1-conv MLP (decoder refinement):
     7x7 depthwise conv (with bias) -> fused LN/fc1/GELU/GRN/fc2 -> residual.

@@ -18,6 +18,7 @@ from torch import nn
 
 from viscy_tpu_torch.models.components.blocks import (
     Conv,
+    DropPath,
     GrnMlp,
     LayerNorm,
     UNeXt2Decoder,
@@ -43,7 +44,12 @@ def _dtype(dtype) -> torch.dtype:
 class MaskedConvNeXtV2Block(nn.Module):
     """FCMAE ConvNeXt-v2 block (reference ``fcmae.py:144``), unmasked:
     7x7 depthwise conv WITHOUT bias (timm ``create_conv2d`` default) ->
-    fused LN/fc1/GELU/GRN/fc2 -> residual."""
+    fused LN/fc1/GELU/GRN/fc2 -> residual.
+
+    With stochastic depth active (training, ``drop_path > 0``) the fused
+    kernel computes the branch alone (shortcut zeros: ``0 + z`` is ``z``),
+    then ``DropPath`` scales it and the shortcut is added in torch, the
+    JAX unfused block's order; otherwise one fused call adds the shortcut."""
 
     def __init__(
         self,
@@ -52,6 +58,7 @@ class MaskedConvNeXtV2Block(nn.Module):
         kernel_size: int = 7,
         mlp_ratio: int = 4,
         dtype: torch.dtype = torch.float32,
+        drop_path: float = 0.0,
     ) -> None:
         super().__init__()
         self.dtype = dtype
@@ -67,10 +74,16 @@ class MaskedConvNeXtV2Block(nn.Module):
         )
         self.layernorm = LayerNorm(dim)
         self.mlp = GrnMlp(dim, mlp_ratio * dim, generator)
+        self.drop_path = DropPath(drop_path)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, generator: torch.Generator | None = None, keep: torch.Tensor | None = None
+    ) -> torch.Tensor:
         y = self.dwconv.nhwc(x, self.dtype, padding=self.kernel_size // 2)
-        return mlp_grn_residual(y, x, self.layernorm, self.mlp)
+        if not self.drop_path.active:
+            return mlp_grn_residual(y, x, self.layernorm, self.mlp)
+        branch = mlp_grn_residual(y, torch.zeros_like(y), self.layernorm, self.mlp)
+        return self.drop_path(branch, generator, keep) + x
 
 
 class MaskedConvNeXtV2Stage(nn.Module):
@@ -86,24 +99,27 @@ class MaskedConvNeXtV2Stage(nn.Module):
         stride: int = 2,
         num_blocks: int = 2,
         dtype: torch.dtype = torch.float32,
+        drop_path_rates: Sequence[float] | None = None,
     ) -> None:
         super().__init__()
         self.dtype = dtype
         self.stride = stride
+        rates = list(drop_path_rates) if drop_path_rates is not None else [0.0] * num_blocks
         self.downsample = None
         if in_channels != out_channels or stride > 1:
             k = stride if stride > 1 else 1
             self.downsample = downsample(in_channels, out_channels, k, generator)
         self.blocks = nn.ModuleList(
-            MaskedConvNeXtV2Block(out_channels, generator, kernel_size=kernel_size, dtype=dtype)
-            for _ in range(num_blocks)
+            MaskedConvNeXtV2Block(out_channels, generator, kernel_size=kernel_size, dtype=dtype, drop_path=r)
+            for r in rates
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None, keeps=None) -> torch.Tensor:
+        """``keeps``: an iterator of per-block ``(B,)`` keep masks, else None."""
         if self.downsample is not None:
             x = apply_downsample(self.downsample, x, self.stride, self.dtype)
         for block in self.blocks:
-            x = block(x)
+            x = block(x, generator, None if keeps is None else next(keeps))
         return x
 
 
@@ -119,6 +135,7 @@ class MaskedMultiscaleEncoder(nn.Module):
         stem_kernel_size: Sequence[int] = (5, 4, 4),
         in_stack_depth: int = 5,
         dtype: torch.dtype = torch.float32,
+        drop_path_rate: float = 0.0,
     ) -> None:
         super().__init__()
         self.stage_blocks = tuple(stage_blocks)
@@ -141,6 +158,7 @@ class MaskedMultiscaleEncoder(nn.Module):
                 stride=1 if i == 0 else 2,
                 num_blocks=n,
                 dtype=dtype,
+                drop_path_rates=[drop_path_rate] * n,
             )
             for i, n in enumerate(self.stage_blocks)
         )
@@ -149,12 +167,17 @@ class MaskedMultiscaleEncoder(nn.Module):
     def total_stride(self) -> int:
         return int(self.stem_kernel_size[1] * 2 ** (len(self.stage_blocks) - 1))
 
-    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
-        """``(B, C, D, H, W)`` -> channels-last features, one per stage."""
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None,
+                drop_path_masks=None) -> list[torch.Tensor]:
+        """``(B, C, D, H, W)`` -> channels-last features, one per stage.
+        ``generator`` draws the blocks' drop-path masks in training;
+        ``drop_path_masks`` gives them instead, one ``(B,)`` mask per block
+        in block order."""
         y = self.stem(x)
+        keeps = None if drop_path_masks is None else iter(drop_path_masks)
         features = []
         for stage in self.stages:
-            y = stage(y)
+            y = stage(y, generator, keeps)
             features.append(y)
         return features
 
@@ -166,8 +189,10 @@ class FullyConvolutionalMAE(nn.Module):
     drawn from ``generator`` (default: a generator seeded with 0) with the
     flax initializers. ``fused_mlp`` is accepted for config compatibility:
     every block runs the fused MLP+GRN segment, there is no unfused path.
-    ``encoder_drop_path_rate`` only affects training: this forward is the
-    deterministic one, and ``VSUNet.training_loss`` refuses a rate above 0.
+    ``encoder_drop_path_rate`` is every encoder block's stochastic-depth
+    rate (reference ``fcmae.py:223``); it acts in training mode only, with
+    the masks drawn from the ``generator`` given to ``forward`` (or the
+    ``drop_path_masks`` given there).
     """
 
     def __init__(
@@ -207,6 +232,7 @@ class FullyConvolutionalMAE(nn.Module):
             stem_kernel_size=self.stem_kernel_size,
             in_stack_depth=in_stack_depth,
             dtype=self.dtype,
+            drop_path_rate=encoder_drop_path_rate,
         )
         decoder_channels = list(self.dims[::-1])
         decoder_channels[-1] = out_channels * in_stack_depth * self.stem_kernel_size[-1] ** 2
@@ -239,8 +265,10 @@ class FullyConvolutionalMAE(nn.Module):
     def out_stack_depth(self) -> int:
         return self.in_stack_depth
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """``(B, C_in, D, H, W)`` -> float32 ``(B, C_out, D, H, W)``."""
-        features = self.encoder(x)[::-1]
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None,
+                drop_path_masks=None) -> torch.Tensor:
+        """``(B, C_in, D, H, W)`` -> float32 ``(B, C_out, D, H, W)``; the
+        drop-path ``generator`` / ``drop_path_masks`` as in the encoder."""
+        features = self.encoder(x, generator, drop_path_masks)[::-1]
         feat = self.decoder(features)
         return self.head(feat).float()

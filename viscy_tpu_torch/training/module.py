@@ -21,9 +21,11 @@ class TrainModule(nn.Module):
 
     model: nn.Module
 
-    def training_loss(self, batch: dict) -> torch.Tensor:
+    def training_loss(self, batch: dict, generator: torch.Generator | None = None) -> torch.Tensor:
         """The scalar training loss of one (augmented) batch, differentiable
-        in the engine's parameters."""
+        in the engine's parameters; ``generator`` (on the batch's device) is
+        the only source of the step's random draws, such as stochastic
+        depth."""
         raise NotImplementedError
 
     def validation_loss(self, batch: dict) -> torch.Tensor:

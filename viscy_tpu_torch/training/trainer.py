@@ -2,13 +2,16 @@
 with validation, checkpoints and the CSV logger, ``validate`` and the
 predict loop.
 
-PyTorch runs eagerly, so there is no compiled step. A fit step moves the
-batch to the trainer's device, runs the datamodule's device transform with
-the trainer's seeded ``torch.Generator``, then ``training_loss`` and
-``backward``; every ``accumulate_grad_batches`` steps the (mean) gradient
-is clipped and AdamW and its scheduler step. Multi-device meshes,
-``Trainer.test``, the prefetch thread and the TensorBoard and W&B sinks are
-not ported.
+PyTorch runs eagerly, so there is no compiled step. Batches reach the
+device through :class:`BatchPrefetcher`: a producer thread walks the host
+loader, copies each batch into reused pinned buffers and onto the device
+on a side stream, so the copy overlaps the previous step. A fit step runs
+the datamodule's device transform with the trainer's seeded
+``torch.Generator``, then ``training_loss`` (its stochastic depth drawn
+from a second generator) and ``backward``; every
+``accumulate_grad_batches`` steps the (mean) gradient is clipped and AdamW
+and its scheduler step. Multi-device meshes, ``Trainer.test`` and the
+TensorBoard and W&B sinks are not ported.
 """
 
 from __future__ import annotations
@@ -31,19 +34,134 @@ from viscy_tpu_torch.training.optimizers import clip_by_global_norm_, clip_by_va
 _logger = logging.getLogger("viscy_tpu_torch")
 
 
-def _to_device(batch: dict, device: torch.device) -> dict:
-    """Numpy arrays and tensors of ``batch`` (nested dicts too, such as
-    ``norm_meta``) on ``device``; other leaves as they are."""
-    out = {}
-    for key, value in batch.items():
-        if isinstance(value, dict):
-            value = _to_device(value, device)
-        elif isinstance(value, np.ndarray):
-            value = torch.from_numpy(value)
-        if isinstance(value, torch.Tensor):
-            value = value.to(device, non_blocking=True)
-        out[key] = value
-    return out
+_STOP = object()  # prefetch-queue sentinel
+
+
+class _Slot:
+    """One ring entry: pinned host buffers by leaf path, and the event of
+    the last copy out of them."""
+
+    def __init__(self) -> None:
+        self.buffers: dict[tuple, torch.Tensor] = {}
+        self.event: torch.cuda.Event | None = None
+
+
+class BatchPrefetcher:
+    """Iterate ``loader``'s batches on ``device``, ``depth`` batches ahead.
+
+    A producer thread takes each host batch (numpy arrays and CPU tensors,
+    nested dicts such as ``norm_meta`` too; other leaves pass as they are)
+    and, for a CUDA device, copies every array into a ring of pinned host
+    buffers that are reused while the shapes stay the same (a new shape,
+    such as a validation batch, gets a new buffer), then onto the device on
+    a side copy stream, recording an event. The consumer's stream waits on
+    that event before the batch is used, and each device tensor is marked
+    as used by the consumer's stream (``record_stream``), so its memory is
+    not handed out again while the step still reads it. A ring buffer is
+    refilled only after its last copy has completed. On the CPU the arrays
+    become tensors without a copy. ``limit`` stops after that many batches;
+    ``wait_s`` counts the seconds the consumer waited for a batch.
+    """
+
+    def __init__(self, loader, device: torch.device, limit: int | None = None, depth: int = 2) -> None:
+        self.loader = loader
+        self.device = device
+        self.limit = limit
+        self.depth = max(1, depth)
+        self.wait_s = 0.0
+        self.batches = 0
+
+    def _stage(self, node, slot: _Slot | None, path: tuple = ()):
+        if isinstance(node, dict):
+            return {k: self._stage(v, slot, path + (k,)) for k, v in node.items()}
+        if isinstance(node, np.ndarray) and node.dtype != object:
+            node = torch.from_numpy(np.ascontiguousarray(node))
+        if not isinstance(node, torch.Tensor) or slot is None or node.device.type != "cpu":
+            return node
+        buf = slot.buffers.get(path)
+        if buf is None or buf.shape != node.shape or buf.dtype != node.dtype:
+            buf = slot.buffers[path] = torch.empty(node.shape, dtype=node.dtype, pin_memory=True)
+        buf.copy_(node)
+        out = torch.empty(node.shape, dtype=node.dtype, device=self.device)
+        out.copy_(buf, non_blocking=True)
+        return out
+
+    def __iter__(self):
+        import queue
+        import threading
+
+        cuda = self.device.type == "cuda"
+        stream = torch.cuda.Stream(self.device) if cuda else None
+        ring = [_Slot() for _ in range(self.depth + 2)] if cuda else None
+        q: queue.Queue = queue.Queue(maxsize=self.depth)
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def producer():
+            it = None
+            try:
+                it = iter(self.loader)
+                for i, batch in enumerate(it):
+                    if stop.is_set() or (self.limit is not None and i >= self.limit):
+                        break
+                    if not cuda:
+                        item = (self._stage(batch, None), None)
+                    else:
+                        slot = ring[i % len(ring)]
+                        if slot.event is not None:
+                            slot.event.synchronize()
+                        with torch.cuda.device(self.device), torch.cuda.stream(stream):
+                            staged = self._stage(batch, slot)
+                            slot.event = torch.cuda.Event()
+                            slot.event.record(stream)
+                        item = (staged, slot.event)
+                    if not put(item):
+                        break
+            except Exception as e:  # surfaces in the consumer
+                put(e)
+            finally:
+                close = getattr(it, "close", None)
+                if close is not None:
+                    close()
+                put(_STOP)
+
+        t = threading.Thread(target=producer, daemon=True, name="viscy-prefetch")
+        t.start()
+        try:
+            while True:
+                t0 = time.perf_counter()
+                item = q.get()
+                self.wait_s += time.perf_counter() - t0
+                if item is _STOP:
+                    break
+                if isinstance(item, Exception):
+                    raise item
+                batch, event = item
+                if event is not None:
+                    current = torch.cuda.current_stream(self.device)
+                    current.wait_event(event)
+                    _record_stream(batch, current)
+                self.batches += 1
+                yield batch
+        finally:
+            stop.set()
+            t.join()
+
+
+def _record_stream(node, stream) -> None:
+    if isinstance(node, dict):
+        for v in node.values():
+            _record_stream(v, stream)
+    elif isinstance(node, torch.Tensor) and node.device.type == "cuda":
+        node.record_stream(stream)
 
 
 class CSVLogger:
@@ -102,7 +220,8 @@ class Trainer:
     - ``fast_dev_run``: one epoch of one train and one val batch, every
       step logged, no checkpoint.
 
-    The augmentation generator is seeded with ``seed + 1`` at every fit start.
+    The augmentation generator is seeded with ``seed + 1`` at every fit
+    start, the stochastic-depth generator with ``seed + 2**32``.
     """
 
     def __init__(
@@ -162,6 +281,10 @@ class Trainer:
         self._mini_step = 0
         self._acc: dict[str, torch.Tensor] = {}
         self._profiler = None
+        self._active_datamodule = None
+        # train-loop totals over fits: steps, wall seconds, seconds waited
+        # for a batch
+        self.feed_stats = {"steps": 0, "seconds": 0.0, "wait_s": 0.0}
 
     # -- helpers ----------------------------------------------------------------
     def _total_steps(self, datamodule, loader) -> int:
@@ -184,7 +307,7 @@ class Trainer:
         """Forward and backward of one batch; the optimizer steps on every
         ``accumulate_grad_batches``-th call, on the mean gradient."""
         module.zero_grad(set_to_none=True)
-        loss = module.training_loss(batch)
+        loss = module.training_loss(batch, self.drop_path_generator)
         loss.backward()
         k = self.accumulate_grad_batches
         if k > 1:
@@ -243,6 +366,7 @@ class Trainer:
         """Train ``module`` on ``datamodule.train_dataloader()`` batches,
         validating and checkpointing at epoch ends; ``ckpt_path`` resumes
         from a checkpoint (the epoch after its epoch, at its step)."""
+        self._active_datamodule = datamodule
         prepare = getattr(datamodule, "prepare_data", None)
         if prepare is not None:
             prepare()
@@ -257,6 +381,7 @@ class Trainer:
         for cb in self.callbacks:
             cb.on_fit_start(self, module)
         self.generator = torch.Generator(device=self.device).manual_seed(self.seed + 1)
+        self.drop_path_generator = torch.Generator(device=self.device).manual_seed(self.seed + 2**32)
         max_epochs = 1 if self.fast_dev_run else self.max_epochs
         for epoch in range(self.current_epoch, max_epochs):
             self.current_epoch = epoch
@@ -265,12 +390,10 @@ class Trainer:
                 datamodule.set_epoch(epoch)
             for cb in self.callbacks:
                 cb.on_train_epoch_start(self, module, epoch)
-            step_t0 = time.perf_counter()
-            for i, batch in enumerate(datamodule.train_dataloader()):
-                if self.limit_train_batches is not None and i >= self.limit_train_batches:
-                    break
+            step_t0 = epoch_t0 = time.perf_counter()
+            feed = BatchPrefetcher(datamodule.train_dataloader(), self.device, self.limit_train_batches)
+            for i, batch in enumerate(feed):
                 self._profile_start()
-                batch = _to_device(batch, self.device)
                 if transform is not None:
                     batch = transform(batch, self.generator, "train")
                 loss = self._train_step(module, batch)
@@ -291,6 +414,9 @@ class Trainer:
                     cb.on_train_batch_end(self, module, metrics, batch, i)
                 if self.max_steps and self.global_step >= self.max_steps:
                     break
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self._log_epoch_feed(epoch, feed, time.perf_counter() - epoch_t0)
             val_metrics = {}
             if (epoch + 1) % self.check_val_every_n_epoch == 0 or self.fast_dev_run:
                 val_gen = torch.Generator(device=self.device).manual_seed(self.seed + 2 + epoch)
@@ -317,10 +443,7 @@ class Trainer:
         was_training = module.training
         module.eval()
         with torch.no_grad():
-            for i, batch in enumerate(loader):
-                if self.limit_val_batches is not None and i >= self.limit_val_batches:
-                    break
-                batch = _to_device(batch, self.device)
+            for i, batch in enumerate(BatchPrefetcher(loader, self.device, self.limit_val_batches)):
                 if transform is not None:
                     batch = transform(batch, generator, "val")
                 host = {"loss/validate": float(module.validation_loss(batch))}
@@ -340,6 +463,7 @@ class Trainer:
     def validate(self, module: TrainModule, datamodule, ckpt_path: str | Path | None = None) -> dict:
         """Mean validation metrics of ``module`` over ``val_dataloader()``
         (device transforms drawn from a generator seeded with 0)."""
+        self._active_datamodule = datamodule
         prepare = getattr(datamodule, "prepare_data", None)
         if prepare is not None:
             prepare()
@@ -352,25 +476,34 @@ class Trainer:
 
     # -- predict --------------------------------------------------------------------
     def predict(
-        self, module: TrainModule, datamodule, return_predictions: bool = False
+        self,
+        module: TrainModule,
+        datamodule,
+        ckpt_path: str | Path | None = None,
+        return_predictions: bool = False,
     ) -> list[Any] | None:
         """Run ``module.predict_step`` over ``datamodule.predict_dataloader()``
-        under ``torch.inference_mode()``.
+        under ``torch.inference_mode()``, after loading ``ckpt_path`` if given.
 
-        Batches are dicts of tensors (or numpy arrays); each is moved to the
-        trainer's device. Predictions stay where the step put them.
+        Batches reach the device through the prefetcher; predictions stay
+        where the step put them and go to the callbacks (and the returned
+        list) as they are, so a writer that ``wants_device_predictions``
+        blends on the device.
         """
+        self._active_datamodule = datamodule
         prepare = getattr(datamodule, "prepare_data", None)
         if prepare is not None:
             prepare()
         datamodule.setup("predict")
         module.to(self.device).eval()
+        if ckpt_path:
+            self.load_checkpoint(ckpt_path, module)
         for cb in self.callbacks:
             cb.on_predict_start(self, module)
         outputs = []
         with torch.inference_mode():
-            for i, batch in enumerate(datamodule.predict_dataloader()):
-                pred = module.predict_step(_to_device(batch, self.device))
+            for i, batch in enumerate(BatchPrefetcher(datamodule.predict_dataloader(), self.device)):
+                pred = module.predict_step(batch)
                 for cb in self.callbacks:
                     cb.write_on_batch_end(self, module, pred, batch, i)
                 if return_predictions:
@@ -378,6 +511,20 @@ class Trainer:
         for cb in self.callbacks:
             cb.on_predict_end(self, module)
         return outputs if return_predictions else None
+
+    def _log_epoch_feed(self, epoch: int, feed: BatchPrefetcher, seconds: float) -> None:
+        """Record the epoch's steps, wall time and the time the loop waited
+        for batches (``feed_stats``), and log them."""
+        stats = self.feed_stats
+        stats["steps"] += feed.batches
+        stats["seconds"] += seconds
+        stats["wait_s"] += feed.wait_s
+        if feed.batches:
+            _logger.info(
+                "epoch %d: %d steps in %.2f s (%.3f it/s); waited %.2f s (%.1f%%) for batches",
+                epoch, feed.batches, seconds, feed.batches / seconds, feed.wait_s,
+                100 * feed.wait_s / max(seconds, 1e-9),
+            )
 
     # -- checkpoints -------------------------------------------------------------------
     def _ckpt_dir(self) -> Path:
