@@ -56,7 +56,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 8. fit     the VSCyto3D fit recipe as ``configs/vscyto3d_fit.yml`` runs it,
            at the flagship's full width: seeded (16,1,15,384,384) /
            (16,2,15,384,384) stacks on the card with seeded ``norm_meta``
-           (standing in for the host weighted crop, not ported),
+           (standing in for the host weighted crop and the plate, which
+           phase 9 runs),
            ``NormalizeSampled``, then flip, affine (in == out, no crop),
            contrast and noise; ``MixedLoss(0.5, 0, 0.5)``, AdamW +
            WarmupCosine; ``ModelCheckpoint(monitor="loss/validate", top 5,
@@ -95,6 +96,31 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
            and read rates, preprocess seconds, fit patches/s with the host
            crop, the loader-wait share, predict FOVs/s disk to disk and the
            writer's flush seconds.
+10. stages the rest of the entry points, in process through ``cli.main``,
+           on phase 9's fit plate and ``last``. Writes ground-truth masks
+           for FOV A/1/0's nine z-windows as 16-bit grayscale PNGs (a zlib
+           encoder here); ``test -c configs/vscyto3d_predict.yml`` with
+           ``ground_truth_masks``: every regression and segmentation metric
+           present and finite, the forward kernels' launches, one batch's
+           regression metrics on the card (kernels) against the CPU
+           (plain) in f32 (|d| <= 2e-3 relative); ``export`` of ``last``
+           (``torch.export``, weights embedded): the loaded ``.pt2`` at two
+           batch sizes and two YX extents against the eager
+           ``VSUNet.forward`` (max|d| <= 1e-6 of range), the kernels'
+           launch count showing the custom operator ran them;
+           ``precompute`` of the plate: one FOV bit for bit against
+           ``(x - mean) / (std + 1e-8)`` in numpy; the plate staged to a
+           memmap (bit-exact) and ``fit`` with ``MmappedDataModule`` and
+           phase 9's overrides, its ``prepare_data`` reusing the cache,
+           launch counts of all five kernels; the TensorBoard event files
+           of phase 9's fit and of the test parsed here (framing CRCs; their
+           scalars equal the values of ``metrics.csv``); then the forward kernels at the test path's
+           shapes (B = 1, full 1024^2 frames) against their plain version.
+           Prints FOVs/s disk to metrics, the segmentation leg's host
+           seconds per labeled batch, export seconds and MiB, CUDA-event
+           medians of the program and the eager forward, precompute seconds
+           and MB/s, staging seconds, and the memory-mapped fit's patches/s
+           and loader-wait share beside phase 9's.
 
 The last two lines are a JSON ``kernels`` record and the JSON result line.
 Needs ``torch.cuda.is_available()`` and the repo's ``viscy_tpu_torch``
@@ -104,11 +130,16 @@ beside this file. Imports nothing of JAX or ``viscy_tpu``.
 from __future__ import annotations
 
 import json
+import logging
 import math
+import shutil
 import statistics
+import struct
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -1523,8 +1554,6 @@ def plate_round_trip(plate: Path, copy: Path, card: str) -> None:
     log(f"[cli] fit plate round trip through the port's reader and writer: bit-exact; "
         f"read {nbytes / read_s / 1e6:.1f} MB/s, write {nbytes / write_s / 1e6:.1f} MB/s "
         f"({nbytes / 2**20:.0f} MiB, uncompressed chunks of {pos['0'].chunks}) ({card})")
-    import shutil
-
     shutil.rmtree(copy)
 
 
@@ -1569,11 +1598,11 @@ def recompute_fov(store: Path, ckpt: Path, config: Path, fov: str) -> tuple[floa
     return err, rng
 
 
-def phase_cli(card: str) -> dict:
-    """``viscy-torch preprocess / fit / predict`` on seeded plates (see the
-    module docstring)."""
-    import tempfile
-
+def phase_cli(card: str, tmp: Path) -> dict:
+    """``viscy-torch preprocess / fit / predict`` on seeded plates written in
+    ``tmp`` (see the module docstring); returns the launch counts and what
+    phase 10 reads: the fit plate, the fit's root directory and feed
+    statistics."""
     from viscy_tpu_torch.ops import fused_block as fb
     from viscy_tpu_torch.ops import warp3d
     from viscy_tpu_torch.training import cli
@@ -1581,101 +1610,459 @@ def phase_cli(card: str) -> dict:
     from viscy_tpu_torch.zarr_io.synthetic import build_hcs_plate
 
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory(prefix="viscy-cli-") as tmp:
-        tmp = Path(tmp)
-        t0 = time.perf_counter()
-        fit_plate = build_hcs_plate(tmp / "fit.zarr", CLI_CHANNELS, zyx_shape=CLI_FIT_ZYX, num_timepoints=1,
-                                    rows=("A",), cols=("1",), fovs=CLI_FIT_FOVS, seed=7)
-        pred_plate = build_hcs_plate(tmp / "predict.zarr", CLI_CHANNELS[:1], zyx_shape=CLI_PREDICT_ZYX,
-                                     num_timepoints=1, rows=("B",), cols=("2",), fovs=CLI_PREDICT_FOVS, seed=8)
-        log(f"[cli] seeded plates written in {time.perf_counter() - t0:.1f} s: {len(CLI_FIT_FOVS)} FOVs of "
-            f"(1, 3, {', '.join(map(str, CLI_FIT_ZYX))}) and {len(CLI_PREDICT_FOVS)} of "
-            f"(1, 1, {', '.join(map(str, CLI_PREDICT_ZYX))}) float32 ({card})")
-        plate_round_trip(fit_plate, tmp / "copy.zarr", card)
+    t0 = time.perf_counter()
+    fit_plate = build_hcs_plate(tmp / "fit.zarr", CLI_CHANNELS, zyx_shape=CLI_FIT_ZYX, num_timepoints=1,
+                                rows=("A",), cols=("1",), fovs=CLI_FIT_FOVS, seed=7)
+    pred_plate = build_hcs_plate(tmp / "predict.zarr", CLI_CHANNELS[:1], zyx_shape=CLI_PREDICT_ZYX,
+                                 num_timepoints=1, rows=("B",), cols=("2",), fovs=CLI_PREDICT_FOVS, seed=8)
+    log(f"[cli] seeded plates written in {time.perf_counter() - t0:.1f} s: {len(CLI_FIT_FOVS)} FOVs of "
+        f"(1, 3, {', '.join(map(str, CLI_FIT_ZYX))}) and {len(CLI_PREDICT_FOVS)} of "
+        f"(1, 1, {', '.join(map(str, CLI_PREDICT_ZYX))}) float32 ({card})")
+    plate_round_trip(fit_plate, tmp / "copy.zarr", card)
 
-        t0 = time.perf_counter()
-        for plate in (fit_plate, pred_plate):
-            cli.main(["preprocess", "-c", _cli_config(tmp / f"pp_{plate.stem}.yml",
-                                                       {"data_path": str(plate), "num_workers": 8})])
-        pp_s = time.perf_counter() - t0
-        stats = open_ome_zarr(fit_plate)["A/1/0"].zattrs["normalization"]["Phase3D"]["fov_statistics"]
-        if not 0.45 < stats["mean"] < 0.55:
-            raise AssertionError(f"preprocess statistics off: {stats}")
-        log(f"[cli] preprocess of both plates: {pp_s:.2f} s (fov mean of A/1/0 Phase3D {stats['mean']:.4f}) "
-            f"({card})")
+    t0 = time.perf_counter()
+    for plate in (fit_plate, pred_plate):
+        cli.main(["preprocess", "-c", _cli_config(tmp / f"pp_{plate.stem}.yml",
+                                                   {"data_path": str(plate), "num_workers": 8})])
+    pp_s = time.perf_counter() - t0
+    stats = open_ome_zarr(fit_plate)["A/1/0"].zattrs["normalization"]["Phase3D"]["fov_statistics"]
+    if not 0.45 < stats["mean"] < 0.55:
+        raise AssertionError(f"preprocess statistics off: {stats}")
+    log(f"[cli] preprocess of both plates: {pp_s:.2f} s (fov mean of A/1/0 Phase3D {stats['mean']:.4f}) "
+        f"({card})")
 
-        root = tmp / "fit"
-        fit_cfg = _cli_config(tmp / "fit.yml", {
-            "data": {"init_args": {"data_path": str(fit_plate), "num_workers": 8}},
-            "trainer": {"default_root_dir": str(root), "max_epochs": 1, "limit_train_batches": FIT_STEPS,
-                        "limit_val_batches": FIT_VAL},
-        }, ROOT / "configs/vscyto3d_fit.yml")
-        store = tmp / "prediction.zarr"
-        pred_cfg = _cli_config(tmp / "predict.yml", {
-            "data": {"init_args": {"data_path": str(pred_plate), "num_workers": 8}},
-            "trainer": {"callbacks": [{"class_path": "viscy_utils.callbacks.HCSPredictionWriter",
-                                       "init_args": {"output_store": str(store), "overwrite": False}}]},
-        }, ROOT / "configs/vscyto3d_predict.yml")
-        ckpt = root / "checkpoints" / "last"
-        torch.cuda.synchronize()
-        fb.launches = fb.bwd_launches = warp3d.launches = 0
-        t0 = time.perf_counter()
-        trainer = cli.main(["fit", "-c", fit_cfg])
-        torch.cuda.synchronize()
-        fit_s = time.perf_counter() - t0
-        fit_counts = dict(fwd=fb.launches, bwd=fb.bwd_launches, warp=warp3d.launches)
-        fb.launches = fb.bwd_launches = warp3d.launches = 0
-        t0 = time.perf_counter()
-        predictor = cli.main(["predict", "-c", pred_cfg, "--ckpt_path", str(ckpt)])
-        torch.cuda.synchronize()
-        pred_s = time.perf_counter() - t0
-        pred_counts = dict(fwd=fb.launches, bwd=fb.bwd_launches, warp=warp3d.launches)
+    root = tmp / "fit"
+    fit_cfg = _cli_config(tmp / "fit.yml", {
+        "data": {"init_args": {"data_path": str(fit_plate), "num_workers": 8}},
+        "trainer": {"default_root_dir": str(root), "max_epochs": 1, "limit_train_batches": FIT_STEPS,
+                    "limit_val_batches": FIT_VAL},
+    }, ROOT / "configs/vscyto3d_fit.yml")
+    store = tmp / "prediction.zarr"
+    pred_cfg = _cli_config(tmp / "predict.yml", {
+        "data": {"init_args": {"data_path": str(pred_plate), "num_workers": 8}},
+        "trainer": {"callbacks": [{"class_path": "viscy_utils.callbacks.HCSPredictionWriter",
+                                   "init_args": {"output_store": str(store), "overwrite": False}}]},
+    }, ROOT / "configs/vscyto3d_predict.yml")
+    ckpt = root / "checkpoints" / "last"
+    torch.cuda.synchronize()
+    fb.launches = fb.bwd_launches = warp3d.launches = 0
+    t0 = time.perf_counter()
+    trainer = cli.main(["fit", "-c", fit_cfg])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_counts = dict(fwd=fb.launches, bwd=fb.bwd_launches, warp=warp3d.launches)
+    fb.launches = fb.bwd_launches = warp3d.launches = 0
+    t0 = time.perf_counter()
+    predictor = cli.main(["predict", "-c", pred_cfg, "--ckpt_path", str(ckpt)])
+    torch.cuda.synchronize()
+    pred_s = time.perf_counter() - t0
+    pred_counts = dict(fwd=fb.launches, bwd=fb.bwd_launches, warp=warp3d.launches)
 
-        per_fwd = len(kernel_shapes(FLAGSHIP, TRAIN_PATCH[-1]))
-        want_fit = dict(fwd=2 * per_fwd * (FIT_STEPS + FIT_VAL), bwd=2 * per_fwd * FIT_STEPS, warp=FIT_STEPS)
-        n_windows = len(CLI_PREDICT_FOVS) * (CLI_PREDICT_ZYX[0] - 15 + 1)
-        want_pred = dict(fwd=2 * len(kernel_shapes(FLAGSHIP, CLI_PREDICT_ZYX[-1])) * math.ceil(n_windows / 2),
-                         bwd=0, warp=0)
-        log(f"[cli] launches: fit A+B {fit_counts['fwd']}, C+D {fit_counts['bwd']}, warp {fit_counts['warp']} "
-            f"(expected {want_fit['fwd']}/{want_fit['bwd']}/{want_fit['warp']}); predict A+B "
-            f"{pred_counts['fwd']} (expected {want_pred['fwd']}), C+D {pred_counts['bwd']}, warp "
-            f"{pred_counts['warp']}")
-        if fit_counts != want_fit or pred_counts != want_pred:
-            raise AssertionError(f"cli paths launched {fit_counts} / {pred_counts}, expected {want_fit} / {want_pred}")
-        feed = trainer.feed_stats
-        if feed["steps"] != FIT_STEPS or not ckpt.resolve().exists():
-            raise AssertionError(f"fit ran {feed['steps']} steps; last -> {ckpt.resolve()}")
-        val = trainer.logged_metrics.get("loss/validate")
-        if val is None or not math.isfinite(val):
-            raise AssertionError(f"fit validation loss {val}")
-        patches = FIT_STEPS * TRAIN_BATCH
-        log(f"[cli] fit (configs/vscyto3d_fit.yml, drop path 0.1, host weighted crop of 4 x 4 patches from "
-            f"(3, 20, 1024, 1024) windows): {fit_s:.1f} s in all; train loop {feed['seconds']:.2f} s for "
-            f"{FIT_STEPS} steps = {patches / feed['seconds']:.2f} patches/s (first step included); waited "
-            f"{feed['wait_s']:.2f} s for batches = {feed['wait_s'] / feed['seconds']:.1%} of the loop; "
-            f"loss/validate {val:.5f} ({card})")
-        writer = next(cb for cb in predictor.callbacks if hasattr(cb, "flush_s"))
-        out = open_ome_zarr(store)
-        names = [n for n, _ in out.positions()]
-        shape = (1, 2, *CLI_PREDICT_ZYX)
-        if out.channel_names != ["Nucleus", "Membrane"] or names != [f"B/2/{f}" for f in CLI_PREDICT_FOVS]:
-            raise AssertionError(f"prediction store channels {out.channel_names} positions {names}")
-        for n in names:
-            if out[n]["0"].shape != shape:
-                raise AssertionError(f"prediction {n} has shape {out[n]['0'].shape}, expected {shape}")
-        log(f"[cli] predict (configs/vscyto3d_predict.yml, f32, full {CLI_PREDICT_ZYX[-1]}^2 frames, batch 2, "
-            f"{n_windows} windows): {pred_s:.2f} s = {len(names) / pred_s:.4f} FOVs/s disk to disk; writer "
-            f"flushes {writer.flush_s:.2f} s on its pool, of which the loop waited {writer.flush_wait_s:.2f} s; "
-            f"store {shape} x {len(names)}, channels {out.channel_names} ({card})")
-        recompute_fov(store, ckpt, Path(pred_cfg), names[0])
-        del trainer, predictor
+    per_fwd = len(kernel_shapes(FLAGSHIP, TRAIN_PATCH[-1]))
+    want_fit = dict(fwd=2 * per_fwd * (FIT_STEPS + FIT_VAL), bwd=2 * per_fwd * FIT_STEPS, warp=FIT_STEPS)
+    n_windows = len(CLI_PREDICT_FOVS) * (CLI_PREDICT_ZYX[0] - 15 + 1)
+    want_pred = dict(fwd=2 * len(kernel_shapes(FLAGSHIP, CLI_PREDICT_ZYX[-1])) * math.ceil(n_windows / 2),
+                     bwd=0, warp=0)
+    log(f"[cli] launches: fit A+B {fit_counts['fwd']}, C+D {fit_counts['bwd']}, warp {fit_counts['warp']} "
+        f"(expected {want_fit['fwd']}/{want_fit['bwd']}/{want_fit['warp']}); predict A+B "
+        f"{pred_counts['fwd']} (expected {want_pred['fwd']}), C+D {pred_counts['bwd']}, warp "
+        f"{pred_counts['warp']}")
+    if fit_counts != want_fit or pred_counts != want_pred:
+        raise AssertionError(f"cli paths launched {fit_counts} / {pred_counts}, expected {want_fit} / {want_pred}")
+    feed = trainer.feed_stats
+    if feed["steps"] != FIT_STEPS or not ckpt.resolve().exists():
+        raise AssertionError(f"fit ran {feed['steps']} steps; last -> {ckpt.resolve()}")
+    val = trainer.logged_metrics.get("loss/validate")
+    if val is None or not math.isfinite(val):
+        raise AssertionError(f"fit validation loss {val}")
+    patches = FIT_STEPS * TRAIN_BATCH
+    log(f"[cli] fit (configs/vscyto3d_fit.yml, drop path 0.1, host weighted crop of 4 x 4 patches from "
+        f"(3, 20, 1024, 1024) windows): {fit_s:.1f} s in all; train loop {feed['seconds']:.2f} s for "
+        f"{FIT_STEPS} steps = {patches / feed['seconds']:.2f} patches/s (first step included); waited "
+        f"{feed['wait_s']:.2f} s for batches = {feed['wait_s'] / feed['seconds']:.1%} of the loop; "
+        f"loss/validate {val:.5f} ({card})")
+    writer = next(cb for cb in predictor.callbacks if hasattr(cb, "flush_s"))
+    out = open_ome_zarr(store)
+    names = [n for n, _ in out.positions()]
+    shape = (1, 2, *CLI_PREDICT_ZYX)
+    if out.channel_names != ["Nucleus", "Membrane"] or names != [f"B/2/{f}" for f in CLI_PREDICT_FOVS]:
+        raise AssertionError(f"prediction store channels {out.channel_names} positions {names}")
+    for n in names:
+        if out[n]["0"].shape != shape:
+            raise AssertionError(f"prediction {n} has shape {out[n]['0'].shape}, expected {shape}")
+    log(f"[cli] predict (configs/vscyto3d_predict.yml, f32, full {CLI_PREDICT_ZYX[-1]}^2 frames, batch 2, "
+        f"{n_windows} windows): {pred_s:.2f} s = {len(names) / pred_s:.4f} FOVs/s disk to disk; writer "
+        f"flushes {writer.flush_s:.2f} s on its pool, of which the loop waited {writer.flush_wait_s:.2f} s; "
+        f"store {shape} x {len(names)}, channels {out.channel_names} ({card})")
+    recompute_fov(store, ckpt, Path(pred_cfg), names[0])
+    shutil.rmtree(store)
+    shutil.rmtree(pred_plate)
+    del trainer, predictor
     torch.cuda.empty_cache()
     worst: dict = {}
     shapes = kernel_shapes(FLAGSHIP, CLI_PREDICT_ZYX[-1])
     for k, (s, c, m) in enumerate(sorted(set(shapes), key=shapes.index)):
         check_forward(2, s, c, m, 300 + k, (False,), worst)
     log_worst("the predict path's shapes (B=2, full frames)", worst)
-    return dict(fit=fit_counts, predict=pred_counts, max_abs_err=worst[torch.float32][0])
+    return dict(fit=fit_counts, predict=pred_counts, max_abs_err=worst[torch.float32][0], fit_plate=fit_plate,
+                fit_root=root, ckpt=ckpt, feed=dict(feed))
+
+
+TEST_REGRESSION = ("loss", "metrics/mae", "metrics/mse", "metrics/pearson", "metrics/cosine", "metrics/ssim")
+TEST_SEGMENTATION = ("metrics/accuracy", "metrics/dice_score", "metrics/jaccard", "metrics/mAP", "metrics/mAP_50",
+                     "metrics/mAP_75", "metrics/mAR_100")
+# the export's two batch sizes and two YX extents (multiples of the model's stride, 32)
+EXPORT_SHAPES = ((1, 1, 15, 512, 512), (2, 1, 15, 1024, 768))
+
+
+def png16(labels: np.ndarray) -> bytes:
+    """A 16-bit grayscale PNG of ``labels`` (rows unfiltered, one IDAT)."""
+    h, w = labels.shape
+    rows = np.zeros((h, 1 + 2 * w), np.uint8)
+    rows[:, 1:] = labels.astype(">u2").view(np.uint8).reshape(h, 2 * w)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 16, 0, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) + chunk(b"IEND", b""))
+
+
+def write_masks(plate: Path, out: Path) -> int:
+    """Ground-truth masks of FOV A/1/0's z-windows (``img_p000_z<center>``):
+    the instances of its smoothed Nucleus slice above mean + 1.5 std."""
+    from scipy import ndimage
+
+    from viscy_tpu_torch.zarr_io.store import open_ome_zarr
+
+    out.mkdir()
+    nucleus = open_ome_zarr(plate)["A/1/0"]["0"][0, 1]
+    half = 15 // 2
+    for z in range(half, nucleus.shape[0] - half):
+        sm = ndimage.gaussian_filter(nucleus[z], 4.0)
+        labels = ndimage.label(sm > sm.mean() + 1.5 * sm.std())[0]
+        (out / f"img_p000_z{z}_cp_masks.png").write_bytes(png16(labels))
+    return nucleus.shape[0] - 2 * half
+
+
+def _varint(buf: bytes, i: int) -> tuple[int, int]:
+    n = shift = 0
+    while True:
+        b = buf[i]
+        n |= (b & 0x7F) << shift
+        i += 1
+        shift += 7
+        if not b & 0x80:
+            return n, i
+
+
+def _fields(buf: bytes):
+    """(field number, wire type, value) of a protobuf message."""
+    i = 0
+    while i < len(buf):
+        key, i = _varint(buf, i)
+        num, wire = key >> 3, key & 7
+        if wire == 0:
+            val, i = _varint(buf, i)
+        elif wire == 1:
+            val, i = buf[i : i + 8], i + 8
+        elif wire == 5:
+            val, i = buf[i : i + 4], i + 4
+        elif wire == 2:
+            n, i = _varint(buf, i)
+            val, i = buf[i : i + n], i + n
+        else:
+            raise AssertionError(f"wire type {wire} in an event")
+        yield num, wire, val
+
+
+def read_event_file(path: Path) -> tuple[str, list[tuple[int, str, float]]]:
+    """The file version and the (step, tag, value) scalars of a TensorBoard
+    event file; raises on a framing CRC (masked CRC-32C) that does not match."""
+    from viscy_tpu_torch.zarr_io.store import crc32c
+
+    def mask(data: bytes) -> int:  # TFRecord's masked CRC-32C
+        crc = crc32c(data)
+        return (((crc >> 15) | (crc << 17)) + 0xA282EAD8) & 0xFFFFFFFF
+
+    data, i, version, scalars = path.read_bytes(), 0, None, []
+    while i < len(data):
+        header = data[i : i + 8]
+        (n,) = struct.unpack("<Q", header)
+        payload = data[i + 12 : i + 12 + n]
+        if (struct.unpack("<I", data[i + 8 : i + 12])[0] != mask(header)
+                or struct.unpack("<I", data[i + 12 + n : i + 16 + n])[0] != mask(payload)):
+            raise AssertionError(f"{path.name}: record at byte {i} fails its CRC")
+        step = 0
+        for num, _, val in _fields(payload):
+            if num == 2:
+                step = val
+            elif num == 3:
+                version = val.decode()
+            elif num == 5:
+                for vnum, _, value in _fields(val):
+                    if vnum == 1:
+                        f = dict((k, v) for k, _, v in _fields(value))
+                        scalars.append((step, f[1].decode(), struct.unpack("<f", f[2])[0]))
+        i += 16 + n
+    return version, scalars
+
+
+def stage_test(card: str, tmp: Path, plate: Path, ckpt: Path, module) -> dict:
+    """``viscy-torch test`` from phase 9's ``last`` with ground-truth masks."""
+    from viscy_tpu_torch.apps.cytoland.engine import VSUNet
+    from viscy_tpu_torch.ops import fused_block as fb
+    from viscy_tpu_torch.ops import warp3d
+    from viscy_tpu_torch.training import cli
+    from viscy_tpu_torch.training.compose import load_composed_config
+    from viscy_tpu_torch.training.instantiate import instantiate
+    from viscy_tpu_torch.training.trainer import read_checkpoint
+
+    n_masks = write_masks(plate, tmp / "masks")
+    root = tmp / "test"
+    cfg = _cli_config(tmp / "test.yml", {
+        "data": {"init_args": {"data_path": str(plate), "num_workers": 8, "ground_truth_masks": str(tmp / "masks")}},
+        "trainer": {"default_root_dir": str(root), "callbacks": []},
+    }, ROOT / "configs/vscyto3d_predict.yml")
+    seg_s = []
+    leg = VSUNet.test_step_host
+
+    def timed_leg(self, batch, pred=None):  # host seconds of the leg, after the card's forward
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = leg(self, batch, pred)
+        seg_s.append(time.perf_counter() - t0)
+        return out
+
+    VSUNet.test_step_host = timed_leg
+    try:
+        torch.cuda.synchronize()
+        fb.launches = fb.bwd_launches = warp3d.launches = 0
+        t0 = time.perf_counter()
+        cli.main(["test", "-c", cfg, "--ckpt_path", str(ckpt)])
+        torch.cuda.synchronize()
+        test_s = time.perf_counter() - t0
+    finally:
+        VSUNet.test_step_host = leg
+    counts = dict(fwd=fb.launches, bwd=fb.bwd_launches, warp=warp3d.launches)
+    n_windows = len(CLI_FIT_FOVS) * (CLI_FIT_ZYX[0] - 15 + 1)
+    want = dict(fwd=2 * len(kernel_shapes(FLAGSHIP, CLI_FIT_ZYX[-1])) * n_windows, bwd=0, warp=0)
+    rows = [json.loads(line) for line in (root / "metrics.csv").read_text().splitlines()]
+    got = {k[len("test/"):]: v for k, v in rows[-1].items() if k.startswith("test/")}
+    log(f"[stages] test (configs/vscyto3d_predict.yml, f32, {n_windows} full {CLI_FIT_ZYX[-1]}^2 windows at batch 1,"
+        f" {n_masks} with masks): {test_s:.2f} s = {len(CLI_FIT_FOVS) / test_s:.4f} FOVs/s disk to metrics; "
+        f"segmentation leg {statistics.mean(seg_s):.3f} s of host time per labeled batch ({len(seg_s)} batches, "
+        f"max {max(seg_s):.3f}); launches A+B {counts['fwd']} (expected {want['fwd']}), C+D {counts['bwd']}, warp "
+        f"{counts['warp']} ({card})")
+    log("[stages] test metrics: " + ", ".join(f"{k} {v:.5f}" for k, v in sorted(got.items())))
+    if counts != want or len(seg_s) != n_masks:
+        raise AssertionError(f"test launched {counts}, expected {want}; {len(seg_s)} labeled batches")
+    missing = [k for k in TEST_REGRESSION + TEST_SEGMENTATION if not math.isfinite(got.get(k, math.nan))]
+    if missing:
+        raise AssertionError(f"test metrics missing or not finite: {missing}")
+
+    # one batch's regression metrics, card (kernels) against the CPU (plain), f32, TF32 off
+    composed = load_composed_config(cfg)
+    on_cpu = instantiate(cli._with_device(composed["model"], "cpu"))
+    on_cpu.model.load_state_dict(read_checkpoint(ckpt)[1])
+    dm = instantiate(composed["data"])
+    dm.setup("test")
+    batch = next(iter(dm.test_dataloader()))
+    batch = {k: torch.from_numpy(batch[k]) for k in ("source", "target")}
+    with torch.no_grad():
+        card_m = {k: float(v) for k, v in module.test_step({k: v.cuda() for k, v in batch.items()}).items()}
+        t0 = time.perf_counter()
+        cpu_m = {k: float(v) for k, v in on_cpu.eval().test_step(batch).items()}
+        cpu_s = time.perf_counter() - t0
+    worst = max(abs(card_m[k] - cpu_m[k]) / max(abs(cpu_m[k]), 1e-3) for k in TEST_REGRESSION)
+    log(f"[stages] one test batch, card kernels vs CPU plain (f32): " + ", ".join(
+        f"{k} {card_m[k]:.6f}/{cpu_m[k]:.6f}" for k in TEST_REGRESSION)
+        + f"; worst |d| {worst:.2e} relative (bound 2e-3; CPU {cpu_s:.1f} s)")
+    if not worst <= 2e-3:
+        raise AssertionError("the card's test metrics disagree with the CPU's")
+    del on_cpu
+    return dict(counts=counts, fovs_per_s=len(CLI_FIT_FOVS) / test_s)
+
+
+def stage_export(card: str, tmp: Path, ckpt: Path, module) -> dict:
+    """``viscy-torch export`` of ``last``, the program against the eager forward."""
+    from viscy_tpu_torch.ops import fused_block as fb
+    from viscy_tpu_torch.training import cli
+    from viscy_tpu_torch.training.export import load_exported
+
+    out = tmp / "model.pt2"
+    cfg = _cli_config(tmp / "export.yml", {
+        "trainer": {"default_root_dir": str(tmp / "export"), "callbacks": []},
+        "export": {"format": "stablehlo", "export_path": str(out), "ckpt_path": str(ckpt), "embed_params": True},
+    }, ROOT / "configs/vscyto3d_predict.yml")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cli.main(["export", "-c", cfg])
+    export_s = time.perf_counter() - t0
+    program = load_exported(out)
+    per_call = 2 * len(kernel_shapes(FLAGSHIP, TILE))
+    gen = torch.Generator().manual_seed(50)
+    worst, total = 0.0, 0
+    with torch.inference_mode():
+        for shape in EXPORT_SHAPES:
+            x = torch.rand(shape, generator=gen).cuda()
+            fb.launches = 0
+            got = program(x)
+            torch.cuda.synchronize()
+            launched = fb.launches
+            want = module.forward(x)
+            err = float((got - want).abs().max())
+            rng = float(want.max() - want.min())
+            worst = max(worst, err / rng)
+            total += launched
+            log(f"[stages] export program at {shape}: max|d| vs eager VSUNet.forward {err:.3e} (range {rng:.3e}, "
+                f"{err / rng:.2e} of it, bound 1e-6); fused forward launches {launched} (expected {per_call})")
+            if tuple(got.shape) != (shape[0], 2, *shape[2:]) or not err <= 1e-6 * rng or launched != per_call:
+                raise AssertionError(f"the exported program disagrees with the eager forward at {shape}")
+        prog_ms = cuda_median_ms(lambda: program(x), runs=5)
+        eager_ms = cuda_median_ms(lambda: module.forward(x), runs=5)
+    log(f"[stages] export (configs/vscyto3d_predict.yml + export: stablehlo, embed_params): {export_s:.1f} s, "
+        f"{out.stat().st_size / 2**20:.1f} MiB; forward at {EXPORT_SHAPES[-1]}: program {prog_ms:.2f} ms, eager "
+        f"{eager_ms:.2f} ms (CUDA-event medians of 5) ({card})")
+    return dict(launches=total, worst=worst)
+
+
+def stage_precompute(card: str, tmp: Path, plate: Path) -> None:
+    """``viscy-torch precompute`` of the fit plate; one FOV against numpy."""
+    from viscy_tpu_torch.training import cli
+    from viscy_tpu_torch.zarr_io.store import open_ome_zarr
+
+    out = tmp / "precomputed.zarr"
+    cfg = _cli_config(tmp / "pc.yml", {"precompute": {"data_path": str(plate), "output_path": str(out),
+                                                      "channel_names": list(CLI_CHANNELS)}})
+    t0 = time.perf_counter()
+    cli.main(["precompute", "-c", cfg])
+    seconds = time.perf_counter() - t0
+    src = open_ome_zarr(plate)["A/1/0"]
+    raw, got = src["0"][:], open_ome_zarr(out)["A/1/0"]["0"][:]
+    for c, ch in enumerate(CLI_CHANNELS):
+        stats = src.zattrs["normalization"][ch]["fov_statistics"]
+        want = (raw[:, c].astype(np.float32) - stats["mean"]) / (stats["std"] + 1e-8)
+        if not np.array_equal(got[:, c], want):
+            raise AssertionError(f"precomputed {ch} of A/1/0 differs from (x - mean) / (std + 1e-8)")
+    nbytes = len(CLI_FIT_FOVS) * raw.nbytes
+    log(f"[stages] precompute of the fit plate ({nbytes / 2**20:.0f} MiB read and written): {seconds:.2f} s = "
+        f"{nbytes / seconds / 1e6:.1f} MB/s; A/1/0 equals (x - mean) / (std + 1e-8) bit for bit ({card})")
+    shutil.rmtree(out)
+
+
+class _Messages(logging.Handler):
+    """A logging handler that keeps the messages it sees."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.messages: list[str] = []
+
+    def emit(self, record) -> None:
+        self.messages.append(record.getMessage())
+
+
+def stage_mmap_fit(card: str, tmp: Path, plate: Path, plate_feed: dict) -> dict:
+    """``viscy-torch fit`` with ``MmappedDataModule``, phase 9's overrides."""
+    from viscy_tpu_torch.data.mmap_cache import stage_to_mmap
+    from viscy_tpu_torch.ops import fused_block as fb
+    from viscy_tpu_torch.ops import warp3d
+    from viscy_tpu_torch.training import cli
+    from viscy_tpu_torch.zarr_io.store import open_ome_zarr
+
+    scratch = tmp / "scratch"
+    names = [n for n, _ in open_ome_zarr(plate).positions()]
+    t0 = time.perf_counter()
+    views, cache = stage_to_mmap(plate, list(CLI_CHANNELS), scratch, include_fov_names=names)
+    stage_s = time.perf_counter() - t0
+    for name, view in zip(names, views):
+        if not np.array_equal(view, open_ome_zarr(plate)[name]["0"][:]):
+            raise AssertionError(f"staged {name} differs from the plate")
+    done = (cache / ".done").stat().st_mtime_ns
+    nbytes = sum(v.nbytes for v in views)
+    del views
+    root = tmp / "fit_mmap"
+    cfg = _cli_config(tmp / "fit_mmap.yml", {
+        "data": {"class_path": "viscy_data.MmappedDataModule",
+                 "init_args": {"data_path": str(plate), "num_workers": 8, "scratch_dir": str(scratch)}},
+        "trainer": {"default_root_dir": str(root), "max_epochs": 1, "limit_train_batches": FIT_STEPS,
+                    "limit_val_batches": FIT_VAL},
+    }, ROOT / "configs/vscyto3d_fit.yml")
+    lines = _Messages()
+    logging.getLogger("viscy_tpu_torch").addHandler(lines)
+    try:
+        torch.cuda.synchronize()
+        fb.launches = fb.bwd_launches = warp3d.launches = 0
+        t0 = time.perf_counter()
+        trainer = cli.main(["fit", "-c", cfg])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    finally:
+        logging.getLogger("viscy_tpu_torch").removeHandler(lines)
+    counts = dict(fwd=fb.launches, bwd=fb.bwd_launches, warp=warp3d.launches)
+    per_fwd = len(kernel_shapes(FLAGSHIP, TRAIN_PATCH[-1]))
+    want = dict(fwd=2 * per_fwd * (FIT_STEPS + FIT_VAL), bwd=2 * per_fwd * FIT_STEPS, warp=FIT_STEPS)
+    reused = any(m.startswith("Reusing mmap cache") for m in lines.messages)
+    if counts != want or not reused or (cache / ".done").stat().st_mtime_ns != done:
+        raise AssertionError(f"mmap fit launched {counts} (expected {want}); cache reused: {reused}")
+    feed = trainer.feed_stats
+    val = trainer.logged_metrics.get("loss/validate")
+    if feed["steps"] != FIT_STEPS or val is None or not math.isfinite(val):
+        raise AssertionError(f"mmap fit ran {feed['steps']} steps, loss/validate {val}")
+    patches = FIT_STEPS * TRAIN_BATCH
+    log(f"[stages] mmap fit (configs/vscyto3d_fit.yml, MmappedDataModule): staged {nbytes / 2**20:.0f} MiB in "
+        f"{stage_s:.2f} s ({nbytes / stage_s / 1e6:.1f} MB/s, bit-exact), the fit's prepare_data reused it; "
+        f"{fit_s:.1f} s in all; train loop {feed['seconds']:.2f} s for {FIT_STEPS} steps = "
+        f"{patches / feed['seconds']:.2f} patches/s, waited {feed['wait_s'] / feed['seconds']:.1%} of the loop "
+        f"(phase 9's plate fit in this call: {patches / plate_feed['seconds']:.2f} patches/s, waited "
+        f"{plate_feed['wait_s'] / plate_feed['seconds']:.1%}); launches A+B {counts['fwd']}, C+D {counts['bwd']}, "
+        f"warp {counts['warp']} (expected {want['fwd']}/{want['bwd']}/{want['warp']}); loss/validate {val:.5f} "
+        f"({card})")
+    return counts
+
+
+def check_event_file(card: str, root: Path) -> None:
+    """A run (phase 9's fit, the test stage) wrote a TensorBoard event file
+    beside its metrics.csv: framing CRCs hold and it holds every value of
+    the CSV, in order."""
+    (path,) = root.glob("events.out.tfevents.*")
+    version, scalars = read_event_file(path)
+    rows = [json.loads(line) for line in (root / "metrics.csv").read_text().splitlines()]
+    csv = [(r["step"], k, float(np.float32(v))) for r in rows for k, v in r.items() if k != "step"]
+    if version != "brain.Event:2" or scalars != csv:
+        raise AssertionError(f"event file {path.name}: version {version}, {len(scalars)} scalars vs {len(csv)} "
+                             "CSV values")
+    log(f"[stages] TensorBoard: {root.name}/{path.name} ({path.stat().st_size} bytes): every record's CRCs "
+        f"hold; {len(scalars)} scalars, the {len(csv)} values of metrics.csv in order ({card})")
+
+
+def phase_stages(card: str, tmp: Path, cli_info: dict) -> dict:
+    """Phase 10: ``test``, ``export``, ``precompute``, the memory-mapped fit and
+    the event file, on phase 9's plate and checkpoint (see the module
+    docstring)."""
+    from viscy_tpu_torch.training import cli
+    from viscy_tpu_torch.training.compose import load_composed_config
+    from viscy_tpu_torch.training.instantiate import instantiate
+    from viscy_tpu_torch.training.trainer import read_checkpoint
+
+    plate, ckpt = cli_info["fit_plate"], cli_info["ckpt"]
+    module = instantiate(load_composed_config(ROOT / "configs/vscyto3d_predict.yml")["model"])
+    module.model.load_state_dict(read_checkpoint(ckpt)[1])
+    module.eval()
+    test = stage_test(card, tmp, plate, ckpt, module)
+    export = stage_export(card, tmp, ckpt, module)
+    del module
+    torch.cuda.empty_cache()
+    stage_precompute(card, tmp, plate)
+    mmap = stage_mmap_fit(card, tmp, plate, cli_info["feed"])
+    for root in (cli_info["fit_root"], tmp / "test"):
+        check_event_file(card, root)
+    worst: dict = {}
+    shapes = kernel_shapes(FLAGSHIP, CLI_FIT_ZYX[-1])
+    for k, (s, c, m) in enumerate(sorted(set(shapes), key=shapes.index)):
+        check_forward(1, s, c, m, 400 + k, (False,), worst)
+    log_worst("the test path's shapes (B=1, full 1024^2 frames)", worst)
+    return dict(test=test["counts"], export=export["launches"], mmap=mmap, max_abs_err=worst[torch.float32][0])
 
 
 def main() -> None:
@@ -1697,7 +2084,9 @@ def main() -> None:
     sl = phase_slice(card)
     tr = phase_train(card)
     fit = phase_fit(card)
-    cli = phase_cli(card)
+    with tempfile.TemporaryDirectory(prefix="viscy-cli-") as tmp:
+        cli = phase_cli(card, Path(tmp))
+        stages = phase_stages(card, Path(tmp), cli)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")

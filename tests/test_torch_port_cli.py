@@ -89,14 +89,24 @@ def test_unported_subcommands_raise_with_their_name(tmp_path, sub):
         cli.main([sub, "-c", str(cfg)])
 
 
-def test_unsupported_trainer_keys_are_dropped_and_loggers_refused(caplog):
+def test_unsupported_trainer_keys_are_dropped_and_loggers_refused(caplog, monkeypatch):
+    """Unsupported keys are dropped with a warning; ``logger`` is no longer
+    refused: it maps to the metric sinks (TensorBoard built in, W&B only
+    with the package and credentials, else a log line)."""
     with caplog.at_level(logging.WARNING, logger="viscy_tpu_torch"):
         trainer = cli.build_trainer({"device": "cpu", "max_epochs": 2, "precision": "bf16-mixed", "devices": 4,
                                      "default_root_dir": "unused"})
     assert trainer.max_epochs == 2
     assert "'precision'" in caplog.text and "devices" not in caplog.text
-    with pytest.raises(NotImplementedError, match="W&B"):
-        cli.build_trainer({"device": "cpu", "logger": {"class_path": "lightning.pytorch.loggers.WandbLogger"}})
+    assert trainer.logger.use_tensorboard and trainer.logger.extra == []
+    monkeypatch.delenv("WANDB_API_KEY", raising=False)
+    monkeypatch.delenv("WANDB_MODE", raising=False)
+    caplog.clear()
+    with caplog.at_level(logging.INFO, logger="viscy_tpu_torch"):
+        trainer = cli.build_trainer({"device": "cpu", "default_root_dir": "unused",
+                                     "logger": [{"class_path": "lightning.pytorch.loggers.WandbLogger"},
+                                                {"class_path": "lightning.pytorch.loggers.TensorBoardLogger"}]})
+    assert trainer.logger.extra == [] and "wandb is unavailable" in caplog.text
 
 
 def _aug(patch, z):

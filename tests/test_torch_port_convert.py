@@ -96,8 +96,10 @@ def test_bridge_rejects_unknown_leaves(narrow_flax):
 def test_port_imports_no_jax_flax_or_viscy_tpu():
     """Import every viscy_tpu_torch module and chip_smoke.py in a fresh
     interpreter; whatever the environment pre-imports, they must add none
-    of these, nor the zarr stacks the card's machine lacks (tensorstore,
-    zarr, numcodecs). (yaml and click are on that machine.)"""
+    of these, nor the packages the card's machine lacks: the zarr stacks
+    (tensorstore, zarr, numcodecs), PIL, tensorboardX, tensorboard (and
+    TensorFlow), pandas and wandb. (yaml, click and scipy are on that
+    machine.)"""
     code = """
 import importlib, pkgutil, sys
 before = set(sys.modules)
@@ -107,7 +109,8 @@ for m in pkgutil.walk_packages(viscy_tpu_torch.__path__, "viscy_tpu_torch."):
 import chip_smoke
 added = set(sys.modules) - before
 bad = sorted(n for n in added if n.split(".")[0] in ("jax", "jaxlib", "flax", "viscy_tpu", "tensorstore",
-                                                    "zarr", "numcodecs"))
+                                                    "zarr", "numcodecs", "PIL", "tensorboardX",
+                                                    "tensorboard", "tensorflow", "pandas", "wandb"))
 print("MODULES", len([n for n in added if n.startswith("viscy_tpu_torch")]))
 print("BAD", bad)
 """
@@ -117,7 +120,7 @@ print("BAD", bad)
                          cwd=REPO, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     lines = dict(line.split(" ", 1) for line in out.stdout.splitlines() if line.startswith(("MODULES", "BAD")))
-    assert int(lines["MODULES"]) >= 54
+    assert int(lines["MODULES"]) >= 66
     assert lines["BAD"] == "[]"
 
 

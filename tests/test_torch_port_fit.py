@@ -304,12 +304,17 @@ def test_fit_without_validation_keeps_the_train_augmentation_stream(params, tmp_
 
 
 def test_tensorboard_is_refused_and_the_profiler_writes_a_trace(params, tmp_path):
-    with pytest.raises(NotImplementedError, match="TensorBoard"):
-        CSVLogger(tmp_path, use_tensorboard=True)
-    with pytest.raises(NotImplementedError):
-        Trainer(use_tensorboard=True, device="cpu")
+    """TensorBoard is no longer refused: on by default, as in JAX, each
+    logger writes one event file beside metrics.csv (its contents are held
+    against tensorboardX's in test_torch_port_loggers.py)."""
+    logger = CSVLogger(tmp_path / "tb", use_tensorboard=True)
+    logger.log_metrics({"loss/train": 0.5}, 3)
+    logger.close()
+    assert len(list((tmp_path / "tb").glob("events.out.tfevents.*"))) == 1
+    assert Trainer(device="cpu", default_root_dir=tmp_path / "unused").logger.use_tensorboard
     trainer, _ = port_fit(params, tmp_path, [_batch(130)] * 4, max_steps=4, profile_dir=str(tmp_path / "prof"),
-                          profile_steps=(1, 2))
+                          profile_steps=(1, 2), log_every_n_steps=2)
+    assert len(list(tmp_path.glob("events.out.tfevents.*"))) == 1
     assert [p.name for p in (tmp_path / "prof").iterdir()] == ["trace_steps_1-2.json"]
     events = json.loads((tmp_path / "prof" / "trace_steps_1-2.json").read_text())["traceEvents"]
     assert sum(e.get("name", "").startswith("Optimizer.step#AdamW") for e in events) == 2  # steps 1 and 2

@@ -6,7 +6,8 @@ with the reference supervised training and validation losses (MixedLoss by
 default, with the optional bf16 loss inputs; a batch's ``fg_mask`` goes to
 the loss, e.g. ``SpotlightLoss``; stochastic depth in the encoder while
 training), its AdamW + schedule (optionally with
-the encoder frozen), and the reference predict step: divisible pad,
+the encoder frozen), the test step (regression metrics on the device, the
+segmentation leg on the host), and the reference predict step: divisible pad,
 forward, center crop, optional 4-rotation test-time augmentation, and
 batched YX tiling with hat-weight blending for large fields of view.
 """
@@ -15,12 +16,14 @@ from __future__ import annotations
 
 from typing import Literal, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from viscy_tpu_torch.apps.cytoland.prediction import rotation_tta_transforms, tiled_forward_yx
 from viscy_tpu_torch.device import resolve_device
 from viscy_tpu_torch.models.unet.fcmae import FullyConvolutionalMAE
+from viscy_tpu_torch.ops.ssim import ssim_25d
 from viscy_tpu_torch.training.losses.mixed_loss import MixedLoss
 from viscy_tpu_torch.training.module import TrainModule
 
@@ -82,6 +85,10 @@ class VSUNet(TrainModule):
         tile_yx: Sequence[int] | None = None,
         tile_batch: int = 104,
         fov_shard: bool = False,
+        example_input_yx_shape: Sequence[int] = (256, 256),
+        test_cellpose_model_path: str | None = None,
+        test_cellpose_diameter: float | None = None,
+        test_evaluate_cellpose: bool = False,
         seed: int = 0,
         device: str | torch.device = "cuda",
     ) -> None:
@@ -116,9 +123,26 @@ class VSUNet(TrainModule):
         self.tta_type = tta_type
         self.tile_yx = tuple(tile_yx) if tile_yx else None
         self.tile_batch = tile_batch
+        self.example_input_yx_shape = tuple(example_input_yx_shape)
+        # the test stage's segmentation leg
+        self.test_cellpose_model_path = test_cellpose_model_path
+        self.test_cellpose_diameter = test_cellpose_diameter
+        self.test_evaluate_cellpose = test_evaluate_cellpose
+        self._cellpose_model = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.model(x)
+
+    def example_input(self) -> dict:
+        """Zero ``source`` (1, C_in, D, *example_input_yx_shape) and ``target``
+        (1, C_out, D, ...) arrays, as the JAX engine's."""
+        cfg = self.model_config
+        depth = cfg.get("in_stack_depth", 5)
+        yx = self.example_input_yx_shape
+        return {
+            "source": np.zeros((1, cfg.get("in_channels", 1), depth, *yx), np.float32),
+            "target": np.zeros((1, cfg.get("out_channels", 1), depth, *yx), np.float32),
+        }
 
     def _compute_loss(self, pred: torch.Tensor, target: torch.Tensor, batch: dict) -> torch.Tensor:
         if "fg_mask" in batch:
@@ -141,6 +165,98 @@ class VSUNet(TrainModule):
         """The loss of the deterministic forward (the trainer runs it in eval
         mode under ``torch.no_grad()``)."""
         return self._compute_loss(self.forward(batch["source"]), batch["target"], batch)
+
+    def test_step(self, batch: dict) -> dict:
+        """The test stage's metrics of one batch: the loss and MAE, MSE,
+        Pearson, cosine and SSIM-2.5D (21 x 21 window) of the forward
+        against ``batch["target"]``, each a 0-d tensor on the batch's
+        device; with ``labels`` in the batch also the host segmentation
+        metrics of :meth:`test_step_host` (Python floats) on its first
+        sample's prediction."""
+        pred = self.forward(batch["source"])
+        target = batch["target"]
+        loss = self._compute_loss(pred, target, batch)
+        p, t = pred.float(), target.float()
+        pf, tf = p.reshape(p.shape[0], -1), t.reshape(t.shape[0], -1)
+        pc, tc = pf - pf.mean(dim=1, keepdim=True), tf - tf.mean(dim=1, keepdim=True)
+
+        def corr(a, b):
+            # norms as sqrt(sum of squares), jnp.linalg.norm's definition: on the CPU, torch's
+            # float32 Tensor.norm over a 1024^2 x 30 sample drifts by 2e-3, its sum does not
+            norm = lambda v: (v * v).sum(dim=1).sqrt()
+            return ((a * b).sum(dim=1) / torch.clamp(norm(a) * norm(b), min=1e-8)).mean()
+
+        out = {
+            "loss": loss,
+            "metrics/mae": (p - t).abs().mean(),
+            "metrics/mse": (p - t).square().mean(),
+            "metrics/pearson": corr(pc, tc),
+            "metrics/cosine": corr(pf, tf),
+            "metrics/ssim": ssim_25d(p, t, in_plane_window_size=(21, 21)).mean(),
+        }
+        if "labels" in batch:
+            out.update(self.test_step_host(batch, pred[:1]))
+        return out
+
+    def _instance_segment(self, pred2d: np.ndarray) -> np.ndarray:
+        """Instance labels of a predicted nuclei image: CellPose when a model
+        path is configured (``ImportError`` when cellpose is not installed),
+        else the native watershed."""
+        if self.test_cellpose_model_path is not None and self._cellpose_model is None:
+            try:
+                from cellpose.models import CellposeModel
+            except ImportError as e:
+                raise ImportError(
+                    "CellPose not installed; omit test_cellpose_model_path to use the native "
+                    "watershed instance segmentation"
+                ) from e
+            self._cellpose_model = CellposeModel(model_type=self.test_cellpose_model_path)
+        if self._cellpose_model is not None:
+            masks = self._cellpose_model.eval(pred2d, channels=[0, 0], diameter=self.test_cellpose_diameter)[0]
+            return np.asarray(masks).astype(np.int32)
+        from viscy_tpu_torch.apps.dynacell.eval.segmentation import segment_nucleus_instances
+
+        return segment_nucleus_instances(pred2d)
+
+    def test_step_host(self, batch: dict, pred: torch.Tensor | None = None) -> dict:
+        """The segmentation leg, on the host, for a batch with ``labels``:
+        instance-segment the center slice of the first sample's prediction
+        (``pred``, else a forward of that sample; the target's center slice
+        with ``test_evaluate_cellpose``) and score it against the labels:
+        pixel accuracy, Dice, Jaccard, mAP, mAP@50, mAP@75, mAR@100. Values
+        that are not finite (no instance on either side) are left out."""
+        if "labels" not in batch:
+            return {}
+        from viscy_tpu_torch.evaluation.metrics import mean_average_precision
+
+        if self.test_evaluate_cellpose:
+            target = batch["target"][:1]
+            pred2d = target[0, 0, target.shape[-3] // 2]
+        else:
+            if pred is None:
+                with torch.no_grad():
+                    pred = self.forward(batch["source"][:1])
+            # the prediction's own center: its depth may differ from the target's
+            pred2d = pred[0, 0, pred.shape[-3] // 2]
+        pred2d = pred2d.float().cpu().numpy()
+        labels = batch["labels"].cpu().numpy()
+        if labels.ndim == 3:
+            labels = labels[0]
+        pred_labels = self._instance_segment(pred2d)
+        pb, tb = pred_labels > 0, labels > 0
+        tp = float(np.logical_and(pb, tb).sum())
+        coco = mean_average_precision(pred_labels, labels.astype(np.int32))
+        out = {
+            "metrics/accuracy": float((pb == tb).mean()),
+            "metrics/dice_score": float(2 * tp / max(pb.sum() + tb.sum(), 1)),
+            "metrics/jaccard": float(tp / max(np.logical_or(pb, tb).sum(), 1)),
+            "metrics/mAP": float(coco["map"]),
+            "metrics/mAP_50": float(coco["map_50"]),
+            "metrics/mAP_75": float(coco["map_75"]),
+            "metrics/mAR_100": float(coco["mar_100"]),
+        }
+        # an empty pair has no AP: leave it out of the mean over batches
+        return {k: v for k, v in out.items() if np.isfinite(v)}
 
     def configure_optimizers(self, total_steps: int):
         """AdamW with the engine's schedule (``warmup_steps=0`` takes the

@@ -1,5 +1,7 @@
-"""Data layer: the HCS datamodule and its datasets, loader and host transforms."""
+"""Data layer: the HCS datamodules and their datasets, loader and host transforms."""
 
 from viscy_tpu_torch.data.hcs import DataModule, HCSDataModule
+from viscy_tpu_torch.data.mmap_cache import MmappedDataModule, MmappedDataset
+from viscy_tpu_torch.data.select import SelectWell
 
-__all__ = ["DataModule", "HCSDataModule"]
+__all__ = ["DataModule", "HCSDataModule", "MmappedDataModule", "MmappedDataset", "SelectWell"]

@@ -33,7 +33,7 @@ import torch
 
 from viscy_tpu_torch.data.host_transforms import HostRandWeightedCropd, HostTransform
 from viscy_tpu_torch.data.loader import DataLoader
-from viscy_tpu_torch.data.sliding_window import SlidingWindowDataset
+from viscy_tpu_torch.data.sliding_window import MaskTestDataset, SlidingWindowDataset
 from viscy_tpu_torch.transforms.affine import BatchedRandAffined
 from viscy_tpu_torch.transforms.base import Compose
 from viscy_tpu_torch.transforms.normalize import MinMaxSampled, NormalizeSampled
@@ -71,7 +71,9 @@ class HCSDataModule(DataModule):
     The JAX datamodule's keyword arguments; ``mmap_preload``,
     ``scratch_dir``, ``persistent_workers`` and ``pin_memory`` are accepted
     for config compatibility and do nothing (``mmap_preload`` means
-    ``caching``), as there. The ``test`` stage is not ported."""
+    ``caching``), as there. The ``test`` stage reads every FOV of the plate
+    in whole windows, one a batch, with the ground-truth masks of
+    ``ground_truth_masks`` (``MaskTestDataset``)."""
 
     def __init__(
         self,
@@ -209,7 +211,7 @@ class HCSDataModule(DataModule):
         elif stage == "predict":
             self._setup_predict()
         elif stage == "test":
-            raise NotImplementedError("the test stage (MaskTestDataset) is not ported")
+            self._setup_test()
         else:
             raise NotImplementedError(f"Unknown stage {stage}")
 
@@ -271,6 +273,18 @@ class HCSDataModule(DataModule):
             out.append(raw if self.native_transfer else raw.astype(np.float32))
         return out
 
+    def _setup_test(self) -> None:
+        """Every FOV of the plate, whole windows, the host normalizations;
+        ground-truth masks beside them when ``ground_truth_masks`` is set."""
+        positions = [p for _, p in open_ome_zarr(self.data_path, mode="r").positions()]
+        transform = _HostCompose(self.normalizations)
+        if self.ground_truth_masks:
+            self.test_dataset = MaskTestDataset(positions, transform=transform,
+                                                ground_truth_masks=self.ground_truth_masks,
+                                                **self._dataset_settings())
+        else:
+            self.test_dataset = SlidingWindowDataset(positions, transform=transform, **self._dataset_settings())
+
     def _setup_predict(self) -> None:
         store = open_ome_zarr(self.data_path, mode="r")
         positions = [store] if isinstance(store, Position) else self._filtered_positions(store)
@@ -303,6 +317,9 @@ class HCSDataModule(DataModule):
             num_workers=self.num_workers,
             seed=self.seed,
         )
+
+    def test_dataloader(self) -> DataLoader:
+        return DataLoader(self.test_dataset, batch_size=1, num_workers=self.num_workers)
 
     def predict_dataloader(self) -> DataLoader:
         return DataLoader(self.predict_dataset, batch_size=self.batch_size, num_workers=self.num_workers)

@@ -1,5 +1,6 @@
-"""Sliding-window dataset over HCS OME-Zarr positions (counterpart of
-``viscy_tpu/data/sliding_window.py``'s ``SlidingWindowDataset``).
+"""Sliding-window datasets over HCS OME-Zarr positions (counterpart of
+``viscy_tpu/data/sliding_window.py``'s ``SlidingWindowDataset`` and
+``MaskTestDataset``).
 
 Each item is a (C, Z, Y, X) window keyed by a global index into the
 cumulative (FOV, t, z-window) table, read with an orthogonal selection of
@@ -15,9 +16,12 @@ from __future__ import annotations
 
 import bisect
 import logging
+import re
+from pathlib import Path
 
 import numpy as np
 
+from viscy_tpu_torch.data.png import read_label_png
 from viscy_tpu_torch.data.typing import ChannelMap, HCSStackIndex
 from viscy_tpu_torch.data.utils import ensure_channel_list, read_norm_meta
 from viscy_tpu_torch.zarr_io.store import ImageArray, Position
@@ -284,3 +288,42 @@ def _sample_origins_from_cdf(
     """Inverse-CDF sampling of ``num_samples`` (y, x) origins."""
     idx = np.minimum(np.searchsorted(cdf, rng.random(num_samples), side="right"), cdf.size - 1)
     return [(int(i) // vx, int(i) % vx) for i in idx]
+
+
+class MaskTestDataset(SlidingWindowDataset):
+    """The test stage's dataset, with ground-truth masks where there are
+    some (counterpart of ``viscy_tpu/data/sliding_window.py``'s
+    ``MaskTestDataset``): PNG files named ``*_p###_z#_cp_masks.png`` in
+    ``ground_truth_masks`` are matched by (position, t = 0, center z of the
+    window); a matching window's sample gains ``labels``, the mask as
+    ``np.int16`` (read by :mod:`viscy_tpu_torch.data.png`)."""
+
+    def __init__(
+        self,
+        positions: list[Position],
+        channels: ChannelMap,
+        z_window_size: int,
+        transform=None,
+        ground_truth_masks: str | None = None,
+        array_key: str = "0",
+        **kwargs,
+    ) -> None:
+        super().__init__(positions, channels, z_window_size, array_key=array_key, transform=transform, **kwargs)
+        self.masks: dict[tuple[int, int, int], str] = {}
+        if ground_truth_masks is None:
+            return
+        for img_path in Path(ground_truth_masks).glob("*cp_masks.png"):
+            pos = re.search(r"(?<=_p)\d{3}", img_path.name)
+            z = re.search(r"(?<=_z)\d+", img_path.name)
+            if pos and z:
+                self.masks[(int(pos.group()), 0, int(z.group()))] = str(img_path)
+
+    def get_item_with_epoch(self, index: int, epoch: int):
+        sample = super().get_item_with_epoch(index, epoch)
+        if not self.masks or isinstance(sample, list):
+            return sample
+        img_name, t_idx, z_idx = sample["index"]
+        key = (int(img_name.split("/")[-2]), int(t_idx), int(z_idx) + self.z_window_size // 2)
+        if path := self.masks.get(key):
+            sample["labels"] = read_label_png(path)
+        return sample

@@ -429,6 +429,25 @@ def _fused_cuda(x, shortcut, params, mask_f, eps_ln, eps_grn, mark=None):
     return out, ss
 
 
+@torch.library.custom_op(
+    "viscy_tpu_torch::fused_mlp_grn_fwd",
+    mutates_args=(),
+    device_types="cuda",
+    schema="(Tensor x, Tensor shortcut, Tensor? mask_f, Tensor ln_s, Tensor ln_b, Tensor w1, Tensor b1, "
+    "Tensor gg, Tensor gb, Tensor w2, Tensor b2, float eps_ln, float eps_grn) -> (Tensor, Tensor)",
+)
+def fused_fwd_op(x, shortcut, mask_f, ln_s, ln_b, w1, b1, gg, gb, w2, b2, eps_ln, eps_grn):
+    """:func:`_fused_cuda` as an operator: ``torch.export`` records it as one
+    node (its fake gives the shapes), and a loaded program runs the kernels
+    through it wherever this module is imported. CUDA tensors only."""
+    return _fused_cuda(x, shortcut, (ln_s, ln_b, w1, b1, gg, gb, w2, b2), mask_f, eps_ln, eps_grn)
+
+
+@fused_fwd_op.register_fake
+def _fused_fwd_fake(x, shortcut, mask_f, ln_s, ln_b, w1, b1, gg, gb, w2, b2, eps_ln, eps_grn):
+    return torch.empty_like(x), x.new_empty((x.shape[0], w1.shape[0]), dtype=torch.float32)
+
+
 @dataclass(frozen=True)
 class BwdPlan:
     """Grid sizes and scratch shapes of the backward kernels for one call.
@@ -577,7 +596,7 @@ class FusedMlpGrn(torch.autograd.Function):
         params = (ln_s, ln_b, w1, b1, gg, gb, w2, b2)
         if x.device.type == "cuda":
             mask_f = _check_cuda_args(x, shortcut, params, mask)
-            out, ss = _fused_cuda(x, shortcut, params, mask_f, eps_ln, eps_grn)
+            out, ss = fused_fwd_op(x, shortcut, mask_f, *params, eps_ln, eps_grn)
         elif x.device.type == "cpu":
             ss = _reference_ss(x, ln_s, ln_b, w1, b1, mask, eps_ln)
             out = _reference_apply(x, shortcut, *params, ss, mask, eps_ln, eps_grn)

@@ -1,5 +1,5 @@
 """Callback protocol (counterpart of ``viscy_tpu/training/callbacks/base.py``):
-fit, epoch, validation and prediction hooks."""
+fit, epoch, validation, test and prediction hooks."""
 
 from __future__ import annotations
 
@@ -12,7 +12,9 @@ class Callback:
     per epoch ``on_train_epoch_start``, ``on_train_batch_end`` per step, then
     (on a validation epoch) ``on_validation_epoch_start``,
     ``on_validation_batch_end`` per batch and ``on_validation_epoch_end``,
-    then ``on_train_epoch_end``; last ``on_fit_end``."""
+    then ``on_train_epoch_end``; last ``on_fit_end``. ``Trainer.test`` calls
+    ``on_test_batch_end`` per batch with its host metrics, then
+    ``on_test_end`` with their means."""
 
     def on_fit_start(self, trainer, module) -> None: ...
 
@@ -41,3 +43,9 @@ class Callback:
     ) -> None: ...
 
     def on_predict_end(self, trainer, module) -> None: ...
+
+    def on_test_batch_end(
+        self, trainer, module, outputs: dict, batch: dict, batch_idx: int
+    ) -> None: ...
+
+    def on_test_end(self, trainer, module, metrics: dict) -> None: ...

@@ -1,13 +1,14 @@
 """``viscy-torch`` CLI (counterpart of ``viscy_tpu/training/cli.py``).
 
-Subcommands ``fit``, ``validate``, ``predict`` and ``preprocess``, each
-with ``--config`` / ``-c`` and ``--ckpt_path``; the configs are the JAX
-package's (LightningCLI-style ``model:`` / ``data:`` / ``trainer:`` with
-``class_path`` / ``init_args`` and ``base:`` recipes), their class paths
-remapped to this package. Entry points run on the card; ``trainer:
-{device: cpu}`` runs a config on the CPU (the model is built there too).
-``test``, ``export``, ``precompute`` and ``convert_to_anndata``, and the
-TensorBoard and W&B logger sinks, are not ported and raise.
+Subcommands ``fit``, ``validate``, ``test``, ``predict``, ``preprocess``,
+``precompute`` and ``export``, each with ``--config`` / ``-c`` and
+``--ckpt_path``; the configs are the JAX package's (LightningCLI-style
+``model:`` / ``data:`` / ``trainer:`` with ``class_path`` / ``init_args``
+and ``base:`` recipes), their class paths remapped to this package; a
+``trainer.logger`` maps to the metric sinks (TensorBoard is built in, W&B
+when the package and credentials are there). Entry points run on the card;
+``trainer: {device: cpu}`` runs a config on the CPU (the model is built
+there too). ``convert_to_anndata`` is not ported and raises.
 
 Run as ``viscy-torch fit -c config.yml`` or
 ``python -m viscy_tpu_torch.training.cli fit -c config.yml``; in a
@@ -49,28 +50,25 @@ _IGNORED_TRAINER_KEYS = {
     "profiler",
     "reload_dataloaders_every_n_epochs",
 }
-NOT_PORTED = ("test", "export", "precompute", "convert_to_anndata")
+NOT_PORTED = ("convert_to_anndata",)
 
 
 def _trainer_arg_keys() -> set[str]:
     from viscy_tpu_torch.training.trainer import Trainer
 
-    return {k for k in inspect.signature(Trainer.__init__).parameters if k not in ("self", "callbacks")}
+    return {k for k in inspect.signature(Trainer.__init__).parameters if k not in ("self", "callbacks", "loggers")}
 
 
-def build_trainer(trainer_cfg: dict):
-    """A Trainer from a Lightning-style trainer config; keys the trainer
-    does not take are dropped with a warning."""
+def build_trainer(trainer_cfg: dict, subcommand: str | None = None):
+    """A Trainer from a Lightning-style trainer config; ``logger`` maps to
+    extra metric sinks (:func:`~viscy_tpu_torch.training.loggers.build_loggers_from_config`),
+    keys the trainer does not take are dropped with a warning."""
+    from viscy_tpu_torch.training.loggers import build_loggers_from_config
     from viscy_tpu_torch.training.trainer import Trainer
 
     trainer_cfg = dict(trainer_cfg or {})
     callbacks = instantiate(trainer_cfg.pop("callbacks", []) or [])
-    logger_cfg = trainer_cfg.pop("logger", None)
-    if logger_cfg:
-        raise NotImplementedError(
-            f"trainer.logger {logger_cfg!r}: the TensorBoard and W&B sinks are not ported "
-            "(metrics go to <default_root_dir>/metrics.csv)"
-        )
+    loggers = build_loggers_from_config(trainer_cfg.pop("logger", None), subcommand)
     accepted = _trainer_arg_keys()
     for key in list(trainer_cfg):
         if key in _IGNORED_TRAINER_KEYS:
@@ -85,7 +83,7 @@ def build_trainer(trainer_cfg: dict):
     default_root = trainer_cfg.pop("default_root_dir", None)
     if default_root is None:
         default_root = Path("lightning_logs") / datetime.now().strftime("%Y%m%d-%H%M%S")
-    return Trainer(default_root_dir=default_root, callbacks=callbacks, **trainer_cfg)
+    return Trainer(default_root_dir=default_root, callbacks=callbacks, loggers=loggers, **trainer_cfg)
 
 
 def _hparams_file(ckpt_path: str | Path) -> Path:
@@ -132,7 +130,7 @@ def _with_device(model_cfg: dict, device) -> dict:
 
 def run_subcommand(subcommand: str, config_path: str, ckpt_path: str | None = None):
     """Run one subcommand on a config; returns the Trainer (``None`` for
-    ``preprocess``)."""
+    ``preprocess`` and ``precompute``)."""
     if subcommand in NOT_PORTED:
         raise NotImplementedError(f"the {subcommand!r} subcommand is not ported")
     cfg = load_composed_config(config_path)
@@ -153,7 +151,14 @@ def run_subcommand(subcommand: str, config_path: str, ckpt_path: str | None = No
         if pp.get("fg_mask_channels"):
             generate_fg_masks(data_path, pp["fg_mask_channels"], fg_mask_key=pp.get("fg_mask_key", "fg_mask"))
         return None
-    if subcommand not in ("fit", "validate", "predict"):
+    if subcommand == "precompute":
+        from viscy_tpu_torch.preprocess.precompute import precompute_normalized
+
+        pc = cfg.get("precompute", cfg)
+        precompute_normalized(pc["data_path"], pc["output_path"], pc["channel_names"],
+                              level=pc.get("level", "fov_statistics"))
+        return None
+    if subcommand not in ("fit", "validate", "test", "predict", "export"):
         raise click.UsageError(f"Unknown subcommand {subcommand}")
     ckpt = ckpt_path or cfg.get("ckpt_path")
     # on fit, the hparams saved with the checkpoint win over the config
@@ -165,7 +170,7 @@ def run_subcommand(subcommand: str, config_path: str, ckpt_path: str | None = No
     device = (cfg.get("trainer") or {}).get("device")
     model = instantiate(_with_device(cfg["model"], device)) if "model" in cfg else None
     datamodule = instantiate(cfg["data"]) if "data" in cfg else None
-    trainer = build_trainer(cfg.get("trainer", {}))
+    trainer = build_trainer(cfg.get("trainer", {}), subcommand)
     if subcommand == "fit":
         if "model" in cfg:
             _save_ckpt_hparams(trainer, cfg["model"])
@@ -173,8 +178,14 @@ def run_subcommand(subcommand: str, config_path: str, ckpt_path: str | None = No
     elif subcommand == "validate":
         for k, v in sorted(trainer.validate(model, datamodule, ckpt_path=ckpt).items()):
             _logger.info(f"  {k}  {v:.6f}")
-    else:
+    elif subcommand == "test":
+        trainer.test(model, datamodule, ckpt_path=ckpt)
+    elif subcommand == "predict":
         trainer.predict(model, datamodule, ckpt_path=ckpt)
+    else:
+        from viscy_tpu_torch.training.export import export_model
+
+        export_model(model, cfg.get("export", {}))
     return trainer
 
 
@@ -197,8 +208,11 @@ def _register(name: str, help_text: str):
 
 fit = _register("fit", "Train a model.")
 validate = _register("validate", "Run validation.")
+test = _register("test", "Run the test stage.")
 predict = _register("predict", "Run inference and write outputs.")
 preprocess = _register("preprocess", "Compute normalization statistics.")
+export = _register("export", "Export a trained model.")
+precompute = _register("precompute", "Write normalized arrays to a new store.")
 for _name in NOT_PORTED:
     _register(_name, f"Not ported: raises NotImplementedError ({_name}).")
 

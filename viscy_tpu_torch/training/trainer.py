@@ -10,8 +10,9 @@ the datamodule's device transform with the trainer's seeded
 ``torch.Generator``, then ``training_loss`` (its stochastic depth drawn
 from a second generator) and ``backward``; every
 ``accumulate_grad_batches`` steps the (mean) gradient is clipped and AdamW
-and its scheduler step. Multi-device meshes, ``Trainer.test`` and the
-TensorBoard and W&B sinks are not ported.
+and its scheduler step. ``test`` runs the engine's test step over the test
+loader and means its metrics. Metrics go to ``metrics.csv``, a TensorBoard
+event file and any extra sinks (W&B). Multi-device meshes are not ported.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from viscy_tpu_torch.device import resolve_device
 from viscy_tpu_torch.training.callbacks.base import Callback
 from viscy_tpu_torch.training.module import TrainModule
 from viscy_tpu_torch.training.optimizers import clip_by_global_norm_, clip_by_value_
+from viscy_tpu_torch.training.tb_events import EventFileWriter
 
 _logger = logging.getLogger("viscy_tpu_torch")
 
@@ -165,28 +167,51 @@ def _record_stream(node, stream) -> None:
 
 
 class CSVLogger:
-    """Metrics sink: ``<log_dir>/metrics.csv``, one JSON line
-    ``{"step": step, <metric>: value, ...}`` per logged step (opened at the
-    first line). TensorBoard is not ported: ``use_tensorboard=True`` raises."""
+    """Metrics sinks: ``<log_dir>/metrics.csv``, one JSON line
+    ``{"step": step, <metric>: value, ...}`` per logged step, and with
+    ``use_tensorboard`` a TensorBoard event file in ``log_dir``
+    (:mod:`viscy_tpu_torch.training.tb_events`), each opened at the first
+    line; ``extra`` sinks (such as the env-gated W&B logger,
+    :class:`viscy_tpu_torch.training.loggers.WandbLogger`) take the same
+    ``log_metrics`` / ``close`` calls, and a failing one never stops
+    training."""
 
-    def __init__(self, log_dir: str | Path, use_tensorboard: bool = False) -> None:
-        if use_tensorboard:
-            raise NotImplementedError("the TensorBoard sink is not ported; use_tensorboard=False")
+    def __init__(self, log_dir: str | Path, use_tensorboard: bool = True, extra: Sequence | None = None) -> None:
         self.log_dir = Path(log_dir)
+        self.use_tensorboard = use_tensorboard
+        self.extra = list(extra or [])
         self._csv = None
+        self._tb: EventFileWriter | None = None
 
     def log_metrics(self, metrics: dict[str, float], step: int) -> None:
         if self._csv is None:
             self.log_dir.mkdir(parents=True, exist_ok=True)
             self._csv = open(self.log_dir / "metrics.csv", "a")
-        payload = {"step": step, **{k: float(v) for k, v in metrics.items()}}
-        self._csv.write(json.dumps(payload) + "\n")
+            if self.use_tensorboard:
+                self._tb = EventFileWriter(self.log_dir)
+        values = {k: float(v) for k, v in metrics.items()}
+        self._csv.write(json.dumps({"step": step, **values}) + "\n")
         self._csv.flush()
+        if self._tb is not None:
+            self._tb.add_scalars(values, step)
+        for sink in self.extra:
+            try:
+                sink.log_metrics(values, step)
+            except Exception:  # an observability sink never stops training
+                _logger.warning("metrics sink %r failed", sink, exc_info=True)
 
     def close(self) -> None:
         if self._csv is not None:
             self._csv.close()
             self._csv = None
+        if self._tb is not None:
+            self._tb.close()
+            self._tb = None
+        for sink in self.extra:
+            try:
+                sink.close()
+            except Exception:
+                _logger.warning("metrics sink %r failed to close", sink, exc_info=True)
 
 
 class Trainer:
@@ -219,6 +244,9 @@ class Trainer:
       ``profile_steps[0]`` to ``profile_steps[1]``, written there.
     - ``fast_dev_run``: one epoch of one train and one val batch, every
       step logged, no checkpoint.
+    - ``use_tensorboard`` adds a TensorBoard event file beside
+      ``metrics.csv``; ``loggers`` are extra metric sinks (the CLI maps
+      ``trainer.logger`` to them).
 
     The augmentation generator is seeded with ``seed + 1`` at every fit
     start, the stochastic-depth generator with ``seed + 2**32``.
@@ -238,7 +266,8 @@ class Trainer:
         checkpoint_monitor: str = "loss/validate",
         checkpoint_top_k: int = 5,
         seed: int = 42,
-        use_tensorboard: bool = False,
+        use_tensorboard: bool = True,
+        loggers: Sequence | None = None,
         gradient_clip_val: float | None = None,
         gradient_clip_algorithm: str = "norm",
         accumulate_grad_batches: int = 1,
@@ -268,7 +297,7 @@ class Trainer:
         self.profile_dir = profile_dir
         self.profile_steps = profile_steps
         self.device = resolve_device(device)
-        self.logger = CSVLogger(self.default_root_dir, use_tensorboard)
+        self.logger = CSVLogger(self.default_root_dir, use_tensorboard, extra=loggers)
         self.optimizer = None
         self.scheduler = None
         self._schedule = None
@@ -474,6 +503,40 @@ class Trainer:
         generator = torch.Generator(device=self.device).manual_seed(0)
         return self._run_validation(module, datamodule, generator)
 
+    def test(self, module: TrainModule, datamodule, ckpt_path: str | Path | None = None) -> dict:
+        """Mean over ``test_dataloader()``'s batches of every metric of
+        ``module.test_step`` (eval mode, no gradient), after loading
+        ``ckpt_path`` if given; logged as ``test/<key>`` and printed as a
+        table. A key missing from some batches (the segmentation leg's, on
+        batches without labels) is the mean over the batches that have it."""
+        self._active_datamodule = datamodule
+        prepare = getattr(datamodule, "prepare_data", None)
+        if prepare is not None:
+            prepare()
+        datamodule.setup("test")
+        module.to(self.device).eval()
+        if ckpt_path:
+            self.load_checkpoint(ckpt_path, module)
+        agg: dict[str, list[float]] = {}
+        with torch.no_grad():
+            for i, batch in enumerate(BatchPrefetcher(datamodule.test_dataloader(), self.device)):
+                host = {k: float(v) for k, v in module.test_step(batch).items()}
+                for k, v in host.items():
+                    agg.setdefault(k, []).append(v)
+                for cb in self.callbacks:
+                    cb.on_test_batch_end(self, module, host, batch, i)
+        mean_metrics = {k: float(np.mean(v)) for k, v in agg.items()}
+        self.logger.log_metrics({f"test/{k}": v for k, v in mean_metrics.items()}, self.global_step)
+        if mean_metrics:
+            width = max(len(k) for k in mean_metrics)
+            lines = "\n".join(f"  test/{k:<{width}}  {v:.6f}" for k, v in sorted(mean_metrics.items()))
+            _logger.info(f"Test metrics (mean over {len(next(iter(agg.values())))} batches):\n{lines}")
+        else:
+            _logger.warning("Test stage saw zero batches — nothing to report")
+        for cb in self.callbacks:
+            cb.on_test_end(self, module, mean_metrics)
+        return mean_metrics
+
     # -- predict --------------------------------------------------------------------
     def predict(
         self,
@@ -581,19 +644,7 @@ class Trainer:
         the optimizer, scheduler and accumulation state when the payload has
         them and they fit this trainer (else a warning and the fresh
         optimizer); the epoch after the saved one and the saved step."""
-        path = Path(path)
-        if path.name == "last" and path.is_symlink():
-            resolved = path.resolve()
-            if not resolved.exists():
-                raise FileNotFoundError(
-                    f"'last' checkpoint symlink {path} points at {resolved}, which no longer "
-                    "exists (it may have been pruned); pass an epoch=*-step=* checkpoint instead"
-                )
-            path = resolved
-        payload = torch.load(path, map_location="cpu", weights_only=True)
-        state = payload.get("state_dict", payload)
-        if any(k.startswith("model.") for k in state):
-            state = {k[len("model."):]: v for k, v in state.items() if k.startswith("model.")}
+        payload, state = read_checkpoint(path)
         module.model.load_state_dict(state, strict=True)
         if "optimizer" in payload and self.optimizer is not None:
             accumulating = self.accumulate_grad_batches > 1
@@ -615,3 +666,23 @@ class Trainer:
         # the payload records the finished epoch: resume at the next one
         self.current_epoch = int(payload.get("epoch", -1)) + 1
         self.global_step = int(payload.get("step", 0))
+
+
+def read_checkpoint(path: str | Path) -> tuple[dict, dict]:
+    """``(payload, model state_dict)`` of a checkpoint: a port one, a
+    Lightning one (``model.``-prefixed names) or a bare ``state_dict``;
+    ``last`` is followed to its target."""
+    path = Path(path)
+    if path.name == "last" and path.is_symlink():
+        resolved = path.resolve()
+        if not resolved.exists():
+            raise FileNotFoundError(
+                f"'last' checkpoint symlink {path} points at {resolved}, which no longer "
+                "exists (it may have been pruned); pass an epoch=*-step=* checkpoint instead"
+            )
+        path = resolved
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    state = payload.get("state_dict", payload)
+    if any(k.startswith("model.") for k in state):
+        state = {k[len("model."):]: v for k, v in state.items() if k.startswith("model.")}
+    return payload, state
