@@ -121,6 +121,44 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
            medians of the program and the eager forward, precompute seconds
            and MB/s, staging seconds, and the memory-mapped fit's patches/s
            and loader-wait share beside phase 9's.
+11. pretrain FCMAE masked pretraining and the encoder-only fine-tune at
+           full width (``configs/fcmae_pretrain.yml``, then
+           ``configs/vscyto2d_finetune.yml``). (a) The masked forward and
+           backward kernels at the pretraining encoder's four (S, C, M) at
+           batch 32 against their plain versions in f32 and bf16, two runs
+           bit-identical, and their bf16 times per step beside the plain
+           versions and the bounds. (b) One f32 pretraining step of the
+           full-width model at batch 2 (256^2, mask ratio 0.5, drop path
+           0.1), the card's kernels against the CPU's plain versions on the
+           same weights, token mask and keep masks: the prediction, the loss
+           and every parameter gradient (<= 2e-3 of range, r > 0.9999), the
+           masked launches counted. (c) Phase 9's fit plate grown by four
+           seeded FOVs and preprocessed again; ``fit -c
+           configs/fcmae_pretrain.yml`` through ``cli.main`` (batch 32 of
+           (1, 5, 256, 256), one epoch of 3 steps and 1 validation batch):
+           every draw's masked share, 18 masked and 3 unmasked forward calls
+           a step and as many backward, counted; validation on whole 1024^2
+           windows, as the config says. (d) The shipped pair cannot be
+           chained: the fine-tune's encoder-only load of (c)'s ``last`` must
+           raise (the stems differ: (5, 4, 4) at depth 5 against (1, 2, 2)
+           at depth 1). ``fit -c configs/fcmae_pretrain.yml`` again with the
+           fine-tune's stem and ``z_window_size: 1`` for one step, then
+           ``fit -c configs/vscyto2d_finetune.yml`` with ``ckpt_path`` at
+           its ``last`` (batch 32 of (1, 1, 256, 256), 3 steps and 1
+           validation batch of whole 1024^2 frames, whose stage-0 and last
+           decoder calls run as several launches): every encoder tensor
+           equals the checkpoint's bit for bit right after the load, the
+           decoder and head keep their own; the launches (the warp at depth
+           1); the split calls at batch 32 against their plain versions;
+           then the warp kernel as the fine-tune's affine member calls it at
+           depth 1 ((32, 1 + 2, 1, 256, 256)) against its plain version.
+           The configs are the shipped files but for the data path, the
+           checkpoint path, the plate's name of the nuclei channel
+           (``Nucleus``), the 2-D stem of the second pretraining run and the
+           smoke's own crop: a random 256^2 crop put first in the training
+           augmentations (the configs have none, and the plate's FOVs are
+           1024^2). Prints patches/s and the loader-wait share of both fits,
+           and the times of steps 2-3 between CUDA events at step ends.
 
 The last two lines are a JSON ``kernels`` record and the JSON result line.
 Needs ``torch.cuda.is_available()`` and the repo's ``viscy_tpu_torch``
@@ -191,6 +229,14 @@ CLI_FIT_ZYX = (23, 1024, 1024)
 CLI_PREDICT_FOVS = ("0", "1")
 CLI_PREDICT_ZYX = (20, 2048, 2048)
 CLI_CHANNELS = ("Phase3D", "Nucleus", "Membrane")
+# phase 11: FCMAE pretraining, then the VSCyto2D fine-tune from its last,
+# on phase 9's fit plate grown by four FOVs (six training FOVs: 114
+# five-deep windows, three batches of 32, and 138 one-deep ones)
+PRETRAIN_FOVS = ("4", "5", "6", "7")
+PRETRAIN_BATCH = 32
+PRETRAIN_YX = 256
+PRETRAIN_STEPS = 3
+PRETRAIN_VAL = 1
 
 
 def log(msg: str) -> None:
@@ -302,11 +348,13 @@ def phase_build() -> None:
                 log(f"[build]   {line.strip()}")
 
 
-def check_forward(batch, s, c, m, seed, masked_cases, worst) -> None:
+def check_forward(batch, s, c, m, seed, masked_cases, worst, ref_batch=None) -> None:
     """The forward kernels against ``reference_mlp_grn`` at (batch, S, C, M)
     in f32 (max|d| <= 1e-4 of range) and bf16 (1.5e-2 of range, r > 0.9999),
     each case run twice and bit-identical; raises on failure. ``worst`` maps
-    each dtype to the largest (max|d|, share of range) seen so far."""
+    each dtype to the largest (max|d|, share of range) seen so far. With
+    ``ref_batch`` the plain version runs on that many samples at a time (its
+    statistics are per sample), to bound its memory."""
     from viscy_tpu_torch.ops import fused_block as fb
 
     for masked in masked_cases:
@@ -314,7 +362,10 @@ def check_forward(batch, s, c, m, seed, masked_cases, worst) -> None:
             args, mask = block_inputs(batch, s, c, m, dtype, seed=seed, masked=masked)
             got = fb.fused_mlp_grn(*args, mask=mask)
             again = fb.fused_mlp_grn(*args, mask=mask)
-            want = fb.reference_mlp_grn(*args, mask=mask)
+            step = ref_batch or batch
+            want = torch.cat([fb.reference_mlp_grn(args[0][i:i + step], args[1][i:i + step], *args[2:],
+                                                   mask=None if mask is None else mask[i:i + step])
+                              for i in range(0, batch, step)])
             torch.cuda.synchronize()
             if not torch.equal(got, again):
                 raise AssertionError(f"two forward runs differ at S={s} C={c} M={m} B={batch} {dtype}")
@@ -695,6 +746,49 @@ def compare(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float, float]
     return err, err / max(rng, 1e-30), pearson(gotf, wantf)
 
 
+def check_backward(batch, s, c, m, seed, masked) -> float:
+    """The backward kernels against ``reference_mlp_grn_bwd`` at (batch, S,
+    C, M) in f32 (every gradient within 1e-4 of its range) and bf16 (1.5e-2,
+    r > 0.999), each case run twice and bit-identical; raises on failure.
+    Returns the largest bf16 max|d|."""
+    from viscy_tpu_torch.ops import fused_block as fb
+
+    worst_bf16 = 0.0
+    for dtype, rel, r_min in ((torch.float32, 1e-4, None), (torch.bfloat16, 1.5e-2, 0.999)):
+        args, mask = block_inputs(batch, s, c, m, dtype, seed=seed, masked=masked)
+        gen = torch.Generator(device="cuda").manual_seed(seed + 100)
+        g = torch.randn(args[0].shape, generator=gen, device="cuda").to(dtype)
+        x, _, *params = args
+        ss = fb._reference_ss(x, *params[:4], mask, 1e-6)
+        mask_f = fb._check_cuda_args(x, g, params, mask)
+        got = fb._fused_bwd_cuda(x, g, params, mask_f, ss, 1e-6, 1e-6)
+        again = fb._fused_bwd_cuda(x, g, params, mask_f, ss, 1e-6, 1e-6)
+        want = fb.reference_mlp_grn_bwd(x, g, *params, ss, mask=mask)
+        torch.cuda.synchronize()
+        tag = f"S={s} C={c} M={m} B={batch} {str(dtype)[6:]}{' masked' if masked else ''}"
+        worst_rel, worst_name, min_r = 0.0, "", 1.0
+        for name, a, b2, w in zip(GRAD_NAMES, got, again, want):
+            if not torch.equal(a, b2):
+                raise AssertionError(f"{name} differs between two runs at {tag}")
+            err, e_rel, r = compare(a, w)
+            ok = bool(torch.isfinite(a).all()) and e_rel <= rel and (r_min is None or r > r_min)
+            if not ok:
+                raise AssertionError(
+                    f"backward kernels disagree with the plain version at {tag}: {name} "
+                    f"max|d|={err:.3e} ({e_rel:.2e} of range, bound {rel:g}) r={r:.7f}"
+                )
+            if dtype == torch.bfloat16:
+                worst_bf16 = max(worst_bf16, err)
+            if e_rel >= worst_rel:
+                worst_rel, worst_name = e_rel, name
+            min_r = min(min_r, r)
+        log(f"[kernel-bwd] {tag}: 10 gradients, worst {worst_name} {worst_rel:.2e} of range "
+            f"(bound {rel:g}), min r={min_r:.7f}, two runs bit-identical")
+        del args, mask, g, x, params, ss, got, again, want
+        torch.cuda.empty_cache()
+    return worst_bf16
+
+
 def phase_kernel_bwd() -> dict:
     from viscy_tpu_torch.ops import fused_block as fb
 
@@ -705,38 +799,7 @@ def phase_kernel_bwd() -> dict:
     worst_bf16 = 0.0
     for k, (s, c, m) in enumerate(distinct):
         for masked in [False, True] if k == 1 else [False]:
-            for dtype, rel, r_min in ((torch.float32, 1e-4, None), (torch.bfloat16, 1.5e-2, 0.999)):
-                args, mask = block_inputs(batch, s, c, m, dtype, seed=300 + k, masked=masked)
-                gen = torch.Generator(device="cuda").manual_seed(400 + k)
-                g = torch.randn(args[0].shape, generator=gen, device="cuda").to(dtype)
-                x, _, *params = args
-                ss = fb._reference_ss(x, *params[:4], mask, 1e-6)
-                mask_f = fb._check_cuda_args(x, g, params, mask)
-                got = fb._fused_bwd_cuda(x, g, params, mask_f, ss, 1e-6, 1e-6)
-                again = fb._fused_bwd_cuda(x, g, params, mask_f, ss, 1e-6, 1e-6)
-                want = fb.reference_mlp_grn_bwd(x, g, *params, ss, mask=mask)
-                torch.cuda.synchronize()
-                tag = f"S={s} C={c} M={m} B={batch} {str(dtype)[6:]}{' masked' if masked else ''}"
-                worst_rel, worst_name, min_r = 0.0, "", 1.0
-                for name, a, b2, w in zip(GRAD_NAMES, got, again, want):
-                    if not torch.equal(a, b2):
-                        raise AssertionError(f"{name} differs between two runs at {tag}")
-                    err, e_rel, r = compare(a, w)
-                    ok = bool(torch.isfinite(a).all()) and e_rel <= rel and (r_min is None or r > r_min)
-                    if not ok:
-                        raise AssertionError(
-                            f"backward kernels disagree with the plain version at {tag}: {name} "
-                            f"max|d|={err:.3e} ({e_rel:.2e} of range, bound {rel:g}) r={r:.7f}"
-                        )
-                    if dtype == torch.bfloat16:
-                        worst_bf16 = max(worst_bf16, err)
-                    if e_rel >= worst_rel:
-                        worst_rel, worst_name = e_rel, name
-                    min_r = min(min_r, r)
-                log(f"[kernel-bwd] {tag}: 10 gradients, worst {worst_name} {worst_rel:.2e} of range "
-                    f"(bound {rel:g}), min r={min_r:.7f}, two runs bit-identical")
-                del args, mask, g, x, params, ss, got, again, want
-                torch.cuda.empty_cache()
+            worst_bf16 = max(worst_bf16, check_backward(batch, s, c, m, 300 + k, masked))
         args, _ = block_inputs(batch, s, c, m, torch.bfloat16, seed=500 + k)
         gen = torch.Generator(device="cuda").manual_seed(600 + k)
         g = torch.randn(args[0].shape, generator=gen, device="cuda").to(torch.bfloat16)
@@ -766,6 +829,23 @@ def phase_kernel_bwd() -> dict:
     log(f"[kernel-bwd] per step ({len(per_step)} calls, B={batch}): kernels {total['ms']:.3f} ms "
         f"plain {total['plain_ms']:.3f} ms bound {total['bound_ms']:.3f} ms")
     return dict(total, bound_by="operations", max_abs_err=worst_bf16)
+
+
+def device_busy_ms(fn, runs: int = 5) -> float | None:
+    """Mean device time of the kernels of one call of ``fn`` over ``runs``
+    calls (torch.profiler), or None where it records no device time: beside
+    a CUDA-event median, what of that span the card computed and what it
+    waited for the host to enqueue."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.self_device_time_total for e in events) / 1e3 / runs if events else None
 
 
 def profile_call(fn, tag: str) -> None:
@@ -2065,6 +2145,478 @@ def phase_stages(card: str, tmp: Path, cli_info: dict) -> dict:
     return dict(test=test["counts"], export=export["launches"], mmap=mmap, max_abs_err=worst[torch.float32][0])
 
 
+def shipped_model_config(name: str) -> dict:
+    """The ``model_config`` of a shipped config, lists as tuples."""
+    from viscy_tpu_torch.training.compose import load_composed_config
+
+    cfg = load_composed_config(ROOT / "configs" / name)["model"]["init_args"]["model_config"]
+    return {k: tuple(v) if isinstance(v, list) else v for k, v in cfg.items()}
+
+
+def _train_crop(yx: int) -> dict:
+    """The smoke's own crop of both shipped configs (they have none, and the
+    plate's FOVs are larger than ``yx_patch_size``, which the data module
+    checks in training): a random ``yx``^2 crop put first in the training
+    augmentations. Validation runs on whole frames, as the configs say."""
+    return {"class_path": "viscy_transforms.BatchedRandSpatialCropd",
+            "init_args": {"keys": ["source", "target"], "roi_size": [-1, yx, yx]}}
+
+
+def _fused_launches(cfg: dict, yx: int, batch: int) -> int:
+    """Forward launches (passes A and B) of one forward of ``cfg`` at
+    ``yx``^2 and ``batch``: two per launch of at most
+    ``samples_per_launch`` samples, for every fused call."""
+    from viscy_tpu_torch.ops import fused_block as fb
+
+    return sum(2 * -(-batch // fb.samples_per_launch(s, m)) for s, _, m in kernel_shapes(cfg, yx))
+
+
+def _zero_counts() -> None:
+    from viscy_tpu_torch.ops import fused_block as fb
+    from viscy_tpu_torch.ops import warp3d
+
+    torch.cuda.synchronize()
+    fb.launches = fb.bwd_launches = fb.masked_launches = fb.masked_bwd_launches = warp3d.launches = 0
+
+
+def _counts() -> dict:
+    from viscy_tpu_torch.ops import fused_block as fb
+    from viscy_tpu_torch.ops import warp3d
+
+    torch.cuda.synchronize()
+    return dict(fwd=fb.launches, bwd=fb.bwd_launches, masked_fwd=fb.masked_launches,
+                masked_bwd=fb.masked_bwd_launches, warp=warp3d.launches)
+
+
+def pretrain_kernels(cfg: dict, card: str) -> dict:
+    """Phase 11 (a): the masked forward and backward kernels at the
+    pretraining encoder's four (S, C, M) at batch 32 against their plain
+    versions (:func:`check_forward`, :func:`check_backward`: f32 and bf16,
+    a masked case each), then bf16 CUDA-event medians per step beside the
+    plain versions and the bounds."""
+    from viscy_tpu_torch.ops import fused_block as fb
+
+    batch = PRETRAIN_BATCH
+    shapes = kernel_shapes(cfg, PRETRAIN_YX)[: sum(cfg["encoder_blocks"])]
+    worst: dict = {}
+    bwd_worst = 0.0
+    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bwd_ms=0.0, bwd_plain_ms=0.0, bwd_bound_ms=0.0,
+                 busy_ms=0.0, bwd_busy_ms=0.0)
+    for k, (s, c, m) in enumerate(sorted(set(shapes), key=shapes.index)):
+        check_forward(batch, s, c, m, 700 + k, (True,), worst)
+        bwd_worst = max(bwd_worst, check_backward(batch, s, c, m, 800 + k, True))
+        args, mask = block_inputs(batch, s, c, m, torch.bfloat16, seed=900 + k, masked=True)
+        x, sc, *params = args
+        mask_f = fb._check_cuda_args(x, sc, params, mask)
+        ss = fb._reference_ss(x, *params[:4], mask, 1e-6)
+        times = dict(
+            ms=cuda_median_ms(lambda: fb.fused_mlp_grn(*args, mask=mask)),
+            plain_ms=cuda_median_ms(lambda: fb.reference_mlp_grn(*args, mask=mask), runs=5),
+            bound_ms=block_bound_ms(batch, s, c, m, torch.bfloat16, masked=True)[0],
+            bwd_ms=cuda_median_ms(lambda: fb._fused_bwd_cuda(x, sc, params, mask_f, ss, 1e-6, 1e-6)),
+            bwd_plain_ms=cuda_median_ms(lambda: fb.reference_mlp_grn_bwd(x, sc, *params, ss, mask=mask), runs=5),
+            # 8 B S C M operations at the bf16 peak (the bytes are far below)
+            bwd_bound_ms=8.0 * batch * s * c * m / PEAK_FLOPS[torch.bfloat16] * 1e3,
+            busy_ms=device_busy_ms(lambda: fb.fused_mlp_grn(*args, mask=mask)) or math.nan,
+            bwd_busy_ms=device_busy_ms(lambda: fb._fused_bwd_cuda(x, sc, params, mask_f, ss, 1e-6, 1e-6)) or math.nan,
+        )
+        n = shapes.count((s, c, m))
+        for key, val in times.items():
+            total[key] += val * n
+        log(f"[pretrain] time S={s} C={c} M={m} B={batch} bf16 masked x{n}/step: forward {times['ms']:.3f} ms "
+            f"(device busy {times['busy_ms']:.3f}, plain {times['plain_ms']:.3f}, bound {times['bound_ms']:.4f}), "
+            f"backward {times['bwd_ms']:.3f} ms (device busy {times['bwd_busy_ms']:.3f}, plain "
+            f"{times['bwd_plain_ms']:.3f}, bound {times['bwd_bound_ms']:.4f})")
+        del args, mask, x, sc, params, mask_f, ss
+        torch.cuda.empty_cache()
+    log(f"[pretrain] masked kernels per step ({len(shapes)} encoder calls, B={batch}, bf16): forward "
+        f"{total['ms']:.3f} ms (device busy {total['busy_ms']:.3f}, plain {total['plain_ms']:.3f}, bound "
+        f"{total['bound_ms']:.3f}), backward {total['bwd_ms']:.3f} ms (device busy {total['bwd_busy_ms']:.3f}, "
+        f"plain {total['bwd_plain_ms']:.3f}, bound {total['bwd_bound_ms']:.3f}); CUDA-event medians, the busy "
+        f"time by torch.profiler ({card})")
+    log_worst(f"the pretraining encoder's shapes (B={batch}, masked)", worst)
+    return dict(total, fwd_err=worst[torch.bfloat16][0], bwd_err=bwd_worst)
+
+
+def pretrain_cross_check(cfg: dict) -> None:
+    """Phase 11 (b): one f32 pretraining step of the full-width model at
+    batch 2 (256^2, mask ratio 0.5, drop path 0.1 so the masked branch runs
+    alone too), the card's kernels against the CPU's plain versions on the
+    same weights, token mask and keep masks: the prediction, the loss and
+    every parameter gradient within 2e-3 of the range and Pearson r > 0.9999;
+    the card's masked launches counted."""
+    from viscy_tpu_torch.apps.cytoland.engine import FcmaeUNet, MaskedMSELoss
+    from viscy_tpu_torch.models.unet.fcmae import generate_mask
+
+    cfg32 = dict(cfg, dtype="float32", encoder_drop_path_rate=0.1)
+    make = lambda dev: FcmaeUNet(fit_mask_ratio=0.5, model_config=dict(cfg32), loss_function=MaskedMSELoss(),
+                                 device=dev).train()
+    on_card = make("cuda")
+    randomize_grn(on_card, 95)
+    on_cpu = make("cpu")
+    on_cpu.load_state_dict(on_card.state_dict())
+    g = torch.Generator().manual_seed(96)
+    source = torch.rand((2, 1, cfg["in_stack_depth"], PRETRAIN_YX, PRETRAIN_YX), generator=g)
+    mask = generate_mask(torch.Generator().manual_seed(97), 2, (PRETRAIN_YX,) * 2, on_card.model.total_stride, 0.5)
+    n_blocks = sum(cfg["encoder_blocks"])
+    keeps = torch.rand((n_blocks, 2), generator=g) < 0.9
+    keeps[0] = torch.tensor([False, True])  # one dropped branch, and a kept one in the same block
+
+    def step(module, dev):
+        batch = {"source": source.to(dev), "target": source.to(dev)}
+        pred, target, m = module.forward_fit_fcmae(batch, drop_path_masks=list(keeps.to(dev)), mask=mask.to(dev))
+        loss = module._masked_loss(pred, target, m)
+        loss.backward()
+        return pred.detach().cpu(), float(loss.detach())
+
+    t0 = time.perf_counter()
+    cpu_pred, cpu_loss = step(on_cpu, "cpu")
+    cpu_s = time.perf_counter() - t0
+    _zero_counts()
+    card_pred, card_loss = step(on_card, "cuda")
+    counts = _counts()
+    want = dict(masked_fwd=2 * n_blocks, masked_bwd=2 * n_blocks, fwd=2 * (n_blocks + 3), bwd=2 * (n_blocks + 3))
+    if any(counts[k] != v for k, v in want.items()):
+        raise AssertionError(f"pretraining step launched {counts}, expected {want}")
+    err, e_rel, r = compare(card_pred, cpu_pred)
+    l_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    if not (e_rel <= 2e-3 and r > 0.9999 and l_rel <= 2e-3):
+        raise AssertionError(f"pretraining prediction / loss on the card disagree with the CPU: {e_rel:.2e} of "
+                             f"range, r={r:.8f}, loss rel {l_rel:.2e}")
+    worst = (0.0, "", 1.0)
+    n_grads = 0
+    for (name, p_card), (_, p_cpu) in zip(on_card.named_parameters(), on_cpu.named_parameters()):
+        if p_cpu.grad is None:
+            if p_card.grad is not None:
+                raise AssertionError(f"{name}: gradient on the card only")
+            continue
+        g_err, g_rel, g_r = compare(p_card.grad.cpu(), p_cpu.grad)
+        if not (g_rel <= 2e-3 and g_r > 0.9999):
+            raise AssertionError(f"pretraining gradient of {name} on the card disagrees with the CPU: "
+                                 f"{g_rel:.2e} of range, r={g_r:.8f}")
+        n_grads += 1
+        if g_rel >= worst[0]:
+            worst = (g_rel, name, min(worst[2], g_r))
+    log(f"[pretrain] f32 step (2, 1, {cfg['in_stack_depth']}, {PRETRAIN_YX}, {PRETRAIN_YX}), mask ratio 0.5, "
+        f"drop path 0.1 ({int((~keeps).sum())} of {keeps.numel()} branches dropped), card kernels vs CPU plain: "
+        f"prediction {e_rel:.2e} of range r={r:.8f}; loss {card_loss:.7f} vs {cpu_loss:.7f} (rel {l_rel:.2e}); "
+        f"{n_grads} parameter gradients within 2e-3 of range and r > 0.9999, worst {worst[1]} {worst[0]:.2e}; "
+        f"card launches {counts} (CPU step {cpu_s:.1f} s)")
+    del on_card, on_cpu
+    torch.cuda.empty_cache()
+
+
+def grow_plate(plate: Path, card: str) -> None:
+    """Add the seeded FOVs ``PRETRAIN_FOVS`` to phase 9's fit plate with the
+    port's writer, then ``viscy-torch preprocess`` it again."""
+    from viscy_tpu_torch.training import cli
+    from viscy_tpu_torch.zarr_io.store import open_ome_zarr
+
+    t0 = time.perf_counter()
+    store = open_ome_zarr(plate, mode="r+", channel_names=list(CLI_CHANNELS))
+    rng = np.random.default_rng(11)
+    for fov in PRETRAIN_FOVS:
+        data = rng.random((1, len(CLI_CHANNELS), *CLI_FIT_ZYX), dtype=np.float32)
+        store.create_position("A", "1", fov).create_image("0", data, chunks=(1, 1, 1, *CLI_FIT_ZYX[1:]))
+    grow_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cli.main(["preprocess", "-c", _cli_config(plate.parent / "pp_grown.yml",
+                                              {"data_path": str(plate), "num_workers": 8})])
+    n = len(list(open_ome_zarr(plate).positions()))
+    log(f"[pretrain] phase 9's fit plate grown by {len(PRETRAIN_FOVS)} seeded FOVs of (1, 3, "
+        f"{', '.join(map(str, CLI_FIT_ZYX))}) in {grow_s:.1f} s, preprocessed again in "
+        f"{time.perf_counter() - t0:.2f} s: {n} FOVs ({card})")
+
+
+def _spy(cls, name: str, after):
+    """Wrap ``cls.name`` so ``after(self, result)`` sees each call's result;
+    returns a function that restores it."""
+    orig = getattr(cls, name)
+
+    def wrapped(self, *args, **kwargs):
+        out = orig(self, *args, **kwargs)
+        after(self, out)
+        return out
+
+    setattr(cls, name, wrapped)
+    return lambda: setattr(cls, name, orig)
+
+
+def _timed_steps():
+    """A CUDA event recorded on the current stream after each
+    ``Trainer._train_step`` (no synchronize, so the loop runs as it would);
+    returns (the step times in s, read once the fit is done, as a function;
+    restore)."""
+    from viscy_tpu_torch.training.trainer import Trainer
+
+    def mark(*_):
+        ends.append(torch.cuda.Event(enable_timing=True))
+        ends[-1].record()
+
+    ends: list = []
+    mark()
+
+    def times() -> list[str]:
+        torch.cuda.synchronize()
+        return [f"{a.elapsed_time(b) / 1e3:.3f}" for a, b in zip(ends[1:], ends[2:])]
+
+    return times, _spy(Trainer, "_train_step", mark)
+
+
+def pretrain_fit(card: str, tmp: Path, plate: Path, cfg: dict) -> dict:
+    """Phase 11 (c): ``viscy-torch fit -c configs/fcmae_pretrain.yml`` with the
+    data path, the crops and one epoch of 3 steps and 1 validation batch;
+    every draw's masked share, the launches per step (masked apart), the
+    rate and the wait share."""
+    from viscy_tpu_torch.apps.cytoland.engine import FcmaeUNet
+    from viscy_tpu_torch.training import cli
+    from viscy_tpu_torch.training.compose import load_composed_config
+
+    crop = _train_crop(PRETRAIN_YX)
+    shipped = load_composed_config(ROOT / "configs/fcmae_pretrain.yml")
+    augs = shipped["data"]["init_args"]["augmentations"]
+    ratio = shipped["model"]["init_args"]["fit_mask_ratio"]
+    if shipped["data"]["init_args"]["batch_size"] != PRETRAIN_BATCH:
+        raise AssertionError(f"configs/fcmae_pretrain.yml no longer trains at batch {PRETRAIN_BATCH}")
+    root = tmp / "pretrain"
+    fit_cfg = _cli_config(tmp / "pretrain.yml", {
+        "data": {"init_args": {"data_path": str(plate), "num_workers": 8, "augmentations": [crop] + augs}},
+        "trainer": {"default_root_dir": str(root), "max_epochs": 1, "limit_train_batches": PRETRAIN_STEPS,
+                    "limit_val_batches": PRETRAIN_VAL},
+    }, ROOT / "configs/fcmae_pretrain.yml")
+    shares = []
+    restore = _spy(FcmaeUNet, "forward_fit_fcmae", lambda self, out: shares.append(out[2].float().mean()))
+    step_times, restore_steps = _timed_steps()
+    try:
+        _zero_counts()
+        t0 = time.perf_counter()
+        trainer = cli.main(["fit", "-c", fit_cfg])
+        counts = _counts()
+        fit_s = time.perf_counter() - t0
+    finally:
+        restore()
+        restore_steps()
+    steps = step_times()
+    shares = [float(v) for v in shares]
+    n_enc = sum(cfg["encoder_blocks"])
+    n_dec = (len(cfg["dims"]) - 1) * cfg["decoder_conv_blocks"]
+    passes = PRETRAIN_STEPS + PRETRAIN_VAL
+    # validation on whole frames: no call there needs more than one launch
+    if _fused_launches(cfg, CLI_FIT_ZYX[-1], PRETRAIN_BATCH) != 2 * (n_enc + n_dec):
+        raise AssertionError("the pretraining validation's calls no longer fit one launch each")
+    want = dict(fwd=2 * (n_enc + n_dec) * passes, bwd=2 * (n_enc + n_dec) * PRETRAIN_STEPS,
+                masked_fwd=2 * n_enc * passes, masked_bwd=2 * n_enc * PRETRAIN_STEPS, warp=0)
+    ckpt = root / "checkpoints" / "last"
+    feed = trainer.feed_stats
+    val = trainer.logged_metrics.get("loss/validate")
+    share = lambda yx: (lambda n: int(n * ratio) / n)((yx // (cfg["stem_kernel_size"][-1] * 2 ** (len(cfg["dims"]) - 1))) ** 2)
+    if (counts != want or shares != [share(PRETRAIN_YX)] * PRETRAIN_STEPS + [share(CLI_FIT_ZYX[-1])] * PRETRAIN_VAL
+            or feed["steps"] != PRETRAIN_STEPS or not ckpt.resolve().exists() or val is None
+            or not math.isfinite(val)):
+        raise AssertionError(f"pretraining fit: launches {counts} (expected {want}), masked shares {shares}, "
+                             f"{feed['steps']} steps, last -> {ckpt.resolve()}, loss/validate {val}")
+    patches = PRETRAIN_STEPS * PRETRAIN_BATCH
+    log(f"[pretrain] fit (configs/fcmae_pretrain.yml, batch {PRETRAIN_BATCH} of (1, 5, {PRETRAIN_YX}, "
+        f"{PRETRAIN_YX}) from (5, {CLI_FIT_ZYX[1]}, {CLI_FIT_ZYX[2]}) windows, validation on whole (5, "
+        f"{CLI_FIT_ZYX[1]}, {CLI_FIT_ZYX[2]}) windows, mask ratio {ratio}): {fit_s:.1f} s in "
+        f"all; train loop {feed['seconds']:.2f} s for {PRETRAIN_STEPS} steps = {patches / feed['seconds']:.2f} "
+        f"patches/s (first step included; steps 2-3 took {', '.join(steps)} s between CUDA events at step ends); "
+        f"waited {feed['wait_s']:.2f} s = {feed['wait_s'] / feed['seconds']:.1%} of the loop; masked share of tokens {shares} (train steps, then validation); per step {n_enc} masked + "
+        f"{n_dec} unmasked forward calls and as many backward (launches over the fit: A+B {counts['fwd']}, of "
+        f"them masked {counts['masked_fwd']}; C+D {counts['bwd']}, masked {counts['masked_bwd']}; expected "
+        f"{want}); loss/validate {val:.5f} ({card})")
+    return dict(counts=counts, ckpt=ckpt)
+
+
+def finetune_warp(aug_cfg: list) -> float:
+    """The warp kernel as the fine-tune's affine member calls it at depth 1
+    ((32, 1 + 2, 1, 256, 256) in == out, the member's apply mask): the
+    member's call on a seeded batch is caught and the kernel held against
+    its plain version on those arguments (:func:`check_warp`). Returns
+    max|d|."""
+    from viscy_tpu_torch.training.instantiate import instantiate
+    from viscy_tpu_torch.transforms import Compose
+    from viscy_tpu_torch.transforms import affine as taffine
+
+    compose = Compose(instantiate(aug_cfg))
+    calls = []
+    orig = taffine.affine_warp_3d_keys
+    taffine.affine_warp_3d_keys = lambda *a, **k: calls.append((a, k)) or orig(*a, **k)
+    try:
+        g = torch.Generator(device="cuda").manual_seed(91)
+        shape = (1, PRETRAIN_YX, PRETRAIN_YX)
+        compose({"source": torch.rand((PRETRAIN_BATCH, 1, *shape), generator=g, device="cuda"),
+                 "target": torch.rand((PRETRAIN_BATCH, 2, *shape), generator=g, device="cuda")}, g)
+    finally:
+        taffine.affine_warp_3d_keys = orig
+    (args, kwargs), = calls
+    vols, mats, out_shape, mode, offset, flips = args
+    mask = kwargs.get("apply_mask")
+    applied = PRETRAIN_BATCH if mask is None else int(mask.sum())
+    return check_warp(f"[pretrain] warp kernel as the fine-tune's affine calls it at depth 1 "
+                      f"({PRETRAIN_BATCH}, 1+2, {', '.join(map(str, out_shape))}), {applied} of {PRETRAIN_BATCH} "
+                      f"samples applied", vols, mats, vols[0].shape[-3:], out_shape, mode, offset, flips, mask)
+
+
+def chain_pretrain(card: str, tmp: Path, plate: Path, shipped_ckpt: Path) -> dict:
+    """Phase 11 (d), first half. The shipped pair cannot be chained: the
+    fine-tune's encoder-only load of (c)'s ``last`` must refuse it (the
+    pretraining stem is (5, 4, 4) at depth 5, the fine-tune's (1, 2, 2) at
+    depth 1). So ``fit -c configs/fcmae_pretrain.yml`` runs again with the
+    fine-tune's stem (``stem_kernel_size``, ``in_stack_depth`` and
+    ``z_window_size: 1``) for one step and no validation; returns its
+    ``last`` and its launches."""
+    from viscy_tpu_torch.apps.cytoland.engine import FcmaeUNet
+    from viscy_tpu_torch.training import cli
+
+    ft = shipped_model_config("vscyto2d_finetune.yml")
+    try:
+        FcmaeUNet(encoder_only=True, ckpt_path=str(shipped_ckpt), model_config=dict(ft), device="cuda").load_pretrained()
+    except ValueError as err:
+        if "stem kernels differ" not in str(err):
+            raise
+        refusal = str(err).split("; the ")[-1]
+    else:
+        raise AssertionError("the fine-tune's encoder-only load took the (5, 4, 4) pretraining stem")
+    stem = {"stem_kernel_size": list(ft["stem_kernel_size"]), "in_stack_depth": ft["in_stack_depth"]}
+    root = tmp / "pretrain_2d_stem"
+    fit_cfg = _cli_config(tmp / "pretrain_2d_stem.yml", {
+        "model": {"init_args": {"model_config": stem}},
+        "data": {"init_args": {"data_path": str(plate), "num_workers": 8, "z_window_size": 1,
+                               "augmentations": [_train_crop(PRETRAIN_YX)] + load_augs("fcmae_pretrain.yml")}},
+        "trainer": {"default_root_dir": str(root), "max_epochs": 1, "limit_train_batches": 1,
+                    "check_val_every_n_epoch": 2},
+    }, ROOT / "configs/fcmae_pretrain.yml")
+    _zero_counts()
+    t0 = time.perf_counter()
+    cli.main(["fit", "-c", fit_cfg])
+    counts = _counts()
+    fit_s = time.perf_counter() - t0
+    n_enc = sum(ft["encoder_blocks"])
+    ckpt = root / "checkpoints" / "last"
+    if counts["masked_fwd"] != 2 * n_enc or counts["masked_bwd"] != 2 * n_enc or not ckpt.resolve().exists():
+        raise AssertionError(f"pretraining with the fine-tune's stem: launches {counts}, last -> {ckpt.resolve()}")
+    log(f"[pretrain] the fine-tune refuses the shipped pretraining's last ({refusal}); pretrained again with "
+        f"the fine-tune's stem {stem} on (1, 1, {PRETRAIN_YX}, {PRETRAIN_YX}) at batch {PRETRAIN_BATCH}, 1 step: "
+        f"{fit_s:.1f} s in all, launches {counts} ({card})")
+    return dict(ckpt=ckpt, counts=counts)
+
+
+def load_augs(name: str) -> list:
+    from viscy_tpu_torch.training.compose import load_composed_config
+
+    return load_composed_config(ROOT / "configs" / name)["data"]["init_args"]["augmentations"]
+
+
+def finetune_fit(card: str, tmp: Path, plate: Path, ckpt: Path) -> dict:
+    """Phase 11 (d): ``viscy-torch fit -c configs/vscyto2d_finetune.yml`` with
+    ``ckpt_path`` at :func:`chain_pretrain`'s ``last``, the data path, the
+    plate's name of the nuclei channel, the training crop and 3 steps and 1
+    validation batch of whole 1024^2 frames (the fused calls at S = 512^2
+    run as several launches, :func:`fused_block.samples_per_launch`, and
+    are held against their plain versions at that batch); every
+    ``encoder.*`` tensor checked bit for bit at the load; the rate, the
+    wait share, the launches; then :func:`finetune_warp`."""
+    from viscy_tpu_torch.apps.cytoland.engine import FcmaeUNet
+    from viscy_tpu_torch.ops import fused_block as fb
+    from viscy_tpu_torch.training import cli
+    from viscy_tpu_torch.training.compose import load_composed_config
+    from viscy_tpu_torch.training.trainer import read_checkpoint
+
+    init = load_composed_config(ROOT / "configs/vscyto2d_finetune.yml")["data"]["init_args"]
+    if init["batch_size"] != PRETRAIN_BATCH:
+        raise AssertionError(f"configs/vscyto2d_finetune.yml no longer trains at batch {PRETRAIN_BATCH}")
+    plate_name = lambda names: ["Nucleus" if n == "Nuclei" else n for n in names]
+    norms = [dict(n, init_args=dict(n["init_args"], keys=plate_name(n["init_args"]["keys"])))
+             for n in init["normalizations"]]
+    augs = [_train_crop(PRETRAIN_YX)] + init["augmentations"]
+    root = tmp / "finetune"
+    fit_cfg = _cli_config(tmp / "finetune.yml", {
+        "model": {"init_args": {"ckpt_path": str(ckpt)}},
+        "data": {"init_args": {"data_path": str(plate), "num_workers": 8,
+                               "target_channel": plate_name(init["target_channel"]), "normalizations": norms,
+                               "augmentations": augs}},
+        "trainer": {"default_root_dir": str(root), "max_epochs": 1, "limit_train_batches": PRETRAIN_STEPS,
+                    "limit_val_batches": PRETRAIN_VAL},
+    }, ROOT / "configs/vscyto2d_finetune.yml")
+    loads = []
+    state = lambda self: {k: v.detach().cpu().clone() for k, v in self.model.state_dict().items()}
+    orig_load = FcmaeUNet.load_pretrained
+
+    def load_and_record(self):
+        before = state(self)
+        orig_load(self)
+        loads.append((before, state(self)))
+
+    FcmaeUNet.load_pretrained = load_and_record
+    step_times, restore_steps = _timed_steps()
+    try:
+        _zero_counts()
+        t0 = time.perf_counter()
+        trainer = cli.main(["fit", "-c", fit_cfg])
+        counts = _counts()
+        fit_s = time.perf_counter() - t0
+    finally:
+        FcmaeUNet.load_pretrained = orig_load
+        restore_steps()
+    steps = step_times()
+    (before, after), = loads
+    saved = read_checkpoint(ckpt)[1]
+    enc = [k for k in after if k.startswith("encoder.")]
+    other = [k for k in after if not k.startswith("encoder.")]
+    differ = [k for k in other if k in saved and saved[k].shape == after[k].shape and not torch.equal(after[k], saved[k])]
+    if not (enc and all(torch.equal(after[k], saved[k]) for k in enc)
+            and all(torch.equal(after[k], before[k]) for k in other)):
+        raise AssertionError("encoder-only load: an encoder tensor differs from the checkpoint's, or a decoder "
+                             "or head tensor changed")
+    cfg = shipped_model_config("vscyto2d_finetune.yml")
+    n_calls = sum(cfg["encoder_blocks"]) + (len(cfg["dims"]) - 1) * cfg["decoder_conv_blocks"]
+    val_launches = _fused_launches(cfg, CLI_FIT_ZYX[-1], PRETRAIN_BATCH)
+    split = sorted({(s, c, m) for s, c, m in kernel_shapes(cfg, CLI_FIT_ZYX[-1])
+                    if fb.samples_per_launch(s, m) < PRETRAIN_BATCH})
+    if not split:
+        raise AssertionError("the fine-tune's validation on whole frames no longer needs a split launch")
+    want = dict(fwd=2 * n_calls * PRETRAIN_STEPS + val_launches * PRETRAIN_VAL, bwd=2 * n_calls * PRETRAIN_STEPS,
+                masked_fwd=0, masked_bwd=0, warp=PRETRAIN_STEPS)
+    feed = trainer.feed_stats
+    val = trainer.logged_metrics.get("loss/validate")
+    if counts != want or feed["steps"] != PRETRAIN_STEPS or val is None or not math.isfinite(val):
+        raise AssertionError(f"fine-tune fit: launches {counts} (expected {want}), {feed['steps']} steps, "
+                             f"loss/validate {val}")
+    patches = PRETRAIN_STEPS * PRETRAIN_BATCH
+    log(f"[pretrain] fine-tune (configs/vscyto2d_finetune.yml from the 2-D-stem pretraining's last, batch "
+        f"{PRETRAIN_BATCH} of (1, 1, {PRETRAIN_YX}, {PRETRAIN_YX}), validation on whole (1, {CLI_FIT_ZYX[1]}, "
+        f"{CLI_FIT_ZYX[2]}) frames, targets Nucleus + Membrane): encoder-only load copied all {len(enc)} encoder "
+        f"tensors bit for bit and left all {len(other)} decoder and head tensors as built ({len(differ)} of "
+        f"the same shape differ from the checkpoint's); {fit_s:.1f} s in all; train loop {feed['seconds']:.2f} s "
+        f"for {PRETRAIN_STEPS} steps = {patches / feed['seconds']:.2f} patches/s (first step included; steps 2-3 "
+        f"took {', '.join(steps)} s between CUDA events at step ends); waited {feed['wait_s']:.2f} s = "
+        f"{feed['wait_s'] / feed['seconds']:.1%} of the loop; launches A+B {counts['fwd']} (validation "
+        f"{val_launches} for {n_calls} calls: (S, C, M) {split} in launches of at most "
+        f"{[fb.samples_per_launch(s, m) for s, _, m in split]} samples), C+D {counts['bwd']}, masked 0, warp {counts['warp']} at depth 1 (expected {want}); "
+        f"loss/validate {val:.5f} ({card})")
+    worst: dict = {}
+    for k, (s, c, m) in enumerate(split):
+        check_forward(PRETRAIN_BATCH, s, c, m, 950 + k, (False,), worst, ref_batch=8)
+    log_worst(f"the fine-tune validation's split calls (B={PRETRAIN_BATCH}, whole frames)", worst)
+    err = finetune_warp(augs)
+    return dict(counts=counts, warp_err=err, fwd_err=worst[torch.bfloat16][0])
+
+
+def phase_pretrain(card: str, tmp: Path, plate: Path) -> dict:
+    """Phase 11: FCMAE pretraining and the VSCyto2D fine-tune (see the module
+    docstring)."""
+    cfg = shipped_model_config("fcmae_pretrain.yml")
+    kernels = pretrain_kernels(cfg, card)
+    pretrain_cross_check(cfg)
+    grow_plate(plate, card)
+    pre = pretrain_fit(card, tmp, plate, cfg)
+    chain = chain_pretrain(card, tmp, plate, pre["ckpt"])
+    fine = finetune_fit(card, tmp, plate, chain["ckpt"])
+    launches = {k: sum(run["counts"][k] for run in (pre, chain, fine)) for k in pre["counts"]}
+    return dict(kernels=kernels, launches=launches, warp_err=fine["warp_err"], fwd_err=fine["fwd_err"])
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is False")
@@ -2087,6 +2639,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="viscy-cli-") as tmp:
         cli = phase_cli(card, Path(tmp))
         stages = phase_stages(card, Path(tmp), cli)
+        pre = phase_pretrain(card, Path(tmp), cli["fit_plate"])
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
@@ -2096,8 +2649,9 @@ def main() -> None:
             route="cuda",
             source="viscy_tpu_torch/csrc/fused_mlp_grn.cu",
             replaces="viscy_tpu/ops/pallas/fused_block.py:164,183",
-            launches=sl["launches"],
-            **{k: kern[k] for k in keys},
+            launches=sl["launches"] + pre["launches"]["fwd"],
+            **{k: kern[k] for k in keys if k != "max_abs_err"},
+            max_abs_err=max(kern["max_abs_err"], pre["kernels"]["fwd_err"], pre["fwd_err"]),
             library_ms=None,
         ),
         dict(
@@ -2105,8 +2659,9 @@ def main() -> None:
             route="cuda",
             source="viscy_tpu_torch/csrc/fused_mlp_grn.cu",
             replaces="viscy_tpu/ops/pallas/fused_block.py:233,307",
-            launches=tr["bwd_launches"],
-            **{k: bwd[k] for k in keys},
+            launches=tr["bwd_launches"] + pre["launches"]["bwd"],
+            **{k: bwd[k] for k in keys if k != "max_abs_err"},
+            max_abs_err=max(bwd["max_abs_err"], pre["kernels"]["bwd_err"]),
             library_ms=None,
         ),
         dict(
@@ -2114,9 +2669,9 @@ def main() -> None:
             route="cuda",
             source="viscy_tpu_torch/csrc/affine_warp3d.cu",
             replaces="viscy_tpu/ops/pallas/warp3d.py:226,352",
-            launches=tr["warp_launches"],
+            launches=tr["warp_launches"] + pre["launches"]["warp"],
             **{k: warp[k] for k in keys if k != "max_abs_err"},
-            max_abs_err=max(warp["max_abs_err"], fit["warp_max_abs_err"]),
+            max_abs_err=max(warp["max_abs_err"], fit["warp_max_abs_err"], pre["warp_err"]),
             library_ms=warp["library_ms"],
         ),
     ]

@@ -140,8 +140,12 @@ def test_cuda_device_raises_without_a_card():
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         VSUNet("fcmae", dict(NARROW), fov_shard=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        VSUNet("fcmae", dict(NARROW, pretraining=True), device="cpu")
+    # masked pretraining is ported: the module builds and returns (pred, mask)
+    pre = VSUNet("fcmae", dict(NARROW, pretraining=True), device="cpu")
+    x = torch.rand((1, 1, 15, 64, 64), generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        pred, mask = pre.model(x, mask_ratio=0.5, mask_generator=torch.Generator().manual_seed(1))
+    assert pred.shape == (1, 2, 15, 64, 64) and mask.shape == (1, 1, 64, 64) and float(mask.float().mean()) == 0.5
     with pytest.raises(NotImplementedError):
         FullyConvolutionalMAE(**dict(NARROW, head_conv=True))
     with pytest.raises(ValueError):

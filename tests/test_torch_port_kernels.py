@@ -430,3 +430,140 @@ def test_warp_kernel_on_the_recipe_member_with_a_bool_mask_on_card(monkeypatch, 
             assert torch.equal(got[k][1], data[k][1].flip(-2, -1))
         else:
             assert torch.equal(got[k][:2], data[k][:2])
+
+
+# the FCMAE pretraining encoder's (S, C, M) at 256^2 with a (5, 4, 4) stem;
+# B = 2 so pass A's row tiles stop at each sample's end (at S = 64 every
+# tile is ragged) and pass B's tiles straddle the two samples
+PRETRAIN_SHAPES = [(4096, 96, 384), (1024, 192, 768), (256, 384, 1536), (64, 768, 3072)]
+
+
+def _pretrain_keep(s: int, b: int = 2, seed: int = 0) -> torch.Tensor:
+    """(B, S) bool keep mask of the pretraining encoder at S tokens: an 8 x 8
+    mask grid at ratio 0.5 (``generate_mask``), upsampled to the stage's
+    grid, True where tokens are kept."""
+    from viscy_tpu_torch.models.components.stems import upsample_mask_2d
+    from viscy_tpu_torch.models.unet.fcmae import generate_mask
+
+    side = int(round(s**0.5))
+    low = generate_mask(torch.Generator(device="cuda").manual_seed(seed), b, (256, 256), 32, 0.5)
+    return (~upsample_mask_2d(low, (side, side))).reshape(b, s)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "dtype,rel", [(torch.float32, 1e-4), (torch.bfloat16, 1.5e-2)], ids=["f32", "bf16"]
+)
+@pytest.mark.parametrize("s,c,m", PRETRAIN_SHAPES)
+def test_masked_kernels_at_the_pretraining_shapes_on_card(s, c, m, dtype, rel):
+    """The masked forward and backward against their plain versions with the
+    pretraining encoder's patch mask (bool, as the blocks pass it); each
+    launch counted as masked too. Tolerances as the tests above."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        args, _, g = _grads_case(s, c, m, dtype, False, b=2, seed=s)
+        keep = _pretrain_keep(s, seed=c)
+        before = (tfb.launches, tfb.masked_launches)
+        got = tfb.fused_mlp_grn(*args, mask=keep)
+        want = tfb.reference_mlp_grn(*args, mask=keep)
+        x, _, *params = args
+        ss = tfb._reference_ss(x, *params[:4], keep, 1e-6)
+        mask_f = tfb._check_cuda_args(x, g, params, keep)
+        bwd_before = (tfb.bwd_launches, tfb.masked_bwd_launches)
+        grads = tfb._fused_bwd_cuda(x, g, params, mask_f, ss, 1e-6, 1e-6)
+        want_grads = tfb.reference_mlp_grn_bwd(x, g, *params, ss, mask=keep)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert (tfb.launches, tfb.masked_launches) == (before[0] + 2, before[1] + 2)
+    assert (tfb.bwd_launches, tfb.masked_bwd_launches) == (bwd_before[0] + 2, bwd_before[1] + 2)
+    r_min = 0.9999 if dtype == torch.bfloat16 else None
+    assert_rel_close(got.float().cpu().numpy(), want.float().cpu().numpy(), rel, r_min)
+    for name, a, w in zip(GRAD_NAMES, grads, want_grads):
+        assert a.shape == w.shape, name
+        assert_rel_close(a.float().cpu().numpy(), w.float().cpu().numpy(), rel,
+                         0.999 if dtype == torch.bfloat16 else None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flip", [False, True], ids=["noflip", "flip"])
+def test_warp_kernel_at_depth_one_on_card(flip):
+    """The 2-D fine-tune's affine (rotation about z, YX scale 0.75-1.3) on
+    (B, C, 1, Y, X) stacks, in == out, an apply mask: the rotation's z
+    coordinate is 0 up to rounding, and the kernel weights the one plane as
+    the plain version does (max|d| <= 1e-6, one launch, bit-identical
+    repeats, direct-path blocks as ``warp_plan`` says)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from viscy_tpu_torch.ops import warp as tw
+
+    b, shape = 6, (1, 96, 96)
+    gen = torch.Generator().manual_seed(11)
+    keys = [torch.rand((b, 1, *shape), generator=gen), torch.rand((b, 2, *shape), generator=gen)]
+    rot = (torch.rand((b, 3), generator=gen) - 0.5) * torch.tensor([6.28, 0.0, 0.0])
+    yx = 0.75 + 0.55 * torch.rand((b, 2), generator=gen)
+    mats = tw.compose_affine_3d(rotation=rot, scale=torch.cat([torch.ones((b, 1)), yx], dim=1))
+    signs = torch.where(torch.rand((b, 3), generator=gen) < 0.5, -1.0, 1.0) if flip else None
+    mask = torch.ones(b, dtype=torch.bool)
+    mask[::3] = False
+    _check_warp_keys_on_card(keys, mats, shape, "zeros", None, signs, mask)
+
+
+def test_samples_per_launch_keeps_every_grid_within_its_limit():
+    """The fine-tune's stage 0 on whole 1024^2 frames ((1, 2, 2) stem: S =
+    512^2, C = 96, M = 384) takes at most 15 samples a launch: at 15 every
+    row-tile grid fits, at 16 pass B's does not."""
+    s, m = 512 * 512, 384
+    per = tfb.samples_per_launch(s, m)
+    assert per == 15
+
+    def tiles(b):
+        plan = tfb.fwd_plan(b, s, 96, m, 132)
+        return (plan.row_tiles, plan.apply_row_tiles, tfb.bwd_plan(b, s, 96, m, 132).row_tiles,
+                -(-b * s // tfb.BWD_TILE))
+
+    assert max(tiles(per)) <= tfb.MAX_ROW_TILES < max(tiles(per + 1))
+    assert tfb.samples_per_launch(64, 3072) == tfb.MAX_ROW_TILES
+    with pytest.raises(ValueError, match="even one sample"):
+        tfb.samples_per_launch(2**23, 384)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "dtype,rel", [(torch.float32, 1e-4), (torch.bfloat16, 1.5e-2)], ids=["f32", "bf16"]
+)
+def test_batch_above_the_grid_runs_as_several_launches_on_card(dtype, rel):
+    """B = 16 at the fine-tune's stage 0 on whole 1024^2 frames, one sample
+    above :func:`samples_per_launch`: the forward and backward run as two
+    launches each (15 + 1 samples) and match their plain versions, masked.
+    Tolerances as the tests above."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    s, c, m, b = 512 * 512, 96, 384, 16
+    assert tfb.samples_per_launch(s, m) == b - 1
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        args, mask, g = _grads_case(s, c, m, dtype, True, b=b, seed=5)
+        before = (tfb.launches, tfb.masked_launches, tfb.bwd_launches)
+        got = tfb.fused_mlp_grn(*args, mask=mask)
+        want = tfb.reference_mlp_grn(*args, mask=mask)
+        x, _, *params = args
+        ss = tfb._reference_ss(x, *params[:4], mask, 1e-6)
+        mask_f = tfb._check_cuda_args(x, g, params, mask)
+        grads = tfb._fused_bwd_cuda(x, g, params, mask_f, ss, 1e-6, 1e-6)
+        want_grads = tfb.reference_mlp_grn_bwd(x, g, *params, ss, mask=mask)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert (tfb.launches, tfb.masked_launches, tfb.bwd_launches) == (
+        before[0] + 4, before[1] + 4, before[2] + 4)
+    r_min = 0.9999 if dtype == torch.bfloat16 else None
+    assert_rel_close(got.float().cpu().numpy(), want.float().cpu().numpy(), rel, r_min)
+    for name, a, w in zip(GRAD_NAMES, grads, want_grads):
+        assert a.shape == w.shape and a.dtype == w.dtype, name
+        assert_rel_close(a.float().cpu().numpy(), w.float().cpu().numpy(), rel,
+                         0.999 if dtype == torch.bfloat16 else None)

@@ -10,10 +10,15 @@ the encoder frozen), the test step (regression metrics on the device, the
 segmentation leg on the host), and the reference predict step: divisible pad,
 forward, center crop, optional 4-rotation test-time augmentation, and
 batched YX tiling with hat-weight blending for large fields of view.
+``FcmaeUNet`` adds masked pretraining (``fit_mask_ratio``, ``MaskedMSELoss``
+against the source) and the encoder-only transfer of a pretrained
+checkpoint for fine-tuning.
 """
 
 from __future__ import annotations
 
+import logging
+from pathlib import Path
 from typing import Literal, Sequence
 
 import numpy as np
@@ -27,10 +32,22 @@ from viscy_tpu_torch.ops.ssim import ssim_25d
 from viscy_tpu_torch.training.losses.mixed_loss import MixedLoss
 from viscy_tpu_torch.training.module import TrainModule
 
+_logger = logging.getLogger("viscy_tpu_torch")
+
 _UNET_ARCHITECTURE = {
     "fcmae": FullyConvolutionalMAE,
     "UNeXt2_2D": FullyConvolutionalMAE,
 }
+
+
+class MaskedMSELoss:
+    """Masked MSE for FCMAE pretraining (reference ``engine.py:106``): the
+    per-pixel squared error in float32 averaged over Z, summed where the
+    ``(B, 1, H, W)`` mask is 1 and divided by ``max(mask.sum(), 1)``."""
+
+    def __call__(self, preds: torch.Tensor, original: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        loss = (preds.float() - original.float()).square()
+        return (loss.mean(dim=2) * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
 
 
 def _divisible_pad(x: torch.Tensor, factor: int, pad_z: bool = False) -> torch.Tensor:
@@ -161,9 +178,9 @@ class VSUNet(TrainModule):
         pred = self.model(batch["source"], generator=generator)
         return self._compute_loss(pred, batch["target"], batch)
 
-    def validation_loss(self, batch: dict) -> torch.Tensor:
+    def validation_loss(self, batch: dict, generator: torch.Generator | None = None) -> torch.Tensor:
         """The loss of the deterministic forward (the trainer runs it in eval
-        mode under ``torch.no_grad()``)."""
+        mode under ``torch.no_grad()``); ``generator`` is not drawn from."""
         return self._compute_loss(self.forward(batch["source"]), batch["target"], batch)
 
     def test_step(self, batch: dict) -> dict:
@@ -319,3 +336,140 @@ class VSUNet(TrainModule):
                 tile_batch=self.tile_batch,
             )
         return self._full_frame_predict(source)
+
+
+class FcmaeUNet(VSUNet):
+    """FCMAE engine (reference ``engine.py:808``): masked pretraining and
+    fine-tuning.
+
+    ``architecture`` defaults to ``"fcmae"``, so ``pretraining`` defaults to
+    true, as in the JAX engine. With ``pretraining`` the training and
+    validation losses are ``MaskedMSELoss`` (the configured loss when it is
+    one) of the prediction against the SOURCE over the masked tokens; the
+    mask is drawn at ``fit_mask_ratio``. Without it the steps are
+    ``VSUNet``'s.
+
+    ``encoder_only`` takes the encoder of the checkpoint at ``ckpt_path``
+    (:meth:`load_pretrained`, which the trainer calls once the weights are
+    built and before the optimizer, so a resume still wins); it raises
+    ``ValueError`` without ``ckpt_path``. Without ``encoder_only``,
+    ``ckpt_path`` loads nothing, as in the JAX engine (resume with the
+    trainer's ``ckpt_path``). ``log_batches_per_epoch`` and
+    ``log_samples_per_batch`` are the reference's image-logging knobs,
+    accepted for its configs and unused: the JAX engine logs no images
+    either.
+    """
+
+    def __init__(
+        self,
+        fit_mask_ratio: float = 0.0,
+        encoder_only: bool = False,
+        ckpt_path: str | Path | None = None,
+        log_batches_per_epoch: int = 8,
+        log_samples_per_batch: int = 1,
+        architecture: Literal["fcmae", "UNeXt2_2D"] = "fcmae",
+        device: str | torch.device = "cuda",
+        **kwargs,
+    ) -> None:
+        if encoder_only and ckpt_path is None:
+            raise ValueError("encoder_only=True requires ckpt_path")
+        super().__init__(architecture, device=device, **kwargs)
+        self.fit_mask_ratio = fit_mask_ratio
+        self.encoder_only = encoder_only
+        self._encoder_ckpt = ckpt_path if encoder_only else None
+        if ckpt_path is not None and not encoder_only:
+            _logger.warning("model ckpt_path %s loads nothing without encoder_only=True; pass the "
+                            "trainer's ckpt_path to resume", ckpt_path)
+        if self.model.pretraining and self.fit_mask_ratio <= 0.0:
+            _logger.warning("FCMAE pretraining with fit_mask_ratio=0 — no masking applied")
+
+    def load_pretrained(self) -> None:
+        """Encoder-only transfer (reference ``engine.py:855-867``): copy every
+        ``encoder.*`` tensor of the checkpoint at ``ckpt_path`` (a port or a
+        Lightning checkpoint, or a bare ``state_dict``) into the model,
+        bit for bit; the decoder and head keep their own weights. The
+        checkpoint's encoder must be this model's, tensor for tensor and
+        shape for shape, else ``ValueError`` (the JAX engine replaces the
+        whole encoder tree, which then fails at its first use; a stem of
+        another ``stem_kernel_size`` or ``in_stack_depth`` is named).
+        ``KeyError`` when the checkpoint has no encoder tensors; a directory
+        (an orbax checkpoint of the JAX package) raises by name."""
+        if self._encoder_ckpt is None:
+            return
+        from viscy_tpu_torch.training.trainer import read_checkpoint
+
+        path = Path(self._encoder_ckpt)
+        if path.is_dir():
+            raise ValueError(
+                f"{path} is a directory, an orbax checkpoint of the JAX package, which this package "
+                "cannot read without orbax: convert its params with "
+                "viscy_tpu_torch.training.convert.fcmae_state_dict_from_flax, torch.save the result "
+                "and point ckpt_path at that file"
+            )
+        _, state = read_checkpoint(path)
+        src = {k[len("encoder."):]: v for k, v in state.items() if k.startswith("encoder.")}
+        if not src:
+            raise KeyError(f"checkpoint {path} has no encoder parameters")
+        own = self.model.encoder.state_dict()
+        extra, missing = sorted(set(src) - set(own)), sorted(set(own) - set(src))
+        shaped = sorted(k for k in own if k in src and src[k].shape != own[k].shape)
+        if extra or missing or shaped:
+            stem = [f"encoder.{k} {tuple(src[k].shape)} here {tuple(own[k].shape)}" for k in shaped
+                    if k.startswith("stem.") and k.endswith(".weight")]
+            hint = (f"; the stem kernels differ ({', '.join(stem)}): pretrain with this model's "
+                    "stem_kernel_size and in_stack_depth" if stem else "")
+            found = [f"{what} {keys[:6]}" for what, keys in (("tensors the model lacks", extra),
+                     ("tensors the checkpoint lacks", missing), ("tensors of another shape", shaped)) if keys]
+            raise ValueError(f"checkpoint {path} encoder does not fit the model: {'; '.join(found)}{hint}")
+        with torch.no_grad():
+            for k, t in own.items():
+                t.copy_(src[k])
+        _logger.info("Loaded encoder parameters from %s", path)
+
+    def forward_fit_fcmae(
+        self,
+        batch: dict,
+        generator: torch.Generator | None = None,
+        drop_path_masks=None,
+        mask: torch.Tensor | None = None,
+    ):
+        """``(pred, target, mask)`` of the pretraining forward on
+        ``batch["source"]`` at ``fit_mask_ratio``: the target is the source,
+        the mask ``(B, 1, H, W)`` bool (True = masked). The token mask, then
+        the drop-path masks, are drawn from ``generator`` (as the JAX engine
+        draws both from the step's rng), unless given (the token mask
+        low-resolution)."""
+        source = batch["source"]
+        pred, mask = self.model(source, generator=generator, drop_path_masks=drop_path_masks,
+                                mask_ratio=self.fit_mask_ratio, mask_generator=generator, mask=mask)
+        return pred, source, mask
+
+    def _masked_loss(self, pred, target, mask) -> torch.Tensor:
+        if mask is None:
+            raise ValueError("FCMAE pretraining at fit_mask_ratio=0 masks nothing: the masked loss has no "
+                             "tokens to average")
+        loss_fn = self.loss_function if isinstance(self.loss_function, MaskedMSELoss) else MaskedMSELoss()
+        return loss_fn(pred, target, mask.float())
+
+    def training_loss(self, batch: dict, generator: torch.Generator | None = None) -> torch.Tensor:
+        """With ``pretraining``: the masked loss of the forward against the
+        source, the token mask and stochastic depth drawn from
+        ``generator``; else ``VSUNet.training_loss``."""
+        if not self.model.pretraining:
+            return super().training_loss(batch, generator)
+        return self._masked_loss(*self.forward_fit_fcmae(batch, generator))
+
+    def validation_loss(self, batch: dict, generator: torch.Generator | None = None) -> torch.Tensor:
+        """With ``pretraining``: as :meth:`training_loss`, the token mask and
+        any stochastic depth drawn from ``generator``. The JAX engine runs
+        this forward with ``deterministic=False``, so the encoder's drop
+        path acts in validation too; the model runs in training mode for
+        it. Else ``VSUNet.validation_loss``."""
+        if not self.model.pretraining:
+            return super().validation_loss(batch, generator)
+        was_training = self.model.training
+        self.model.train()
+        try:
+            return self._masked_loss(*self.forward_fit_fcmae(batch, generator))
+        finally:
+            self.model.train(was_training)

@@ -206,10 +206,17 @@ class GrnMlp(nn.Module):
 
 
 def mlp_grn_residual(
-    x: torch.Tensor, shortcut: torch.Tensor, norm: LayerNorm, mlp: GrnMlp
+    x: torch.Tensor,
+    shortcut: torch.Tensor,
+    norm: LayerNorm,
+    mlp: GrnMlp,
+    mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """``shortcut + fc2(GRN(gelu(fc1(LN(x)))))`` on channels-last maps
-    through the fused kernel (the block's whole MLP segment)."""
+    through the fused kernel (the block's whole MLP segment); ``mask``
+    (``(B, H, W)``, 1 where tokens are kept) gives the masked FCMAE
+    semantics: GRN statistics over kept tokens, the branch zeroed at
+    masked ones."""
     b, h, w, c = x.shape
     m = mlp.grn.weight.shape[0]
     out = fused_mlp_grn(
@@ -223,6 +230,7 @@ def mlp_grn_residual(
         mlp.grn.bias,
         mlp.fc2.weight.view(c, m),
         mlp.fc2.bias,
+        mask=None if mask is None else mask.reshape(b, h * w),
         eps_ln=norm.eps,
         eps_grn=mlp.grn.eps,
     )

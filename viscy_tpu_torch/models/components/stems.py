@@ -19,12 +19,29 @@ from torch import nn
 from viscy_tpu_torch.models.components.blocks import Conv, LayerNorm
 
 
+def upsample_mask_2d(mask: torch.Tensor, target_hw: Sequence[int]) -> torch.Tensor:
+    """Nearest-upsample a ``(B, 1, h, w)`` bool mask to ``(B, H, W)`` by
+    repeating each cell ``H / h`` x ``W / w`` times (reference
+    ``fcmae.py:69``); the ratios must be integers."""
+    m = mask[:, 0]
+    h, w = m.shape[1:]
+    hh, ww = target_hw
+    if (hh, ww) != (h, w):
+        if hh % h or ww % w:
+            raise ValueError(f"target {tuple(target_hw)} not divisible by mask {(h, w)}")
+        m = m.repeat_interleave(hh // h, dim=1).repeat_interleave(ww // w, dim=2)
+    return m
+
+
 class MaskedAdaptiveProjection(nn.Module):
-    """FCMAE patchify stem (reference ``fcmae.py:311``), unmasked path.
+    """FCMAE patchify stem (reference ``fcmae.py:311``).
 
     Like the reference it holds both ``conv3d`` (used when the input has
     more than one slice) and ``conv2d`` (single-slice input), then a
-    LayerNorm over channels."""
+    LayerNorm over channels. Patches never cross mask cells (kernel ==
+    stride), so the masked stem runs the dense convolution and re-zeroes
+    the LayerNorm output at masked positions with ``where`` (not a
+    multiply: a non-finite value there still becomes 0)."""
 
     def __init__(
         self,
@@ -45,7 +62,10 @@ class MaskedAdaptiveProjection(nn.Module):
         self.conv2d = Conv(in_channels, out_channels, self.kernel_2d, generator)
         self.norm = LayerNorm(out_channels)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, unmasked: torch.Tensor | None = None) -> torch.Tensor:
+        """``(B, C, D, H, W)`` -> channels-last ``(B, H', W', C')``;
+        ``unmasked``: ``(B, 1, h, w)`` bool, True where tokens are kept, at
+        the stem's output grid or a divisor of it."""
         dt = self.dtype
         if x.shape[2] > 1:
             y = F.conv3d(x.to(dt), self.conv3d.weight.to(dt), None, self.kernel_3d)
@@ -53,4 +73,8 @@ class MaskedAdaptiveProjection(nn.Module):
             y = rearrange(y, "b c d h w -> b h w (c d)")
         else:
             y = self.conv2d.nhwc(x[:, :, 0].permute(0, 2, 3, 1), dt, stride=self.kernel_2d)
-        return self.norm(y, dt)
+        y = self.norm(y, dt)
+        if unmasked is not None:
+            keep = upsample_mask_2d(unmasked, y.shape[1:3])
+            y = torch.where(keep[..., None], y, y.new_zeros(()))
+        return y

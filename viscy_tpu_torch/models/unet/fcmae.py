@@ -1,11 +1,15 @@
-"""Fully Convolutional Masked Autoencoder, supervised (unmasked) path
-(counterpart of ``viscy_tpu/models/unet/fcmae.py``).
+"""Fully Convolutional Masked Autoencoder (counterpart of
+``viscy_tpu/models/unet/fcmae.py``): masked pretraining
+(``pretraining=True``: ``forward`` returns ``(pred, mask)``) and supervised
+prediction (``pretraining=False``).
 
-This module serves fine-tuned FCMAE models (``pretraining=False``,
-``mask_ratio=0``): masked pretraining (``generate_mask``, ``MaskedGRN``)
-is not ported yet. Parameter names and shapes equal the reference VisCy
-torch model's (``viscy_tpu/training/state_dict_inventory.py``), so a
-released checkpoint loads with ``strict=True``.
+Masking is dense, as in the JAX package: masked positions are zeroed before
+and after each depthwise conv, the fused MLP+GRN segment takes the mask
+(GRN statistics over kept tokens, the branch zeroed at masked ones), and
+the stem re-zeroes its output at masked positions. Parameter names and
+shapes equal the reference VisCy torch model's
+(``viscy_tpu/training/state_dict_inventory.py``), so a released checkpoint
+loads with ``strict=True``.
 """
 
 from __future__ import annotations
@@ -28,7 +32,22 @@ from viscy_tpu_torch.models.components.blocks import (
     trunc_normal_init,
 )
 from viscy_tpu_torch.models.components.heads import PixelToVoxelShuffleHead
-from viscy_tpu_torch.models.components.stems import MaskedAdaptiveProjection
+from viscy_tpu_torch.models.components.stems import MaskedAdaptiveProjection, upsample_mask_2d
+
+
+def generate_mask(
+    generator: torch.Generator, batch: int, hw: Sequence[int], stride: int, mask_ratio: float
+) -> torch.Tensor:
+    """Random low-resolution bool mask ``(B, 1, H // stride, W // stride)``,
+    True = masked (reference ``fcmae.py:40``): each sample ranks uniform
+    scores drawn from ``generator`` (on its device) and masks exactly
+    ``int(numel * mask_ratio)`` cells."""
+    mh, mw = hw[0] // stride, hw[1] // stride
+    numel = mh * mw
+    masked = int(numel * mask_ratio)
+    scores = torch.rand((batch, numel), generator=generator, device=generator.device)
+    ranks = scores.argsort(dim=1).argsort(dim=1)
+    return (ranks < masked).reshape(batch, 1, mh, mw)
 
 
 def _dtype(dtype) -> torch.dtype:
@@ -42,14 +61,17 @@ def _dtype(dtype) -> torch.dtype:
 
 
 class MaskedConvNeXtV2Block(nn.Module):
-    """FCMAE ConvNeXt-v2 block (reference ``fcmae.py:144``), unmasked:
-    7x7 depthwise conv WITHOUT bias (timm ``create_conv2d`` default) ->
-    fused LN/fc1/GELU/GRN/fc2 -> residual.
+    """FCMAE ConvNeXt-v2 block (reference ``fcmae.py:144``): 7x7 depthwise
+    conv WITHOUT bias (timm ``create_conv2d`` default) -> fused
+    LN/fc1/GELU/GRN/fc2 -> residual. With ``mask2d`` (``(B, H, W)`` bool,
+    True where kept) the input is zeroed at masked positions before and
+    after the depthwise conv and the fused segment runs masked.
 
     With stochastic depth active (training, ``drop_path > 0``) the fused
-    kernel computes the branch alone (shortcut zeros: ``0 + z`` is ``z``),
-    then ``DropPath`` scales it and the shortcut is added in torch, the
-    JAX unfused block's order; otherwise one fused call adds the shortcut."""
+    kernel computes the (masked) branch alone (shortcut zeros: ``0 + z`` is
+    ``z``), then ``DropPath`` scales it and the shortcut is added in torch,
+    the JAX unfused block's order (``x * m``, drop path, ``+ shortcut``);
+    otherwise one fused call adds the shortcut."""
 
     def __init__(
         self,
@@ -77,18 +99,27 @@ class MaskedConvNeXtV2Block(nn.Module):
         self.drop_path = DropPath(drop_path)
 
     def forward(
-        self, x: torch.Tensor, generator: torch.Generator | None = None, keep: torch.Tensor | None = None
+        self,
+        x: torch.Tensor,
+        generator: torch.Generator | None = None,
+        keep: torch.Tensor | None = None,
+        mask2d: torch.Tensor | None = None,
     ) -> torch.Tensor:
-        y = self.dwconv.nhwc(x, self.dtype, padding=self.kernel_size // 2)
+        m = None if mask2d is None else mask2d[..., None].to(x.dtype)
+        y = x if m is None else x * m
+        y = self.dwconv.nhwc(y, self.dtype, padding=self.kernel_size // 2)
+        if m is not None:
+            y = y * m
         if not self.drop_path.active:
-            return mlp_grn_residual(y, x, self.layernorm, self.mlp)
-        branch = mlp_grn_residual(y, torch.zeros_like(y), self.layernorm, self.mlp)
+            return mlp_grn_residual(y, x, self.layernorm, self.mlp, mask2d)
+        branch = mlp_grn_residual(y, torch.zeros_like(y), self.layernorm, self.mlp, mask2d)
         return self.drop_path(branch, generator, keep) + x
 
 
 class MaskedConvNeXtV2Stage(nn.Module):
     """LN + strided-conv downsample (when channels change or ``stride > 1``),
-    then blocks (reference ``fcmae.py:224``)."""
+    then blocks (reference ``fcmae.py:224``); the mask is upsampled to the
+    stage's grid after the downsample."""
 
     def __init__(
         self,
@@ -114,12 +145,20 @@ class MaskedConvNeXtV2Stage(nn.Module):
             for r in rates
         )
 
-    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None, keeps=None) -> torch.Tensor:
-        """``keeps``: an iterator of per-block ``(B,)`` keep masks, else None."""
+    def forward(
+        self,
+        x: torch.Tensor,
+        generator: torch.Generator | None = None,
+        keeps=None,
+        unmasked: torch.Tensor | None = None,
+    ) -> torch.Tensor:
+        """``keeps``: an iterator of per-block ``(B,)`` keep masks, else None;
+        ``unmasked``: the ``(B, 1, h, w)`` bool mask of kept cells, else None."""
         if self.downsample is not None:
             x = apply_downsample(self.downsample, x, self.stride, self.dtype)
+        mask2d = None if unmasked is None else upsample_mask_2d(unmasked, x.shape[1:3])
         for block in self.blocks:
-            x = block(x, generator, None if keeps is None else next(keeps))
+            x = block(x, generator, None if keeps is None else next(keeps), mask2d)
         return x
 
 
@@ -167,23 +206,48 @@ class MaskedMultiscaleEncoder(nn.Module):
     def total_stride(self) -> int:
         return int(self.stem_kernel_size[1] * 2 ** (len(self.stage_blocks) - 1))
 
-    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None,
-                drop_path_masks=None) -> list[torch.Tensor]:
-        """``(B, C, D, H, W)`` -> channels-last features, one per stage.
+    def forward(
+        self,
+        x: torch.Tensor,
+        generator: torch.Generator | None = None,
+        drop_path_masks=None,
+        mask_ratio: float = 0.0,
+        mask_generator: torch.Generator | None = None,
+        mask: torch.Tensor | None = None,
+    ) -> tuple[list[torch.Tensor], torch.Tensor | None]:
+        """``(B, C, D, H, W)`` -> (channels-last features, one per stage;
+        the ``(B, 1, H, W)`` bool mask, True = masked, or None).
+
         ``generator`` draws the blocks' drop-path masks in training;
         ``drop_path_masks`` gives them instead, one ``(B,)`` mask per block
-        in block order."""
-        y = self.stem(x)
+        in block order. At ``mask_ratio > 0`` the token mask is drawn from
+        ``mask_generator`` (:func:`generate_mask` at ``total_stride``);
+        ``mask`` gives it instead, ``(B, 1, H / total_stride, W /
+        total_stride)`` bool."""
+        b, _, _, h, w = x.shape
+        if mask is None and mask_ratio > 0.0:
+            if mask_generator is None:
+                raise ValueError("masking at mask_ratio > 0 needs a mask_generator or a given mask")
+            mask = generate_mask(mask_generator, b, (h, w), self.total_stride, mask_ratio)
+        unmasked = None
+        if mask is not None:
+            mask = mask.to(device=x.device, dtype=torch.bool)
+            unmasked = ~mask
+        y = self.stem(x, unmasked)
         keeps = None if drop_path_masks is None else iter(drop_path_masks)
         features = []
         for stage in self.stages:
-            y = stage(y, generator, keeps)
+            y = stage(y, generator, keeps, unmasked)
             features.append(y)
-        return features
+        full_mask = None if mask is None else upsample_mask_2d(mask, (h, w))[:, None]
+        return features, full_mask
 
 
 class FullyConvolutionalMAE(nn.Module):
-    """FCMAE (reference ``fcmae.py:456``) for supervised prediction.
+    """FCMAE (reference ``fcmae.py:456``): masked pretraining
+    (``pretraining=True``, ``forward`` returns ``(pred, mask)``) or
+    supervised prediction (``pretraining=False``, ``forward`` returns
+    ``pred``).
 
     Keyword arguments follow the JAX model so its configs load. Weights are
     drawn from ``generator`` (default: a generator seeded with 0) with the
@@ -212,8 +276,6 @@ class FullyConvolutionalMAE(nn.Module):
         generator: torch.Generator | None = None,
     ) -> None:
         super().__init__()
-        if pretraining:
-            raise NotImplementedError("masked FCMAE pretraining is not ported; use pretraining=False")
         if head_conv:
             raise NotImplementedError("PixelToVoxelHead (head_conv=True) is not ported")
         if generator is None:
@@ -223,6 +285,7 @@ class FullyConvolutionalMAE(nn.Module):
         self.dims = tuple(dims)
         self.stem_kernel_size = tuple(stem_kernel_size)
         self.in_stack_depth = in_stack_depth
+        self.pretraining = pretraining
         self.dtype = _dtype(dtype)
         self.encoder = MaskedMultiscaleEncoder(
             in_channels,
@@ -265,10 +328,24 @@ class FullyConvolutionalMAE(nn.Module):
     def out_stack_depth(self) -> int:
         return self.in_stack_depth
 
-    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None,
-                drop_path_masks=None) -> torch.Tensor:
-        """``(B, C_in, D, H, W)`` -> float32 ``(B, C_out, D, H, W)``; the
-        drop-path ``generator`` / ``drop_path_masks`` as in the encoder."""
-        features = self.encoder(x, generator, drop_path_masks)[::-1]
-        feat = self.decoder(features)
-        return self.head(feat).float()
+    def forward(
+        self,
+        x: torch.Tensor,
+        generator: torch.Generator | None = None,
+        drop_path_masks=None,
+        mask_ratio: float = 0.0,
+        mask_generator: torch.Generator | None = None,
+        mask: torch.Tensor | None = None,
+    ):
+        """``(B, C_in, D, H, W)`` -> float32 ``(B, C_out, D, H, W)``, and
+        with ``pretraining`` also the ``(B, 1, H, W)`` bool mask (True =
+        masked; None when nothing was masked). The drop-path ``generator`` /
+        ``drop_path_masks`` and the token mask (``mask_ratio`` with
+        ``mask_generator``, or a given low-resolution ``mask``) as in the
+        encoder."""
+        features, full_mask = self.encoder(x, generator, drop_path_masks, mask_ratio, mask_generator, mask)
+        feat = self.decoder(features[::-1])
+        out = self.head(feat).float()
+        if self.pretraining:
+            return out, full_mask
+        return out

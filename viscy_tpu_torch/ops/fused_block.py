@@ -48,7 +48,8 @@ FWD_ROW_TILE = 128
 FWD_HIDDEN_TILE = 128
 FWD_APPLY_ROWS = 64
 FWD_APPLY_COLS = (128, 256)
-# the grid's row-tile limit (blockIdx.y) of passes A and B
+# the grids' row-tile limit (blockIdx.y) of passes A and B, of the front
+# products and of the dln product
 MAX_ROW_TILES = 65535
 # the backward kernels' tiling (checked against the library when it loads):
 # rows of a front-product tile, rows and columns of a weight-gradient
@@ -63,9 +64,12 @@ BWD_MIN_SPLIT_ROWS = 256
 # kernel launches on CUDA tensors, counted per pass: forward passes A and B
 # one each in ``launches`` (the LayerNorm prep kernel is counted with pass A),
 # backward passes C and D one each in ``bwd_launches`` (each pass runs several
-# kernels and counts once, at its last)
+# kernels and counts once, at its last); the launches of masked calls are
+# also counted in ``masked_launches`` / ``masked_bwd_launches``
 launches = 0
 bwd_launches = 0
+masked_launches = 0
+masked_bwd_launches = 0
 _lib: ctypes.CDLL | None = None
 
 
@@ -375,8 +379,27 @@ def fwd_plan(bsz: int, s: int, c: int, m: int, n_sm: int) -> FwdPlan:
     )
 
 
+def samples_per_launch(s: int, m: int) -> int:
+    """The most samples one launch of the forward and backward kernels takes
+    at (S, M): every grid's row tiles within ``MAX_ROW_TILES`` and B M below
+    2^31. A larger batch is split into launches of at most this many
+    samples, which is exact: the GRN statistics are per sample (a whole
+    1024^2 frame at batch 32 under a (1, 2, 2) stem takes three)."""
+    per = min(
+        MAX_ROW_TILES // -(-s // FWD_ROW_TILE),  # pass A
+        MAX_ROW_TILES * FWD_APPLY_ROWS // s,  # pass B
+        MAX_ROW_TILES // -(-s // BWD_ROW_TILE),  # the front products
+        MAX_ROW_TILES * BWD_TILE // s,  # dln
+        (2**31 - 1) // m,
+    )
+    if per < 1:
+        raise ValueError(f"(S, M) = {(s, m)} exceeds the kernels' grid for even one sample")
+    return per
+
+
 def _fused_cuda(x, shortcut, params, mask_f, eps_ln, eps_grn, mark=None):
-    """Prep, pass A, the (B, M) glue and pass B; returns ``(out, ss)``.
+    """Prep, pass A, the (B, M) glue and pass B; returns ``(out, ss)``; a
+    batch above :func:`samples_per_launch` runs as several such launches.
 
     Prep writes the LayerNorm output; pass A writes the GELU output v to an
     M-wide scratch that lives for the call and the per-row-tile partials of
@@ -386,10 +409,16 @@ def _fused_cuda(x, shortcut, params, mask_f, eps_ln, eps_grn, mark=None):
     loads, multiplies by fc2 and writes ``out`` once. ``mark(stage)``, if
     given, is called after each stage is enqueued (for timing).
     """
-    global launches
+    global launches, masked_launches
     ln_s, ln_b, w1, b1, gg, gb, w2, b2 = params
     bsz, s, c = x.shape
     m = w1.shape[0]
+    per = samples_per_launch(s, m)
+    if bsz > per:
+        parts = [_fused_cuda(x[i:i + per], shortcut[i:i + per], params,
+                             None if mask_f is None else mask_f[i:i + per], eps_ln, eps_grn, mark)
+                 for i in range(0, bsz, per)]
+        return torch.cat([o for o, _ in parts]), torch.cat([q for _, q in parts])
     dev = x.device
     lib = _library()
     code = _DTYPE_CODE[x.dtype]
@@ -401,8 +430,6 @@ def _fused_cuda(x, shortcut, params, mask_f, eps_ln, eps_grn, mark=None):
 
     with torch.cuda.device(dev):
         plan = fwd_plan(bsz, s, c, m, torch.cuda.get_device_properties(dev).multi_processor_count)
-        if max(plan.row_tiles, plan.apply_row_tiles) > MAX_ROW_TILES or bsz * m >= 2**31:
-            raise ValueError(f"(B, S, C, M) = {(bsz, s, c, m)} exceeds the kernels' grid")
         # weights in the compute dtype, as JAX's _fwd casts them (no copy in f32)
         w1c, w2c = w1.to(x.dtype), w2.to(x.dtype)
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
@@ -415,6 +442,7 @@ def _fused_cuda(x, shortcut, params, mask_f, eps_ln, eps_grn, mark=None):
         check(lib.fmg_fwd_stats(code, _ptr(ln), _ptr(w1c), _ptr(mask_f), _ptr(b1), _ptr(v),
                                 _ptr(part), bsz, s, c, m, stream), "pass A")
         launches += 1
+        masked_launches += mask_f is not None
         mark("pass A")
         del ln
         ss = plan.sample_sums(part)
@@ -425,6 +453,7 @@ def _fused_cuda(x, shortcut, params, mask_f, eps_ln, eps_grn, mark=None):
                                 _ptr(mask_f), _ptr(nx), _ptr(gg), _ptr(gb), _ptr(b2), _ptr(out),
                                 bsz, s, c, m, stream), "pass B")
         launches += 1
+        masked_launches += mask_f is not None
         mark("pass B")
     return out, ss
 
@@ -503,12 +532,24 @@ def _fused_bwd_cuda(x, g, params, mask_f, ss, eps_ln, eps_grn, mark=None):
     d fc1, dln, the LayerNorm backward. Every cross-block sum goes through
     per-block partials (:func:`bwd_plan`) summed in a fixed order: no float
     atomics, so two runs give bit-identical gradients. ``mark(stage)``, if
-    given, is called after each stage is enqueued (for timing).
+    given, is called after each stage is enqueued (for timing). A batch
+    above :func:`samples_per_launch` runs as several such launches, whose
+    parameter gradients are summed in launch order.
     """
-    global bwd_launches
+    global bwd_launches, masked_bwd_launches
     ln_s, ln_b, w1, b1, gg, gb, w2, b2 = params
     bsz, s, c = x.shape
     m = w1.shape[0]
+    per = samples_per_launch(s, m)
+    if bsz > per:
+        parts = [_fused_bwd_cuda(x[i:i + per], g[i:i + per], params,
+                                 None if mask_f is None else mask_f[i:i + per], ss[i:i + per],
+                                 eps_ln, eps_grn, mark)
+                 for i in range(0, bsz, per)]
+        grads = list(parts[0])
+        for part in parts[1:]:
+            grads[2:] = [a + b for a, b in zip(grads[2:], part[2:])]
+        return (torch.cat([p[0] for p in parts]), g, *grads[2:])
     n = bsz * s
     dev = x.device
     lib = _library()
@@ -555,6 +596,7 @@ def _fused_bwd_cuda(x, g, params, mask_f, ss, eps_ln, eps_grn, mark=None):
         gemm(0, dz, y, dw2_part, c, m, n, plan.k_per_split, plan.splits)
         mark("d fc2")
         bwd_launches += 1
+        masked_bwd_launches += mask_f is not None
         del y
         # glue
         p = p_part.view(bsz, plan.tiles_per_sample, m).sum(dim=1)
@@ -580,6 +622,7 @@ def _fused_bwd_cuda(x, g, params, mask_f, ss, eps_ln, eps_grn, mark=None):
               "LayerNorm backward")
         mark("dln + LN backward")
         bwd_launches += 1
+        masked_bwd_launches += mask_f is not None
     return (
         dx, g, dls_part.sum(dim=0), dlb_part.sum(dim=0), dw1_part.sum(dim=0),
         db1_part.sum(dim=0), dgg, dbg_part.sum(dim=0), dw2_part.sum(dim=0), db2_part.sum(dim=0),

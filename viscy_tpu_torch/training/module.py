@@ -25,16 +25,22 @@ class TrainModule(nn.Module):
         """The scalar training loss of one (augmented) batch, differentiable
         in the engine's parameters; ``generator`` (on the batch's device) is
         the only source of the step's random draws, such as stochastic
-        depth."""
+        depth and token masks."""
         raise NotImplementedError
 
-    def validation_loss(self, batch: dict) -> torch.Tensor:
+    def validation_loss(self, batch: dict, generator: torch.Generator | None = None) -> torch.Tensor:
         """The scalar validation loss of one batch (the trainer calls it in
-        eval mode under ``torch.no_grad()``)."""
+        eval mode under ``torch.no_grad()``); ``generator`` is the only
+        source of its random draws, such as token masks."""
         raise NotImplementedError
 
     def predict_step(self, batch: dict) -> Any:
         raise NotImplementedError
+
+    def load_pretrained(self) -> None:
+        """Change the freshly built weights before training, e.g. load a
+        pretrained part (the trainer calls it once, before it builds the
+        optimizer and before it loads a checkpoint to resume from)."""
 
     def configure_optimizers(self, total_steps: int):
         """``(optimizer, lr_scheduler, schedule_fn)`` over ``self.parameters()``;

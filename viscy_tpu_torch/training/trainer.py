@@ -7,8 +7,8 @@ device through :class:`BatchPrefetcher`: a producer thread walks the host
 loader, copies each batch into reused pinned buffers and onto the device
 on a side stream, so the copy overlaps the previous step. A fit step runs
 the datamodule's device transform with the trainer's seeded
-``torch.Generator``, then ``training_loss`` (its stochastic depth drawn
-from a second generator) and ``backward``; every
+``torch.Generator``, then ``training_loss`` (its stochastic depth and
+any token masks drawn from a second generator) and ``backward``; every
 ``accumulate_grad_batches`` steps the (mean) gradient is clipped and AdamW
 and its scheduler step. ``test`` runs the engine's test step over the test
 loader and means its metrics. Metrics go to ``metrics.csv``, a TensorBoard
@@ -302,6 +302,7 @@ class Trainer:
         self.scheduler = None
         self._schedule = None
         self.generator: torch.Generator | None = None
+        self._pretrained_loaded = False
         self.current_epoch = 0
         self.global_step = 0
         self.logged_metrics: dict[str, float] = {}
@@ -401,6 +402,7 @@ class Trainer:
             prepare()
         datamodule.setup("fit")
         module.to(self.device).train()
+        self._load_pretrained(module)
         if self.optimizer is None:
             total = self._total_steps(datamodule, datamodule.train_dataloader())
             self.optimizer, self.scheduler, self._schedule = module.configure_optimizers(total)
@@ -460,7 +462,16 @@ class Trainer:
         for cb in self.callbacks:
             cb.on_fit_end(self, module)
 
+    def _load_pretrained(self, module: TrainModule) -> None:
+        """``module.load_pretrained()``, once per trainer, after the weights
+        are built and before the optimizer and any checkpoint load."""
+        if not self._pretrained_loaded:
+            module.load_pretrained()
+            self._pretrained_loaded = True
+
     def _run_validation(self, module: TrainModule, datamodule, generator: torch.Generator) -> dict:
+        """Mean validation metrics: device transforms, then the loss's own
+        draws (token masks), drawn from ``generator``."""
         loader_fn = getattr(datamodule, "val_dataloader", None)
         loader = loader_fn() if loader_fn is not None else None
         if loader is None:
@@ -475,7 +486,7 @@ class Trainer:
             for i, batch in enumerate(BatchPrefetcher(loader, self.device, self.limit_val_batches)):
                 if transform is not None:
                     batch = transform(batch, generator, "val")
-                host = {"loss/validate": float(module.validation_loss(batch))}
+                host = {"loss/validate": float(module.validation_loss(batch, generator))}
                 for k, v in host.items():
                     agg.setdefault(k, []).append(v)
                 for cb in self.callbacks:
@@ -491,13 +502,15 @@ class Trainer:
 
     def validate(self, module: TrainModule, datamodule, ckpt_path: str | Path | None = None) -> dict:
         """Mean validation metrics of ``module`` over ``val_dataloader()``
-        (device transforms drawn from a generator seeded with 0)."""
+        (device transforms and the loss's token masks drawn from a
+        generator seeded with 0)."""
         self._active_datamodule = datamodule
         prepare = getattr(datamodule, "prepare_data", None)
         if prepare is not None:
             prepare()
         datamodule.setup("validate")
         module.to(self.device)
+        self._load_pretrained(module)
         if ckpt_path:
             self.load_checkpoint(ckpt_path, module)
         generator = torch.Generator(device=self.device).manual_seed(0)
@@ -515,6 +528,7 @@ class Trainer:
             prepare()
         datamodule.setup("test")
         module.to(self.device).eval()
+        self._load_pretrained(module)
         if ckpt_path:
             self.load_checkpoint(ckpt_path, module)
         agg: dict[str, list[float]] = {}
@@ -559,6 +573,7 @@ class Trainer:
             prepare()
         datamodule.setup("predict")
         module.to(self.device).eval()
+        self._load_pretrained(module)
         if ckpt_path:
             self.load_checkpoint(ckpt_path, module)
         for cb in self.callbacks:
