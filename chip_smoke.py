@@ -160,6 +160,43 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
            1024^2). Prints patches/s and the loader-wait share of both fits,
            and the times of steps 2-3 between CUDA events at step ends.
 
+12. unext2 UNeXt2, the released VSCyto3D architecture, at its released config
+           (1 -> 2 channels, depth 5, ``convnextv2_tiny``, stem (5, 4, 4), two
+           decoder blocks, head expansion 4; seeded weights, GRN gamma/beta
+           non-zero). (a) The fused forward and backward kernels at its
+           train shapes (B = 16, 384^2: encoder stage 0 at C = 96 and the
+           last decoder stage at C = 224, M = 896) against their plain
+           versions in f32 and bf16, and the forward at its 320^2 tiles (B =
+           49) and full 2048^2 frame (B = 1); bf16 medians per step beside
+           the plain versions and the bounds. (b) f32, card kernels against
+           the CPU's plain versions: the forward on two 320^2 tiles and one
+           train step (loss and every gradient; <= 2e-3 of range, r >
+           0.9999). (c) ``Trainer.fit`` in bf16, ``MixedLoss(0.5, 0, 0.5)``,
+           AdamW + WarmupCosine, the train phase's augmentation from seeded
+           (16, 1|2, 6, 600, 600) stacks on the card to (5, 384, 384): one
+           warm-up step, two timed rounds of four, patches/s, step latency,
+           one profiled step (device busy share). (d) ``Trainer.predict`` of
+           three seeded (1, 1, 5, 2048, 2048) FOVs, tile 320: FOVs/s and
+           request latency. (e) ``cli.main`` ``fit`` and ``predict`` with
+           ``architecture: UNeXt2`` and that model config
+           (``configs/vscyto3d_{fit,predict}.yml`` composed, the model
+           config replaced, ``z_window_size`` 5) on phase 9's fit plate
+           (3 + 2 batches) and a seeded (1, 1, 7, 2048, 2048) predict plate.
+           Launch counts throughout.
+13. dynaclr DynaCLR's ``ContrastiveModule`` at full width, built from
+           ``configs/dynaclr_fit.yml``'s model node (``convnext_tiny``, 2
+           channels, depth 15, stem (5, 4, 4), embedding 768, projection
+           128, NT-Xent 0.07, lr 1e-3; f32). (b) One f32 step card against
+           CPU: embedding, projection, loss, every gradient, both
+           BatchNorms' running statistics. (c) ``Trainer.fit`` on 32 seeded
+           anchor and 32 positive (2, 15, 512, 512) patches on the card,
+           each view augmented on its own draws: the bench recipe's affine
+           (the warp kernel, both channels in one launch), the config's flip
+           and contrast, the center crop to (15, 224, 224); one warm-up
+           step, two timed rounds of four (cell pairs/s), one profiled step;
+           then the warp kernel as the anchor view's affine calls it against
+           its plain version.
+
 The last two lines are a JSON ``kernels`` record and the JSON result line.
 Needs ``torch.cuda.is_available()`` and the repo's ``viscy_tpu_torch``
 beside this file. Imports nothing of JAX or ``viscy_tpu``.
@@ -237,6 +274,22 @@ PRETRAIN_BATCH = 32
 PRETRAIN_YX = 256
 PRETRAIN_STEPS = 3
 PRETRAIN_VAL = 1
+# phase 12: UNeXt2 at the released VSCyto3D config (RELEASED_ARCHITECTURES["vscyto3d"]);
+# the train stacks 6 deep: the even depth the affine's z-scale of 1.3 needs for 5 slices
+UNEXT2 = dict(in_channels=1, out_channels=2, in_stack_depth=5, backbone="convnextv2_tiny",
+              stem_kernel_size=(5, 4, 4), decoder_conv_blocks=2, head_expansion_ratio=4)
+UNEXT2_STACK = (6, 600, 600)
+UNEXT2_PATCH = (5, 384, 384)
+UNEXT2_ROUNDS = 2
+UNEXT2_FOV = (1, 1, 5, 2048, 2048)
+UNEXT2_PREDICT_ZYX = (7, 2048, 2048)
+# phase 13: DynaCLR (configs/dynaclr_fit.yml): 32 anchor + positive pairs of
+# (2, 15, 512, 512) patches, cut to (15, 224, 224) after augmentation
+DYNACLR_CHANNELS = ("Phase3D", "RFP")
+DYNACLR_BATCH = 32
+DYNACLR_STACK = (15, 512, 512)
+DYNACLR_PATCH = (15, 224, 224)
+DYNACLR_ROUNDS = 2
 
 
 def log(msg: str) -> None:
@@ -261,7 +314,7 @@ def kernel_shapes(cfg: dict, tile: int) -> list[tuple[int, int, int]]:
     for i, (n, d) in enumerate(zip(cfg["encoder_blocks"], dims)):
         shapes += [((r >> i) ** 2, d, 4 * d)] * n
     dec = list(dims[::-1])
-    dec[-1] = cfg["out_channels"] * cfg["in_stack_depth"] * cfg["stem_kernel_size"][-1] ** 2
+    dec[-1] = cfg.get("decoder_out") or cfg["out_channels"] * cfg["in_stack_depth"] * cfg["stem_kernel_size"][-1] ** 2
     for i in range(len(dims) - 1):
         side = r >> (len(dims) - 2 - i)
         shapes += [(side * side, dec[i + 1], 4 * dec[i + 1])] * cfg["decoder_conv_blocks"]
@@ -533,9 +586,9 @@ class _FovDataModule:
     uniform FOVs in host memory, one per request, drawn up front (set-up,
     outside the timed run)."""
 
-    def __init__(self, n: int, seed: int) -> None:
+    def __init__(self, n: int, seed: int, shape: tuple = FOV_SHAPE) -> None:
         g = torch.Generator().manual_seed(seed)
-        self.fovs = [torch.rand(FOV_SHAPE, generator=g) for _ in range(n)]
+        self.fovs = [torch.rand(shape, generator=g) for _ in range(n)]
 
     def setup(self, stage: str) -> None:
         pass
@@ -744,6 +797,42 @@ def compare(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float, float]
     err = float((gotf - wantf).abs().max())
     rng = float(wantf.max() - wantf.min())
     return err, err / max(rng, 1e-30), pearson(gotf, wantf)
+
+
+def _compare_grads(on_card, on_cpu, zero: dict, tag: str) -> tuple[int, tuple]:
+    """Every parameter gradient of two copies of one engine, card against
+    CPU: within 2e-3 of the range and Pearson r > 0.9999 (a single value:
+    within 2e-3 of itself); ``zero`` maps the
+    parameters whose gradient is 0 up to rounding (a shift a following
+    normalization removes) to the parameter whose gradient sets its scale:
+    both sides below 1e-3 of it (a gradient that mattered would be of its
+    order). Returns (gradients compared, worst)."""
+    grads_card = {n: p.grad for n, p in on_card.named_parameters()}
+    worst, n_grads = (0.0, "", 1.0), 0
+    for name, p_cpu in on_cpu.named_parameters():
+        g_card = grads_card[name]
+        if p_cpu.grad is None or g_card is None:
+            if (p_cpu.grad is None) != (g_card is None):
+                raise AssertionError(f"{tag}: {name} has a gradient on one side only")
+            continue
+        if name in zero:
+            scale = float(grads_card[zero[name]].abs().max())
+            ratios = float(g_card.abs().max()) / scale, float(p_cpu.grad.abs().max()) / scale
+            if not max(ratios) < 1e-3:
+                raise AssertionError(f"{tag}: {name} should have a gradient of 0 up to rounding: its largest "
+                                     f"is {ratios[0]:.2e} (card) and {ratios[1]:.2e} (CPU) of {zero[name]}'s")
+            continue
+        if p_cpu.numel() == 1:  # the head's PReLU slope: relative error, no correlation
+            g_rel, g_r = float((g_card.cpu() - p_cpu.grad).abs() / p_cpu.grad.abs().clamp_min(1e-30)), 1.0
+        else:
+            _, g_rel, g_r = compare(g_card.cpu(), p_cpu.grad)
+        if not (g_rel <= 2e-3 and g_r > 0.9999):
+            raise AssertionError(f"{tag}: gradient of {name} on the card disagrees with the CPU: "
+                                 f"{g_rel:.2e} of range, r={g_r:.8f}")
+        n_grads += 1
+        if g_rel >= worst[0]:
+            worst = (g_rel, name, min(worst[2], g_r))
+    return n_grads, worst
 
 
 def check_backward(batch, s, c, m, seed, masked) -> float:
@@ -1196,18 +1285,7 @@ def train_cross_check(module) -> None:
             raise AssertionError(f"augmented {k} on the card disagrees with the CPU")
     card_loss, cpu_loss = float(card_loss.detach()), float(cpu_loss.detach())
     l_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
-    worst = (0.0, "", 1.0)
-    for (name, p_card), (_, p_cpu) in zip(on_card.named_parameters(), on_cpu.named_parameters()):
-        if p_cpu.grad is None:
-            if p_card.grad is not None:
-                raise AssertionError(f"{name}: gradient on the card only")
-            continue
-        err, e_rel, r = compare(p_card.grad.cpu(), p_cpu.grad)
-        if not (e_rel <= 2e-3 and r > 0.9999):
-            raise AssertionError(f"gradient of {name} on the card disagrees with the CPU: "
-                                 f"{e_rel:.2e} of range, r={r:.8f}")
-        if e_rel >= worst[0]:
-            worst = (e_rel, name, min(worst[2], r))
+    _, worst = _compare_grads(on_card, on_cpu, {}, "train step")
     log(f"[train] f32 cross-check (1,1,{','.join(map(str, XCHECK_STACK))}) -> "
         f"{XCHECK_PATCH} card kernels vs CPU plain: loss {card_loss:.7f} vs {cpu_loss:.7f} "
         f"(rel {l_rel:.2e}); every parameter gradient within 2e-3 of range and r > 0.9999, worst "
@@ -1578,7 +1656,8 @@ def drop_path_cost(module, batch: dict, card: str) -> None:
     alternation on the same engine and batch."""
     from viscy_tpu_torch.models.components.blocks import DropPath
 
-    blocks = [m for m in module.modules() if isinstance(m, DropPath)]
+    # the encoder's: the decoder's blocks carry a DropPath too, at rate 0
+    blocks = [m for name, m in module.named_modules() if isinstance(m, DropPath) and ".encoder." in name]
     gen = torch.Generator(device="cuda").manual_seed(90)
     data = {"source": batch["source"], "target": batch["target"]}
     module.train()
@@ -2283,20 +2362,7 @@ def pretrain_cross_check(cfg: dict) -> None:
     if not (e_rel <= 2e-3 and r > 0.9999 and l_rel <= 2e-3):
         raise AssertionError(f"pretraining prediction / loss on the card disagree with the CPU: {e_rel:.2e} of "
                              f"range, r={r:.8f}, loss rel {l_rel:.2e}")
-    worst = (0.0, "", 1.0)
-    n_grads = 0
-    for (name, p_card), (_, p_cpu) in zip(on_card.named_parameters(), on_cpu.named_parameters()):
-        if p_cpu.grad is None:
-            if p_card.grad is not None:
-                raise AssertionError(f"{name}: gradient on the card only")
-            continue
-        g_err, g_rel, g_r = compare(p_card.grad.cpu(), p_cpu.grad)
-        if not (g_rel <= 2e-3 and g_r > 0.9999):
-            raise AssertionError(f"pretraining gradient of {name} on the card disagrees with the CPU: "
-                                 f"{g_rel:.2e} of range, r={g_r:.8f}")
-        n_grads += 1
-        if g_rel >= worst[0]:
-            worst = (g_rel, name, min(worst[2], g_r))
+    n_grads, worst = _compare_grads(on_card, on_cpu, {}, "pretraining step")
     log(f"[pretrain] f32 step (2, 1, {cfg['in_stack_depth']}, {PRETRAIN_YX}, {PRETRAIN_YX}), mask ratio 0.5, "
         f"drop path 0.1 ({int((~keeps).sum())} of {keeps.numel()} branches dropped), card kernels vs CPU plain: "
         f"prediction {e_rel:.2e} of range r={r:.8f}; loss {card_loss:.7f} vs {cpu_loss:.7f} (rel {l_rel:.2e}); "
@@ -2617,6 +2683,481 @@ def phase_pretrain(card: str, tmp: Path, plate: Path) -> dict:
     return dict(kernels=kernels, launches=launches, warp_err=fine["warp_err"], fwd_err=fine["fwd_err"])
 
 
+# -- phase 12: UNeXt2, the released VSCyto3D architecture -------------------------------------
+
+
+def unext2_shape_cfg(cfg: dict) -> dict:
+    """A UNeXt2 ``model_config`` in the form :func:`kernel_shapes` reads."""
+    from viscy_tpu_torch.models.components.blocks import convnext_arch
+
+    depths, dims, _ = convnext_arch(cfg["backbone"])
+    out_depth = cfg.get("out_stack_depth") or cfg["in_stack_depth"]
+    return dict(stem_kernel_size=cfg["stem_kernel_size"], dims=dims, encoder_blocks=depths,
+                decoder_conv_blocks=cfg["decoder_conv_blocks"],
+                decoder_out=(out_depth + 2) * cfg["out_channels"] * 4 * cfg["head_expansion_ratio"])
+
+
+def unext2_kernels(card: str) -> dict:
+    """Phase 12 (a): the fused forward and backward kernels at the UNeXt2
+    path's shapes against their plain versions (:func:`check_forward`,
+    :func:`check_backward`): the train step's (B = 16, 384^2 patches) forward
+    and backward, the predict tiles' (B = 49, 320^2) and the full 2048^2
+    frame's (B = 1) forward; then bf16 CUDA-event medians per train step
+    beside the plain versions and the bounds."""
+    from viscy_tpu_torch.ops import fused_block as fb
+
+    shape_cfg = unext2_shape_cfg(UNEXT2)
+    train = kernel_shapes(shape_cfg, UNEXT2_PATCH[-1])
+    distinct = sorted(set(train), key=train.index)
+    worst: dict = {}
+    bwd_worst = 0.0
+    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bwd_ms=0.0, bwd_plain_ms=0.0, bwd_bound_ms=0.0)
+    for k, (s, c, m) in enumerate(distinct):
+        check_forward(TRAIN_BATCH, s, c, m, 1000 + k, (False,), worst)
+        bwd_worst = max(bwd_worst, check_backward(TRAIN_BATCH, s, c, m, 1100 + k, False))
+        args, _ = block_inputs(TRAIN_BATCH, s, c, m, torch.bfloat16, seed=1200 + k)
+        x, sc, *params = args
+        g = torch.randn(x.shape, generator=torch.Generator(device="cuda").manual_seed(1300 + k),
+                        device="cuda").to(torch.bfloat16)
+        ss = fb._reference_ss(x, *params[:4], None, 1e-6)
+        times = dict(
+            ms=cuda_median_ms(lambda: fb.fused_mlp_grn(*args)),
+            plain_ms=cuda_median_ms(lambda: fb.reference_mlp_grn(*args), runs=5),
+            bound_ms=block_bound_ms(TRAIN_BATCH, s, c, m, torch.bfloat16)[0],
+            bwd_ms=cuda_median_ms(lambda: fb._fused_bwd_cuda(x, g, params, None, ss, 1e-6, 1e-6)),
+            bwd_plain_ms=cuda_median_ms(lambda: fb.reference_mlp_grn_bwd(x, g, *params, ss), runs=5),
+            bwd_bound_ms=8.0 * TRAIN_BATCH * s * c * m / PEAK_FLOPS[torch.bfloat16] * 1e3,
+        )
+        n = train.count((s, c, m))
+        for key, val in times.items():
+            total[key] += val * n
+        log(f"[unext2] time S={s} C={c} M={m} B={TRAIN_BATCH} bf16 x{n}/step: forward {times['ms']:.3f} ms "
+            f"(plain {times['plain_ms']:.3f}, bound {times['bound_ms']:.4f}), backward {times['bwd_ms']:.3f} ms "
+            f"(plain {times['bwd_plain_ms']:.3f}, bound {times['bwd_bound_ms']:.4f})")
+        del args, x, sc, params, g, ss
+        torch.cuda.empty_cache()
+    log_worst(f"the UNeXt2 train shapes (B={TRAIN_BATCH}, 384^2)", worst)
+    for batch, yx in ((TILE_BATCH, TILE), (1, UNEXT2_FOV[-1])):
+        shapes = kernel_shapes(shape_cfg, yx)
+        for k, (s, c, m) in enumerate(sorted(set(shapes), key=shapes.index)):
+            check_forward(batch, s, c, m, 1400 + yx + k, (False,), worst)
+        log_worst(f"the UNeXt2 {'tile' if batch > 1 else 'full-frame'} shapes (B={batch}, {yx}^2)", worst)
+    log(f"[unext2] fused kernels per train step ({len(train)} calls, B={TRAIN_BATCH}, bf16): forward "
+        f"{total['ms']:.3f} ms (plain {total['plain_ms']:.3f}, bound {total['bound_ms']:.3f}), backward "
+        f"{total['bwd_ms']:.3f} ms (plain {total['bwd_plain_ms']:.3f}, bound {total['bwd_bound_ms']:.3f}); "
+        f"CUDA-event medians ({card})")
+    return dict(total, fwd_err=worst[torch.bfloat16][0], bwd_err=bwd_worst)
+
+
+def unext2_engine(cfg: dict, device: str, **kw):
+    """``VSUNet("UNeXt2")`` with the flagship recipe's loss and optimizer:
+    MixedLoss(0.5, 0, 0.5), AdamW lr 2e-5 with WarmupCosine (warmup 30)."""
+    from viscy_tpu_torch.apps.cytoland.engine import VSUNet
+    from viscy_tpu_torch.training.losses.mixed_loss import MixedLoss
+
+    return VSUNet("UNeXt2", dict(cfg), loss_function=MixedLoss(l1_alpha=0.5, l2_alpha=0.0, ms_dssim_alpha=0.5),
+                  lr=2e-5, schedule="WarmupCosine", warmup_steps=30, seed=0, device=device, **kw)
+
+
+def unext2_cross_check(state: dict) -> None:
+    """Phase 12 (b): f32, card kernels against the CPU's plain versions on
+    the same weights: the forward on two 320^2 tiles, then one train step
+    (MixedLoss; the loss and every parameter gradient)."""
+    cfg32 = dict(UNEXT2, dtype="float32")
+    on_card, on_cpu = unext2_engine(cfg32, "cuda"), unext2_engine(cfg32, "cpu")
+    on_card.load_state_dict(state)
+    on_cpu.load_state_dict(state)
+    g = torch.Generator().manual_seed(1500)
+    tiles = torch.rand((2, 1, UNEXT2["in_stack_depth"], TILE, TILE), generator=g)
+    with torch.inference_mode():
+        got = on_card.eval()(tiles.cuda()).cpu()
+        t0 = time.perf_counter()
+        want = on_cpu.eval()(tiles)
+        cpu_fwd_s = time.perf_counter() - t0
+    _, e_rel, r = compare(got, want)
+    log(f"[unext2] f32 forward (2, 1, 5, {TILE}, {TILE}) card kernels vs CPU plain: {e_rel:.2e} of range "
+        f"(bound 2e-3) r={r:.8f} (CPU forward {cpu_fwd_s:.1f} s)")
+    if not (e_rel <= 2e-3 and r > 0.9999 and got.shape == (2, 2, 5, TILE, TILE)):
+        raise AssertionError("UNeXt2 f32 forward on the card disagrees with the CPU")
+    batch = {"source": tiles, "target": torch.rand((2, 2, UNEXT2["in_stack_depth"], TILE, TILE), generator=g)}
+    _zero_counts()
+    card_loss = on_card.train().training_loss({k: v.cuda() for k, v in batch.items()})
+    card_loss.backward()
+    counts = _counts()
+    t0 = time.perf_counter()
+    cpu_loss = on_cpu.train().training_loss(batch)
+    cpu_loss.backward()
+    cpu_s = time.perf_counter() - t0
+    n_calls = len(kernel_shapes(unext2_shape_cfg(UNEXT2), TILE))
+    if counts["fwd"] != 2 * n_calls or counts["bwd"] != 2 * n_calls:
+        raise AssertionError(f"UNeXt2 f32 step launched {counts}, expected {2 * n_calls} forward and backward")
+    card_loss, cpu_loss = float(card_loss.detach()), float(cpu_loss.detach())
+    l_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    zero = {"model.head.conv.0.conv.bias": "model.head.conv.0.conv.weight"}
+    n_grads, worst = _compare_grads(on_card, on_cpu, zero, "UNeXt2 f32 step")
+    log(f"[unext2] f32 train step (2, 1, 5, {TILE}, {TILE}), MixedLoss, card kernels vs CPU plain: loss "
+        f"{card_loss:.7f} vs {cpu_loss:.7f} (rel {l_rel:.2e}); {n_grads} parameter gradients within 2e-3 of "
+        f"range and r > 0.9999, worst {worst[1]} {worst[0]:.2e}; the head's conv0 bias (under the instance "
+        f"norm) 0 up to rounding on both; card launches {counts} (CPU step {cpu_s:.1f} s)")
+    if not l_rel <= 2e-3:
+        raise AssertionError("UNeXt2 f32 train-step loss on the card disagrees with the CPU")
+    del on_card, on_cpu
+    torch.cuda.empty_cache()
+
+
+def unext2_fit(card: str, module) -> dict:
+    """Phase 12 (c): ``Trainer.fit`` of the bf16 model on the train phase's
+    augmentation at depth 5 (seeded (16, 1|2, 6, 600, 600) stacks on the
+    card, 6 the even depth the affine's z-scale of 1.3 needs for 5 slices,
+    as the HCS datamodule widens it): one warm-up step, then timed rounds;
+    launch counts, finite losses; then one profiled step (device busy
+    share)."""
+    from viscy_tpu_torch.training.trainer import Trainer
+
+    gen = torch.Generator(device="cuda").manual_seed(1600)
+    batch = {
+        "source": torch.rand((TRAIN_BATCH, 1, *UNEXT2_STACK), generator=gen, device="cuda"),
+        "target": torch.rand((TRAIN_BATCH, 2, *UNEXT2_STACK), generator=gen, device="cuda"),
+    }
+    n_steps = 1 + UNEXT2_ROUNDS * STEPS_PER_ROUND
+    dm = _stack_datamodule(batch, n_steps + 1, production_aug(UNEXT2_PATCH))
+    timer = _step_timer()
+    trainer = Trainer(max_steps=n_steps, callbacks=[timer], log_every_n_steps=10**9,
+                      checkpoint_every_n_epochs=10**9, seed=0, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    trainer.fit(module, dm)
+    counts = _counts()
+    total_s = time.perf_counter() - t0
+    per_fwd = len(kernel_shapes(unext2_shape_cfg(UNEXT2), UNEXT2_PATCH[-1]))
+    want = dict(fwd=2 * per_fwd * n_steps, bwd=2 * per_fwd * n_steps, masked_fwd=0, masked_bwd=0, warp=n_steps)
+    losses = torch.stack(timer.losses).float().cpu()
+    if counts != want or len(losses) != n_steps or not torch.isfinite(losses).all():
+        raise AssertionError(f"UNeXt2 fit: launches {counts} (expected {want}), losses {losses.tolist()}")
+    rates = [TRAIN_BATCH * STEPS_PER_ROUND / t for t in timer.rounds]
+    steps_ms = [t / STEPS_PER_ROUND * 1e3 for t in timer.rounds]
+    log(f"[unext2] fit: {n_steps} steps in {total_s:.1f} s, losses {', '.join(f'{v:.5f}' for v in losses.tolist())}; "
+        f"launches A+B {counts['fwd']}, C+D {counts['bwd']}, warp {counts['warp']} (expected {want})")
+    log(f"[unext2] train step, batch {TRAIN_BATCH}, {UNEXT2_STACK} -> {UNEXT2_PATCH}, bf16, MixedLoss(0.5, 0, "
+        f"0.5) on bf16 inputs: patches/s per round {', '.join(f'{r:.4f}' for r in rates)}, median "
+        f"{statistics.median(rates):.4f}; step latency median {statistics.median(steps_ms):.1f} ms; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
+    _zero_counts()
+    profile_step(trainer, module, dm)
+    extra = _counts()
+    del batch, dm
+    torch.cuda.empty_cache()
+    return {k: counts[k] + extra[k] for k in counts}
+
+
+def unext2_predict(card: str, module) -> dict:
+    """Phase 12 (d): ``Trainer.predict`` of three seeded (1, 1, 5, 2048, 2048)
+    FOVs with tile 320 (49 tiles in one forward), after one warm-up request:
+    FOVs/s, request latency, launch counts, shapes and finiteness."""
+    from viscy_tpu_torch.training.trainer import Trainer
+
+    timer = _request_timer()
+    trainer = Trainer(callbacks=[timer], device="cuda")
+    trainer.predict(module, _FovDataModule(1, seed=1700, shape=UNEXT2_FOV))
+    warm = timer.latencies[0]
+    _zero_counts()
+    preds = trainer.predict(module, _FovDataModule(N_REQUESTS, seed=1701, shape=UNEXT2_FOV), return_predictions=True)
+    counts = _counts()
+    wall = timer._last - timer.start
+    for p in preds:
+        if tuple(p.shape) != (1, 2, *UNEXT2_FOV[2:]) or not torch.isfinite(p).all():
+            raise AssertionError(f"UNeXt2 prediction {tuple(p.shape)}, finite {bool(torch.isfinite(p).all())}")
+    want = 2 * len(kernel_shapes(unext2_shape_cfg(UNEXT2), TILE)) * N_REQUESTS
+    if counts["fwd"] != want or counts["bwd"] or counts["warp"]:
+        raise AssertionError(f"UNeXt2 predict launched {counts}, expected {want} forward")
+    log(f"[unext2] predict {N_REQUESTS} seeded {UNEXT2_FOV} FOVs, tile {TILE}, tile batch {TILE_BATCH}, bf16: "
+        f"{N_REQUESTS / wall:.4f} FOVs/s; request latencies {', '.join(f'{t:.4f}' for t in timer.latencies)} s "
+        f"(warm-up {warm:.3f} s); outputs (1, 2, {', '.join(map(str, UNEXT2_FOV[2:]))}) float32, finite; "
+        f"launches A+B {counts['fwd']} ({card})")
+    return counts
+
+
+def unext2_cli(card: str, tmp: Path, plate: Path) -> dict:
+    """Phase 12 (e): ``viscy-torch fit`` and ``predict`` with
+    ``model.init_args.architecture: UNeXt2`` and the released model config:
+    ``configs/vscyto3d_fit.yml`` / ``vscyto3d_predict.yml`` composed, their
+    model config replaced (not merged: the FCMAE keys do not apply) and
+    ``z_window_size`` 5 (the host crop 5 deep); one epoch of 3 + 2 batches
+    on phase 9's fit plate, then predict from ``last`` on a new seeded
+    plate of one (1, 1, 7, 2048, 2048) FOV (three z-windows). Launch counts,
+    the store's shape, finite values."""
+    import yaml
+
+    from viscy_tpu_torch.training import cli
+    from viscy_tpu_torch.training.compose import load_composed_config
+    from viscy_tpu_torch.zarr_io.store import open_ome_zarr
+    from viscy_tpu_torch.zarr_io.synthetic import build_hcs_plate
+
+    def config(name: str, edit) -> str:
+        cfg = load_composed_config(ROOT / "configs" / name)
+        init = cfg["model"]["init_args"]
+        init["architecture"] = "UNeXt2"
+        init["model_config"] = {k: list(v) if isinstance(v, tuple) else v for k, v in UNEXT2.items()}
+        cfg["data"]["init_args"]["z_window_size"] = UNEXT2["in_stack_depth"]
+        cfg["data"]["init_args"]["num_workers"] = 8
+        edit(cfg)
+        path = tmp / f"unext2_{name}"
+        path.write_text(yaml.safe_dump(cfg))
+        return str(path)
+
+    root = tmp / "unext2_fit"
+
+    def fit_edit(cfg):
+        cfg["model"]["init_args"]["model_config"]["dtype"] = "bfloat16"
+        init = cfg["data"]["init_args"]
+        init["data_path"] = str(plate)
+        for aug in init["augmentations"]:
+            if aug["class_path"].endswith("HostRandWeightedCropd"):
+                aug["init_args"]["spatial_size"][0] = UNEXT2["in_stack_depth"]
+        cfg["trainer"].update(default_root_dir=str(root), max_epochs=1, limit_train_batches=FIT_STEPS,
+                              limit_val_batches=FIT_VAL)
+
+    fit_cfg = config("vscyto3d_fit.yml", fit_edit)
+    pred_plate = build_hcs_plate(tmp / "unext2_predict.zarr", CLI_CHANNELS[:1], zyx_shape=UNEXT2_PREDICT_ZYX,
+                                 num_timepoints=1, rows=("C",), cols=("3",), fovs=("0",), seed=9)
+    cli.main(["preprocess", "-c", _cli_config(tmp / "pp_unext2.yml", {"data_path": str(pred_plate),
+                                                                      "num_workers": 8})])
+    store = tmp / "unext2_prediction.zarr"
+
+    def pred_edit(cfg):
+        cfg["data"]["init_args"]["data_path"] = str(pred_plate)
+        cfg["trainer"]["callbacks"][0]["init_args"].update(output_store=str(store))
+        cfg.pop("ckpt_path", None)
+
+    pred_cfg = config("vscyto3d_predict.yml", pred_edit)
+    ckpt = root / "checkpoints" / "last"
+    _zero_counts()
+    t0 = time.perf_counter()
+    trainer = cli.main(["fit", "-c", fit_cfg])
+    fit_counts = _counts()
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cli.main(["predict", "-c", pred_cfg, "--ckpt_path", str(ckpt)])
+    pred_counts = {k: v - fit_counts[k] for k, v in _counts().items()}
+    pred_s = time.perf_counter() - t0
+    shape_cfg = unext2_shape_cfg(UNEXT2)
+    per_fwd = len(kernel_shapes(shape_cfg, 384))
+    want_fit = dict(fwd=2 * per_fwd * FIT_STEPS + FIT_VAL * _fused_launches(shape_cfg, 384, TRAIN_BATCH),
+                    bwd=2 * per_fwd * FIT_STEPS, masked_fwd=0, masked_bwd=0, warp=FIT_STEPS)
+    windows = UNEXT2_PREDICT_ZYX[0] - UNEXT2["in_stack_depth"] + 1
+    want_pred = dict(fwd=_fused_launches(shape_cfg, UNEXT2_PREDICT_ZYX[-1], 2) * (windows // 2)
+                     + _fused_launches(shape_cfg, UNEXT2_PREDICT_ZYX[-1], 1) * (windows % 2),
+                     bwd=0, masked_fwd=0, masked_bwd=0, warp=0)
+    val = trainer.logged_metrics.get("loss/validate")
+    out = open_ome_zarr(store)["C/3/0"]["0"][:]
+    if (fit_counts != want_fit or pred_counts != want_pred or trainer.feed_stats["steps"] != FIT_STEPS
+            or val is None or not math.isfinite(val) or out.shape != (1, 2, *UNEXT2_PREDICT_ZYX)
+            or not np.isfinite(out).all()):
+        raise AssertionError(f"UNeXt2 cli: fit launches {fit_counts} (expected {want_fit}), predict {pred_counts} "
+                             f"(expected {want_pred}), loss/validate {val}, store {out.shape}")
+    feed = trainer.feed_stats
+    log(f"[unext2] viscy-torch fit (configs/vscyto3d_fit.yml with architecture UNeXt2, the released model "
+        f"config in bf16, z_window_size 5): {fit_s:.1f} s in all, train loop {feed['seconds']:.2f} s for "
+        f"{FIT_STEPS} steps = {FIT_STEPS * TRAIN_BATCH / feed['seconds']:.2f} patches/s, waited "
+        f"{feed['wait_s'] / feed['seconds']:.1%}; loss/validate {val:.5f}; predict (f32, full "
+        f"{UNEXT2_PREDICT_ZYX[-1]}^2 frames, "
+        f"{windows} windows) {pred_s:.2f} s into a (1, 2, {', '.join(map(str, UNEXT2_PREDICT_ZYX))}) store, "
+        f"finite; launches fit {fit_counts}, predict {pred_counts} ({card})")
+    shutil.rmtree(store)
+    shutil.rmtree(pred_plate)
+    del trainer
+    torch.cuda.empty_cache()
+    return {k: fit_counts[k] + pred_counts[k] for k in fit_counts}
+
+
+def phase_unext2(card: str, tmp: Path, plate: Path) -> dict:
+    """Phase 12: UNeXt2 at the released VSCyto3D config (see the module
+    docstring)."""
+    kernels = unext2_kernels(card)
+    module = unext2_engine(dict(UNEXT2, dtype="bfloat16"), "cuda", bf16_loss=True, tile_yx=(TILE, TILE),
+                           tile_batch=TILE_BATCH)
+    randomize_grn(module, seed=1800)
+    n_params = sum(p.numel() for p in module.parameters())
+    log(f"[unext2] VSUNet UNeXt2 {UNEXT2}: {n_params} parameters")
+    unext2_cross_check({k: v.float() for k, v in module.state_dict().items()})
+    fit = unext2_fit(card, module)
+    pred = unext2_predict(card, module.eval())
+    del module
+    torch.cuda.empty_cache()
+    entry = unext2_cli(card, tmp, plate)
+    launches = {k: fit[k] + pred[k] + entry[k] for k in fit}
+    return dict(kernels=kernels, launches=launches)
+
+
+# -- phase 13: DynaCLR's ContrastiveEncoder and its train step ---------------------------------
+
+
+def dynaclr_aug(keys: tuple[str, str]):
+    """One view's augmentation: the bench recipe's affine (``bench.py``), then
+    ``configs/dynaclr_fit.yml``'s flip and contrast, then the center crop to
+    (15, 224, 224) the triplet datamodule appends."""
+    from viscy_tpu_torch.training.compose import load_composed_config
+    from viscy_tpu_torch.training.instantiate import instantiate
+    from viscy_tpu_torch.transforms import BatchedCenterSpatialCropd, BatchedRandAffined, Compose
+
+    shipped = load_composed_config(ROOT / "configs/dynaclr_fit.yml")["data"]["init_args"]
+    if list(shipped["source_channel"]) != list(keys):
+        raise AssertionError(f"configs/dynaclr_fit.yml's channels are {shipped['source_channel']}, not {keys}")
+    return Compose([
+        BatchedRandAffined(keys=list(keys), prob=0.8, rotate_range=[3.14, 0.0, 0.0],
+                           scale_range=[[0.9, 1.1], [0.9, 1.1], [0.9, 1.1]],
+                           shear_range=[0.05, 0.05, 0.0, 0.05, 0.0, 0.05]),
+        *instantiate(shipped["augmentations"]),
+        BatchedCenterSpatialCropd(keys=list(keys), roi_size=list(DYNACLR_PATCH)),
+    ])
+
+
+def _dynaclr_datamodule(batch: dict, steps: int):
+    """In-memory stand-in for the triplet datamodule: seeded anchor and
+    positive patches on the card, each view augmented on its own draws."""
+    from viscy_tpu_torch.data.gpu_aug import DeviceTransformDataModule
+
+    keys = tuple(DYNACLR_CHANNELS)
+    aug = dynaclr_aug(keys)
+
+    class TripletStand(DeviceTransformDataModule):
+        def train_dataloader(self):
+            return [batch] * steps
+
+        def device_transform(self, b: dict, generator: torch.Generator, stage: str = "train") -> dict:
+            out = {}
+            for view in ("anchor", "positive"):
+                x = aug({k: b[view][:, i:i + 1] for i, k in enumerate(keys)}, generator)
+                out[view] = torch.cat([x[k] for k in keys], dim=1)
+            return out
+
+    return TripletStand()
+
+
+def dynaclr_module(device: str):
+    """``configs/dynaclr_fit.yml``'s model node, instantiated as the CLI
+    would (the encoder, NT-Xent at 0.07, lr 1e-3)."""
+    from viscy_tpu_torch.training.compose import load_composed_config
+    from viscy_tpu_torch.training.instantiate import instantiate
+
+    node = load_composed_config(ROOT / "configs/dynaclr_fit.yml")["model"]
+    return instantiate(dict(node, init_args=dict(node["init_args"], device=device)))
+
+
+def dynaclr_cross_check(state: dict) -> None:
+    """Phase 13 (b): one f32 step, card against CPU on the same weights and
+    views (the fit's 32 seeded pairs, at the crop's (2, 15, 224, 224): the
+    BatchNorms' statistics over that batch, as in the fit; over a handful of
+    samples a near-constant channel amplifies rounding): the anchor's
+    embedding and projection, the NT-Xent loss, every gradient (the three
+    shifts a train-mode BatchNorm removes 0 up to rounding on both), and
+    both BatchNorms' running statistics after the step."""
+    on_card, on_cpu = dynaclr_module("cuda"), dynaclr_module("cpu")
+    on_card.model.load_state_dict(state)
+    on_cpu.model.load_state_dict(state)
+    g = torch.Generator().manual_seed(1900)
+    batch = {v: torch.rand((DYNACLR_BATCH, 2, *DYNACLR_PATCH), generator=g) for v in ("anchor", "positive")}
+    results = []
+    for module, dev in ((on_card, "cuda"), (on_cpu, "cpu")):
+        module.train()
+        b = {k: v.to(dev) for k, v in batch.items()}
+        t0 = time.perf_counter()
+        emb, proj = module.model(b["anchor"])
+        loss = module.training_loss(b)
+        loss.backward()
+        results.append((emb.detach().cpu(), proj.detach().cpu(), float(loss.detach()), time.perf_counter() - t0))
+    (emb_g, proj_g, loss_g, _), (emb_c, proj_c, loss_c, cpu_s) = results
+    checks = {"embedding": compare(emb_g, emb_c), "projection": compare(proj_g, proj_c)}
+    state_g, state_c = on_card.model.state_dict(), on_cpu.model.state_dict()
+    for k in state_c:
+        if k.startswith("projection.") and k.endswith(("running_mean", "running_var")):
+            checks[k] = compare(state_g[k].cpu(), state_c[k])
+    bad = {k: v for k, v in checks.items() if not (v[1] <= 2e-3 and v[2] > 0.9999)}
+    l_rel = abs(loss_g - loss_c) / abs(loss_c)
+    log(f"[dynaclr] f32 step ({DYNACLR_BATCH} pairs of (2, {', '.join(map(str, DYNACLR_PATCH))})), card vs CPU: "
+        f"embedding {checks['embedding'][1]:.2e} of range, projection {checks['projection'][1]:.2e}, NT-Xent "
+        f"{loss_g:.7f} vs {loss_c:.7f} (rel {l_rel:.2e}); running statistics of both BatchNorms after three "
+        f"forwards worst {max(v[1] for k, v in checks.items() if 'running' in k):.2e} of range (CPU {cpu_s:.1f} s)")
+    if bad or l_rel > 2e-3 or int(state_g["projection.1.num_batches_tracked"]) != 3:
+        raise AssertionError(f"DynaCLR f32 step on the card disagrees with the CPU: {bad}, loss rel {l_rel:.2e}")
+    zero = {f"model.{n}": f"model.{n.replace('bias', 'weight')}"
+            for n in ("encoder.head.norm.bias", "projection.0.bias", "projection.3.bias")}
+    n_grads, worst = _compare_grads(on_card, on_cpu, zero, "DynaCLR f32 step")
+    log(f"[dynaclr] f32 step: {n_grads} parameter gradients within 2e-3 of range and r > 0.9999, worst "
+        f"{worst[1]} {worst[0]:.2e}; the three shifts a train-mode BatchNorm removes 0 up to rounding on both")
+    del on_card, on_cpu
+    torch.cuda.empty_cache()
+
+
+def dynaclr_warp(dm, batch: dict) -> float:
+    """Phase 13 (c): the warp kernel as the anchor view's affine member calls
+    it at 2 channels (the two channel keys in one launch) against its plain
+    version on those arguments (:func:`check_warp`). Returns max|d|."""
+    from viscy_tpu_torch.transforms import affine as taffine
+
+    calls = []
+    orig = taffine.affine_warp_3d_keys
+    taffine.affine_warp_3d_keys = lambda *a, **k: calls.append((a, k)) or orig(*a, **k)
+    try:
+        dm.device_transform({"anchor": batch["anchor"], "positive": batch["positive"][:1]},
+                            torch.Generator(device="cuda").manual_seed(1950))
+    finally:
+        taffine.affine_warp_3d_keys = orig
+    (args, kwargs) = calls[0]
+    vols, mats, out_shape, mode, offset, flips = args
+    mask = kwargs.get("apply_mask")
+    applied = len(mats) if mask is None else int(mask.sum())
+    return check_warp(f"[dynaclr] warp kernel as the anchor view's affine calls it ({len(mats)}, 1+1, "
+                      f"{', '.join(map(str, vols[0].shape[-3:]))}) -> {tuple(out_shape)}, {applied} samples "
+                      f"applied", vols, mats, vols[0].shape[-3:], out_shape, mode, offset, flips, mask)
+
+
+def phase_dynaclr(card: str) -> dict:
+    """Phase 13: DynaCLR's contrastive train step at full width (see the
+    module docstring)."""
+    from viscy_tpu_torch.training.trainer import Trainer
+
+    module = dynaclr_module("cuda")
+    n_params = sum(p.numel() for p in module.parameters())
+    log(f"[dynaclr] ContrastiveModule from configs/dynaclr_fit.yml: convnext_tiny, {n_params} parameters, "
+        f"NT-Xent {module.loss_function.temperature}, lr {module.lr}")
+    dynaclr_cross_check({k: v.clone() for k, v in module.model.state_dict().items()})
+    gen = torch.Generator(device="cuda").manual_seed(2000)
+    batch = {v: torch.rand((DYNACLR_BATCH, 2, *DYNACLR_STACK), generator=gen, device="cuda")
+             for v in ("anchor", "positive")}
+    n_steps = 1 + DYNACLR_ROUNDS * STEPS_PER_ROUND
+    dm = _dynaclr_datamodule(batch, n_steps + 1)
+    timer = _step_timer()
+    trainer = Trainer(max_steps=n_steps, callbacks=[timer], log_every_n_steps=10**9,
+                      checkpoint_every_n_epochs=10**9, seed=0, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    trainer.fit(module, dm)
+    counts = _counts()
+    total_s = time.perf_counter() - t0
+    losses = torch.stack(timer.losses).float().cpu()
+    want = dict(fwd=0, bwd=0, masked_fwd=0, masked_bwd=0, warp=2 * n_steps)
+    if counts != want or len(losses) != n_steps or not torch.isfinite(losses).all():
+        raise AssertionError(f"DynaCLR fit: launches {counts} (expected {want}), losses {losses.tolist()}")
+    rates = [DYNACLR_BATCH * STEPS_PER_ROUND / t for t in timer.rounds]
+    log(f"[dynaclr] fit: {n_steps} steps in {total_s:.1f} s, losses {', '.join(f'{v:.5f}' for v in losses.tolist())}; "
+        f"warp launches {counts['warp']} (anchor and positive, expected {want['warp']})")
+    log(f"[dynaclr] train step, {DYNACLR_BATCH} pairs of (2, {', '.join(map(str, DYNACLR_STACK))}) -> "
+        f"(2, {', '.join(map(str, DYNACLR_PATCH))}), f32: cell pairs/s per round "
+        f"{', '.join(f'{r:.4f}' for r in rates)}, median {statistics.median(rates):.4f}; step latency median "
+        f"{statistics.median(t / STEPS_PER_ROUND * 1e3 for t in timer.rounds):.1f} ms; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
+    _zero_counts()
+    profile_step(trainer, module, dm)
+    extra = _counts()
+    err = dynaclr_warp(dm, batch)
+    del batch, dm, module, trainer
+    torch.cuda.empty_cache()
+    return dict(warp_launches=counts["warp"] + extra["warp"], warp_err=err)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is False")
@@ -2640,6 +3181,8 @@ def main() -> None:
         cli = phase_cli(card, Path(tmp))
         stages = phase_stages(card, Path(tmp), cli)
         pre = phase_pretrain(card, Path(tmp), cli["fit_plate"])
+        unext2 = phase_unext2(card, Path(tmp), cli["fit_plate"])
+    dynaclr = phase_dynaclr(card)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
@@ -2649,9 +3192,10 @@ def main() -> None:
             route="cuda",
             source="viscy_tpu_torch/csrc/fused_mlp_grn.cu",
             replaces="viscy_tpu/ops/pallas/fused_block.py:164,183",
-            launches=sl["launches"] + pre["launches"]["fwd"],
+            launches=sl["launches"] + pre["launches"]["fwd"] + unext2["launches"]["fwd"],
             **{k: kern[k] for k in keys if k != "max_abs_err"},
-            max_abs_err=max(kern["max_abs_err"], pre["kernels"]["fwd_err"], pre["fwd_err"]),
+            max_abs_err=max(kern["max_abs_err"], pre["kernels"]["fwd_err"], pre["fwd_err"],
+                            unext2["kernels"]["fwd_err"]),
             library_ms=None,
         ),
         dict(
@@ -2659,9 +3203,9 @@ def main() -> None:
             route="cuda",
             source="viscy_tpu_torch/csrc/fused_mlp_grn.cu",
             replaces="viscy_tpu/ops/pallas/fused_block.py:233,307",
-            launches=tr["bwd_launches"] + pre["launches"]["bwd"],
+            launches=tr["bwd_launches"] + pre["launches"]["bwd"] + unext2["launches"]["bwd"],
             **{k: bwd[k] for k in keys if k != "max_abs_err"},
-            max_abs_err=max(bwd["max_abs_err"], pre["kernels"]["bwd_err"]),
+            max_abs_err=max(bwd["max_abs_err"], pre["kernels"]["bwd_err"], unext2["kernels"]["bwd_err"]),
             library_ms=None,
         ),
         dict(
@@ -2669,9 +3213,10 @@ def main() -> None:
             route="cuda",
             source="viscy_tpu_torch/csrc/affine_warp3d.cu",
             replaces="viscy_tpu/ops/pallas/warp3d.py:226,352",
-            launches=tr["warp_launches"] + pre["launches"]["warp"],
+            launches=tr["warp_launches"] + pre["launches"]["warp"] + unext2["launches"]["warp"]
+            + dynaclr["warp_launches"],
             **{k: warp[k] for k in keys if k != "max_abs_err"},
-            max_abs_err=max(warp["max_abs_err"], fit["warp_max_abs_err"], pre["warp_err"]),
+            max_abs_err=max(warp["max_abs_err"], fit["warp_max_abs_err"], pre["warp_err"], dynaclr["warp_err"]),
             library_ms=warp["library_ms"],
         ),
     ]

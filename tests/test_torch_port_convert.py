@@ -88,7 +88,8 @@ def test_bridge_round_trips_through_jax_converter(narrow_flax):
 
 def test_bridge_rejects_unknown_leaves(narrow_flax):
     with pytest.raises(KeyError):
-        fcmae_state_dict_from_flax({"head": {"conv0": {"kernel": np.zeros((3, 3, 3, 1, 1))}}})
+        # head/conv0 and conv1 are PixelToVoxelHead's (head_conv=True); no head has a conv2
+        fcmae_state_dict_from_flax({"head": {"conv2": {"kernel": np.zeros((3, 3, 3, 1, 1))}}})
     with pytest.raises(KeyError):
         fcmae_state_dict_from_flax({"encoder": {"stem": {"norm": {"gamma": np.zeros(3)}}}})
 
@@ -146,10 +147,16 @@ def test_unported_options_raise():
     with torch.no_grad():
         pred, mask = pre.model(x, mask_ratio=0.5, mask_generator=torch.Generator().manual_seed(1))
     assert pred.shape == (1, 2, 15, 64, 64) and mask.shape == (1, 1, 64, 64) and float(mask.float().mean()) == 0.5
-    with pytest.raises(NotImplementedError):
-        FullyConvolutionalMAE(**dict(NARROW, head_conv=True))
+    # head_conv=True builds with PixelToVoxelHead; "UNeXt2" builds the UNeXt2 model (both held
+    # against JAX in tests/test_torch_port_unext2.py); an unknown architecture still raises
+    head = FullyConvolutionalMAE(**dict(NARROW, head_conv=True)).head
+    assert type(head).__name__ == "PixelToVoxelHead" and "conv.0.adn.A.weight" in head.state_dict()
+    unext2 = VSUNet("UNeXt2", dict(in_stack_depth=5, backbone="convnextv2_test"), device="cpu")
+    assert type(unext2.model).__name__ == "UNeXt2" and "pretraining" not in unext2.model_config
+    with torch.no_grad():
+        assert unext2.model(torch.zeros((1, 1, 5, 64, 64))).shape == (1, 1, 5, 64, 64)
     with pytest.raises(ValueError):
-        VSUNet("UNeXt2", dict(NARROW), device="cpu")
+        VSUNet("UNeXt3", dict(NARROW), device="cpu")
     # "UNeXt2_2D" forces pretraining off, as in the JAX engine
     m = VSUNet("UNeXt2_2D", dict(NARROW, pretraining=True, fused_mlp=False), device="cpu")
     assert m.model.total_stride == 32

@@ -567,3 +567,46 @@ def test_batch_above_the_grid_runs_as_several_launches_on_card(dtype, rel):
         assert a.shape == w.shape and a.dtype == w.dtype, name
         assert_rel_close(a.float().cpu().numpy(), w.float().cpu().numpy(), rel,
                          0.999 if dtype == torch.bfloat16 else None)
+
+
+# UNeXt2 at the released VSCyto3D config (1 -> 2 channels, depth 5, stem (5, 4, 4)):
+# encoder stage 0 (C = 96) and the last decoder stage (C = (5 + 2) * 2 * 4 * 4 = 224,
+# M = 896) at 384^2 training patches (S = 96^2) and 320^2 predict tiles (S = 80^2), and
+# the last decoder stage on a full 2048^2 frame (S = 512^2, B = 1)
+UNEXT2_SHAPES = [(9216, 96, 384), (9216, 224, 896), (6400, 224, 896), (262144, 224, 896)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "dtype,rel", [(torch.float32, 1e-4), (torch.bfloat16, 1.5e-2)], ids=["f32", "bf16"]
+)
+@pytest.mark.parametrize("s,c,m", UNEXT2_SHAPES)
+def test_kernels_at_the_unext2_shapes_on_card(s, c, m, dtype, rel):
+    """The forward and backward kernels against their plain versions at the
+    UNeXt2 path's shapes (B = 2; 1 on the full frame), two backward runs
+    bit-identical. Tolerances as the tests above."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        args, _, g = _grads_case(s, c, m, dtype, False, b=1 if s > 10**5 else 2, seed=c)
+        before = (tfb.launches, tfb.bwd_launches)
+        got = tfb.fused_mlp_grn(*args)
+        want = tfb.reference_mlp_grn(*args)
+        x, _, *params = args
+        ss = tfb._reference_ss(x, *params[:4], None, 1e-6)
+        grads = tfb._fused_bwd_cuda(x, g, params, None, ss, 1e-6, 1e-6)
+        again = tfb._fused_bwd_cuda(x, g, params, None, ss, 1e-6, 1e-6)
+        want_grads = tfb.reference_mlp_grn_bwd(x, g, *params, ss)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert (tfb.launches, tfb.bwd_launches) == (before[0] + 2, before[1] + 4)
+    r_min = 0.9999 if dtype == torch.bfloat16 else None
+    assert_rel_close(got.float().cpu().numpy(), want.float().cpu().numpy(), rel, r_min)
+    for name, a, b2, w in zip(GRAD_NAMES, grads, again, want_grads):
+        assert torch.equal(a, b2), f"{name} differs between two runs"
+        assert a.shape == w.shape, name
+        assert_rel_close(a.float().cpu().numpy(), w.float().cpu().numpy(), rel,
+                         0.999 if dtype == torch.bfloat16 else None)

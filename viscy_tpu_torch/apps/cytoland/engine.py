@@ -1,8 +1,8 @@
 """Cytoland virtual-staining engine (counterpart of
 ``viscy_tpu/apps/cytoland/engine.py``), training and prediction.
 
-``VSUNet`` wraps the FCMAE-based UNeXt2 (``"fcmae"`` / ``"UNeXt2_2D"``)
-with the reference supervised training and validation losses (MixedLoss by
+``VSUNet`` wraps UNeXt2 (``"UNeXt2"``, the released VSCyto3D architecture)
+or the FCMAE-based UNeXt2 (``"fcmae"`` / ``"UNeXt2_2D"``) with the reference supervised training and validation losses (MixedLoss by
 default, with the optional bf16 loss inputs; a batch's ``fg_mask`` goes to
 the loss, e.g. ``SpotlightLoss``; stochastic depth in the encoder while
 training), its AdamW + schedule (optionally with
@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from viscy_tpu_torch.apps.cytoland.prediction import rotation_tta_transforms, tiled_forward_yx
 from viscy_tpu_torch.device import resolve_device
 from viscy_tpu_torch.models.unet.fcmae import FullyConvolutionalMAE
+from viscy_tpu_torch.models.unet.unext2 import UNeXt2
 from viscy_tpu_torch.ops.ssim import ssim_25d
 from viscy_tpu_torch.training.losses.mixed_loss import MixedLoss
 from viscy_tpu_torch.training.module import TrainModule
@@ -35,6 +36,7 @@ from viscy_tpu_torch.training.module import TrainModule
 _logger = logging.getLogger("viscy_tpu_torch")
 
 _UNET_ARCHITECTURE = {
+    "UNeXt2": UNeXt2,
     "fcmae": FullyConvolutionalMAE,
     "UNeXt2_2D": FullyConvolutionalMAE,
 }
@@ -88,7 +90,7 @@ class VSUNet(TrainModule):
 
     def __init__(
         self,
-        architecture: Literal["fcmae", "UNeXt2_2D"],
+        architecture: Literal["UNeXt2", "fcmae", "UNeXt2_2D"],
         model_config: dict | None = None,
         loss_function=None,
         lr: float = 1e-3,
@@ -119,9 +121,10 @@ class VSUNet(TrainModule):
             raise ValueError(f"tta_type must be mean, median or product, got {tta_type!r}")
         device = resolve_device(device)
         model_config = dict(model_config or {})
-        model_config.setdefault("pretraining", architecture == "fcmae")
-        if architecture == "UNeXt2_2D":
-            model_config["pretraining"] = False
+        if architecture in ("fcmae", "UNeXt2_2D"):
+            model_config.setdefault("pretraining", architecture == "fcmae")
+            if architecture == "UNeXt2_2D":
+                model_config["pretraining"] = False
         for k, v in model_config.items():
             if isinstance(v, list):
                 model_config[k] = tuple(v)
@@ -152,13 +155,14 @@ class VSUNet(TrainModule):
 
     def example_input(self) -> dict:
         """Zero ``source`` (1, C_in, D, *example_input_yx_shape) and ``target``
-        (1, C_out, D, ...) arrays, as the JAX engine's."""
+        (1, C_out, D_out, ...) arrays, as the JAX engine's."""
         cfg = self.model_config
         depth = cfg.get("in_stack_depth", 5)
+        out_depth = getattr(self.model, "out_stack_depth", None) or depth
         yx = self.example_input_yx_shape
         return {
             "source": np.zeros((1, cfg.get("in_channels", 1), depth, *yx), np.float32),
-            "target": np.zeros((1, cfg.get("out_channels", 1), depth, *yx), np.float32),
+            "target": np.zeros((1, cfg.get("out_channels", 1), out_depth, *yx), np.float32),
         }
 
     def _compute_loss(self, pred: torch.Tensor, target: torch.Tensor, batch: dict) -> torch.Tensor:
@@ -278,12 +282,13 @@ class VSUNet(TrainModule):
     def configure_optimizers(self, total_steps: int):
         """AdamW with the engine's schedule (``warmup_steps=0`` takes the
         default warmup of 1 % of ``total_steps``), over every parameter but
-        the encoder's when ``freeze_encoder``."""
+        the encoder's (UNeXt2's ``encoder_stages``, not its stem) when
+        ``freeze_encoder``."""
         from viscy_tpu_torch.training.optimizers import configure_adamw_scheduler
 
         params = [
             p for name, p in self.named_parameters()
-            if not (self.freeze_encoder and "encoder" in name.split("."))
+            if not (self.freeze_encoder and {"encoder", "encoder_stages"} & set(name.split(".")))
         ]
         return configure_adamw_scheduler(
             params,

@@ -1,5 +1,5 @@
-"""ConvNeXt-v2 building blocks and the UNeXt2 decoder (counterpart of
-``viscy_tpu/models/components/blocks.py``).
+"""ConvNeXt(-v2) building blocks, the timm-style multiscale encoder and the
+UNeXt2 decoder (counterpart of ``viscy_tpu/models/components/blocks.py``).
 
 Activations are channels-last ``(B, H, W, C)`` as in the JAX package; the
 convolutions view them as channels-last NCHW tensors, so no copy is made.
@@ -9,9 +9,11 @@ load with ``strict=True``. ``dtype`` is the compute dtype: inputs and
 weights are cast to it where flax casts them (conv/dense outputs and their
 bias adds in ``dtype``; LayerNorm statistics in float32). No autocast.
 
-Every ConvNeXt-v2 block runs its LN -> fc1 -> GELU -> GRN -> fc2 ->
-residual segment through :func:`viscy_tpu_torch.ops.fused_block.fused_mlp_grn`
-(the Hopper kernel on the card, its plain version on the CPU).
+Every ConvNeXt-v2 block (GRN, no layer scale) runs its LN -> fc1 -> GELU ->
+GRN -> fc2 -> residual segment through
+:func:`viscy_tpu_torch.ops.fused_block.fused_mlp_grn` (the Hopper kernel on
+the card, its plain version on the CPU); v1 blocks (layer scale, no GRN)
+run in plain torch.
 """
 
 from __future__ import annotations
@@ -27,6 +29,32 @@ from torch import nn
 from viscy_tpu_torch.ops.fused_block import fused_mlp_grn
 
 Init = Callable[[torch.Tensor, torch.Generator], torch.Tensor]
+
+# ConvNeXt(-v2) backbones: name -> (depths, dims) (the JAX package's table)
+CONVNEXT_ARCHS: dict[str, tuple[tuple[int, ...], tuple[int, ...]]] = {
+    "convnextv2_atto": ((2, 2, 6, 2), (40, 80, 160, 320)),
+    "convnextv2_femto": ((2, 2, 6, 2), (48, 96, 192, 384)),
+    "convnextv2_pico": ((2, 2, 6, 2), (64, 128, 256, 512)),
+    "convnextv2_nano": ((2, 2, 8, 2), (80, 160, 320, 640)),
+    "convnextv2_tiny": ((3, 3, 9, 3), (96, 192, 384, 768)),
+    "convnextv2_base": ((3, 3, 27, 3), (128, 256, 512, 1024)),
+    "convnextv2_large": ((3, 3, 27, 3), (192, 384, 768, 1536)),
+    "convnext_tiny": ((3, 3, 9, 3), (96, 192, 384, 768)),
+    "convnext_small": ((3, 3, 27, 3), (96, 192, 384, 768)),
+    "convnext_base": ((3, 3, 27, 3), (128, 256, 512, 1024)),
+    # narrow stand-ins for CPU tests
+    "convnextv2_test": ((1, 1, 2, 1), (16, 32, 64, 128)),
+    "convnext_test": ((1, 1, 2, 1), (16, 32, 64, 128)),
+}
+
+
+def convnext_arch(backbone: str) -> tuple[tuple[int, ...], tuple[int, ...], bool]:
+    """``(depths, dims, v2)`` of a backbone: v2 blocks have GRN and no layer
+    scale, v1 (``convnext_*``) blocks a layer scale and no GRN."""
+    if backbone not in CONVNEXT_ARCHS:
+        raise ValueError(f"Unknown backbone {backbone!r}")
+    depths, dims = CONVNEXT_ARCHS[backbone]
+    return depths, dims, "v2" in backbone
 
 # std of a unit normal truncated to [-2, 2] (flax variance_scaling)
 _TRUNC_STD = 0.87962566103423978
@@ -167,6 +195,43 @@ class GRN(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
 
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over every axis but
+    the last, under torch ``BatchNorm`` state names (``weight``, ``bias``,
+    ``running_mean``, ``running_var``, ``num_batches_tracked``).
+
+    In training the batch statistics are float32 with the fast variance
+    ``max(E[x^2] - mu^2, 0)``, the BIASED variance, and the running
+    statistics take ``momentum * running + (1 - momentum) * batch`` with
+    that biased variance, as flax updates them (torch's own BatchNorm would
+    store the unbiased one). In eval the running statistics normalize."""
+
+    def __init__(self, dim: int, momentum: float = 0.9, eps: float = 1e-5) -> None:
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.register_buffer("running_mean", torch.zeros(dim))
+        self.register_buffer("running_var", torch.ones(dim))
+        self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            x32 = x.float()
+            axes = tuple(range(x.ndim - 1))
+            mean = x32.mean(dim=axes)
+            var = torch.clamp_min((x32 * x32).mean(dim=axes) - mean * mean, 0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+                self.num_batches_tracked += 1
+        else:
+            mean, var = self.running_mean, self.running_var
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+
+
 def pixel_shuffle_2d(x: torch.Tensor, r: int) -> torch.Tensor:
     """Sub-pixel upsample, torch ``nn.PixelShuffle`` channel order:
     ``(B, H, W, C*r*r) -> (B, H*r, W*r, C)``, channel ``k = c*r^2 + i*r + j``."""
@@ -183,8 +248,9 @@ def pad_pool_blur_2d(x: torch.Tensor, r: int) -> torch.Tensor:
 
 
 class GrnMlp(nn.Module):
-    """fc1 / GRN / fc2 parameters of a ConvNeXt-v2 MLP. ``conv_mlp`` keeps
-    fc1/fc2 as 1x1 convs (timm ``conv_mlp=True``, the decoder), else dense."""
+    """fc1 / GRN / fc2 parameters of a ConvNeXt MLP. ``conv_mlp`` keeps
+    fc1/fc2 as 1x1 convs (timm ``conv_mlp=True``, the decoder), else dense;
+    ``use_grn=False`` (the v1 block) has no GRN."""
 
     def __init__(
         self,
@@ -193,16 +259,24 @@ class GrnMlp(nn.Module):
         generator: torch.Generator,
         conv_mlp: bool = False,
         fc2_init: Init | None = None,
+        use_grn: bool = True,
     ) -> None:
         super().__init__()
         if conv_mlp:
             self.fc1 = Conv(dim, hidden, (1, 1), generator, init=trunc_normal_init())
-            self.grn = GRN(hidden)
+            self.grn = GRN(hidden) if use_grn else None
             self.fc2 = Conv(hidden, dim, (1, 1), generator, init=fc2_init or trunc_normal_init())
         else:
             self.fc1 = Linear(dim, hidden, generator, init=trunc_normal_init())
-            self.grn = GRN(hidden)
+            self.grn = GRN(hidden) if use_grn else None
             self.fc2 = Linear(hidden, dim, generator, init=fc2_init or trunc_normal_init())
+
+
+def dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """flax ``nn.Dense(dtype=dtype)`` over the last axis (a 1x1 conv weight is
+    viewed as 2-D): the product in ``dtype``, then the bias added in it."""
+    w = weight.reshape(weight.shape[0], -1)
+    return F.linear(x.to(dtype), w.to(dtype)) + bias.to(dtype)
 
 
 def mlp_grn_residual(
@@ -277,12 +351,17 @@ class DropPath(nn.Module):
 
 
 class ConvNeXtBlock(nn.Module):
-    """timm ConvNeXt-v2 block with 1x1-conv MLP (decoder refinement):
-    7x7 depthwise conv (with bias) -> fused LN/fc1/GELU/GRN/fc2 -> residual.
+    """timm ConvNeXt block: 7x7 depthwise conv (with bias) -> LN -> MLP ->
+    residual (counterpart of the JAX ``ConvNeXtBlock``).
 
-    Only the inference path of the JAX block's v2 configuration exists here
-    (GRN, no layer scale, no stochastic depth); it always runs the fused
-    segment."""
+    ``use_grn`` (v2: GRN, no layer scale) runs LN/fc1/GELU/GRN/fc2 and the
+    residual add through the fused kernel; with ``ls_init_value`` (v1: a
+    layer-scale ``gamma``, no GRN) the MLP runs in plain torch. ``conv_mlp``
+    keeps fc1/fc2 as 1x1 convs (the decoder), else Linear (the encoder).
+    With stochastic depth active (training, ``drop_path > 0``) the v2 kernel
+    computes the branch alone (a zero shortcut: ``0 + z`` is ``z``), then
+    ``DropPath`` scales it and the shortcut is added in torch, the JAX
+    unfused block's order (exact for 0/1 keep masks)."""
 
     def __init__(
         self,
@@ -292,19 +371,45 @@ class ConvNeXtBlock(nn.Module):
         mlp_ratio: int = 4,
         dtype: torch.dtype = torch.float32,
         fc2_init: Init | None = None,
+        conv_mlp: bool = True,
+        use_grn: bool = True,
+        ls_init_value: float | None = None,
+        drop_path: float = 0.0,
     ) -> None:
         super().__init__()
+        if use_grn == (ls_init_value is not None):
+            raise ValueError("a ConvNeXt block is v2 (GRN, no layer scale) or v1 (layer scale, no GRN)")
         self.dtype = dtype
         self.kernel_size = kernel_size
         self.conv_dw = Conv(
             dim, dim, (kernel_size, kernel_size), generator, groups=dim, init=trunc_normal_init()
         )
         self.norm = LayerNorm(dim)
-        self.mlp = GrnMlp(dim, mlp_ratio * dim, generator, conv_mlp=True, fc2_init=fc2_init)
+        self.mlp = GrnMlp(
+            dim, mlp_ratio * dim, generator, conv_mlp=conv_mlp, fc2_init=fc2_init, use_grn=use_grn
+        )
+        self.gamma = None if use_grn else nn.Parameter(torch.full((dim,), float(ls_init_value)))
+        self.drop_path = DropPath(drop_path)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _v1_branch(self, y: torch.Tensor) -> torch.Tensor:
+        """LN -> fc1 -> GELU -> fc2 -> layer scale, as the unfused flax
+        block (the f32 ``gamma`` promotes a bf16 branch to f32, as in JAX)."""
+        dt = self.dtype
+        h = self.norm(y, dt)
+        h = F.gelu(dense(h, self.mlp.fc1.weight, self.mlp.fc1.bias, dt))
+        return dense(h, self.mlp.fc2.weight, self.mlp.fc2.bias, dt) * self.gamma
+
+    def forward(
+        self, x: torch.Tensor, generator: torch.Generator | None = None, keep: torch.Tensor | None = None
+    ) -> torch.Tensor:
         y = self.conv_dw.nhwc(x, self.dtype, padding=self.kernel_size // 2)
-        return mlp_grn_residual(y, x, self.norm, self.mlp)
+        if self.gamma is not None:
+            branch = self._v1_branch(y)
+        elif not self.drop_path.active:
+            return mlp_grn_residual(y, x, self.norm, self.mlp)
+        else:
+            branch = mlp_grn_residual(y, torch.zeros_like(y), self.norm, self.mlp)
+        return x + self.drop_path(branch, generator, keep)
 
 
 def downsample(in_chs: int, out_chs: int, k: int, generator: torch.Generator) -> nn.ModuleList:
@@ -322,7 +427,8 @@ def apply_downsample(ds: nn.ModuleList, x: torch.Tensor, stride: int, dtype) -> 
 class ConvNeXtStage(nn.Module):
     """Optional LN + strided-conv downsample (when ``in_chs != out_chs`` or
     ``stride > 1``), then ConvNeXt blocks; ``last_fc2_init`` initializes the
-    last block's fc2 (ICNR when the stage feeds a pixel shuffle)."""
+    last block's fc2 (ICNR when the stage feeds a pixel shuffle).
+    ``drop_path_rates`` are the blocks' stochastic-depth rates."""
 
     def __init__(
         self,
@@ -335,6 +441,10 @@ class ConvNeXtStage(nn.Module):
         mlp_ratio: int = 4,
         dtype: torch.dtype = torch.float32,
         last_fc2_init: Init | None = None,
+        conv_mlp: bool = True,
+        use_grn: bool = True,
+        ls_init_value: float | None = None,
+        drop_path_rates: Sequence[float] | None = None,
     ) -> None:
         super().__init__()
         self.dtype = dtype
@@ -342,6 +452,7 @@ class ConvNeXtStage(nn.Module):
         self.downsample = None
         if in_chs != out_chs or stride > 1:
             self.downsample = downsample(in_chs, out_chs, stride if stride > 1 else 1, generator)
+        rates = list(drop_path_rates) if drop_path_rates is not None else [0.0] * depth
         self.blocks = nn.ModuleList(
             ConvNeXtBlock(
                 out_chs,
@@ -350,16 +461,102 @@ class ConvNeXtStage(nn.Module):
                 mlp_ratio=mlp_ratio,
                 dtype=dtype,
                 fc2_init=last_fc2_init if i == depth - 1 else None,
+                conv_mlp=conv_mlp,
+                use_grn=use_grn,
+                ls_init_value=ls_init_value,
+                drop_path=rates[i],
             )
             for i in range(depth)
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None, keeps=None) -> torch.Tensor:
+        """``keeps``: an iterator of ``(B,)`` keep masks, one per block whose
+        drop path is active, in block order; else None (masks are drawn from
+        ``generator``)."""
         if self.downsample is not None:
             x = apply_downsample(self.downsample, x, self.stride, self.dtype)
         for block in self.blocks:
-            x = block(x)
+            keep = next(keeps) if keeps is not None and block.drop_path.active else None
+            x = block(x, generator, keep)
         return x
+
+
+class MultiscaleEncoder(nn.Module):
+    """timm ConvNeXt encoder behind an external stem (counterpart of the JAX
+    ``MultiscaleEncoder``): the surviving timm stem LayerNorm, then stages
+    of ``depths`` blocks at ``dims`` (stride 1, then 2), the blocks'
+    stochastic-depth rates rising linearly from 0 to ``drop_path_rate``.
+    Returns every stage's channels-last output.
+
+    State-dict names follow the reference's two timm wrappings:
+    ``features_only`` (UNeXt2: ``stem_1``, ``stages_{i}``) or the
+    classification model (the contrastive encoder: ``stem.1``,
+    ``stages.{i}``)."""
+
+    def __init__(
+        self,
+        depths: Sequence[int],
+        dims: Sequence[int],
+        generator: torch.Generator,
+        use_grn: bool = True,
+        ls_init_value: float | None = None,
+        drop_path_rate: float = 0.0,
+        dtype: torch.dtype = torch.float32,
+        features_only: bool = True,
+    ) -> None:
+        super().__init__()
+        self.dtype = dtype
+        self.features_only = features_only
+        total = sum(depths)
+        rates = [drop_path_rate * i / max(total - 1, 1) for i in range(total)]
+        stem_norm = LayerNorm(dims[0])
+        stages = []
+        start = 0
+        for i, (depth, dim) in enumerate(zip(depths, dims)):
+            stages.append(
+                ConvNeXtStage(
+                    dims[max(i - 1, 0)],
+                    dim,
+                    generator,
+                    depth=depth,
+                    stride=1 if i == 0 else 2,
+                    dtype=dtype,
+                    conv_mlp=False,
+                    use_grn=use_grn,
+                    ls_init_value=ls_init_value,
+                    drop_path_rates=rates[start : start + depth],
+                )
+            )
+            start += depth
+        if features_only:
+            self.stem_1 = stem_norm
+            for i, stage in enumerate(stages):
+                self.add_module(f"stages_{i}", stage)
+        else:
+            self.stem = nn.Sequential(nn.Identity(), stem_norm)
+            self.stages = nn.ModuleList(stages)
+        self.num_stages = len(stages)
+
+    def _parts(self) -> tuple[LayerNorm, list[ConvNeXtStage]]:
+        if self.features_only:
+            return self.stem_1, [getattr(self, f"stages_{i}") for i in range(self.num_stages)]
+        return self.stem[1], list(self.stages)
+
+    def forward(
+        self, x: torch.Tensor, generator: torch.Generator | None = None, drop_path_masks=None
+    ) -> list[torch.Tensor]:
+        """``generator`` draws the active blocks' keep masks in training;
+        ``drop_path_masks`` gives them instead, one ``(B,)`` mask per block
+        with an active drop path, in block order (the first block's rate is
+        0: it takes none)."""
+        stem_norm, stages = self._parts()
+        x = stem_norm(x, self.dtype)
+        keeps = None if drop_path_masks is None else iter(drop_path_masks)
+        features = []
+        for stage in stages:
+            x = stage(x, generator, keeps)
+            features.append(x)
+        return features
 
 
 class UNeXt2UpStage(nn.Module):

@@ -31,7 +31,7 @@ from viscy_tpu_torch.models.components.blocks import (
     mlp_grn_residual,
     trunc_normal_init,
 )
-from viscy_tpu_torch.models.components.heads import PixelToVoxelShuffleHead
+from viscy_tpu_torch.models.components.heads import PixelToVoxelHead, PixelToVoxelShuffleHead
 from viscy_tpu_torch.models.components.stems import MaskedAdaptiveProjection, upsample_mask_2d
 
 
@@ -249,6 +249,8 @@ class FullyConvolutionalMAE(nn.Module):
     supervised prediction (``pretraining=False``, ``forward`` returns
     ``pred``).
 
+    ``head_conv`` swaps the pure pixel-shuffle head for ``PixelToVoxelHead``
+    (2x shuffle, 3x3x3 conv, norm, PReLU, 1x1x1 conv, 2x shuffle).
     Keyword arguments follow the JAX model so its configs load. Weights are
     drawn from ``generator`` (default: a generator seeded with 0) with the
     flax initializers. ``fused_mlp`` is accepted for config compatibility:
@@ -271,13 +273,13 @@ class FullyConvolutionalMAE(nn.Module):
         decoder_conv_blocks: int = 1,
         pretraining: bool = True,
         head_conv: bool = False,
+        head_conv_expansion_ratio: int = 4,
+        head_conv_pool: bool = True,
         dtype: str | torch.dtype | None = None,
         fused_mlp: bool = True,
         generator: torch.Generator | None = None,
     ) -> None:
         super().__init__()
-        if head_conv:
-            raise NotImplementedError("PixelToVoxelHead (head_conv=True) is not ported")
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.in_channels = in_channels
@@ -298,7 +300,11 @@ class FullyConvolutionalMAE(nn.Module):
             drop_path_rate=encoder_drop_path_rate,
         )
         decoder_channels = list(self.dims[::-1])
-        decoder_channels[-1] = out_channels * in_stack_depth * self.stem_kernel_size[-1] ** 2
+        if head_conv:
+            # the reference sizes this head by in_channels (fcmae.py:484-497)
+            decoder_channels[-1] = (in_stack_depth + 2) * in_channels * 2**2 * head_conv_expansion_ratio
+        else:
+            decoder_channels[-1] = out_channels * in_stack_depth * self.stem_kernel_size[-1] ** 2
         self.decoder = UNeXt2Decoder(
             decoder_channels,
             [2] * (len(self.dims) - 1) + [self.stem_kernel_size[-1]],
@@ -306,13 +312,24 @@ class FullyConvolutionalMAE(nn.Module):
             conv_blocks=decoder_conv_blocks,
             dtype=self.dtype,
         )
-        self.head = PixelToVoxelShuffleHead(
-            decoder_channels[-1],
-            out_channels,
-            out_stack_depth=in_stack_depth,
-            xy_scaling=self.stem_kernel_size[-1],
-            pool=True,
-        )
+        if head_conv:
+            self.head = PixelToVoxelHead(
+                decoder_channels[-1],
+                out_channels,
+                in_stack_depth,
+                generator,
+                expansion_ratio=head_conv_expansion_ratio,
+                pool=head_conv_pool,
+                dtype=self.dtype,
+            )
+        else:
+            self.head = PixelToVoxelShuffleHead(
+                decoder_channels[-1],
+                out_channels,
+                out_stack_depth=in_stack_depth,
+                xy_scaling=self.stem_kernel_size[-1],
+                pool=True,
+            )
 
     @property
     def num_blocks(self) -> int:

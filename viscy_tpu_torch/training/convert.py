@@ -1,10 +1,11 @@
-"""flax parameter tree -> reference VisCy torch ``state_dict`` (the inverse
-of ``viscy_tpu/training/convert.py``'s ``_FCMAE_RULES``).
+"""flax parameter trees -> reference VisCy torch ``state_dict``s (the inverse
+of ``viscy_tpu/training/convert.py``'s ``_FCMAE_RULES``, ``_UNEXT2_RULES``
+and ``_CONTRASTIVE_RULES``, and a bridge for the JAX ``ResNet3dEncoder``).
 
 The port's models carry the reference torch names and layouts, so weights
-cross between the two packages through this bridge one way and
-``viscy_tpu.training.convert.convert_fcmae_state_dict`` the other. The
-rules are the port's own copy.
+cross between the two packages through these bridges one way and
+``viscy_tpu.training.convert``'s converters the other. The rules are the
+port's own copy.
 
 Layout transposes (flax -> torch):
 
@@ -12,8 +13,11 @@ Layout transposes (flax -> torch):
 - Conv3d ``(kd, kh, kw, I, O)``  -> ``(O, I, kd, kh, kw)``
 - Dense ``(I, O)``               -> Linear ``(O, I)``, or ``(O, I, 1, 1)``
   for the decoder's 1x1-conv MLP
-- LayerNorm scale/bias           -> weight/bias
+- LayerNorm / BatchNorm scale/bias -> weight/bias; BatchNorm
+  ``batch_stats`` mean/var -> ``running_mean``/``running_var``
 - GRN gamma/beta                 -> ``mlp.grn.weight``/``bias``
+- ConvNeXt-v1 ``ls_gamma``, the head's PReLU ``conv0_prelu`` -> ``gamma``,
+  ``adn.A.weight`` (bare leaves)
 """
 
 from __future__ import annotations
@@ -44,7 +48,48 @@ def _conv1x1(w: np.ndarray) -> np.ndarray:
 
 # (flax module path regex, torch module path template, kernel transform);
 # a transform of None marks a norm (scale/bias), "grn" a GRN (gamma/beta)
-_FCMAE_RULES: list[tuple[str, str, Callable | str | None]] = [
+Rule = tuple[str, str, Callable | str | None]
+
+
+def _decoder_rules() -> list[Rule]:
+    """UNeXt2Decoder: timm stages with 1x1-conv MLPs (FCMAE and UNeXt2)."""
+    d, t = r"decoder/stage(\d+)/conv", "decoder.decoder_stages.{0}.conv"
+    return [
+        (rf"{d}/downsample_norm", f"{t}.downsample.0", None),
+        (rf"{d}/downsample_conv", f"{t}.downsample.1", _conv2d),
+        (rf"{d}/block(\d+)/dwconv", t + ".blocks.{1}.conv_dw", _conv2d),
+        (rf"{d}/block(\d+)/norm", t + ".blocks.{1}.norm", None),
+        (rf"{d}/block(\d+)/fc1", t + ".blocks.{1}.mlp.fc1", _conv1x1),
+        (rf"{d}/block(\d+)/grn", t + ".blocks.{1}.mlp.grn", "grn"),
+        (rf"{d}/block(\d+)/fc2", t + ".blocks.{1}.mlp.fc2", _conv1x1),
+    ]
+
+
+def _timm_encoder_rules(stem_norm: str, stages: str) -> list[Rule]:
+    """A timm ConvNeXt encoder (``MultiscaleEncoder``): ``stem_norm`` and the
+    stages' module path (``{0}`` the stage index) as the reference names
+    them in its ``features_only`` (UNeXt2) or classification (contrastive)
+    wrapping."""
+    b = stages + ".blocks.{1}"
+    return [
+        (r"encoder/stem_norm", stem_norm, None),
+        (r"encoder/stage(\d+)/downsample_norm", stages + ".downsample.0", None),
+        (r"encoder/stage(\d+)/downsample_conv", stages + ".downsample.1", _conv2d),
+        (r"encoder/stage(\d+)/block(\d+)/dwconv", b + ".conv_dw", _conv2d),
+        (r"encoder/stage(\d+)/block(\d+)/norm", b + ".norm", None),
+        (r"encoder/stage(\d+)/block(\d+)/fc1", b + ".mlp.fc1", _linear),
+        (r"encoder/stage(\d+)/block(\d+)/grn", b + ".mlp.grn", "grn"),
+        (r"encoder/stage(\d+)/block(\d+)/fc2", b + ".mlp.fc2", _linear),
+    ]
+
+
+# PixelToVoxelHead (MONAI Convolution: conv, then the PReLU's adn.A)
+_HEAD_RULES: list[Rule] = [
+    (r"head/conv0", "head.conv.0.conv", _conv3d),
+    (r"head/conv1", "head.conv.1", _conv3d),
+]
+
+_FCMAE_RULES: list[Rule] = [
     (r"encoder/stem/conv3d", "encoder.stem.conv3d", _conv3d),
     (r"encoder/stem/conv2d", "encoder.stem.conv2d", _conv2d),
     (r"encoder/stem/norm", "encoder.stem.norm", None),
@@ -55,42 +100,49 @@ _FCMAE_RULES: list[tuple[str, str, Callable | str | None]] = [
     (r"encoder/stage(\d+)/block(\d+)/fc1", "encoder.stages.{0}.blocks.{1}.mlp.fc1", _linear),
     (r"encoder/stage(\d+)/block(\d+)/grn", "encoder.stages.{0}.blocks.{1}.mlp.grn", "grn"),
     (r"encoder/stage(\d+)/block(\d+)/fc2", "encoder.stages.{0}.blocks.{1}.mlp.fc2", _linear),
-    (
-        r"decoder/stage(\d+)/conv/downsample_norm",
-        "decoder.decoder_stages.{0}.conv.downsample.0",
-        None,
-    ),
-    (
-        r"decoder/stage(\d+)/conv/downsample_conv",
-        "decoder.decoder_stages.{0}.conv.downsample.1",
-        _conv2d,
-    ),
-    (
-        r"decoder/stage(\d+)/conv/block(\d+)/dwconv",
-        "decoder.decoder_stages.{0}.conv.blocks.{1}.conv_dw",
-        _conv2d,
-    ),
-    (
-        r"decoder/stage(\d+)/conv/block(\d+)/norm",
-        "decoder.decoder_stages.{0}.conv.blocks.{1}.norm",
-        None,
-    ),
-    (
-        r"decoder/stage(\d+)/conv/block(\d+)/fc1",
-        "decoder.decoder_stages.{0}.conv.blocks.{1}.mlp.fc1",
-        _conv1x1,
-    ),
-    (
-        r"decoder/stage(\d+)/conv/block(\d+)/grn",
-        "decoder.decoder_stages.{0}.conv.blocks.{1}.mlp.grn",
-        "grn",
-    ),
-    (
-        r"decoder/stage(\d+)/conv/block(\d+)/fc2",
-        "decoder.decoder_stages.{0}.conv.blocks.{1}.mlp.fc2",
-        _conv1x1,
-    ),
+    *_decoder_rules(),
+    *_HEAD_RULES,
 ]
+
+_UNEXT2_RULES: list[Rule] = [
+    (r"stem/conv", "stem.conv", _conv3d),
+    *_timm_encoder_rules("encoder_stages.stem_1", "encoder_stages.stages_{0}"),
+    *_decoder_rules(),
+    *_HEAD_RULES,
+]
+
+_CONTRASTIVE_RULES: list[Rule] = [
+    (r"stem/conv", "stem.conv", _conv3d),
+    *_timm_encoder_rules("encoder.stem.1", "encoder.stages.{0}"),
+    # the reference erases timm's head.fc (encoder.py:122): only its norm
+    (r"head_norm", "encoder.head.norm", None),
+    (r"projection/fc0", "projection.0", _linear),
+    (r"projection/bn0", "projection.1", None),
+    (r"projection/fc1", "projection.3", _linear),
+    (r"projection/bn1", "projection.4", None),
+]
+
+# flax's automatic names of ResNet3dEncoder -> the port's
+_RESNET3D_RULES: list[Rule] = [
+    (r"Conv_0", "stem_conv", _conv3d),
+    (r"BatchNorm_0", "stem_bn", None),
+    (r"layer(\d+)_(\d+)/Conv_0", "layers.{0}.{1}.conv1", _conv3d),
+    (r"layer(\d+)_(\d+)/BatchNorm_0", "layers.{0}.{1}.bn1", None),
+    (r"layer(\d+)_(\d+)/Conv_1", "layers.{0}.{1}.conv2", _conv3d),
+    (r"layer(\d+)_(\d+)/BatchNorm_1", "layers.{0}.{1}.bn2", None),
+    (r"layer(\d+)_(\d+)/Conv_2", "layers.{0}.{1}.proj_conv", _conv3d),
+    (r"layer(\d+)_(\d+)/BatchNorm_2", "layers.{0}.{1}.proj_bn", None),
+    (r"fc", "fc", _linear),
+    (r"projection/fc0", "projection.0", _linear),
+    (r"projection/bn0", "projection.1", None),
+    (r"projection/fc1", "projection.3", _linear),
+    (r"projection/bn1", "projection.4", None),
+]
+
+# bare parameter leaves: (flax leaf path regex, torch key template): the
+# head's PReLU slope and the ConvNeXt-v1 layer scale
+_PRELU = (r"head/conv0_prelu", "head.conv.0.adn.A.weight")
+_LAYER_SCALE = r"encoder/stage(\d+)/block(\d+)/ls_gamma"
 
 _LEAF_NAMES = {
     None: {"scale": "weight", "bias": "bias"},
@@ -107,45 +159,116 @@ def _leaves(tree: dict, prefix: str = ""):
             yield path, np.asarray(value)
 
 
+def _bridge(
+    tree: dict[str, Any], rules: list[Rule], bare: list[tuple[str, str]], what: str, stats: bool = False
+) -> dict[str, torch.Tensor]:
+    """Map a flax ``params`` (or, with ``stats``, ``batch_stats``) tree to
+    float32 tensors under the torch names; ``KeyError`` on a leaf no rule
+    covers."""
+    out: dict[str, torch.Tensor] = {}
+    for path, value in _leaves(tree):
+        key = None
+        for pattern, template in bare:
+            m = re.fullmatch(pattern, path)
+            if m is not None:
+                key, value = template.format(*m.groups()), value.reshape(-1)
+                break
+        if key is None:
+            module_path, leaf = path.rsplit("/", 1)
+            for pattern, template, transform in rules:
+                m = re.fullmatch(pattern, module_path)
+                if m is None:
+                    continue
+                prefix = template.format(*m.groups())
+                if stats:
+                    names = {"mean": "running_mean", "var": "running_var"}
+                    value = value.reshape(-1)
+                elif callable(transform):
+                    names = {"kernel": "weight", "bias": "bias"}
+                    value = transform(value) if leaf == "kernel" else value.reshape(-1)
+                else:
+                    names = _LEAF_NAMES[transform]
+                    value = value.reshape(-1)
+                if leaf not in names:
+                    raise KeyError(f"unexpected leaf {path!r}")
+                key = f"{prefix}.{names[leaf]}"
+                break
+            else:
+                raise KeyError(f"no {what} rule for flax {'batch statistic' if stats else 'parameter'} {path!r}")
+        out[key] = torch.from_numpy(np.array(value, dtype=np.float32))
+    return out
+
+
 def fcmae_state_dict_from_flax(params: dict[str, Any]) -> dict[str, torch.Tensor]:
     """Map a ``FullyConvolutionalMAE`` flax ``params`` tree (nested dicts of
-    arrays) to a float32 ``state_dict`` under the reference torch names.
+    arrays; either head) to a float32 ``state_dict`` under the reference
+    torch names.
 
     Raises ``KeyError`` on a leaf no rule covers. A tree without
     ``encoder/stem/conv2d`` (flax builds only the branch it runs) yields no
     ``encoder.stem.conv2d`` entries; :func:`load_flax_params` keeps that
     conv at its initialization.
     """
-    out: dict[str, torch.Tensor] = {}
-    for path, value in _leaves(params):
-        module_path, leaf = path.rsplit("/", 1)
-        for pattern, template, transform in _FCMAE_RULES:
-            m = re.fullmatch(pattern, module_path)
-            if m is None:
-                continue
-            prefix = template.format(*m.groups())
-            if callable(transform):
-                names = {"kernel": "weight", "bias": "bias"}
-                value = transform(value) if leaf == "kernel" else value.reshape(-1)
-            else:
-                names = _LEAF_NAMES[transform]
-                value = value.reshape(-1)
-            if leaf not in names:
-                raise KeyError(f"unexpected leaf {path!r}")
-            out[f"{prefix}.{names[leaf]}"] = torch.from_numpy(
-                np.ascontiguousarray(value, dtype=np.float32)
-            )
-            break
-        else:
-            raise KeyError(f"no FCMAE rule for flax parameter {path!r}")
+    return _bridge(params, _FCMAE_RULES, [_PRELU], "FCMAE")
+
+
+def unext2_state_dict_from_flax(params: dict[str, Any]) -> dict[str, torch.Tensor]:
+    """Map a ``UNeXt2`` flax ``params`` tree to a float32 ``state_dict`` under
+    the reference torch names (v1 backbones' layer scales included)."""
+    return _bridge(params, _UNEXT2_RULES, [_PRELU, (_LAYER_SCALE, "encoder_stages.stages_{0}.blocks.{1}.gamma")],
+                   "UNeXt2")
+
+
+def contrastive_state_dict_from_flax(
+    params: dict[str, Any], batch_stats: dict[str, Any] | None = None
+) -> dict[str, torch.Tensor]:
+    """Map a ``ContrastiveEncoder`` flax ``params`` tree, and its
+    ``batch_stats`` (the projection's BatchNorm means and variances) when
+    given, to a float32 ``state_dict`` under the reference torch names.
+    ``num_batches_tracked`` has no flax counterpart and is not produced."""
+    out = _bridge(params, _CONTRASTIVE_RULES, [(_LAYER_SCALE, "encoder.stages.{0}.blocks.{1}.gamma")],
+                  "ContrastiveEncoder")
+    if batch_stats:
+        out.update(_bridge(batch_stats, _CONTRASTIVE_RULES, [], "ContrastiveEncoder", stats=True))
     return out
 
 
-def load_flax_params(model: nn.Module, params: dict[str, Any]) -> None:
-    """Load a flax ``params`` tree into ``model`` (strict: every converted
-    key must exist with its shape; entries the tree lacks keep their values)."""
+def resnet3d_state_dict_from_flax(
+    params: dict[str, Any], batch_stats: dict[str, Any] | None = None
+) -> dict[str, torch.Tensor]:
+    """Map a JAX ``ResNet3dEncoder`` flax tree (``params`` and optionally
+    ``batch_stats``) to the port's ``ResNet3dEncoder`` state names."""
+    out = _bridge(params, _RESNET3D_RULES, [], "ResNet3dEncoder")
+    if batch_stats:
+        out.update(_bridge(batch_stats, _RESNET3D_RULES, [], "ResNet3dEncoder", stats=True))
+    return out
+
+
+def state_dict_from_flax(
+    model: nn.Module, params: dict[str, Any], batch_stats: dict[str, Any] | None = None
+) -> dict[str, torch.Tensor]:
+    """The bridge of ``model``'s type applied to a flax tree."""
+    from viscy_tpu_torch.models.contrastive.encoder import ContrastiveEncoder
+    from viscy_tpu_torch.models.contrastive.resnet3d import ResNet3dEncoder
+    from viscy_tpu_torch.models.unet.unext2 import UNeXt2
+
+    if isinstance(model, ContrastiveEncoder):
+        return contrastive_state_dict_from_flax(params, batch_stats)
+    if isinstance(model, ResNet3dEncoder):
+        return resnet3d_state_dict_from_flax(params, batch_stats)
+    if batch_stats:
+        raise ValueError(f"{type(model).__name__} has no batch statistics")
+    if isinstance(model, UNeXt2):
+        return unext2_state_dict_from_flax(params)
+    return fcmae_state_dict_from_flax(params)
+
+
+def load_flax_params(model: nn.Module, params: dict[str, Any], batch_stats: dict[str, Any] | None = None) -> None:
+    """Load a flax ``params`` tree (and ``batch_stats``) into ``model`` through
+    the bridge of its type (strict: every converted key must exist with its
+    shape; entries the tree lacks keep their values)."""
     state = model.state_dict()
-    for key, value in fcmae_state_dict_from_flax(params).items():
+    for key, value in state_dict_from_flax(model, params, batch_stats).items():
         if key not in state:
             raise KeyError(f"converted key {key!r} not in the model")
         if tuple(state[key].shape) != tuple(value.shape):

@@ -3,7 +3,7 @@
 
 A dict ``{"class_path": "pkg.mod.Cls", "init_args": {...}}`` is imported
 and constructed, recursively. Class paths of the reference packages
-(``viscy_*``, ``cytoland``, Lightning's callbacks) and of the JAX package
+(``viscy_*``, ``cytoland``, ``dynaclr``, Lightning's callbacks) and of the JAX package
 (``viscy_tpu.*``) are remapped to this package before anything is
 imported, so the JAX configs run unchanged and ``viscy_tpu`` is never
 imported. A class the port lacks raises an ``ImportError`` naming it.
@@ -26,6 +26,8 @@ _MODULE_ALIASES: dict[str, str] = {
     "viscy_utils": "viscy_tpu_torch.training",
     "cytoland.engine": "viscy_tpu_torch.apps.cytoland.engine",
     "cytoland": "viscy_tpu_torch.apps.cytoland",
+    "dynaclr.engine": "viscy_tpu_torch.apps.dynaclr.engine",
+    "dynaclr": "viscy_tpu_torch.apps.dynaclr",
     "lightning.pytorch.callbacks": "viscy_tpu_torch.training.callbacks",
     "viscy.transforms": "viscy_tpu_torch.transforms",
     "viscy.data": "viscy_tpu_torch.data",
