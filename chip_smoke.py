@@ -196,6 +196,32 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
            step, two timed rounds of four (cell pairs/s), one profiled step;
            then the warp kernel as the anchor view's affine calls it against
            its plain version.
+14. dynaclr-cli DynaCLR from a plate and its track CSVs to an AnnData
+           embedding store, in process through ``cli.main``, at the full
+           width of ``configs/dynaclr_fit.yml``. (a) A seeded plate through
+           the port's writer (5 FOVs of (2, 2, 40, 1024, 1024) f32, Phase3D
+           and RFP, chunks (1, 1, 5, 256, 256)), ``preprocess``, and one
+           ultrack-style CSV a FOV (16 cells tracked over both frames, float
+           coordinates, more than 256 px from the borders). (b) ``fit -c
+           configs/dynaclr_fit.yml`` as shipped (paths, root dir, one epoch
+           of 3 train and 1 validation batches and a log line every step
+           overridden): cell
+           pairs/s over the train loop and the loader-wait share; no kernel
+           launches (v1 blocks, no affine); one batch's host reads timed
+           apart, with the chunk bytes they touch. (c) The same fit with the bench
+           recipe's ``BatchedRandAffined`` put first in the augmentations:
+           the warp's launches (three views a step and a validation batch),
+           then the warp as the datamodule's anchor view calls it against its
+           plain version (:func:`check_warp`, the view's windows rescaled to
+           [0, 1]). (d) ``predict -c configs/dynaclr_predict.yml`` from (b)'s
+           ``last`` (``predict_cells: false``: the shipped ``true`` names no
+           cell, which the port refuses) into an embedding store: cells/s
+           disk to store; ``X`` and ``obsm["X_projections"]`` against
+           ``predict_step`` on the same windows on the card (<= 1e-6 of
+           range), ``obs`` against the track index, ``X_pca`` against a
+           float64 SVD on the CPU (<= 1e-4 of range after each component's
+           sign). (e) ``convert_to_anndata`` of the store, read back and
+           compared bit for bit.
 
 The last two lines are a JSON ``kernels`` record and the JSON result line.
 Needs ``torch.cuda.is_available()`` and the repo's ``viscy_tpu_torch``
@@ -290,6 +316,23 @@ DYNACLR_BATCH = 32
 DYNACLR_STACK = (15, 512, 512)
 DYNACLR_PATCH = (15, 224, 224)
 DYNACLR_ROUNDS = 2
+# phase 14: DynaCLR from a plate and its track CSVs through the command line:
+# 5 FOVs (the 0.8 split leaves one for validation) of (2, 2, 40, 1024, 1024)
+# f32 (z_range [25, 40]), 16 tracked cells a FOV at more than 256 px from the
+# borders (4 FOVs x 2 frames x 16 cells = 4 train batches of 32)
+DYNACLR_CLI_FOVS = ("0", "1", "2", "3", "4")
+DYNACLR_CLI_T = 2
+DYNACLR_CLI_ZYX = (40, 1024, 1024)
+DYNACLR_CLI_CHUNKS = (1, 1, 5, 256, 256)
+DYNACLR_CLI_CELLS = 16
+DYNACLR_CLI_MARGIN = 256  # half the config's initial 512^2 patch
+DYNACLR_CLI_STEPS = 3
+DYNACLR_CLI_VAL = 1
+# the bench recipe's affine (bench.py:392-398) on the config's two channels
+BENCH_AFFINE = {"class_path": "viscy_transforms.BatchedRandAffined",
+                "init_args": {"keys": list(DYNACLR_CHANNELS), "prob": 0.8, "rotate_range": [3.14, 0.0, 0.0],
+                              "scale_range": [[0.9, 1.1], [0.9, 1.1], [0.9, 1.1]],
+                              "shear_range": [0.05, 0.05, 0.0, 0.05, 0.0, 0.05]}}
 
 
 def log(msg: str) -> None:
@@ -3158,6 +3201,275 @@ def phase_dynaclr(card: str) -> dict:
     return dict(warp_launches=counts["warp"] + extra["warp"], warp_err=err)
 
 
+# -- phase 14: DynaCLR from a plate and its track CSVs through the command line -------------------
+
+
+def dynaclr_plate(tmp: Path, card: str) -> tuple[Path, Path]:
+    """Phase 14 (a): the seeded plate, its normalization statistics
+    (``preprocess``) and one tracking CSV a FOV; returns their paths."""
+    import csv
+
+    from viscy_tpu_torch.training import cli
+    from viscy_tpu_torch.zarr_io.store import open_ome_zarr
+
+    plate_path, tracks = tmp / "dynaclr.zarr", tmp / "tracks"
+    rng = np.random.default_rng(14)
+    t0 = time.perf_counter()
+    plate = open_ome_zarr(plate_path, layout="hcs", mode="w", channel_names=list(DYNACLR_CHANNELS))
+    shape = (DYNACLR_CLI_T, len(DYNACLR_CHANNELS), *DYNACLR_CLI_ZYX)
+    lo, hi = DYNACLR_CLI_MARGIN + 44, DYNACLR_CLI_ZYX[1] - DYNACLR_CLI_MARGIN - 44
+    for fov in DYNACLR_CLI_FOVS:
+        img = plate.create_position("A", "1", fov).create_zeros("0", shape, np.float32, chunks=DYNACLR_CLI_CHUNKS)
+        for t in range(shape[0]):
+            img[t] = rng.random(shape[1:], dtype=np.float32)
+        rows = []
+        for cell in range(DYNACLR_CLI_CELLS):
+            track_id = 3 + 7 * cell  # 3, 10, 17, ...: the string order is not the numeric one
+            y, x = rng.uniform(lo, hi, 2)
+            for t in range(shape[0]):
+                rows.append([track_id, t, 100 * track_id + t, -1, -1, 32, f"{y + rng.uniform(-20, 20):.2f}",
+                             f"{x + rng.uniform(-20, 20):.2f}"])
+        (tracks / "A/1" / fov).mkdir(parents=True)
+        with open(tracks / "A/1" / fov / "tracks.csv", "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["track_id", "t", "id", "parent_track_id", "parent_id", "z", "y", "x"])
+            w.writerows(rows)
+    write_s = time.perf_counter() - t0
+    nbytes = len(DYNACLR_CLI_FOVS) * math.prod(shape) * 4
+    t0 = time.perf_counter()
+    cli.main(["preprocess", "-c", _cli_config(tmp / "pp_dynaclr.yml", {"data_path": str(plate_path),
+                                                                      "num_workers": 8})])
+    pp_s = time.perf_counter() - t0
+    stats = open_ome_zarr(plate_path)["A/1/0"].zattrs["normalization"]["RFP"]["fov_statistics"]
+    if not 0.45 < stats["mean"] < 0.55:
+        raise AssertionError(f"preprocess statistics off: {stats}")
+    log(f"[dynaclr-cli] plate: {len(DYNACLR_CLI_FOVS)} FOVs of {shape} f32 ({nbytes / 2**30:.2f} GiB, "
+        f"uncompressed chunks of {DYNACLR_CLI_CHUNKS}) written in {write_s:.1f} s "
+        f"({nbytes / write_s / 1e6:.0f} MB/s); preprocess {pp_s:.1f} s; {DYNACLR_CLI_CELLS} tracks a FOV over "
+        f"{shape[0]} frames ({card})")
+    return plate_path, tracks
+
+
+def _dynaclr_fit(tmp: Path, name: str, plate: Path, tracks: Path, augmentations: list | None, card: str):
+    """``fit -c configs/dynaclr_fit.yml`` with the paths, the root dir and
+    the epoch's length overridden (and ``augmentations`` when given);
+    returns the trainer, its root and the launch counts."""
+    from viscy_tpu_torch.training import cli
+
+    root = tmp / name
+    data = {"data_path": str(plate), "tracks_path": str(tracks)}
+    if augmentations is not None:
+        data["augmentations"] = augmentations
+    cfg = _cli_config(tmp / f"{name}.yml", {
+        "data": {"init_args": data},
+        "trainer": {"default_root_dir": str(root), "max_epochs": 1, "limit_train_batches": DYNACLR_CLI_STEPS,
+                    "limit_val_batches": DYNACLR_CLI_VAL, "log_every_n_steps": 1},
+    }, ROOT / "configs/dynaclr_fit.yml")
+    torch.cuda.empty_cache()
+    _zero_counts()
+    t0 = time.perf_counter()
+    trainer = cli.main(["fit", "-c", cfg])
+    counts = _counts()
+    total_s = time.perf_counter() - t0
+    feed = trainer.feed_stats
+    loss, val = trainer.logged_metrics.get("loss/train"), trainer.logged_metrics.get("loss/validate")
+    if feed["steps"] != DYNACLR_CLI_STEPS or not (root / "checkpoints/last").resolve().exists() \
+            or not all(v is not None and math.isfinite(v) for v in (loss, val)):
+        raise AssertionError(f"DynaCLR fit ({name}): {feed['steps']} steps, losses {loss} / {val}")
+    pairs = DYNACLR_CLI_STEPS * DYNACLR_BATCH
+    log(f"[dynaclr-cli] fit ({name}): {total_s:.1f} s in all; train loop {feed['seconds']:.2f} s for "
+        f"{DYNACLR_CLI_STEPS} steps of {DYNACLR_BATCH} = {pairs / feed['seconds']:.4f} cell pairs/s (first step "
+        f"included; each step reads 2 x {DYNACLR_BATCH} windows of (2, 15, 512, 512), anchors and negatives: "
+        f"the positive is the anchor's window); waited "
+        f"{feed['wait_s']:.2f} s for batches = {feed['wait_s'] / feed['seconds']:.1%} of the loop; loss/train "
+        f"{loss:.5f}, loss/validate {val:.5f}; launches {counts} ({card})")
+    return trainer, root, counts
+
+
+def dynaclr_host_split(dm, loop_s: float, card: str) -> None:
+    """Phase 14 (b): where a step's host time goes. One training batch's
+    ``__getitems__`` (anchors and negatives read, negatives drawn, norm meta
+    collated) and its anchors' window reads alone, timed, with the bytes the
+    windows keep and the bytes of the chunks they touch."""
+    ds = dm.train_dataset
+    idx = list(range(DYNACLR_BATCH))
+    rows = ds.valid_anchors.take(np.asarray(idx))
+    t0 = time.perf_counter()
+    patches, _ = ds._slice_patches(rows)
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds.__getitems__(idx)
+    batch_s = time.perf_counter() - t0
+    cz, cy, cx = DYNACLR_CLI_CHUNKS[2:]
+    z = ds.z_range
+    half = ds.yx_patch_size[0] // 2
+    span = lambda lo, hi, c: (hi - 1) // c - lo // c + 1
+    chunks = sum(span(z.start, z.stop, cz) * span(y - half, y + half, cy) * span(x - half, x + half, cx)
+                 for y, x in zip(rows["y"].tolist(), rows["x"].tolist())) * len(ds.channel_indices)
+    touched = chunks * cz * cy * cx * 4
+    log(f"[dynaclr-cli] host split: one batch's __getitems__ {batch_s:.2f} s (2 x {DYNACLR_BATCH} window reads, "
+        f"negatives drawn, norm meta); its {DYNACLR_BATCH} anchor windows alone {read_s:.2f} s: "
+        f"{patches.nbytes / read_s / 1e6:.0f} MB/s kept ({patches.nbytes / 2**20:.0f} MiB) from {chunks} chunks "
+        f"of {DYNACLR_CLI_CHUNKS} ({touched / 2**20:.0f} MiB touched, {touched / patches.nbytes:.2f}x); "
+        f"the fit's loop took {loop_s / DYNACLR_CLI_STEPS:.2f} s a step ({card})")
+
+
+def dynaclr_cli_warp(dm) -> float:
+    """Phase 14 (c): the warp kernel as the datamodule's device transform
+    calls it on the anchor view of one training batch (read from the plate),
+    against its plain version (:func:`check_warp`); the view's normalized
+    windows are rescaled to [0, 1] first (the warp is linear in its input,
+    and the bound is stated for inputs in [0, 1])."""
+    from viscy_tpu_torch.training.trainer import BatchPrefetcher
+    from viscy_tpu_torch.transforms import affine as taffine
+
+    host = [dm.train_dataset.__getitems__(list(range(DYNACLR_BATCH)))]
+    (batch,) = list(BatchPrefetcher(host, torch.device("cuda")))
+    view = {k: batch[k] for k in ("anchor", "anchor_norm_meta")}
+    calls = []
+    orig = taffine.affine_warp_3d_keys
+    taffine.affine_warp_3d_keys = lambda *a, **k: calls.append((a, k)) or orig(*a, **k)
+    try:
+        dm.device_transform(view, torch.Generator(device="cuda").manual_seed(1414), "train")
+    finally:
+        taffine.affine_warp_3d_keys = orig
+    (vols, mats, out_shape, mode, offset, flips), kwargs = calls[0]
+    lo = min(float(v.min()) for v in vols)
+    hi = max(float(v.max()) for v in vols)
+    vols = [(v - lo) / (hi - lo) for v in vols]
+    mask = kwargs.get("apply_mask")
+    applied = len(mats) if mask is None else int(mask.sum())
+    return check_warp(f"[dynaclr-cli] warp kernel as TripletDataModule.device_transform's anchor view calls it "
+                      f"({len(mats)}, 1+1, {', '.join(map(str, vols[0].shape[-3:]))}) -> {tuple(out_shape)}, "
+                      f"{applied} samples applied", vols, mats, vols[0].shape[-3:], out_shape, mode, offset, flips,
+                      mask)
+
+
+def _dynaclr_recompute(cfg: dict, ckpt: Path) -> tuple[np.ndarray, np.ndarray, list]:
+    """``predict_step`` of the predict config's model and data on the card,
+    batch by batch, outside the trainer: features, projections, index."""
+    from viscy_tpu_torch.training.instantiate import instantiate
+    from viscy_tpu_torch.training.trainer import BatchPrefetcher, read_checkpoint
+
+    module = instantiate(dict(cfg["model"], init_args=dict(cfg["model"]["init_args"], device="cuda"))).eval()
+    module.model.load_state_dict(read_checkpoint(ckpt)[1])
+    dm = instantiate(cfg["data"])
+    dm.setup("predict")
+    feats, projs, index = [], [], []
+    with torch.inference_mode():
+        for batch in BatchPrefetcher(dm.predict_dataloader(), torch.device("cuda")):
+            pred = module.predict_step(dm.device_transform(batch, None, "predict"))
+            feats.append(pred["features"].float().cpu().numpy())
+            projs.append(pred["projections"].float().cpu().numpy())
+            index += batch["index"]
+    return np.concatenate(feats), np.concatenate(projs), index
+
+
+def dynaclr_predict(tmp: Path, plate: Path, tracks: Path, ckpt: Path, card: str) -> Path:
+    """Phase 14 (d) and (e): predict into an embedding store, check it, and
+    convert it with ``convert_to_anndata``; returns the store."""
+    from viscy_tpu_torch.data.triplet import TripletDataModule
+    from viscy_tpu_torch.evaluation.anndata_lite import read_anndata_zarr
+    from viscy_tpu_torch.training import cli
+    from viscy_tpu_torch.training.compose import load_composed_config
+
+    store = tmp / "embeddings.zarr"
+    shipped = load_composed_config(ROOT / "configs/dynaclr_predict.yml")
+    writer = dict(shipped["trainer"]["callbacks"][0])
+    writer["init_args"] = dict(writer["init_args"], output_path=str(store))
+    data = {"data_path": str(plate), "tracks_path": str(tracks)}
+    try:  # the shipped predict_cells: true with no (fov_name, track_id) pair selects no cell
+        TripletDataModule(**dict(shipped["data"]["init_args"], **data)).setup("predict")
+    except ValueError as e:
+        log(f"[dynaclr-cli] the shipped predict_cells: true names no cell and is refused: {e}")
+    else:
+        raise AssertionError("predict_cells: true without include_fov_names was not refused")
+    cfg_path = _cli_config(tmp / "dynaclr_predict.yml", {
+        "data": {"init_args": {**data, "predict_cells": False}},
+        "trainer": {"default_root_dir": str(tmp / "dynaclr_predict"), "callbacks": [writer]},
+        "ckpt_path": str(ckpt),
+    }, ROOT / "configs/dynaclr_predict.yml")
+    torch.cuda.empty_cache()
+    _zero_counts()
+    t0 = time.perf_counter()
+    cli.main(["predict", "-c", cfg_path])
+    torch.cuda.synchronize()
+    pred_s = time.perf_counter() - t0
+    counts = _counts()
+    got = read_anndata_zarr(store)
+    n = got.n_obs
+    want_n = len(DYNACLR_CLI_FOVS) * DYNACLR_CLI_T * DYNACLR_CLI_CELLS
+    log(f"[dynaclr-cli] predict (configs/dynaclr_predict.yml, batch 64 of (2, 15, 224, 224)): {n} cells in "
+        f"{pred_s:.2f} s = {n / pred_s:.2f} cells/s disk to store; store X {got.X.shape}, obsm "
+        f"{ {k: v.shape for k, v in got.obsm.items()} }; launches {counts} ({card})")
+    if n != want_n or sorted(got.obsm) != ["X_pca", "X_projections"] or any(counts.values()):
+        raise AssertionError(f"embedding store: {n} cells (expected {want_n}), obsm {sorted(got.obsm)}, "
+                             f"launches {counts}")
+    feats, projs, index = _dynaclr_recompute(load_composed_config(Path(cfg_path)), ckpt)
+    for key, have, want in (("X", got.X, feats), ("X_projections", got.obsm["X_projections"], projs)):
+        err, rng = float(np.abs(have - want).max()), float(want.max() - want.min())
+        log(f"[dynaclr-cli] store {key} against predict_step on the same windows: max|d|={err:.3e} "
+            f"({err / rng:.2e} of range, bound 1e-6)")
+        if have.shape != want.shape or not err <= 1e-6 * rng:
+            raise AssertionError(f"embedding store {key} disagrees with predict_step")
+    cols = [c for c in index[0]]
+    for c in cols:
+        want = [str(r[c]).strip("/") if c == "fov_name" else int(r[c]) for r in index]
+        if got.obs.names != cols or got.obs[c].tolist() != want:
+            raise AssertionError(f"embedding store obs {got.obs.names} / column {c} differs from the track index")
+    x = got.X.astype(np.float64)
+    u, sv, _ = np.linalg.svd(x - x.mean(axis=0), full_matrices=False)
+    want = (u * sv)[:, : got.obsm["X_pca"].shape[1]]
+    have = got.obsm["X_pca"].astype(np.float64)
+    want *= np.sign((have * want).sum(axis=0))
+    err = float(np.abs(have - want).max() / (want.max() - want.min()))
+    log(f"[dynaclr-cli] store obs equals the track index ({len(cols)} columns, {n} rows); X_pca "
+        f"{have.shape} against a float64 SVD on the CPU: {err:.2e} of range (bound 1e-4)")
+    if not err <= 1e-4:
+        raise AssertionError(f"X_pca off by {err:.2e} of range")
+
+    out = tmp / "embeddings_anndata.zarr"
+    t0 = time.perf_counter()
+    cli.main(["convert_to_anndata", "-c", _cli_config(tmp / "convert.yml", {
+        "convert": {"embeddings_path": str(store), "output_path": str(out)}})])
+    conv_s = time.perf_counter() - t0
+    back = read_anndata_zarr(out)
+    same = (np.array_equal(back.X, got.X) and list(back.obsm) == ["X_projections"]
+            and np.array_equal(back.obsm["X_projections"], got.obsm["X_projections"])
+            and back.obs.names == got.obs.names and back.obs.index.tolist() == got.obs.index.tolist()
+            and all(back.obs[c].tolist() == got.obs[c].tolist() for c in got.obs.names))
+    log(f"[dynaclr-cli] convert_to_anndata: {conv_s:.2f} s; X, X_projections and obs read back "
+        f"{'bit for bit' if same else 'DIFFERENT'}")
+    if not same:
+        raise AssertionError("convert_to_anndata's store differs from the embedding store")
+    return store
+
+
+def phase_dynaclr_cli(card: str, tmp: Path) -> dict:
+    """Phase 14: DynaCLR from a plate and its track CSVs to an AnnData
+    embedding store through the command line (see the module docstring)."""
+    from viscy_tpu_torch.training.compose import load_composed_config
+
+    plate, tracks = dynaclr_plate(tmp, card)
+    trainer, root, shipped_counts = _dynaclr_fit(tmp, "dynaclr_fit", plate, tracks, None, card)
+    if any(shipped_counts.values()):
+        raise AssertionError(f"the shipped DynaCLR fit launched {shipped_counts} (no kernel expected)")
+    dynaclr_host_split(trainer._active_datamodule, trainer.feed_stats["seconds"], card)
+    del trainer
+    augs = [BENCH_AFFINE, *load_composed_config(ROOT / "configs/dynaclr_fit.yml")["data"]["init_args"]["augmentations"]]
+    trainer, _, counts = _dynaclr_fit(tmp, "dynaclr_fit_affine", plate, tracks, augs, card)
+    want = dict(fwd=0, bwd=0, masked_fwd=0, masked_bwd=0, warp=3 * (DYNACLR_CLI_STEPS + DYNACLR_CLI_VAL))
+    if counts != want:
+        raise AssertionError(f"the DynaCLR fit with the bench affine launched {counts}, expected {want}")
+    err = dynaclr_cli_warp(trainer._active_datamodule)
+    del trainer
+    torch.cuda.empty_cache()
+    store = dynaclr_predict(tmp, plate, tracks, root / "checkpoints/last", card)
+    shutil.rmtree(plate)
+    shutil.rmtree(store)
+    return dict(warp_launches=counts["warp"], warp_err=err)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is False")
@@ -3183,6 +3495,8 @@ def main() -> None:
         pre = phase_pretrain(card, Path(tmp), cli["fit_plate"])
         unext2 = phase_unext2(card, Path(tmp), cli["fit_plate"])
     dynaclr = phase_dynaclr(card)
+    with tempfile.TemporaryDirectory(prefix="viscy-dynaclr-") as tmp:
+        dynaclr_cli = phase_dynaclr_cli(card, Path(tmp))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
@@ -3214,9 +3528,10 @@ def main() -> None:
             source="viscy_tpu_torch/csrc/affine_warp3d.cu",
             replaces="viscy_tpu/ops/pallas/warp3d.py:226,352",
             launches=tr["warp_launches"] + pre["launches"]["warp"] + unext2["launches"]["warp"]
-            + dynaclr["warp_launches"],
+            + dynaclr["warp_launches"] + dynaclr_cli["warp_launches"],
             **{k: warp[k] for k in keys if k != "max_abs_err"},
-            max_abs_err=max(warp["max_abs_err"], fit["warp_max_abs_err"], pre["warp_err"], dynaclr["warp_err"]),
+            max_abs_err=max(warp["max_abs_err"], fit["warp_max_abs_err"], pre["warp_err"], dynaclr["warp_err"],
+                            dynaclr_cli["warp_err"]),
             library_ms=warp["library_ms"],
         ),
     ]

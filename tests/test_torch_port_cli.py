@@ -64,10 +64,11 @@ def test_every_class_path_resolves_to_a_port_class(name):
     assert len(paths) >= (9 if "fit" in name else 4)
     for p in paths:
         assert resolve_class(p).__module__.startswith("viscy_tpu_torch."), p
-    # DynaCLR's engine is ported; its triplet datamodule is not yet
+    # DynaCLR's engine, triplet datamodule and embedding writer are ported
     assert resolve_class("dynaclr.engine.ContrastiveModule").__module__ == "viscy_tpu_torch.apps.dynaclr.engine"
-    with pytest.raises(ImportError, match="viscy_data.TripletDataModule.*not ported"):
-        resolve_class("viscy_data.TripletDataModule")
+    assert resolve_class("viscy_data.TripletDataModule").__module__ == "viscy_tpu_torch.data.triplet"
+    assert (resolve_class("viscy_utils.callbacks.EmbeddingWriter").__module__
+            == "viscy_tpu_torch.training.callbacks.embedding_writer")
 
 
 def test_the_port_resolves_configs_without_importing_viscy_tpu():
@@ -83,11 +84,21 @@ def test_the_port_resolves_configs_without_importing_viscy_tpu():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
-@pytest.mark.parametrize("sub", cli.NOT_PORTED)
+@pytest.mark.parametrize("sub", ["convert_to_anndata"])
 def test_unported_subcommands_raise_with_their_name(tmp_path, sub):
+    """Every subcommand is ported now; ``convert_to_anndata`` still refuses
+    by name what it cannot do: a config without its paths, and the legacy
+    embedding layout (``index.parquet``, no parquet reader)."""
     cfg = tmp_path / "c.yml"
     cfg.write_text("trainer: {device: cpu}\n")
-    with pytest.raises(NotImplementedError, match=sub):
+    with pytest.raises(KeyError, match="embeddings_path"):
+        cli.main([sub, "-c", str(cfg)])
+    legacy = tmp_path / "legacy"
+    legacy.mkdir()
+    (legacy / "index.parquet").write_bytes(b"")
+    cfg = tmp_path / "convert.yml"
+    cfg.write_text(f"convert: {{embeddings_path: {legacy}, output_path: {tmp_path / 'out.zarr'}}}\n")
+    with pytest.raises(NotImplementedError, match="index.parquet"):
         cli.main([sub, "-c", str(cfg)])
 
 

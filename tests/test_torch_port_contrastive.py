@@ -138,13 +138,22 @@ def test_dynaclr_fit_config_model_instantiates_and_its_data_is_refused():
     assert isinstance(module, tdyn.ContrastiveModule) and isinstance(module.loss_function, tloss.NTXentLoss)
     assert module.loss_function.temperature == 0.07 and module.lr == 1e-3
     assert module.model.in_stack_depth == 15 and module.example_input()["anchor"].shape == (1, 2, 15, 256, 256)
-    with pytest.raises(ImportError, match="TripletDataModule.*not ported"):
-        instantiate(cfg["data"])
+    # the data node is ported now: it instantiates whole
+    dm = instantiate(cfg["data"])
+    assert type(dm).__name__ == "TripletDataModule" and dm.source_channel == ["Phase3D", "RFP"]
+    assert dm.z_window_size == 15 and dm.batch_size == 32
 
 
 def test_auxiliary_heads_are_refused_by_name():
-    with pytest.raises(NotImplementedError, match="auxiliary_heads.*infection"):
+    """Heads are ported; what neither package can run is refused by name: a
+    head node without a class_path, and a head with BatchNorm (the engine
+    keeps no head batch statistics)."""
+    with pytest.raises(ValueError, match="auxiliary_heads.*infection.*class_path"):
         tdyn.ContrastiveModule(encoder=dict(TINY), auxiliary_heads={"infection": {}}, device="cpu")
+    node = {"class_path": "viscy_tpu.models.components.heads.ClassificationHead",
+            "init_args": {"in_dims": 128, "norm": "bn"}}
+    with pytest.raises(NotImplementedError, match="norm='bn'"):
+        tdyn.ContrastiveModule(encoder=dict(TINY), auxiliary_heads={"infection": node}, device="cpu")
 
 
 # -- parts --------------------------------------------------------------------------------------

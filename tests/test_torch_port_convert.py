@@ -99,8 +99,8 @@ def test_port_imports_no_jax_flax_or_viscy_tpu():
     interpreter; whatever the environment pre-imports, they must add none
     of these, nor the packages the card's machine lacks: the zarr stacks
     (tensorstore, zarr, numcodecs), PIL, tensorboardX, tensorboard (and
-    TensorFlow), pandas and wandb. (yaml, click and scipy are on that
-    machine.)"""
+    TensorFlow), pandas, sklearn, anndata and wandb. (yaml, click and scipy
+    are on that machine.)"""
     code = """
 import importlib, pkgutil, sys
 before = set(sys.modules)
@@ -111,7 +111,8 @@ import chip_smoke
 added = set(sys.modules) - before
 bad = sorted(n for n in added if n.split(".")[0] in ("jax", "jaxlib", "flax", "viscy_tpu", "tensorstore",
                                                     "zarr", "numcodecs", "PIL", "tensorboardX",
-                                                    "tensorboard", "tensorflow", "pandas", "wandb"))
+                                                    "tensorboard", "tensorflow", "pandas", "wandb", "sklearn",
+                                                    "anndata"))
 print("MODULES", len([n for n in added if n.startswith("viscy_tpu_torch")]))
 print("BAD", bad)
 """

@@ -43,7 +43,11 @@ _logger = logging.getLogger("viscy_tpu_torch")
 
 
 class DataModule:
-    """Base datamodule protocol."""
+    """Base datamodule protocol. ``Trainer.predict`` runs
+    ``device_transform(batch, None, "predict")`` only on a datamodule that
+    sets ``predict_device_transform``."""
+
+    predict_device_transform = False
 
     def prepare_data(self) -> None: ...
 

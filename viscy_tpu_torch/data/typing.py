@@ -1,4 +1,4 @@
-"""Sample and index types of the HCS data path (the part of
+"""Sample and index types of the HCS and triplet data paths (the part of
 ``viscy_tpu/data/typing.py`` the port's datamodule uses)."""
 
 from __future__ import annotations
@@ -19,3 +19,17 @@ class ChannelMap(TypedDict, total=False):
 
     source: Union[str, Sequence[str]]
     target: Union[str, Sequence[str]]
+
+
+# the tracking columns a predict batch's ``index`` carries, in this order
+ULTRACK_INDEX_COLUMNS = [
+    "fov_name",
+    "track_id",
+    "t",
+    "id",
+    "parent_track_id",
+    "parent_id",
+    "z",
+    "y",
+    "x",
+]

@@ -1,9 +1,13 @@
-"""Precompute normalized arrays (counterpart of
-``viscy_tpu/preprocess/precompute.py``'s ``precompute_normalized``, the
-``viscy-torch precompute`` subcommand): a new HCS store with each channel's
-``(x - subtrahend) / (divisor + 1e-8)`` applied from its normalization
-metadata, so training skips the per-sample normalization. The arithmetic is
-the JAX package's, in its float32 order, so the store is bit for bit its.
+"""Precompute normalized arrays and convert embedding stores (counterpart
+of ``viscy_tpu/preprocess/precompute.py``).
+
+``precompute_normalized`` (the ``viscy-torch precompute`` subcommand)
+writes a new HCS store with each channel's ``(x - subtrahend) / (divisor +
+1e-8)`` applied from its normalization metadata, so training skips the
+per-sample normalization. The arithmetic is the JAX package's, in its
+float32 order, so the store is bit for bit its. ``convert_to_anndata``
+(the ``viscy-torch convert_to_anndata`` subcommand) rewrites an embedding
+store as a plain AnnData zarr store.
 """
 
 from __future__ import annotations
@@ -46,4 +50,20 @@ def precompute_normalized(
                 out[ti, ci] = (img[ti, idx].astype(np.float32) - sub) / div
         out_pos.zattrs["normalization"] = {ch: {level: {subtrahend: 0.0, divisor: 1.0}} for ch in channel_names}
         _logger.info(f"Precomputed {name}")
+    return Path(output_path)
+
+
+def convert_to_anndata(embeddings_path: str | Path, output_path: str | Path) -> Path:
+    """Convert an embedding dataset to an AnnData zarr store (reference
+    ``trainer.py:187``), through :mod:`viscy_tpu_torch.evaluation.anndata_lite`
+    (the JAX package's path when the ``anndata`` package is absent): the
+    features as ``X``, the index as ``obs`` under a fresh ``"0"``, ``"1"``,
+    ... index, the projections as ``obsm["X_projections"]``; an existing
+    store at ``output_path`` is replaced."""
+    from viscy_tpu_torch.evaluation.anndata_lite import AnnDataLite, write_anndata_zarr
+    from viscy_tpu_torch.training.callbacks.embedding_writer import read_embedding_dataset
+
+    ds = read_embedding_dataset(embeddings_path)
+    obsm = {"X_projections": np.asarray(ds["projections"])} if "projections" in ds else None
+    write_anndata_zarr(output_path, AnnDataLite(np.asarray(ds["features"]), obs=ds["index"].reset_index(), obsm=obsm))
     return Path(output_path)

@@ -1,14 +1,16 @@
 """``viscy-torch`` CLI (counterpart of ``viscy_tpu/training/cli.py``).
 
 Subcommands ``fit``, ``validate``, ``test``, ``predict``, ``preprocess``,
-``precompute`` and ``export``, each with ``--config`` / ``-c`` and
+``precompute``, ``export`` and ``convert_to_anndata``, each with
+``--config`` / ``-c`` and
 ``--ckpt_path``; the configs are the JAX package's (LightningCLI-style
 ``model:`` / ``data:`` / ``trainer:`` with ``class_path`` / ``init_args``
 and ``base:`` recipes), their class paths remapped to this package; a
 ``trainer.logger`` maps to the metric sinks (TensorBoard is built in, W&B
 when the package and credentials are there). Entry points run on the card;
 ``trainer: {device: cpu}`` runs a config on the CPU (the model is built
-there too). ``convert_to_anndata`` is not ported and raises.
+there too). ``convert_to_anndata`` reads ``embeddings_path`` and
+``output_path`` from the config's ``convert:`` block (or its top level).
 
 Run as ``viscy-torch fit -c config.yml`` or
 ``python -m viscy_tpu_torch.training.cli fit -c config.yml``; in a
@@ -50,7 +52,6 @@ _IGNORED_TRAINER_KEYS = {
     "profiler",
     "reload_dataloaders_every_n_epochs",
 }
-NOT_PORTED = ("convert_to_anndata",)
 
 
 def _trainer_arg_keys() -> set[str]:
@@ -130,9 +131,7 @@ def _with_device(model_cfg: dict, device) -> dict:
 
 def run_subcommand(subcommand: str, config_path: str, ckpt_path: str | None = None):
     """Run one subcommand on a config; returns the Trainer (``None`` for
-    ``preprocess`` and ``precompute``)."""
-    if subcommand in NOT_PORTED:
-        raise NotImplementedError(f"the {subcommand!r} subcommand is not ported")
+    ``preprocess``, ``precompute`` and ``convert_to_anndata``)."""
     cfg = load_composed_config(config_path)
     cfg.pop("launcher", None)
     cfg.pop("benchmark", None)
@@ -157,6 +156,12 @@ def run_subcommand(subcommand: str, config_path: str, ckpt_path: str | None = No
         pc = cfg.get("precompute", cfg)
         precompute_normalized(pc["data_path"], pc["output_path"], pc["channel_names"],
                               level=pc.get("level", "fov_statistics"))
+        return None
+    if subcommand == "convert_to_anndata":
+        from viscy_tpu_torch.preprocess.precompute import convert_to_anndata
+
+        cc = cfg.get("convert", cfg)
+        convert_to_anndata(cc["embeddings_path"], cc["output_path"])
         return None
     if subcommand not in ("fit", "validate", "test", "predict", "export"):
         raise click.UsageError(f"Unknown subcommand {subcommand}")
@@ -213,8 +218,7 @@ predict = _register("predict", "Run inference and write outputs.")
 preprocess = _register("preprocess", "Compute normalization statistics.")
 export = _register("export", "Export a trained model.")
 precompute = _register("precompute", "Write normalized arrays to a new store.")
-for _name in NOT_PORTED:
-    _register(_name, f"Not ported: raises NotImplementedError ({_name}).")
+convert_to_anndata = _register("convert_to_anndata", "Convert an embedding store to an AnnData zarr store.")
 
 
 def main(argv: list[str] | None = None):

@@ -225,9 +225,24 @@ def contrastive_state_dict_from_flax(
     """Map a ``ContrastiveEncoder`` flax ``params`` tree, and its
     ``batch_stats`` (the projection's BatchNorm means and variances) when
     given, to a float32 ``state_dict`` under the reference torch names.
-    ``num_batches_tracked`` has no flax counterpart and is not produced."""
+    ``num_batches_tracked`` has no flax counterpart and is not produced.
+    The contrastive engine's auxiliary heads (``params["aux_heads"]``) map
+    to ``aux_heads.<name>.<module path>``: a Dense ``kernel`` to its
+    transposed ``weight``, a LayerNorm ``scale`` to ``weight``, other leaves
+    (biases, the cosine classifier's ``weight`` and ``log_scale``) as they
+    are."""
+    params = dict(params)
+    heads = params.pop("aux_heads", {})
     out = _bridge(params, _CONTRASTIVE_RULES, [(_LAYER_SCALE, "encoder.stages.{0}.blocks.{1}.gamma")],
                   "ContrastiveEncoder")
+    for path, value in _leaves(heads):
+        module_path, leaf = path.rsplit("/", 1)
+        value = np.array(value, np.float32)
+        if leaf == "kernel":
+            leaf, value = "weight", value.T.copy()
+        elif leaf == "scale":
+            leaf = "weight"
+        out[f"aux_heads.{module_path.replace('/', '.')}.{leaf}"] = torch.from_numpy(value)
     if batch_stats:
         out.update(_bridge(batch_stats, _CONTRASTIVE_RULES, [], "ContrastiveEncoder", stats=True))
     return out

@@ -39,6 +39,7 @@ _CLASS_FALLBACKS: dict[str, str] = {
     "ModelCheckpoint": "viscy_tpu_torch.training.callbacks.checkpoint.ModelCheckpoint",
     "LearningRateMonitor": "viscy_tpu_torch.training.callbacks.checkpoint.LearningRateMonitor",
     "HCSPredictionWriter": "viscy_tpu_torch.training.callbacks.prediction_writer.HCSPredictionWriter",
+    "EmbeddingWriter": "viscy_tpu_torch.training.callbacks.embedding_writer.EmbeddingWriter",
 }
 
 # the JAX package, JAX itself and the reference packages' import aliases

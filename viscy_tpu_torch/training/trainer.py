@@ -562,7 +562,10 @@ class Trainer:
         """Run ``module.predict_step`` over ``datamodule.predict_dataloader()``
         under ``torch.inference_mode()``, after loading ``ckpt_path`` if given.
 
-        Batches reach the device through the prefetcher; predictions stay
+        Batches reach the device through the prefetcher (host leaves such as
+        a triplet batch's ``index`` list pass as they are), then, on a
+        datamodule that sets ``predict_device_transform``, its
+        ``device_transform`` at stage ``"predict"``; predictions stay
         where the step put them and go to the callbacks (and the returned
         list) as they are, so a writer that ``wants_device_predictions``
         blends on the device.
@@ -578,9 +581,12 @@ class Trainer:
             self.load_checkpoint(ckpt_path, module)
         for cb in self.callbacks:
             cb.on_predict_start(self, module)
+        transform = datamodule.device_transform if getattr(datamodule, "predict_device_transform", False) else None
         outputs = []
         with torch.inference_mode():
             for i, batch in enumerate(BatchPrefetcher(datamodule.predict_dataloader(), self.device)):
+                if transform is not None:
+                    batch = transform(batch, None, "predict")
                 pred = module.predict_step(batch)
                 for cb in self.callbacks:
                     cb.write_on_batch_end(self, module, pred, batch, i)
