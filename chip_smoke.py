@@ -223,6 +223,40 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
            sign). (e) ``convert_to_anndata`` of the store, read back and
            compared bit for bit.
 
+15. celldiff CELLDiff flow matching at the full width of
+           ``configs/celldiff_fit.yml`` (``net_config``: dims 64-256, two
+           ResnetBlocks a level, YX halved three times, a ViT bottleneck of 8
+           layers, hidden 512, 8 heads of 64, patch 4; f32, TF32 off). No
+           kernel of ours runs in it (cuDNN convs, GroupNorm, matmuls): its
+           launches are checked to be 0. (a) Card against CPU on the same
+           weights (every adaLN weight perturbed away from zero) at (1, 1, 8,
+           128, 128): the ``CELLDiffNet`` forward, one
+           ``DynacellFlowMatching`` train step at fixed ``t`` and ``x0``
+           (loss and every gradient), ``VSUNet("FNet3D")`` at (2, 1, 16,
+           128, 128): its f32 train-mode loss and running statistics, and
+           its f32 gradients of the engine's loss, which at this init are
+           exact to only a few 1e-3 of range, against the same step in f64
+           on the CPU: the card's worst within twice the CPU's own f32
+           worst, the card's step with TF32 allowed outside that bound (the
+           conv biases a train-mode BatchNorm removes 0 up to rounding), and
+           one ``DynacellUNet("UNetViT3D")`` step at the config's widths (L1
+           + L2): <= 2e-3 of range and r > 0.9999. (b) One batch-1 train step
+           (forward, backward, AdamW) on a seeded (8, 512, 512) window: peak
+           memory, which sets the fit's batch (the config's 4 or the largest
+           that fits, with ``accumulate_grad_batches`` to 4); its time with
+           TF32 off and allowed; the device busy share and top kernels of a
+           profiled step. A seeded plate of 8 FOVs of (1, 2, 16, 512, 512)
+           f32 (Phase3D, Fluor) and a predict plate of one (1, 2, 9, 512,
+           512), ``preprocess``-ed; ``fit -c configs/celldiff_fit.yml`` with
+           the paths, the workers, the batch and its accumulation and one
+           epoch of 3 updates and 1 validation batch overridden: patches/s
+           over the train loop, the loader-wait share, the later steps'
+           seconds, peak memory. (c) ``predict`` from ``last`` through the
+           CLI with ``HCSPredictionWriter``: the config's 50 Euler steps over
+           the two windows (one batch): windows/s and forwards/s disk to
+           store; the store's shape, finiteness and agreement with
+           ``predict_step`` on the same windows, blended (<= 1e-6 of range).
+
 The last two lines are a JSON ``kernels`` record and the JSON result line.
 Needs ``torch.cuda.is_available()`` and the repo's ``viscy_tpu_torch``
 beside this file. Imports nothing of JAX or ``viscy_tpu``.
@@ -328,6 +362,21 @@ DYNACLR_CLI_CELLS = 16
 DYNACLR_CLI_MARGIN = 256  # half the config's initial 512^2 patch
 DYNACLR_CLI_STEPS = 3
 DYNACLR_CLI_VAL = 1
+# phase 15: CELLDiff flow matching (configs/celldiff_fit.yml, net_config at its
+# full width): the card-vs-CPU checks at (1, 1, 8, 128, 128) (FNet3D's, whose
+# Z is downsampled 4 times, 16 deep); the fit plate 8 FOVs (the 0.8 split
+# leaves two for validation) of (1, 2, 16, 512, 512) f32: 9 windows of the
+# config's (8, 512, 512) a FOV; the predict plate one FOV 9 deep: 2 windows
+CELLDIFF_CHANNELS = ("Phase3D", "Fluor")
+CELLDIFF_XCHECK = (1, 1, 8, 128, 128)
+CELLDIFF_FNET_XCHECK = (2, 1, 16, 128, 128)
+CELLDIFF_FOVS = ("0", "1", "2", "3")
+CELLDIFF_COLS = ("1", "2")
+CELLDIFF_ZYX = (16, 512, 512)
+CELLDIFF_PREDICT_Z = 9
+CELLDIFF_STEPS = 3  # optimizer updates, each of the config's batch of 4
+CELLDIFF_VAL = 1
+CELLDIFF_BATCH = 4
 # the bench recipe's affine (bench.py:392-398) on the config's two channels
 BENCH_AFFINE = {"class_path": "viscy_transforms.BatchedRandAffined",
                 "init_args": {"keys": list(DYNACLR_CHANNELS), "prob": 0.8, "rotate_range": [3.14, 0.0, 0.0],
@@ -3470,6 +3519,387 @@ def phase_dynaclr_cli(card: str, tmp: Path) -> dict:
     return dict(warp_launches=counts["warp"], warp_err=err)
 
 
+def celldiff_module(device: str):
+    """``configs/celldiff_fit.yml``'s model node, instantiated as the CLI
+    would."""
+    from viscy_tpu_torch.training.compose import load_composed_config
+    from viscy_tpu_torch.training.instantiate import instantiate
+
+    node = load_composed_config(ROOT / "configs/celldiff_fit.yml")["model"]
+    return instantiate(dict(node, init_args=dict(node["init_args"], device=device)))
+
+
+def perturb_adaln(module, seed: int) -> None:
+    """Every adaLN-Zero weight and bias away from its zero init (normal,
+    std 0.02), so the ViT blocks are not the identity."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if "adaLN" in name:
+                p.copy_(torch.randn(p.shape, generator=g) * 0.02)
+
+
+def _xcheck_engines(build, seed: int):
+    """Two copies of one engine on the same weights, card and CPU."""
+    on_cpu = build("cpu")
+    on_card = build("cuda")
+    perturb_adaln(on_cpu, seed)
+    on_card.model.load_state_dict(on_cpu.model.state_dict())
+    return on_card, on_cpu
+
+
+def _xcheck_step(tag: str, on_card, on_cpu, batch: dict, loss_fn, zero: dict, stats: bool = False,
+                 grads: bool = True) -> None:
+    """One train-mode loss + backward on both copies: the loss within 2e-3
+    relative; with ``grads`` every gradient as ``_compare_grads``; with
+    ``stats`` every BatchNorm running statistic after the step (<= 2e-3 of
+    range, r > 0.9999)."""
+    losses = []
+    for module, dev in ((on_card, "cuda"), (on_cpu, "cpu")):
+        module.train()
+        t0 = time.perf_counter()
+        loss = loss_fn(module, {k: v.to(dev) for k, v in batch.items()})
+        loss.backward()
+        losses.append((float(loss.detach()), time.perf_counter() - t0))
+    (l_card, _), (l_cpu, cpu_s) = losses
+    l_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    if not l_rel <= 2e-3:
+        raise AssertionError(f"{tag}: loss {l_card} on the card against {l_cpu} on the CPU")
+    note = f"loss {l_card:.7f} vs {l_cpu:.7f} (rel {l_rel:.2e})"
+    if grads:
+        n_grads, worst = _compare_grads(on_card, on_cpu, zero, tag)
+        note += f"; {n_grads} gradients within 2e-3 of range and r > 0.9999, worst {worst[1]} {worst[0]:.2e}"
+    if stats:
+        s_card, s_cpu = on_card.model.state_dict(), on_cpu.model.state_dict()
+        keys = [k for k in s_cpu if k.endswith(("running_mean", "running_var"))]
+        errs = {k: compare(s_card[k].cpu(), s_cpu[k]) for k in keys}
+        bad = {k: v for k, v in errs.items() if not (v[1] <= 2e-3 and v[2] > 0.9999)}
+        if not keys or bad:
+            raise AssertionError(f"{tag}: running statistics disagree: {bad}")
+        note += f"; {len(keys)} running statistics after it worst {max(v[1] for v in errs.values()):.2e} of range"
+    log(f"[celldiff] {tag}: {note} (CPU {cpu_s:.1f} s)")
+
+
+def celldiff_cross_check() -> None:
+    """Phase 15 (a): f32 (TF32 off), card against CPU on the same weights
+    (adaLN perturbed) and draws: the ``CELLDiffNet`` forward and one
+    ``DynacellFlowMatching`` train step at fixed ``t`` and ``x0``; then
+    ``VSUNet("FNet3D")``'s f32 train-mode loss and running statistics, and
+    its f32 gradients against an f64 step on the CPU; then one ``DynacellUNet("UNetViT3D")`` step at
+    the config's widths."""
+    from viscy_tpu_torch.apps.cytoland.engine import VSUNet
+    from viscy_tpu_torch.apps.dynacell.engine import DynacellUNet
+    from viscy_tpu_torch.training.losses.mixed_loss import MixedLoss
+
+    g = torch.Generator().manual_seed(1500)
+    shape = CELLDIFF_XCHECK
+    batch = {"source": torch.randn(shape, generator=g), "target": torch.randn(shape, generator=g)}
+    t, x0 = torch.rand(shape[0], generator=g), torch.randn(shape, generator=g)
+    on_card, on_cpu = _xcheck_engines(celldiff_module, 1501)
+    with torch.no_grad():
+        outs = [m.model.eval()(batch["target"].to(dev), batch["source"].to(dev), t.to(dev)).cpu()
+                for m, dev in ((on_card, "cuda"), (on_cpu, "cpu"))]
+    err, rel, r = compare(*outs)
+    log(f"[celldiff] CELLDiffNet forward at {shape}, card vs CPU: max|d|={err:.3e} ({rel:.2e} of range), "
+        f"r={r:.8f}")
+    if not (rel <= 2e-3 and r > 0.9999):
+        raise AssertionError("the CELLDiffNet forward on the card disagrees with the CPU")
+    step = lambda m, b: m.training_loss(b, t=t.to(b["source"].device), x0=x0.to(b["source"].device))
+    _xcheck_step(f"DynacellFlowMatching step at {shape}", on_card, on_cpu, batch, step, {})
+    del on_card, on_cpu
+    cfg = {k: v for k, v in load_net_config().items() if k not in ("cond_channels",)}
+    loss = lambda: MixedLoss(l1_alpha=0.5, l2_alpha=0.5, ms_dssim_alpha=0.0)
+    plain = lambda m, b: m.training_loss(b)
+    fshape = CELLDIFF_FNET_XCHECK
+    fbatch = {"source": torch.randn(fshape, generator=g), "target": torch.randn(fshape, generator=g)}
+    fnet = lambda dev: VSUNet("FNet3D", dict(in_stack_depth=fshape[2]), loss_function=loss(), device=dev)
+    on_card, on_cpu = _xcheck_engines(fnet, 1502)
+    _xcheck_step(f"VSUNet('FNet3D') f32 step at {fshape}", on_card, on_cpu, fbatch, plain, {}, stats=True,
+                 grads=False)
+    # a conv bias before a train-mode BatchNorm: removed by it, 0 up to rounding
+    zero = {f"model.{k}": f"model.{k[:-4]}weight" for k, _ in on_cpu.model.named_parameters()
+            if k.endswith("proj.bias")}
+    card64, cpu64 = _xcheck_engines(fnet, 1502)
+    card64.double(), cpu64.double()
+    _xcheck_step(f"VSUNet('FNet3D') f64 step at {fshape}", card64, cpu64, {k: v.double() for k, v in fbatch.items()},
+                 plain, zero)
+    _grads_against_f64("VSUNet('FNet3D')", on_card, on_cpu, cpu64, fbatch, plain, zero)
+    del on_card, on_cpu, card64, cpu64
+    on_card, on_cpu = _xcheck_engines(
+        lambda dev: DynacellUNet("UNetViT3D", dict(cfg), loss_function=loss(), device=dev), 1503)
+    _xcheck_step(f"DynacellUNet('UNetViT3D') step at {shape}", on_card, on_cpu, batch, plain, {})
+    del on_card, on_cpu
+    torch.cuda.empty_cache()
+
+
+def _grads_against_f64(tag: str, on_card, on_cpu, cpu64, batch: dict, loss_fn, zero: dict) -> None:
+    """The f32 gradients of one train-mode step on the card and on the CPU
+    (taken by ``_xcheck_step``) against the same step's f64 ones on the CPU
+    (``cpu64``, taken too). Every gradient's Pearson r > 0.9999, and all of
+    them at once within four times the CPU's own f32 error (||d|| / ||f64||
+    over every gradient but the ``zero`` ones, which ``_compare_grads``'s
+    rule holds): at this init the worst single gradients are exact to only
+    1e-3 to 4e-2 of their range in any f32 (a sum over a few hundred voxels
+    of a deep level behind a train-mode BatchNorm), so no per-gradient
+    range bound holds f32 there. The same step on the card with TF32
+    allowed must fail the bound, or it could not tell a lower precision
+    from f32."""
+    ref = {n: p.grad for n, p in cpu64.named_parameters()}
+    names = [n for n in ref if n not in zero]
+
+    def errors(module) -> tuple[float, tuple, tuple]:
+        grads = {n: p.grad.cpu().double() for n, p in module.named_parameters()}
+        for name, weight in zero.items():
+            ratio = float(grads[name].abs().max() / grads[weight].abs().max())
+            if not ratio < 1e-3:
+                raise AssertionError(f"{tag}: {name} should have a gradient of 0 up to rounding: its largest is "
+                                     f"{ratio:.2e} of {weight}'s")
+        d = torch.cat([(grads[n] - ref[n]).flatten() for n in names])
+        total = float(d.norm() / torch.cat([ref[n].flatten() for n in names]).norm())
+        of_range = max((compare(grads[n], ref[n])[1], n) for n in names if ref[n].numel() > 1)
+        low_r = min((compare(grads[n], ref[n])[2], n) for n in names if ref[n].numel() > 1)
+        return total, of_range, low_r
+
+    card, cpu = errors(on_card), errors(on_cpu)
+    bound = 4 * cpu[0]
+    on_card.zero_grad(set_to_none=True)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        loss_fn(on_card, {k: v.cuda() for k, v in batch.items()}).backward()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    tf32 = errors(on_card)
+    note = lambda e: (f"||d||/||f64|| {e[0]:.3e}, lowest r {e[2][1]} {e[2][0]:.8f}, worst of range {e[1][1]} "
+                      f"{e[1][0]:.2e}")
+    log(f"[celldiff] {tag}: {len(names)} f32 gradients against the CPU's f64: card {note(card)}; the CPU's own f32 "
+        f"{note(cpu)}; bound r > 0.9999 and ||d||/||f64|| <= 4x the CPU's = {bound:.3e}; the card with TF32 "
+        f"allowed (must fail it) {note(tf32)}; {len(zero)} conv biases 0 up to rounding")
+    if not (card[0] <= bound and card[2][0] > 0.9999):
+        raise AssertionError(f"{tag}: the card's f32 gradients disagree with the f64 step")
+    if tf32[0] <= bound and tf32[2][0] > 0.9999:
+        raise AssertionError(f"{tag}: the f32 gradient bound does not tell TF32 from f32")
+
+
+def load_net_config() -> dict:
+    from viscy_tpu_torch.training.compose import load_composed_config
+
+    net = load_composed_config(ROOT / "configs/celldiff_fit.yml")["model"]["init_args"]["net_config"]
+    return {k: tuple(v) if isinstance(v, list) else v for k, v in net.items()}
+
+
+def celldiff_probe(card: str) -> int:
+    """Phase 15 (b), before the fit: one train step (forward, backward,
+    AdamW) of the config's model at batch 1 on a seeded (8, 512, 512)
+    window: its operations (``torch.utils.flop_counter``) and peak memory,
+    which sets the fit's batch (the config's 4, or the largest that fits
+    with accumulation to 4); the step's time with TF32 off and then allowed
+    (restored after); the device busy share and top kernels of one profiled
+    step. Returns the batch."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
+
+    module = celldiff_module("cuda").train()
+    opt, _, _ = module.configure_optimizers(100)
+    g = torch.Generator(device="cuda").manual_seed(1510)
+    shape = (1, 1, 8, *CELLDIFF_ZYX[1:])
+    batch = {"source": torch.randn(shape, generator=g, device="cuda"),
+             "target": torch.randn(shape, generator=g, device="cuda")}
+
+    def step():
+        module.zero_grad(set_to_none=True)
+        module.training_loss(batch, g).backward()
+        opt.step()
+
+    n_params = sum(p.numel() for p in module.parameters())
+    with torch.no_grad(), FlopCounterMode(display=False) as fwd_count:
+        module.model(batch["target"], batch["source"], torch.zeros(1, device="cuda"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    static = torch.cuda.memory_allocated()
+    with FlopCounterMode(display=False) as step_count:
+        step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    state = torch.cuda.memory_allocated()  # weights, gradients, AdamW moments
+    total = torch.cuda.get_device_properties(0).total_memory
+    per_sample = peak - state
+    fits = [b for b in (CELLDIFF_BATCH, 2, 1) if CELLDIFF_BATCH % b == 0 and state + b * per_sample <= 0.9 * total]
+    batch_size = fits[0] if fits else 1
+    log(f"[celldiff] {n_params / 1e6:.1f} M parameters; one batch-1 step of {shape[1:]}: peak "
+        f"{peak / 2**30:.2f} GiB of {total / 2**30:.1f} GiB (weights {static / 2**30:.2f} GiB, with gradients and "
+        f"AdamW {state / 2**30:.2f} GiB, the step's activations {per_sample / 2**30:.2f} GiB): batch "
+        f"{batch_size} x accumulation {CELLDIFF_BATCH // batch_size} makes the config's {CELLDIFF_BATCH} ({card})")
+    times = {}
+    for tf32 in (False, True):
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            times[tf32] = cuda_median_ms(step, runs=2)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    flops = step_count.get_total_flops()
+    log(f"[celldiff] one batch-1 train step (CUDA-event median of 2 after a warm-up): f32 {times[False]:.1f} ms, "
+        f"TF32 allowed {times[True]:.1f} ms ({times[False] / times[True]:.2f}x); {flops / 1e12:.2f} TFLOP a step "
+        f"(forward {fwd_count.get_total_flops() / 1e12:.2f}; torch.utils.flop_counter): f32 "
+        f"{flops / times[False] / 1e9:.1f} TFLOP/s against a bound of {flops / PEAK_FLOPS[torch.float32] * 1e3:.1f} "
+        f"ms at {PEAK_FLOPS[torch.float32] / 1e12:.0f} TFLOP/s ({card})")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        log("[celldiff] torch.profiler recorded no device time: busy share not measured")
+    else:
+        events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+        busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+        log(f"[celldiff] one profiled batch-1 step: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+            f"({busy_ms / wall_ms:.1%} of wall) over {sum(e.count for e in events)} kernels")
+        for e in events[:10]:
+            log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<4d} {e.key[:100]}")
+    del module, opt, batch
+    torch.cuda.empty_cache()
+    return batch_size
+
+
+def celldiff_plates(tmp: Path, card: str) -> tuple[Path, Path]:
+    """Phase 15 (b): the seeded fit plate and the one-FOV predict plate,
+    written by the port's writer and ``preprocess``-ed."""
+    from viscy_tpu_torch.training import cli
+    from viscy_tpu_torch.zarr_io.synthetic import build_hcs_plate
+
+    t0 = time.perf_counter()
+    fit = build_hcs_plate(tmp / "celldiff.zarr", list(CELLDIFF_CHANNELS), zyx_shape=CELLDIFF_ZYX, num_timepoints=1,
+                          rows=("A",), cols=CELLDIFF_COLS, fovs=CELLDIFF_FOVS, seed=15)
+    pred = build_hcs_plate(tmp / "celldiff_predict.zarr", list(CELLDIFF_CHANNELS),
+                           zyx_shape=(CELLDIFF_PREDICT_Z, *CELLDIFF_ZYX[1:]), num_timepoints=1, rows=("B",),
+                           cols=("1",), fovs=("0",), seed=16)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for plate in (fit, pred):
+        cli.main(["preprocess", "-c", _cli_config(tmp / f"pp_{plate.stem}.yml", {"data_path": str(plate),
+                                                                                "num_workers": 8})])
+    n = len(CELLDIFF_FOVS) * len(CELLDIFF_COLS)
+    nbytes = n * len(CELLDIFF_CHANNELS) * math.prod(CELLDIFF_ZYX) * 4
+    log(f"[celldiff] fit plate: {n} FOVs of (1, {len(CELLDIFF_CHANNELS)}, {', '.join(map(str, CELLDIFF_ZYX))}) f32 "
+        f"({nbytes / 2**20:.0f} MiB) and a predict plate of one (1, 2, {CELLDIFF_PREDICT_Z}, "
+        f"{CELLDIFF_ZYX[1]}, {CELLDIFF_ZYX[2]}) written in {write_s:.1f} s; preprocess {time.perf_counter() - t0:.1f} s "
+        f"({card})")
+    return fit, pred
+
+
+def celldiff_fit(tmp: Path, plate: Path, batch: int, card: str) -> Path:
+    """Phase 15 (b): ``fit -c configs/celldiff_fit.yml`` with the paths, the
+    workers, the batch and its accumulation to the config's 4, and one epoch
+    of ``CELLDIFF_STEPS`` updates and ``CELLDIFF_VAL`` validation batches
+    overridden; returns the root directory."""
+    from viscy_tpu_torch.training import cli
+
+    acc = CELLDIFF_BATCH // batch
+    root = tmp / "celldiff_fit"
+    cfg = _cli_config(tmp / "celldiff_fit.yml", {
+        "data": {"init_args": {"data_path": str(plate), "batch_size": batch, "num_workers": 4}},
+        "trainer": {"default_root_dir": str(root), "max_epochs": 1, "limit_train_batches": CELLDIFF_STEPS * acc,
+                    "limit_val_batches": CELLDIFF_VAL, "accumulate_grad_batches": acc, "log_every_n_steps": 1},
+    }, ROOT / "configs/celldiff_fit.yml")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    step_times, restore = _timed_steps()
+    try:
+        t0 = time.perf_counter()
+        trainer = cli.main(["fit", "-c", cfg])
+        total_s = time.perf_counter() - t0
+    finally:
+        restore()
+    counts = _counts()
+    feed = trainer.feed_stats
+    loss, val = trainer.logged_metrics.get("loss/train"), trainer.logged_metrics.get("loss/validate")
+    if feed["steps"] != CELLDIFF_STEPS * acc or not (root / "checkpoints/last").resolve().exists() \
+            or not all(v is not None and math.isfinite(v) for v in (loss, val)) or any(counts.values()):
+        raise AssertionError(f"CELLDiff fit: {feed['steps']} steps, losses {loss} / {val}, launches {counts}")
+    patches = CELLDIFF_STEPS * CELLDIFF_BATCH
+    log(f"[celldiff] fit (configs/celldiff_fit.yml, batch {batch} x accumulation {acc}, {CELLDIFF_STEPS} updates "
+        f"of {CELLDIFF_BATCH} windows of (8, {CELLDIFF_ZYX[1]}, {CELLDIFF_ZYX[2]}), {CELLDIFF_VAL} validation "
+        f"batch): {total_s:.1f} s in all; "
+        f"train loop {feed['seconds']:.2f} s = {patches / feed['seconds']:.4f} patches/s (first step included); "
+        f"waited {feed['wait_s']:.2f} s for batches = {feed['wait_s'] / feed['seconds']:.1%} of the loop; "
+        f"steps after the first (s): {', '.join(step_times())}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; loss/train {loss:.5f}, loss/validate {val:.5f}; "
+        f"no kernel of ours ({counts}) ({card})")
+    del trainer
+    torch.cuda.empty_cache()
+    return root
+
+
+def celldiff_predict(tmp: Path, plate: Path, ckpt: Path, card: str) -> None:
+    """Phase 15 (c): ``predict`` through the CLI with ``HCSPredictionWriter``
+    from ``last``: the config's 50 Euler steps over the predict plate's two
+    windows (one batch); the store's shape, finiteness and agreement with
+    ``predict_step`` on the same windows, blended (<= 1e-6 of range)."""
+    from viscy_tpu_torch.training import cli
+    from viscy_tpu_torch.training.callbacks.prediction_writer import blend_in
+    from viscy_tpu_torch.training.compose import load_composed_config
+    from viscy_tpu_torch.training.instantiate import instantiate
+    from viscy_tpu_torch.training.trainer import BatchPrefetcher, read_checkpoint
+    from viscy_tpu_torch.zarr_io.store import open_ome_zarr
+
+    store = tmp / "celldiff_pred.zarr"
+    cfg_path = _cli_config(tmp / "celldiff_predict.yml", {
+        "data": {"init_args": {"data_path": str(plate), "num_workers": 2}},
+        "trainer": {"default_root_dir": str(tmp / "celldiff_predict"), "callbacks": [
+            {"class_path": "viscy_utils.callbacks.HCSPredictionWriter", "init_args": {"output_store": str(store)}}]},
+        "ckpt_path": str(ckpt),
+    }, ROOT / "configs/celldiff_fit.yml")
+    torch.cuda.empty_cache()
+    _zero_counts()
+    t0 = time.perf_counter()
+    cli.main(["predict", "-c", cfg_path])
+    torch.cuda.synchronize()
+    pred_s = time.perf_counter() - t0
+    counts = _counts()
+    windows = CELLDIFF_PREDICT_Z - 8 + 1
+    cfg = load_composed_config(Path(cfg_path))
+    steps = cfg["model"]["init_args"].get("num_sampling_steps", 50)
+    got = open_ome_zarr(store)["B/1/0"]["0"][0]
+    log(f"[celldiff] predict ({steps} Euler steps, {windows} windows of (8, {CELLDIFF_ZYX[1]}, {CELLDIFF_ZYX[2]}) "
+        f"in one batch): "
+        f"{pred_s:.2f} s disk to store (model build and checkpoint load included) = {windows / pred_s:.4f} "
+        f"windows/s, {steps / pred_s:.3f} forwards/s of the batch; store {got.shape}; no kernel of ours "
+        f"({counts}) ({card})")
+    if got.shape != (1, CELLDIFF_PREDICT_Z, *CELLDIFF_ZYX[1:]) or not np.isfinite(got).all() or any(counts.values()):
+        raise AssertionError(f"CELLDiff prediction store {got.shape}, launches {counts}")
+    module = instantiate(dict(cfg["model"], init_args=dict(cfg["model"]["init_args"], device="cuda"))).eval()
+    module.model.load_state_dict(read_checkpoint(ckpt)[1])
+    dm = instantiate(cfg["data"])
+    dm.setup("predict")
+    want = np.zeros_like(got)
+    n = 0
+    with torch.inference_mode():
+        for batch in BatchPrefetcher(dm.predict_dataloader(), torch.device("cuda")):
+            pred = module.predict_step(batch).float().cpu().numpy()
+            for i, (_, _, z) in enumerate(batch["index"]):
+                zs = slice(z, z + pred.shape[2])
+                want[:, zs] = blend_in(want[:, zs], pred[i], zs)
+                n += 1
+    err, rng = float(np.abs(got - want).max()), float(want.max() - want.min())
+    log(f"[celldiff] the store against predict_step on its {n} windows + plain blend_in: max|d|={err:.3e} "
+        f"({err / rng:.2e} of range, bound 1e-6)")
+    if n != windows or not err <= 1e-6 * rng:
+        raise AssertionError("the CELLDiff prediction store disagrees with predict_step")
+
+
+def phase_celldiff(card: str, tmp: Path) -> None:
+    """Phase 15: CELLDiff flow matching (see the module docstring)."""
+    torch.cuda.empty_cache()
+    celldiff_cross_check()
+    batch = celldiff_probe(card)
+    fit_plate, predict_plate = celldiff_plates(tmp, card)
+    root = celldiff_fit(tmp, fit_plate, batch, card)
+    celldiff_predict(tmp, predict_plate, root / "checkpoints/last", card)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is False")
@@ -3497,6 +3927,8 @@ def main() -> None:
     dynaclr = phase_dynaclr(card)
     with tempfile.TemporaryDirectory(prefix="viscy-dynaclr-") as tmp:
         dynaclr_cli = phase_dynaclr_cli(card, Path(tmp))
+    with tempfile.TemporaryDirectory(prefix="viscy-celldiff-") as tmp:
+        phase_celldiff(card, Path(tmp))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")

@@ -115,15 +115,24 @@ bad = sorted(n for n in added if n.split(".")[0] in ("jax", "jaxlib", "flax", "v
                                                     "anndata"))
 print("MODULES", len([n for n in added if n.startswith("viscy_tpu_torch")]))
 print("BAD", bad)
+print("CELLDIFF", sorted(n for n in added if n.startswith(("viscy_tpu_torch.models.celldiff.",
+      "viscy_tpu_torch.models.unet.unet3d", "viscy_tpu_torch.models.components.conv_blocks",
+      "viscy_tpu_torch.apps.dynacell.engine"))))
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=REPO, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
-    lines = dict(line.split(" ", 1) for line in out.stdout.splitlines() if line.startswith(("MODULES", "BAD")))
-    assert int(lines["MODULES"]) >= 66
+    lines = dict(line.split(" ", 1) for line in out.stdout.splitlines()
+                 if line.startswith(("MODULES", "BAD", "CELLDIFF")))
+    assert int(lines["MODULES"]) >= 86
     assert lines["BAD"] == "[]"
+    assert lines["CELLDIFF"] == str([
+        "viscy_tpu_torch.apps.dynacell.engine", "viscy_tpu_torch.models.celldiff.celldiff_net",
+        "viscy_tpu_torch.models.celldiff.paths", "viscy_tpu_torch.models.celldiff.transport",
+        "viscy_tpu_torch.models.celldiff.vit_bottleneck", "viscy_tpu_torch.models.components.conv_blocks",
+        "viscy_tpu_torch.models.unet.unet3d", "viscy_tpu_torch.models.unet.unet3d_base"])
 
 
 def test_cuda_device_raises_without_a_card():

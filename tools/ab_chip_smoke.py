@@ -22,13 +22,22 @@ from pathlib import Path
 
 KEEP = ("[env] nvidia-smi", "per step", "per forward", "time S=", "stage S=", "stages sum",
         "patches/s median", "FOVs/s median", "[profile] one train step", "[profile] one request",
-        "[warp]", "[train] warp", "[done]")
+        "[warp]", "[train] warp", "[dynaclr-cli]", "[celldiff]", "[done]")
+# phases that take the card's name, and those that also take a scratch directory
+CARD_PHASES = ("train", "slice")
+TMP_PHASES = ("dynaclr_cli", "celldiff")
 
 
 def turn_code(phases: list[str]) -> str:
-    calls = [f"cs.phase_{p}(card)" if p in ("train", "slice") else f"cs.phase_{p}()" for p in phases]
-    return "; ".join([
-        "import sys, time, torch",
+    calls = []
+    for p in phases:
+        if p in TMP_PHASES:
+            calls += ["with tempfile.TemporaryDirectory(prefix='ab-') as tmp:",
+                      f"    cs.phase_{p}(card, pathlib.Path(tmp))"]
+        else:
+            calls.append(f"cs.phase_{p}(card)" if p in CARD_PHASES else f"cs.phase_{p}()")
+    return "\n".join([
+        "import pathlib, sys, tempfile, time, torch",
         "sys.path.insert(0, '.')",
         "import chip_smoke as cs",
         "torch.backends.cuda.matmul.allow_tf32 = False",

@@ -1,8 +1,9 @@
 """Cytoland virtual-staining engine (counterpart of
 ``viscy_tpu/apps/cytoland/engine.py``), training and prediction.
 
-``VSUNet`` wraps UNeXt2 (``"UNeXt2"``, the released VSCyto3D architecture)
-or the FCMAE-based UNeXt2 (``"fcmae"`` / ``"UNeXt2_2D"``) with the reference supervised training and validation losses (MixedLoss by
+``VSUNet`` wraps UNeXt2 (``"UNeXt2"``, the released VSCyto3D architecture),
+the FNet3D 3-D U-Net (``"FNet3D"``) or the FCMAE-based UNeXt2 (``"fcmae"`` /
+``"UNeXt2_2D"``) with the reference supervised training and validation losses (MixedLoss by
 default, with the optional bf16 loss inputs; a batch's ``fg_mask`` goes to
 the loss, e.g. ``SpotlightLoss``; stochastic depth in the encoder while
 training), its AdamW + schedule (optionally with
@@ -28,6 +29,7 @@ import torch.nn.functional as F
 from viscy_tpu_torch.apps.cytoland.prediction import rotation_tta_transforms, tiled_forward_yx
 from viscy_tpu_torch.device import resolve_device
 from viscy_tpu_torch.models.unet.fcmae import FullyConvolutionalMAE
+from viscy_tpu_torch.models.unet.unet3d import Unet3d
 from viscy_tpu_torch.models.unet.unext2 import UNeXt2
 from viscy_tpu_torch.ops.ssim import ssim_25d
 from viscy_tpu_torch.training.losses.mixed_loss import MixedLoss
@@ -37,6 +39,7 @@ _logger = logging.getLogger("viscy_tpu_torch")
 
 _UNET_ARCHITECTURE = {
     "UNeXt2": UNeXt2,
+    "FNet3D": Unet3d,
     "fcmae": FullyConvolutionalMAE,
     "UNeXt2_2D": FullyConvolutionalMAE,
 }
@@ -88,9 +91,11 @@ class VSUNet(TrainModule):
     no weight decay (``optax.set_to_zero`` on the JAX side).
     """
 
+    architectures = _UNET_ARCHITECTURE
+
     def __init__(
         self,
-        architecture: Literal["UNeXt2", "fcmae", "UNeXt2_2D"],
+        architecture: Literal["UNeXt2", "FNet3D", "fcmae", "UNeXt2_2D"],
         model_config: dict | None = None,
         loss_function=None,
         lr: float = 1e-3,
@@ -112,9 +117,9 @@ class VSUNet(TrainModule):
         device: str | torch.device = "cuda",
     ) -> None:
         super().__init__()
-        net_class = _UNET_ARCHITECTURE.get(architecture)
+        net_class = self.architectures.get(architecture)
         if net_class is None:
-            raise ValueError(f"Architecture {architecture} not in {list(_UNET_ARCHITECTURE)}")
+            raise ValueError(f"Architecture {architecture} not in {list(self.architectures)}")
         if fov_shard:
             raise NotImplementedError("fov_shard (one FOV across several cards) is not ported")
         if tta_type not in ("mean", "median", "product"):
@@ -304,11 +309,12 @@ class VSUNet(TrainModule):
         reference-compatible ``2**num_blocks`` (the padded extent feeds the
         GRN's global statistics); the tiled path passes ``total_stride``."""
         original = source.shape[2:]
-        padded = _divisible_pad(source, factor or 2**self.model.num_blocks)
+        padded = _divisible_pad(source, factor or 2**self.model.num_blocks,
+                                pad_z=getattr(self.model, "downsamples_z", False))
         return _center_crop_to_shape(self.forward(padded), original)
 
     def _total_stride(self) -> int:
-        return self.model.total_stride
+        return getattr(self.model, "total_stride", None) or 2**self.model.num_blocks
 
     def _full_frame_predict(self, source: torch.Tensor, factor: int | None = None):
         if not self.test_time_augmentations:

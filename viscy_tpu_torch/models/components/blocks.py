@@ -144,16 +144,17 @@ class Conv(nn.Module):
 
 
 class Linear(nn.Module):
-    """Dense parameters ``weight (O, I)`` and ``bias (O,)``."""
+    """Dense parameters ``weight (O, I)`` and ``bias (O,)`` (``None`` with
+    ``bias=False``)."""
 
     def __init__(
-        self, in_dim: int, out_dim: int, generator: torch.Generator, init: Init | None = None
+        self, in_dim: int, out_dim: int, generator: torch.Generator, init: Init | None = None, bias: bool = True
     ) -> None:
         super().__init__()
         self.weight = nn.Parameter(torch.empty((out_dim, in_dim)))
         with torch.no_grad():
             (init or variance_scaling_init(1.0))(self.weight, generator)
-        self.bias = nn.Parameter(torch.zeros(out_dim))
+        self.bias = nn.Parameter(torch.zeros(out_dim)) if bias else None
 
 
 def layer_norm(
@@ -200,8 +201,9 @@ class BatchNorm(nn.Module):
     the last, under torch ``BatchNorm`` state names (``weight``, ``bias``,
     ``running_mean``, ``running_var``, ``num_batches_tracked``).
 
-    In training the batch statistics are float32 with the fast variance
-    ``max(E[x^2] - mu^2, 0)``, the BIASED variance, and the running
+    In training the batch statistics are computed in at least float32 (a
+    float64 input keeps float64, as flax promotes them) with the fast
+    variance ``max(E[x^2] - mu^2, 0)``, the BIASED variance, and the running
     statistics take ``momentum * running + (1 - momentum) * batch`` with
     that biased variance, as flax updates them (torch's own BatchNorm would
     store the unbiased one). In eval the running statistics normalize."""
@@ -218,10 +220,10 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            x32 = x.float()
+            xs = x.to(torch.promote_types(x.dtype, torch.float32))
             axes = tuple(range(x.ndim - 1))
-            mean = x32.mean(dim=axes)
-            var = torch.clamp_min((x32 * x32).mean(dim=axes) - mean * mean, 0.0)
+            mean = xs.mean(dim=axes)
+            var = torch.clamp_min((xs * xs).mean(dim=axes) - mean * mean, 0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)

@@ -1,6 +1,7 @@
 """flax parameter trees -> reference VisCy torch ``state_dict``s (the inverse
-of ``viscy_tpu/training/convert.py``'s ``_FCMAE_RULES``, ``_UNEXT2_RULES``
-and ``_CONTRASTIVE_RULES``, and a bridge for the JAX ``ResNet3dEncoder``).
+of ``viscy_tpu/training/convert.py``'s ``_FCMAE_RULES``, ``_UNEXT2_RULES``,
+``_CONTRASTIVE_RULES`` and its 3-D U-Net and ViT-bottleneck rules, and a
+bridge for the JAX ``ResNet3dEncoder``).
 
 The port's models carry the reference torch names and layouts, so weights
 cross between the two packages through these bridges one way and
@@ -10,7 +11,11 @@ port's own copy.
 Layout transposes (flax -> torch):
 
 - Conv2d ``(kh, kw, I, O)``      -> ``(O, I, kh, kw)`` (depthwise included)
-- Conv3d ``(kd, kh, kw, I, O)``  -> ``(O, I, kd, kh, kw)``
+- Conv3d ``(kd, kh, kw, I, O)``  -> ``(O, I, kd, kh, kw)``; a
+  ``ConvTranspose(transpose_kernel=True)`` ``(kd, kh, kw, O, I)`` -> torch's
+  ``(I, O, kd, kh, kw)`` by the same transpose
+- the ViT's patch-embedding Dense ``(p^3 C, E)`` (rows laid out ``(pz, py,
+  px, c)``) -> Conv3d ``(E, C, p, p, p)``
 - Dense ``(I, O)``               -> Linear ``(O, I)``, or ``(O, I, 1, 1)``
   for the decoder's 1x1-conv MLP
 - LayerNorm / BatchNorm scale/bias -> weight/bias; BatchNorm
@@ -139,6 +144,60 @@ _RESNET3D_RULES: list[Rule] = [
     (r"projection/bn1", "projection.4", None),
 ]
 
+
+def _unet3d_rules() -> list[Rule]:
+    """``UNet3DBase`` (flax ``unet/...``) -> the reference torch names; the
+    norms are the flax ``Norm`` wrapper's child (group or batch)."""
+
+    def block(src: str, dst: str) -> list[Rule]:
+        norm = r"/(?:GroupNorm_0|BatchNorm_0)"
+        return [
+            (rf"{src}/conv0", f"{dst}.block1.proj", _conv3d),
+            (rf"{src}/norm0{norm}", f"{dst}.block1.norm", None),
+            (rf"{src}/conv1", f"{dst}.block2.proj", _conv3d),
+            (rf"{src}/norm1{norm}", f"{dst}.block2.norm", None),
+            (rf"{src}/time_proj", f"{dst}.mlp.1", _linear),
+            (rf"{src}/res_proj", f"{dst}.res_conv", _conv3d),
+        ]
+
+    return [
+        (r"unet/inconv", "inconv", _conv3d),
+        (r"unet/cond_inconv", "_cond_inconv", _conv3d),
+        (r"unet/time_embedder/fc0", "_time_embedder.mlp.0", _linear),
+        (r"unet/time_embedder/fc1", "_time_embedder.mlp.2", _linear),
+        *block(r"unet/enc(\d+)_(\d+)", "_encoder_blocks.{0}.{1}"),
+        (r"unet/down(\d+)", "_downsamples.{0}", _conv3d),
+        *block(r"unet/dec(\d+)_(\d+)", "_decoder_blocks.{0}.{1}"),
+        # the transposed kernel (k..., O, I) takes the conv's transpose to (I, O, k...)
+        (r"unet/up(\d+)", "_upsamples.{0}", _conv3d),
+        *block(r"unet/bottleneck/block", "bottleneck.block"),
+        (r"unet/outconv", "outconv", _conv3d),
+    ]
+
+
+def _vit_rules(patch_size: int) -> list[Rule]:
+    """``ViTBottleneck3D`` (flax ``unet/bottleneck/...``) -> the reference
+    torch names."""
+
+    def patch(w: np.ndarray) -> np.ndarray:
+        e = w.shape[1]
+        return np.transpose(w.reshape(patch_size, patch_size, patch_size, -1, e), (4, 3, 0, 1, 2))
+
+    b, t = r"unet/bottleneck/block(\d+)", "bottleneck.blocks.{0}"
+    return [
+        (r"unet/bottleneck/patch_embed", "bottleneck.img_embedding.proj", patch),
+        (rf"{b}/attn/attn_q", f"{t}.attn.to_q", _linear),
+        (rf"{b}/attn/attn_k", f"{t}.attn.to_k", _linear),
+        (rf"{b}/attn/attn_v", f"{t}.attn.to_v", _linear),
+        (rf"{b}/attn/attn_out", f"{t}.attn.to_out.0", _linear),
+        (rf"{b}/ff/ff_proj", f"{t}.ff.net.0.proj", _linear),
+        (rf"{b}/ff/ff_out", f"{t}.ff.net.2", _linear),
+        (rf"{b}/adaLN", f"{t}.adaLN.1", _linear),
+        (r"unet/bottleneck/final_proj", "bottleneck.proj_out.linear", _linear),
+        (r"unet/bottleneck/final_adaLN", "bottleneck.proj_out.adaLN.1", _linear),
+    ]
+
+
 # bare parameter leaves: (flax leaf path regex, torch key template): the
 # head's PReLU slope and the ConvNeXt-v1 layer scale
 _PRELU = (r"head/conv0_prelu", "head.conv.0.adn.A.weight")
@@ -259,23 +318,56 @@ def resnet3d_state_dict_from_flax(
     return out
 
 
+def celldiff_state_dict_from_flax(params: dict[str, Any], patch_size: int = 4) -> dict[str, torch.Tensor]:
+    """Map a ``CELLDiffNet`` or ``UNetViT3D`` flax ``params`` tree (the 3-D
+    U-Net base with group norms and the ViT bottleneck of ``patch_size``)
+    to a float32 ``state_dict`` under the reference torch names. The
+    reference's fixed ``_time_embedder.freqs`` and ``img_pos_embed`` buffers
+    are not produced: the port recomputes them, as the JAX package does."""
+    return _bridge(params, _vit_rules(patch_size) + _unet3d_rules(), [], "CELLDiff")
+
+
+def unet3d_state_dict_from_flax(
+    params: dict[str, Any], batch_stats: dict[str, Any] | None = None
+) -> dict[str, torch.Tensor]:
+    """Map a ``Unet3d`` (FNet3D) flax ``params`` tree, and its
+    ``batch_stats`` (the BatchNorms' means and variances) when given, to a
+    float32 ``state_dict`` under the reference torch names
+    (``num_batches_tracked`` has no flax counterpart and is not produced)."""
+    out = _bridge(params, _unet3d_rules(), [], "Unet3d")
+    if batch_stats:
+        out.update(_bridge(batch_stats, _unet3d_rules(), [], "Unet3d", stats=True))
+    return out
+
+
 def state_dict_from_flax(
     model: nn.Module, params: dict[str, Any], batch_stats: dict[str, Any] | None = None
 ) -> dict[str, torch.Tensor]:
-    """The bridge of ``model``'s type applied to a flax tree."""
+    """The bridge of ``model``'s type applied to a flax tree; ``TypeError``
+    naming the type when no bridge maps it."""
+    from viscy_tpu_torch.models.celldiff.vit_bottleneck import ViTBottleneck3D
     from viscy_tpu_torch.models.contrastive.encoder import ContrastiveEncoder
     from viscy_tpu_torch.models.contrastive.resnet3d import ResNet3dEncoder
+    from viscy_tpu_torch.models.unet.fcmae import FullyConvolutionalMAE
+    from viscy_tpu_torch.models.unet.unet3d import Unet3d
+    from viscy_tpu_torch.models.unet.unet3d_base import UNet3DBase
     from viscy_tpu_torch.models.unet.unext2 import UNeXt2
 
     if isinstance(model, ContrastiveEncoder):
         return contrastive_state_dict_from_flax(params, batch_stats)
     if isinstance(model, ResNet3dEncoder):
         return resnet3d_state_dict_from_flax(params, batch_stats)
+    if isinstance(model, Unet3d):
+        return unet3d_state_dict_from_flax(params, batch_stats)
     if batch_stats:
         raise ValueError(f"{type(model).__name__} has no batch statistics")
+    if isinstance(model, UNet3DBase) and isinstance(model.bottleneck, ViTBottleneck3D):
+        return celldiff_state_dict_from_flax(params, model.bottleneck.patch_size)
     if isinstance(model, UNeXt2):
         return unext2_state_dict_from_flax(params)
-    return fcmae_state_dict_from_flax(params)
+    if isinstance(model, FullyConvolutionalMAE):
+        return fcmae_state_dict_from_flax(params)
+    raise TypeError(f"no flax -> torch bridge for a {type(model).__name__}")
 
 
 def load_flax_params(model: nn.Module, params: dict[str, Any], batch_stats: dict[str, Any] | None = None) -> None:

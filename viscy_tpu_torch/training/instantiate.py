@@ -3,7 +3,7 @@
 
 A dict ``{"class_path": "pkg.mod.Cls", "init_args": {...}}`` is imported
 and constructed, recursively. Class paths of the reference packages
-(``viscy_*``, ``cytoland``, ``dynaclr``, Lightning's callbacks) and of the JAX package
+(``viscy_*``, ``cytoland``, ``dynaclr``, ``dynacell``, Lightning's callbacks) and of the JAX package
 (``viscy_tpu.*``) are remapped to this package before anything is
 imported, so the JAX configs run unchanged and ``viscy_tpu`` is never
 imported. A class the port lacks raises an ``ImportError`` naming it.
@@ -28,6 +28,8 @@ _MODULE_ALIASES: dict[str, str] = {
     "cytoland": "viscy_tpu_torch.apps.cytoland",
     "dynaclr.engine": "viscy_tpu_torch.apps.dynaclr.engine",
     "dynaclr": "viscy_tpu_torch.apps.dynaclr",
+    "dynacell.engine": "viscy_tpu_torch.apps.dynacell.engine",
+    "dynacell": "viscy_tpu_torch.apps.dynacell",
     "lightning.pytorch.callbacks": "viscy_tpu_torch.training.callbacks",
     "viscy.transforms": "viscy_tpu_torch.transforms",
     "viscy.data": "viscy_tpu_torch.data",
