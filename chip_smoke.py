@@ -256,8 +256,65 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
            the two windows (one batch): windows/s and forwards/s disk to
            store; the store's shape, finiteness and agreement with
            ``predict_step`` on the same windows, blended (<= 1e-6 of range).
+16. legacy the legacy U-Nets, ``VSUNet("2.5D")`` (depth 5 -> 1) and
+           ``VSUNet("2D")`` at the JAX defaults (filters 16-256 over 4 blocks,
+           2 layers a block, dropout 0.2, 1 -> 2 channels, task reg). No
+           fused kernel runs in them (cuDNN convs, BatchNorm). (a) f32, card
+           against CPU on the same weights at (2, 1, 5 | 1, 256, 256): the
+           eval forward, then one train step (the recipe's MixedLoss, dropout
+           on the same keep masks drawn on the CPU, train-mode BatchNorm):
+           the loss, every gradient and every running statistic (<= 2e-3 of
+           range, r > 0.9999). (b) For each: ``fit -c configs/vscyto3d_fit.yml``
+           with the model replaced, ``z_window_size`` the model's depth and
+           ``target_2d``, one epoch of 3 steps and 1 validation batch on
+           phase 9's plate (patches/s, the loader-wait share, peak memory),
+           then ``predict -c configs/vscyto3d_predict.yml`` from ``last`` on a
+           seeded (1, 1, 7, 1024, 1024) plate (windows/s, the store's written
+           slices: a depth-1 output at each window's centre); the warp's
+           launches only; the warp kernel as the fit's affine calls it
+           (depth 5 and 1, (16, 1+2, *, 384, 384)) against its plain version;
+           the device busy share of one profiled 2.5-D train step.
+17. gan   ``DynacellGAN``: the FCMAE generator of ``configs/vscyto3d_fit.yml``
+           (dims 96-768, bf16), the default multiscale spectral-norm
+           PatchGAN3D (base 64, 4 layers, 2 scales, f32), R1, R2, LeCam and the
+           EMA on. (a) f32 (drop path 0), card against CPU at (1, 15, 128,
+           128): the generator's and discriminator's forwards, one step's loss
+           and every generator and discriminator gradient, then the ``u`` and
+           ``sigma`` vectors, ``gan_state`` and the EMA generator after it.
+           (b) One batch-2 step at (15, 384, 384): peak memory, which sets the
+           fit's batch (16, or the largest of 8, 4, 2 that fits, with
+           accumulation to 16), its time and device busy share. (c) ``fit -c
+           configs/vscyto3d_fit.yml`` with the model replaced by the GAN, 3
+           updates and 1 validation batch on phase 9's plate (patches/s, the
+           loader-wait share, peak memory, launch counts), ``predict -c
+           configs/vscyto3d_predict.yml`` from ``last`` with the EMA generator
+           on a seeded (1, 1, 16, 1024, 1024) plate. (d) The warp as the fit's
+           affine calls it, and the fused kernels at the generator's train
+           shapes (the fit's batch, 384^2, forward and backward) and predict
+           shapes (B = 2, 1024^2) against their plain versions.
+18. vae   ``BetaVae25D`` and ``BetaVaeModule`` (convnext_tiny, 2 channels,
+           depth 16, latent 1024, 256^2; every decoder stage a ConvNeXt-v2
+           stage of the fused kernels at C = 384, 192, 96 and 288). The
+           defaults reconstruct at twice the input's YX, so training runs
+           with a (2, 8, 8) stem (ROADMAP.md Queue 3). (a) The fused forward
+           and backward kernels at the decoder's shapes of the default and
+           the trained model (batch 32) against their plain versions, and
+           their times per train step beside the plain versions and the
+           bounds. (b) f32, card against CPU at (2, 2, 16, 128, 128): the
+           default model's eval forward; one ``BetaVaeModule`` step of the
+           ``convnextv2_tiny`` model (fused kernels in the encoder too) on
+           the same latent noise: the ELBO and every gradient. (c) ``fit -c
+           configs/dynaclr_fit.yml`` with the model replaced (windows 16
+           deep, 256^2 after the crop) on phase 14's plate and tracks, 3
+           steps and 1 validation batch (cells/s, loader-wait share, peak
+           memory, launch counts), ``predict -c configs/dynaclr_predict.yml``
+           from ``last`` through the ``EmbeddingWriter`` (cells/s; features
+           the mean, projections equal to it in eval); the device busy share
+           of one profiled train step.
 
-The last two lines are a JSON ``kernels`` record and the JSON result line.
+Phases 16 and 17 run after phase 12, on phase 9's plate; phase 18 after
+phase 14, on its plate and tracks. The last two lines are a JSON
+``kernels`` record and the JSON result line.
 Needs ``torch.cuda.is_available()`` and the repo's ``viscy_tpu_torch``
 beside this file. Imports nothing of JAX or ``viscy_tpu``.
 """
@@ -2586,12 +2643,12 @@ def pretrain_fit(card: str, tmp: Path, plate: Path, cfg: dict) -> dict:
     return dict(counts=counts, ckpt=ckpt)
 
 
-def finetune_warp(aug_cfg: list) -> float:
-    """The warp kernel as the fine-tune's affine member calls it at depth 1
-    ((32, 1 + 2, 1, 256, 256) in == out, the member's apply mask): the
-    member's call on a seeded batch is caught and the kernel held against
-    its plain version on those arguments (:func:`check_warp`). Returns
-    max|d|."""
+def member_warp(prefix: str, what: str, aug_cfg: list, batch: int, shape: tuple, seed: int) -> float:
+    """The warp kernel as an augmentation list's affine member calls it on
+    a seeded (``batch``, 1 + 2, *``shape``) batch (source and target keys,
+    in == out, the member's apply mask): the member's call is caught and the
+    kernel held against its plain version on those arguments
+    (:func:`check_warp`). Returns max|d|."""
     from viscy_tpu_torch.training.instantiate import instantiate
     from viscy_tpu_torch.transforms import Compose
     from viscy_tpu_torch.transforms import affine as taffine
@@ -2601,19 +2658,26 @@ def finetune_warp(aug_cfg: list) -> float:
     orig = taffine.affine_warp_3d_keys
     taffine.affine_warp_3d_keys = lambda *a, **k: calls.append((a, k)) or orig(*a, **k)
     try:
-        g = torch.Generator(device="cuda").manual_seed(91)
-        shape = (1, PRETRAIN_YX, PRETRAIN_YX)
-        compose({"source": torch.rand((PRETRAIN_BATCH, 1, *shape), generator=g, device="cuda"),
-                 "target": torch.rand((PRETRAIN_BATCH, 2, *shape), generator=g, device="cuda")}, g)
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        compose({"source": torch.rand((batch, 1, *shape), generator=g, device="cuda"),
+                 "target": torch.rand((batch, 2, *shape), generator=g, device="cuda")}, g)
     finally:
         taffine.affine_warp_3d_keys = orig
     (args, kwargs), = calls
     vols, mats, out_shape, mode, offset, flips = args
     mask = kwargs.get("apply_mask")
-    applied = PRETRAIN_BATCH if mask is None else int(mask.sum())
-    return check_warp(f"[pretrain] warp kernel as the fine-tune's affine calls it at depth 1 "
-                      f"({PRETRAIN_BATCH}, 1+2, {', '.join(map(str, out_shape))}), {applied} of {PRETRAIN_BATCH} "
-                      f"samples applied", vols, mats, vols[0].shape[-3:], out_shape, mode, offset, flips, mask)
+    applied = batch if mask is None else int(mask.sum())
+    return check_warp(f"[{prefix}] warp kernel as {what} ({batch}, 1+2, {', '.join(map(str, out_shape))}), "
+                      f"{applied} of {batch} samples applied", vols, mats, vols[0].shape[-3:], out_shape, mode,
+                      offset, flips, mask)
+
+
+def finetune_warp(aug_cfg: list) -> float:
+    """The warp kernel as the fine-tune's affine member calls it at depth 1
+    ((32, 1 + 2, 1, 256, 256) in == out, the member's apply mask) against
+    its plain version (:func:`member_warp`). Returns max|d|."""
+    return member_warp("pretrain", "the fine-tune's affine calls it at depth 1", aug_cfg, PRETRAIN_BATCH,
+                       (1, PRETRAIN_YX, PRETRAIN_YX), 91)
 
 
 def chain_pretrain(card: str, tmp: Path, plate: Path, shipped_ckpt: Path) -> dict:
@@ -3514,9 +3578,8 @@ def phase_dynaclr_cli(card: str, tmp: Path) -> dict:
     del trainer
     torch.cuda.empty_cache()
     store = dynaclr_predict(tmp, plate, tracks, root / "checkpoints/last", card)
-    shutil.rmtree(plate)
     shutil.rmtree(store)
-    return dict(warp_launches=counts["warp"], warp_err=err)
+    return dict(warp_launches=counts["warp"], warp_err=err, plate=plate, tracks=tracks)
 
 
 def celldiff_module(device: str):
@@ -3549,11 +3612,11 @@ def _xcheck_engines(build, seed: int):
 
 
 def _xcheck_step(tag: str, on_card, on_cpu, batch: dict, loss_fn, zero: dict, stats: bool = False,
-                 grads: bool = True) -> None:
+                 grads: bool = True, phase: str = "celldiff") -> None:
     """One train-mode loss + backward on both copies: the loss within 2e-3
     relative; with ``grads`` every gradient as ``_compare_grads``; with
     ``stats`` every BatchNorm running statistic after the step (<= 2e-3 of
-    range, r > 0.9999)."""
+    range, r > 0.9999). Logged under ``[phase]``."""
     losses = []
     for module, dev in ((on_card, "cuda"), (on_cpu, "cpu")):
         module.train()
@@ -3577,7 +3640,7 @@ def _xcheck_step(tag: str, on_card, on_cpu, batch: dict, loss_fn, zero: dict, st
         if not keys or bad:
             raise AssertionError(f"{tag}: running statistics disagree: {bad}")
         note += f"; {len(keys)} running statistics after it worst {max(v[1] for v in errs.values()):.2e} of range"
-    log(f"[celldiff] {tag}: {note} (CPU {cpu_s:.1f} s)")
+    log(f"[{phase}] {tag}: {note} (CPU {cpu_s:.1f} s)")
 
 
 def celldiff_cross_check() -> None:
@@ -3632,7 +3695,8 @@ def celldiff_cross_check() -> None:
     torch.cuda.empty_cache()
 
 
-def _grads_against_f64(tag: str, on_card, on_cpu, cpu64, batch: dict, loss_fn, zero: dict) -> None:
+def _grads_against_f64(tag: str, on_card, on_cpu, cpu64, batch: dict, loss_fn, zero: dict, phase: str = "celldiff",
+                       part=lambda module: module, no_cudnn_yardstick: bool = False) -> None:
     """The f32 gradients of one train-mode step on the card and on the CPU
     (taken by ``_xcheck_step``) against the same step's f64 ones on the CPU
     (``cpu64``, taken too). Every gradient's Pearson r > 0.9999, and all of
@@ -3643,12 +3707,20 @@ def _grads_against_f64(tag: str, on_card, on_cpu, cpu64, batch: dict, loss_fn, z
     of a deep level behind a train-mode BatchNorm), so no per-gradient
     range bound holds f32 there. The same step on the card with TF32
     allowed must fail the bound, or it could not tell a lower precision
-    from f32."""
-    ref = {n: p.grad for n, p in cpu64.named_parameters()}
+    from f32. ``part`` picks the submodule whose gradients are held (the
+    whole engine by default); lines are logged under ``[phase]``. With
+    ``no_cudnn_yardstick`` the f32 error the bound is four times is the
+    larger of two independent f32 implementations' (the CPU's, and the
+    card's own CUDA convolutions with cuDNN off): one step's f32 error is a
+    single draw of rounding noise, which for the legacy 2-D U-Net varies
+    from 3.3e-4 to 1.4e-3 with the inputs on the CPU alone
+    (``tools/fnet3d_grad_precision.py --arch 2D`` on an NVIDIA H100 80GB
+    HBM3 at 700 W)."""
+    ref = {n: p.grad for n, p in part(cpu64).named_parameters()}
     names = [n for n in ref if n not in zero]
 
     def errors(module) -> tuple[float, tuple, tuple]:
-        grads = {n: p.grad.cpu().double() for n, p in module.named_parameters()}
+        grads = {n: p.grad.cpu().double() for n, p in part(module).named_parameters()}
         for name, weight in zero.items():
             ratio = float(grads[name].abs().max() / grads[weight].abs().max())
             if not ratio < 1e-3:
@@ -3661,7 +3733,19 @@ def _grads_against_f64(tag: str, on_card, on_cpu, cpu64, batch: dict, loss_fn, z
         return total, of_range, low_r
 
     card, cpu = errors(on_card), errors(on_cpu)
-    bound = 4 * cpu[0]
+    yardstick, what = cpu[0], "the CPU's"
+    if no_cudnn_yardstick:
+        on_card.zero_grad(set_to_none=True)
+        torch.backends.cudnn.enabled = False
+        try:
+            loss_fn(on_card, {k: v.cuda() for k, v in batch.items()}).backward()
+        finally:
+            torch.backends.cudnn.enabled = True
+        plain = errors(on_card)
+        if plain[0] > yardstick:
+            yardstick, what = plain[0], "the card's without cuDNN"
+        what += f" (the card's without cuDNN {plain[0]:.3e})"
+    bound = 4 * yardstick
     on_card.zero_grad(set_to_none=True)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
     try:
@@ -3671,8 +3755,8 @@ def _grads_against_f64(tag: str, on_card, on_cpu, cpu64, batch: dict, loss_fn, z
     tf32 = errors(on_card)
     note = lambda e: (f"||d||/||f64|| {e[0]:.3e}, lowest r {e[2][1]} {e[2][0]:.8f}, worst of range {e[1][1]} "
                       f"{e[1][0]:.2e}")
-    log(f"[celldiff] {tag}: {len(names)} f32 gradients against the CPU's f64: card {note(card)}; the CPU's own f32 "
-        f"{note(cpu)}; bound r > 0.9999 and ||d||/||f64|| <= 4x the CPU's = {bound:.3e}; the card with TF32 "
+    log(f"[{phase}] {tag}: {len(names)} f32 gradients against the CPU's f64: card {note(card)}; the CPU's own f32 "
+        f"{note(cpu)}; bound r > 0.9999 and ||d||/||f64|| <= 4x {what} = {bound:.3e}; the card with TF32 "
         f"allowed (must fail it) {note(tf32)}; {len(zero)} conv biases 0 up to rounding")
     if not (card[0] <= bound and card[2][0] > 0.9999):
         raise AssertionError(f"{tag}: the card's f32 gradients disagree with the f64 step")
@@ -3900,6 +3984,779 @@ def phase_celldiff(card: str, tmp: Path) -> None:
     celldiff_predict(tmp, predict_plate, root / "checkpoints/last", card)
 
 
+# -- phase 16: the legacy U-Nets ----------------------------------------------------------------
+
+
+# the JAX defaults (filters 16 * 2**i over 4 blocks, 2 layers a block, dropout 0.2)
+LEGACY = {"2.5D": dict(in_channels=1, out_channels=2, in_stack_depth=5, out_stack_depth=1, task="reg"),
+          "2D": dict(in_channels=1, out_channels=2, task="reg")}
+LEGACY_XCHECK_YX = 256
+LEGACY_VAL = 1
+LEGACY_PREDICT_ZYX = (7, 1024, 1024)
+
+
+def legacy_engine(arch: str, device: str):
+    """``VSUNet(arch)`` at the JAX defaults with the recipe's loss
+    (``MixedLoss(0.5, 0, 0.5)``)."""
+    from viscy_tpu_torch.apps.cytoland.engine import VSUNet
+    from viscy_tpu_torch.training.losses.mixed_loss import MixedLoss
+
+    return VSUNet(arch, dict(LEGACY[arch]), loss_function=MixedLoss(l1_alpha=0.5, l2_alpha=0.0, ms_dssim_alpha=0.5),
+                  device=device)
+
+
+def _dropout_replay():
+    """A train-mode loss function for ``_xcheck_step`` whose first call (the
+    card's) draws the conv blocks' dropout keep masks from a CPU generator
+    and whose second (the CPU's) replays them; and a function that restores
+    the blocks' dropout."""
+    from viscy_tpu_torch.models.components import conv_blocks as cb
+
+    orig, masks, g = cb.dropout, [], torch.Generator().manual_seed(1600)
+    state = {"replay": False, "i": 0}
+
+    def dropout(x, rate, generator=None, keep=None):
+        if state["replay"]:
+            keep = masks[state["i"]]
+            state["i"] += 1
+        else:
+            keep = torch.rand(x.shape, generator=g) < 1.0 - rate
+            masks.append(keep)
+        return orig(x, rate, None, keep.to(x.device))
+
+    def loss_fn(module, batch):
+        try:
+            return module.training_loss(batch)
+        finally:
+            state["replay"], state["i"] = True, 0
+
+    cb.dropout = dropout
+    return loss_fn, lambda: setattr(cb, "dropout", orig)
+
+
+def legacy_cross_check() -> None:
+    """Phase 16 (a): f32 (TF32 off), card against CPU on the same weights:
+    the eval forward of both legacy U-Nets on two seeded 256^2 windows; then
+    one train step each (L1 + L2, dropout 0.2 on the same keep masks, drawn
+    on the CPU, train-mode BatchNorm): the f32 loss and every running
+    statistic after it, the step in f64 on the card and the CPU (every
+    gradient), and the f32 gradients against the f64 step as phase 15 holds
+    FNet3D's (at this init single gradients behind train-mode BatchNorms
+    are exact to about 2e-3 of range in f32: a first-block bias of the
+    2.5-D model differed by 2.35e-3 of range, r 0.99998627, card against
+    CPU on an NVIDIA H100 80GB HBM3 at 700 W)."""
+    from viscy_tpu_torch.apps.cytoland.engine import VSUNet
+    from viscy_tpu_torch.training.losses.mixed_loss import MixedLoss
+
+    g = torch.Generator().manual_seed(1601)
+    for arch, cfg in LEGACY.items():
+        depth = cfg.get("in_stack_depth", 1)
+        shape = (2, 1, depth, LEGACY_XCHECK_YX, LEGACY_XCHECK_YX)
+        batch = {"source": torch.rand(shape, generator=g),
+                 "target": torch.rand((2, 2, cfg.get("out_stack_depth", 1), *shape[-2:]), generator=g)}
+        build = lambda dev: VSUNet(arch, dict(cfg), loss_function=MixedLoss(l1_alpha=0.5, l2_alpha=0.5,  # noqa: E731
+                                                                             ms_dssim_alpha=0.0), device=dev)
+        on_card, on_cpu = _xcheck_engines(build, 1602)
+        state = {k: v.clone() for k, v in on_cpu.model.state_dict().items()}
+        with torch.no_grad():
+            outs = [m.eval()(batch["source"].to(dev)).cpu() for m, dev in ((on_card, "cuda"), (on_cpu, "cpu"))]
+        _, rel, r = compare(*outs)
+        log(f"[legacy] VSUNet('{arch}') f32 eval forward {shape}, card vs CPU: {rel:.2e} of range (bound 2e-3) "
+            f"r={r:.8f}; {sum(p.numel() for p in on_cpu.parameters())} parameters")
+        if not (rel <= 2e-3 and r > 0.9999 and outs[0].shape == batch["target"].shape):
+            raise AssertionError(f"VSUNet('{arch}') forward on the card disagrees with the CPU")
+        loss_fn, restore = _dropout_replay()
+        try:
+            tag = f"VSUNet('{arch}') step (dropout 0.2, batch statistics) at {shape}"
+            _xcheck_step(f"{tag}, f32", on_card, on_cpu, batch, loss_fn, {}, stats=True, grads=False, phase="legacy")
+            card64, cpu64 = build("cuda"), build("cpu")
+            for m in (card64, cpu64):
+                m.model.load_state_dict(state)
+                m.double()
+            _xcheck_step(f"{tag}, f64", card64, cpu64, {k: v.double() for k, v in batch.items()}, loss_fn, {},
+                         phase="legacy")
+            _grads_against_f64(f"VSUNet('{arch}')", on_card, on_cpu, cpu64, batch, loss_fn, {}, phase="legacy",
+                               no_cudnn_yardstick=True)
+        finally:
+            restore()
+        del on_card, on_cpu, card64, cpu64
+    torch.cuda.empty_cache()
+
+
+def busy_share(prefix: str, tag: str, step) -> None:
+    """Wall time and device busy time (torch.profiler) of one call of
+    ``step`` after a warm-up call, and the busy share; the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        log(f"[{prefix}] {tag}: torch.profiler recorded no device time: busy share not measured")
+        return
+    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    log(f"[{prefix}] {tag}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms ({busy_ms / wall_ms:.1%} of wall) "
+        f"over {sum(e.count for e in events)} kernels")
+    for e in events[:6]:
+        log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<4d} {e.key[:100]}")
+
+
+def _engine_step(module, batch: dict, generator=None):
+    """One optimizer step of ``module`` on ``batch`` (forward, backward,
+    AdamW), as a function; the optimizer is the engine's own."""
+    opt, _, _ = module.configure_optimizers(100)
+
+    def step():
+        module.zero_grad(set_to_none=True)
+        module.training_loss(batch, generator).backward()
+        opt.step()
+
+    return step
+
+
+def _composed(tmp: Path, name: str, out: str, model: dict, edit) -> str:
+    """``configs/<name>`` composed, its model node replaced by ``model``
+    (not merged: the shipped model's keys do not apply), ``edit``-ed and
+    written standalone to ``tmp/<out>``."""
+    import yaml
+
+    from viscy_tpu_torch.training.compose import load_composed_config
+
+    cfg = load_composed_config(ROOT / "configs" / name)
+    cfg["model"] = model
+    edit(cfg)
+    path = tmp / out
+    path.write_text(yaml.safe_dump(cfg))
+    return str(path)
+
+
+def _predict_plate(tmp: Path, name: str, zyx: tuple, row: str, seed: int) -> Path:
+    """A seeded one-FOV Phase3D plate, ``preprocess``-ed."""
+    from viscy_tpu_torch.training import cli
+    from viscy_tpu_torch.zarr_io.synthetic import build_hcs_plate
+
+    plate = build_hcs_plate(tmp / f"{name}.zarr", CLI_CHANNELS[:1], zyx_shape=zyx, num_timepoints=1, rows=(row,),
+                            cols=("1",), fovs=("0",), seed=seed)
+    cli.main(["preprocess", "-c", _cli_config(tmp / f"pp_{name}.yml", {"data_path": str(plate), "num_workers": 8})])
+    return plate
+
+
+def legacy_cli(card: str, tmp: Path, plate: Path, arch: str) -> dict:
+    """Phase 16 (b): ``viscy-torch fit -c configs/vscyto3d_fit.yml`` with the
+    model replaced by ``VSUNet(arch)`` at the JAX defaults, ``z_window_size``
+    the model's depth and ``target_2d`` (the host crop that deep), one epoch
+    of 3 steps and 1 validation batch on phase 9's plate; then ``predict``
+    from ``last`` on a seeded (1, 1, 7, 1024, 1024) plate: launch counts (the
+    warp's only), finite losses, the store's written slices (a depth-1
+    output at each window's centre). Returns the launch counts."""
+    from viscy_tpu_torch.training import cli
+    from viscy_tpu_torch.zarr_io.store import open_ome_zarr
+
+    depth = LEGACY[arch].get("in_stack_depth", 1)
+    model = {"class_path": "cytoland.engine.VSUNet",
+             "init_args": {"architecture": arch, "model_config": dict(LEGACY[arch]), "lr": 1e-3,
+                           "loss_function": {"class_path": "viscy_utils.losses.MixedLoss",
+                                             "init_args": {"l1_alpha": 0.5, "l2_alpha": 0.0, "ms_dssim_alpha": 0.5}}}}
+    name = arch.replace(".", "")
+    root = tmp / f"legacy_{name}"
+
+    def fit_edit(cfg):
+        init = cfg["data"]["init_args"]
+        init.update(data_path=str(plate), num_workers=8, z_window_size=depth, target_2d=True)
+        for aug in init["augmentations"]:
+            if aug["class_path"].endswith("HostRandWeightedCropd"):
+                aug["init_args"]["spatial_size"][0] = depth
+        cfg["trainer"].update(default_root_dir=str(root), max_epochs=1, limit_train_batches=FIT_STEPS,
+                              limit_val_batches=LEGACY_VAL, log_every_n_steps=1)
+
+    pred_plate = _predict_plate(tmp, f"legacy_predict_{name}", LEGACY_PREDICT_ZYX, "D", 16)
+    store = tmp / f"legacy_{name}_prediction.zarr"
+
+    def pred_edit(cfg):
+        cfg["data"]["init_args"].update(data_path=str(pred_plate), num_workers=8, z_window_size=depth)
+        cfg["trainer"]["callbacks"][0]["init_args"].update(output_store=str(store))
+        cfg.pop("ckpt_path", None)
+
+    fit_cfg = _composed(tmp, "vscyto3d_fit.yml", f"legacy_{name}_fit.yml", model, fit_edit)
+    pred_cfg = _composed(tmp, "vscyto3d_predict.yml", f"legacy_{name}_predict.yml",
+                         {"class_path": model["class_path"],
+                          "init_args": {"architecture": arch, "model_config": dict(LEGACY[arch])}}, pred_edit)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    trainer = cli.main(["fit", "-c", fit_cfg])
+    fit_counts = _counts()
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    _zero_counts()
+    t0 = time.perf_counter()
+    cli.main(["predict", "-c", pred_cfg, "--ckpt_path", str(root / "checkpoints/last")])
+    pred_counts = _counts()
+    pred_s = time.perf_counter() - t0
+    feed = trainer.feed_stats
+    val = trainer.logged_metrics.get("loss/validate")
+    out = open_ome_zarr(store)["D/1/0"]["0"][:]
+    windows = LEGACY_PREDICT_ZYX[0] - depth + 1
+    written = [z for z in range(out.shape[2]) if np.abs(out[0, :, z]).max() > 0]
+    want_written = list(range(depth // 2, depth // 2 + windows))
+    want_fit = dict(fwd=0, bwd=0, masked_fwd=0, masked_bwd=0, warp=FIT_STEPS)
+    if (fit_counts != want_fit or any(pred_counts.values()) or feed["steps"] != FIT_STEPS or val is None
+            or not math.isfinite(val) or out.shape[:2] != (1, 2) or written != want_written
+            or not np.isfinite(out).all()):
+        raise AssertionError(f"legacy {arch} cli: fit launches {fit_counts} (expected {want_fit}), predict "
+                             f"{pred_counts}, loss/validate {val}, store {out.shape} written at {written}")
+    log(f"[legacy] viscy-torch fit (configs/vscyto3d_fit.yml with VSUNet('{arch}') at the JAX defaults, "
+        f"z_window_size {depth}, target_2d): {fit_s:.1f} s in all, train loop {feed['seconds']:.2f} s for "
+        f"{FIT_STEPS} steps = {FIT_STEPS * TRAIN_BATCH / feed['seconds']:.2f} patches/s (first step included), "
+        f"waited {feed['wait_s'] / feed['seconds']:.1%} of the loop; peak memory {peak / 2**30:.2f} GiB; "
+        f"loss/validate {val:.5f}; predict {windows} windows of (1, {depth}, {LEGACY_PREDICT_ZYX[1]}, "
+        f"{LEGACY_PREDICT_ZYX[2]}) {pred_s:.2f} s = {windows / pred_s:.3f} windows/s disk to store, slices "
+        f"{written} written, finite; launches fit {fit_counts}, predict {pred_counts} ({card})")
+    aug = load_composed_config_node("vscyto3d_fit.yml", "data")["init_args"]["augmentations"][1:]
+    err = member_warp("legacy", f"the {arch} fit's affine calls it at depth {depth}", aug, TRAIN_BATCH,
+                      (depth, *TRAIN_PATCH[1:]), 1602)
+    if arch == "2.5D":
+        module = legacy_engine(arch, "cuda").train()
+        g = torch.Generator(device="cuda").manual_seed(1603)
+        batch = {"source": torch.rand((TRAIN_BATCH, 1, depth, *TRAIN_PATCH[1:]), generator=g, device="cuda"),
+                 "target": torch.rand((TRAIN_BATCH, 2, 1, *TRAIN_PATCH[1:]), generator=g, device="cuda")}
+        busy_share("legacy", f"one VSUNet('{arch}') train step at batch {TRAIN_BATCH} of (1, {depth}, "
+                   f"{TRAIN_PATCH[1]}, {TRAIN_PATCH[2]})",
+                   _engine_step(module, batch, g))
+        del module, batch
+    shutil.rmtree(store)
+    shutil.rmtree(pred_plate)
+    del trainer
+    torch.cuda.empty_cache()
+    return dict(fit_counts, warp=fit_counts["warp"] + pred_counts["warp"], warp_err=err)
+
+
+def load_composed_config_node(name: str, key: str) -> dict:
+    from viscy_tpu_torch.training.compose import load_composed_config
+
+    return load_composed_config(ROOT / "configs" / name)[key]
+
+
+def seeded_fit_plate(tmp: Path, card: str) -> Path:
+    """Phase 9's seeded fit plate, written and ``preprocess``-ed on its own
+    (for running phases 16 and 17 alone)."""
+    from viscy_tpu_torch.training import cli
+    from viscy_tpu_torch.zarr_io.synthetic import build_hcs_plate
+
+    t0 = time.perf_counter()
+    plate = build_hcs_plate(tmp / "fit.zarr", CLI_CHANNELS, zyx_shape=CLI_FIT_ZYX, num_timepoints=1, rows=("A",),
+                            cols=("1",), fovs=CLI_FIT_FOVS, seed=7)
+    cli.main(["preprocess", "-c", _cli_config(tmp / "pp_fit.yml", {"data_path": str(plate), "num_workers": 8})])
+    log(f"[cli] phase 9's fit plate written and preprocessed in {time.perf_counter() - t0:.1f} s ({card})")
+    return plate
+
+
+def phase_legacy(card: str, tmp: Path, plate: Path) -> dict:
+    """Phase 16: the legacy U-Nets (see the module docstring)."""
+    legacy_cross_check()
+    runs = [legacy_cli(card, tmp, plate, arch) for arch in LEGACY]
+    return dict(warp_launches=sum(r["warp"] for r in runs), warp_err=max(r["warp_err"] for r in runs))
+
+
+# -- phase 17: DynacellGAN with the multiscale spectral-norm PatchGAN3D ------------------------------
+
+
+# every regularizer on (r1_every at its default, 16: the first D-step applies R1 / R2)
+GAN_REGS = dict(r1_gamma=1.0, r2_gamma=1.0, ema_kimg=10.0, lecam_gamma=0.01)
+GAN_XCHECK = (1, 15, 128, 128)
+GAN_BATCHES = (16, 8, 4, 2)
+GAN_PREDICT_ZYX = (16, 1024, 1024)
+
+
+def gan_engine(device: str, dtype: str | None = "bfloat16", drop_path: float | None = None):
+    """``DynacellGAN`` with ``configs/vscyto3d_fit.yml``'s model config as the
+    FCMAE generator (``dtype`` and the drop path overridden when given), the
+    JAX default discriminator and every regularizer on."""
+    from viscy_tpu_torch.apps.dynacell.engine import DynacellGAN
+
+    cfg = shipped_model_config("vscyto3d_fit.yml")
+    cfg["dtype"] = dtype
+    if drop_path is not None:
+        cfg["encoder_drop_path_rate"] = drop_path
+    return DynacellGAN(generator_config=cfg, **GAN_REGS, device=device)
+
+
+class _FixedOutput(torch.nn.Module):
+    """A generator stand-in that returns one fixed prediction."""
+
+    def __init__(self, out: torch.Tensor) -> None:
+        super().__init__()
+        self.out = out
+
+    def forward(self, x, generator=None):
+        return self.out
+
+
+def _clone(node):
+    if isinstance(node, dict):
+        return {k: _clone(v) for k, v in node.items()}
+    return node.clone() if isinstance(node, torch.Tensor) else node
+
+
+def gan_cross_check() -> None:
+    """Phase 17 (a): f32 (TF32 off, drop path 0: the card's and the CPU's
+    generators draw differently), card against CPU on the same weights, GRN
+    gamma/beta non-zero, the same ``u`` vectors: the generator's and the
+    discriminator's eval forwards; then one ``DynacellGAN`` step with R1,
+    R2, LeCam and the EMA on: the loss, every generator gradient (<= 2e-3
+    of range, r > 0.9999), after it the ``u`` and ``sigma`` vectors,
+    ``gan_state`` and the EMA generator; the discriminator's gradients
+    against its f64 step on the CPU on the CPU's prediction, as phase 15
+    holds FNet3D's (its conv weights' f32 gradients through R1 / R2 are
+    exact to about 2e-3 of range: layer 2's differed by 2.23e-3, r
+    0.99999886, card against CPU on an NVIDIA H100 80GB HBM3 at 700 W)."""
+    g = torch.Generator().manual_seed(1700)
+    b, *zyx = GAN_XCHECK
+    batch = {"source": torch.rand((b, 1, *zyx), generator=g), "target": torch.rand((b, 2, *zyx), generator=g)}
+    on_cpu = gan_engine("cpu", "float32", 0.0)
+    randomize_grn(on_cpu, 1701)
+    on_card = gan_engine("cuda", "float32", 0.0)
+    weights, engine_state = _clone(on_cpu.state_dict()), _clone(on_cpu.checkpoint_state())
+
+    def reset(module) -> None:
+        module.load_state_dict(weights)
+        module.load_checkpoint_state(_clone(engine_state))
+
+    reset(on_card)
+    with torch.no_grad():
+        outs = [m.eval().model(batch["source"].to(dev)).cpu() for m, dev in ((on_card, "cuda"), (on_cpu, "cpu"))]
+        d_in = torch.cat([batch["source"], outs[1]], dim=1)
+        logits = [[t.cpu() for t in m.discriminator(d_in.to(dev))] for m, dev in ((on_card, "cuda"), (on_cpu, "cpu"))]
+        pred = on_cpu.train().model(batch["source"])
+    _, rel, r = compare(*outs)
+    d_rel = max(compare(a, w)[1] for a, w in zip(*logits))
+    log(f"[gan] f32 eval forwards at {GAN_XCHECK}, card vs CPU: generator {rel:.2e} of range r={r:.8f}; "
+        f"discriminator logits (2 scales) worst {d_rel:.2e} of range (bound 2e-3); "
+        f"{sum(p.numel() for p in on_cpu.model.parameters())} generator and "
+        f"{sum(p.numel() for p in on_cpu.discriminator.parameters())} discriminator parameters")
+    if not (rel <= 2e-3 and r > 0.9999 and d_rel <= 2e-3):
+        raise AssertionError("the GAN's forwards on the card disagree with the CPU")
+    tag = f"DynacellGAN f32 step (R1, R2, LeCam, EMA) at {GAN_XCHECK}"
+    step = lambda m, bb: (reset(m), m.training_loss(bb))[1]  # noqa: E731
+    _zero_counts()
+    _xcheck_step(tag, on_card, on_cpu, batch, step, {}, grads=False, phase="gan")
+    counts = _counts()
+    per_fwd = len(kernel_shapes(FLAGSHIP, zyx[-1]))
+    if counts["fwd"] != 2 * per_fwd or counts["bwd"] != 2 * per_fwd:
+        raise AssertionError(f"the GAN's f32 step launched {counts}, expected {2 * per_fwd} forward and backward")
+    n_grads, worst_g = _compare_grads(on_card.model, on_cpu.model, {}, f"{tag}, generator")
+    s_card, s_cpu = on_card.checkpoint_state(), on_cpu.checkpoint_state()
+    worst = (0.0, "")
+    for k, v in s_cpu["discriminator"].items():
+        if k.endswith((".u", ".sigma")):
+            err = float((s_card["discriminator"][k].cpu() - v).abs().max() / v.abs().max())
+            worst = max(worst, (err, k))
+    ema = [compare(s_card["ema_generator"][k].cpu(), v) for k, v in s_cpu["ema_generator"].items() if v.numel() > 1]
+    ema_rel = max(e[1] for e in ema)
+    gs_card, gs_cpu = s_card["gan_state"], s_cpu["gan_state"]
+    lecam = max(abs(float(gs_card[k]) - float(gs_cpu[k])) / abs(float(gs_cpu[k])) for k in ("lecam_real", "lecam_fake"))
+    log(f"[gan] {tag}: {n_grads} generator gradients within 2e-3 of range and r > 0.9999, worst {worst_g[1]} "
+        f"{worst_g[0]:.2e}; after the step {sum(k.endswith('.u') for k in s_cpu['discriminator'])} spectral-norm u and "
+        f"sigma worst {worst[0]:.2e} of max (bound 2e-3, {worst[1]}); d_step {gs_card['d_step']} / "
+        f"{gs_cpu['d_step']}; LeCam EMAs worst {lecam:.2e} relative; {len(ema)} EMA generator tensors worst "
+        f"{ema_rel:.2e} of range; card launches {counts}")
+    if not (worst[0] <= 2e-3 and ema_rel <= 2e-3 and lecam <= 2e-3 and gs_card["d_step"] == gs_cpu["d_step"] == 1):
+        raise AssertionError("the GAN's state after the step on the card disagrees with the CPU")
+    cpu64 = gan_engine("cpu", "float32", 0.0)
+    reset(cpu64)
+    cpu64.discriminator.double()
+    cpu64.model = _FixedOutput(pred.double())
+    cpu64.ema_generator = None
+    cpu64.train().training_loss({k: v.double() for k, v in batch.items()}).backward()
+    zero = {f"discriminators.{s}.layer{i}.0.bias": f"discriminators.{s}.layer{i}.0.weight"
+            for s in range(2) for i in (2, 3, 4)}
+    _grads_against_f64("DynacellGAN's discriminator", on_card, on_cpu, cpu64, batch, step, zero, phase="gan",
+                       part=lambda m: m.discriminator)
+    del on_card, on_cpu, cpu64
+    torch.cuda.empty_cache()
+
+
+def gan_probe(card: str) -> int:
+    """Phase 17 (b), before the fit: one step (forward, backward, AdamW) of
+    the fit's engine (bf16 generator, drop path 0.1) at batch 2 of the fit's
+    (15, 384, 384) windows: peak memory, which sets the fit's batch (the
+    config's 16, or the largest of 8, 4, 2 that fits, with accumulation to
+    16); the step's time; the device busy share of a profiled step.
+    Returns the batch."""
+    module = gan_engine("cuda").train()
+    g = torch.Generator(device="cuda").manual_seed(1710)
+    batch = {"source": torch.rand((2, 1, *TRAIN_PATCH), generator=g, device="cuda"),
+             "target": torch.rand((2, 2, *TRAIN_PATCH), generator=g, device="cuda")}
+    step = _engine_step(module, batch, g)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    state = torch.cuda.memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    per_sample = (peak - state) / 2
+    fits = [b for b in GAN_BATCHES if state + b * per_sample <= 0.85 * total]
+    batch_size = fits[0] if fits else 1
+    log(f"[gan] one batch-2 step of {TRAIN_PATCH} (bf16 generator, f32 discriminator, R1 and R2 applied): peak "
+        f"{peak / 2**30:.2f} GiB of {total / 2**30:.1f} GiB (weights, gradients and AdamW {state / 2**30:.2f} GiB, "
+        f"{per_sample / 2**30:.2f} GiB a sample): batch {batch_size} x accumulation {TRAIN_BATCH // batch_size} "
+        f"makes the config's {TRAIN_BATCH} ({card})")
+    ms = cuda_median_ms(step, runs=2)
+    log(f"[gan] one batch-2 step: {ms:.1f} ms (CUDA-event median of 2 after a warm-up; the R1/R2 step of "
+        f"every 16) ({card})")
+    busy_share("gan", "one profiled batch-2 step", step)
+    del module, batch, step
+    torch.cuda.empty_cache()
+    return batch_size
+
+
+def gan_cli(card: str, tmp: Path, plate: Path, batch: int) -> dict:
+    """Phase 17 (c): ``viscy-torch fit -c configs/vscyto3d_fit.yml`` with the
+    model replaced by ``DynacellGAN`` (the config's model config as the FCMAE
+    generator, every regularizer on), the batch and its accumulation to the
+    config's 16, one epoch of 3 updates and 1 validation batch on phase 9's
+    plate; then ``predict -c configs/vscyto3d_predict.yml`` (its model
+    config as the generator, the EMA at predict) from ``last`` on a seeded
+    (1, 1, 16, 1024, 1024) plate: launch counts, finite losses, the store.
+    Returns the launch counts and the fit's kernel shapes."""
+    from viscy_tpu_torch.training import cli
+    from viscy_tpu_torch.zarr_io.store import open_ome_zarr
+
+    acc = TRAIN_BATCH // batch
+    fit_model = load_composed_config_node("vscyto3d_fit.yml", "model")["init_args"]["model_config"]
+    pred_model = load_composed_config_node("vscyto3d_predict.yml", "model")["init_args"]["model_config"]
+    gan = lambda cfg: {"class_path": "dynacell.engine.DynacellGAN",  # noqa: E731
+                       "init_args": {"generator_config": cfg, **GAN_REGS}}
+    root = tmp / "gan_fit"
+
+    def fit_edit(cfg):
+        cfg["data"]["init_args"].update(data_path=str(plate), num_workers=8, batch_size=batch)
+        cfg["trainer"].update(default_root_dir=str(root), max_epochs=1, limit_train_batches=FIT_STEPS * acc,
+                              limit_val_batches=1, accumulate_grad_batches=acc, log_every_n_steps=1)
+
+    pred_plate = _predict_plate(tmp, "gan_predict", GAN_PREDICT_ZYX, "E", 17)
+    store = tmp / "gan_prediction.zarr"
+
+    def pred_edit(cfg):
+        cfg["data"]["init_args"].update(data_path=str(pred_plate), num_workers=8)
+        cfg["trainer"]["callbacks"][0]["init_args"].update(output_store=str(store))
+        cfg.pop("ckpt_path", None)
+
+    fit_cfg = _composed(tmp, "vscyto3d_fit.yml", "gan_fit.yml", gan(fit_model), fit_edit)
+    pred_cfg = _composed(tmp, "vscyto3d_predict.yml", "gan_predict.yml", gan(pred_model), pred_edit)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    step_times, restore = _timed_steps()
+    try:
+        t0 = time.perf_counter()
+        trainer = cli.main(["fit", "-c", fit_cfg])
+        fit_s = time.perf_counter() - t0
+    finally:
+        restore()
+    fit_counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    _zero_counts()
+    t0 = time.perf_counter()
+    cli.main(["predict", "-c", pred_cfg, "--ckpt_path", str(root / "checkpoints/last")])
+    pred_counts = _counts()
+    pred_s = time.perf_counter() - t0
+    per_fwd = 2 * len(kernel_shapes(FLAGSHIP, TRAIN_PATCH[-1]))
+    micro = FIT_STEPS * acc
+    want_fit = dict(fwd=per_fwd * (micro + 1), bwd=per_fwd * micro, masked_fwd=0, masked_bwd=0, warp=micro)
+    windows = GAN_PREDICT_ZYX[0] - 15 + 1
+    want_pred = dict(fwd=2 * len(kernel_shapes(FLAGSHIP, GAN_PREDICT_ZYX[-1])) * math.ceil(windows / 2), bwd=0,
+                     masked_fwd=0, masked_bwd=0, warp=0)
+    feed = trainer.feed_stats
+    metrics = trainer.logged_metrics
+    out = open_ome_zarr(store)["E/1/0"]["0"][:]
+    if (fit_counts != want_fit or pred_counts != want_pred or feed["steps"] != micro
+            or not all(math.isfinite(metrics.get(k, math.nan)) for k in ("loss/train", "loss/validate"))
+            or out.shape != (1, 2, *GAN_PREDICT_ZYX) or not np.isfinite(out).all()):
+        raise AssertionError(f"GAN cli: fit launches {fit_counts} (expected {want_fit}), predict {pred_counts} "
+                             f"(expected {want_pred}), steps {feed['steps']}, metrics {metrics}, store {out.shape}")
+    log(f"[gan] viscy-torch fit (configs/vscyto3d_fit.yml with DynacellGAN: the config's FCMAE in bf16 as the "
+        f"generator, the default multiscale PatchGAN3D, R1 {GAN_REGS['r1_gamma']}, R2 {GAN_REGS['r2_gamma']}, EMA "
+        f"{GAN_REGS['ema_kimg']} kimg, LeCam {GAN_REGS['lecam_gamma']}; batch {batch} x accumulation {acc}): "
+        f"{fit_s:.1f} s in all, train loop {feed['seconds']:.2f} s for {FIT_STEPS} updates of {TRAIN_BATCH} = "
+        f"{FIT_STEPS * TRAIN_BATCH / feed['seconds']:.3f} patches/s (first step included), waited "
+        f"{feed['wait_s'] / feed['seconds']:.1%} of the loop; micro-steps after the first (s): "
+        f"{', '.join(step_times())}; peak memory {peak / 2**30:.2f} GiB; loss/train {metrics['loss/train']:.4f}, "
+        f"loss/validate {metrics['loss/validate']:.5f}; predict (EMA generator, f32, {windows} windows of "
+        f"(15, {GAN_PREDICT_ZYX[1]}, {GAN_PREDICT_ZYX[2]})) {pred_s:.2f} s disk to store = {windows / pred_s:.3f} "
+        f"windows/s, store {out.shape} finite; launches fit {fit_counts}, predict {pred_counts} ({card})")
+    shutil.rmtree(store)
+    shutil.rmtree(pred_plate)
+    del trainer
+    torch.cuda.empty_cache()
+    return {k: fit_counts[k] + pred_counts[k] for k in fit_counts}
+
+
+def gan_kernels(batch: int) -> dict:
+    """Phase 17 (d): the fused forward and backward kernels at the GAN
+    generator's train shapes (the fit's batch, 384^2) and the forward at its
+    predict shapes (B = 2, full 1024^2 frames) against their plain
+    versions."""
+    worst: dict = {}
+    bwd_worst = 0.0
+    train = kernel_shapes(FLAGSHIP, TRAIN_PATCH[-1])
+    for k, (s, c, m) in enumerate(sorted(set(train), key=train.index)):
+        check_forward(batch, s, c, m, 1720 + k, (False,), worst)
+        bwd_worst = max(bwd_worst, check_backward(batch, s, c, m, 1730 + k, False))
+    log_worst(f"the GAN generator's train shapes (B={batch}, {TRAIN_PATCH[-1]}^2)", worst)
+    pred = kernel_shapes(FLAGSHIP, GAN_PREDICT_ZYX[-1])
+    for k, (s, c, m) in enumerate(sorted(set(pred), key=pred.index)):
+        check_forward(2, s, c, m, 1740 + k, (False,), worst)
+    log_worst(f"the GAN generator's predict shapes (B=2, {GAN_PREDICT_ZYX[-1]}^2)", worst)
+    return dict(fwd_err=worst[torch.bfloat16][0], bwd_err=bwd_worst)
+
+
+def phase_gan(card: str, tmp: Path, plate: Path) -> dict:
+    """Phase 17: DynacellGAN (see the module docstring)."""
+    gan_cross_check()
+    batch = gan_probe(card)
+    launches = gan_cli(card, tmp, plate, batch)
+    aug = load_composed_config_node("vscyto3d_fit.yml", "data")["init_args"]["augmentations"][1:]
+    warp_err = member_warp("gan", f"the GAN fit's affine calls it at batch {batch}", aug, batch, TRAIN_PATCH, 1750)
+    return dict(launches=launches, kernels=gan_kernels(batch), warp_err=warp_err)
+
+
+# -- phase 18: the beta-VAEs and BetaVaeModule --------------------------------------------------------
+
+
+# BetaVae25D's defaults (convnext_tiny, 2 channels, depth 16 -> 16, latent
+# 1024, 256^2, stem (2, 4, 4), 4 decoder stages) reconstruct at twice the
+# input's YX, so no loss can be taken against the input (in JAX too,
+# ROADMAP.md Queue 3): training runs with the (2, 8, 8) stem, the one
+# change that makes the sizes meet
+VAE_TRAIN = dict(stem_kernel_size=[2, 8, 8], stem_stride=[2, 8, 8])
+VAE_XCHECK = (2, 2, 16, 128, 128)
+VAE_BATCH = 32
+VAE_YX = 256
+VAE_STEPS = 3
+VAE_VAL = 1
+
+
+def vae_shapes(cfg: dict, yx: int) -> list[tuple[int, int, int]]:
+    """(S, C, M) of every fused block call of one ``BetaVae25D`` forward of
+    ``cfg`` at ``yx``^2, in call order: the v2 encoder's (a v2 backbone
+    only), then the decoder's up stages (always v2)."""
+    from viscy_tpu_torch.models.components.blocks import convnext_arch
+    from viscy_tpu_torch.models.vae.beta_vae_25d import encoder_grid
+
+    depths, dims, v2 = convnext_arch(cfg.get("backbone", "convnext_tiny"))
+    stride = cfg.get("stem_stride", (2, 4, 4))
+    side = (yx - stride[1]) // stride[1] + 1
+    shapes = [((side >> i) ** 2, d, 4 * d) for i, (n, d) in enumerate(zip(depths, dims)) for _ in range(n)] if v2 else []
+    h, _ = encoder_grid((yx, yx), stride, len(dims))
+    stages = cfg.get("decoder_stages", 4)
+    channels = [dims[-1] // 2 ** (i + 1) for i in range(stages - 1)]
+    channels.append((cfg.get("out_stack_depth", 16) + 2) * cfg.get("in_channels", 2) * 4
+                    * cfg.get("head_expansion_ratio", 2))
+    for i, c in enumerate(channels):
+        shapes += [((h << (i + 1)) ** 2, c, 4 * c)] * cfg.get("conv_blocks", 2)
+    return shapes
+
+
+def _vae_launches(cfg: dict, yx: int, batch: int) -> int:
+    """Forward (or backward) launches of one ``BetaVae25D`` forward: two per
+    launch of at most ``samples_per_launch`` samples, for every fused call."""
+    from viscy_tpu_torch.ops import fused_block as fb
+
+    return sum(2 * -(-batch // fb.samples_per_launch(s, m)) for s, _, m in vae_shapes(cfg, yx))
+
+
+def vae_kernels(card: str) -> dict:
+    """Phase 18 (a): the fused forward and backward kernels at the decoder's
+    widths C = 384 / 192 / 96 / 288, at the row counts of the default model
+    (256^2 input: S = 16^2 .. 128^2) and of the trained one ((2, 8, 8) stem:
+    S = 8^2 .. 64^2), batch 32, against their plain versions; then bf16
+    CUDA-event medians per train step of the trained model beside the plain
+    versions and the bounds."""
+    from viscy_tpu_torch.ops import fused_block as fb
+
+    worst: dict = {}
+    bwd_worst = 0.0
+    for tag, cfg in (("default", {}), ("trained", VAE_TRAIN)):
+        shapes = vae_shapes(cfg, VAE_YX)
+        for k, (s, c, m) in enumerate(sorted(set(shapes), key=shapes.index)):
+            check_forward(VAE_BATCH, s, c, m, 1800 + k, (False,), worst)
+            bwd_worst = max(bwd_worst, check_backward(VAE_BATCH, s, c, m, 1810 + k, False))
+        log_worst(f"the {tag} BetaVae25D decoder's shapes (B={VAE_BATCH}, {VAE_YX}^2 input)", worst)
+    shapes = vae_shapes(VAE_TRAIN, VAE_YX)
+    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bwd_ms=0.0, bwd_plain_ms=0.0, bwd_bound_ms=0.0)
+    for k, (s, c, m) in enumerate(sorted(set(shapes), key=shapes.index)):
+        args, _ = block_inputs(VAE_BATCH, s, c, m, torch.float32, seed=1820 + k)
+        x, sc, *params = args
+        g = torch.randn(x.shape, generator=torch.Generator(device="cuda").manual_seed(1830 + k), device="cuda")
+        ss = fb._reference_ss(x, *params[:4], None, 1e-6)
+        n = shapes.count((s, c, m))
+        times = dict(
+            ms=cuda_median_ms(lambda: fb.fused_mlp_grn(*args)),
+            plain_ms=cuda_median_ms(lambda: fb.reference_mlp_grn(*args), runs=5),
+            bound_ms=block_bound_ms(VAE_BATCH, s, c, m, torch.float32)[0],
+            bwd_ms=cuda_median_ms(lambda: fb._fused_bwd_cuda(x, g, params, None, ss, 1e-6, 1e-6)),
+            bwd_plain_ms=cuda_median_ms(lambda: fb.reference_mlp_grn_bwd(x, g, *params, ss), runs=5),
+            bwd_bound_ms=8.0 * VAE_BATCH * s * c * m / PEAK_FLOPS[torch.float32] * 1e3,
+        )
+        for key, val in times.items():
+            total[key] += val * n
+        log(f"[vae] time S={s} C={c} M={m} B={VAE_BATCH} f32 x{n}/step: forward {times['ms']:.3f} ms (plain "
+            f"{times['plain_ms']:.3f}, bound {times['bound_ms']:.4f}), backward {times['bwd_ms']:.3f} ms (plain "
+            f"{times['bwd_plain_ms']:.3f}, bound {times['bwd_bound_ms']:.4f})")
+        del args, x, sc, params, g, ss
+        torch.cuda.empty_cache()
+    log(f"[vae] fused kernels per train step of the trained decoder ({len(shapes)} calls, B={VAE_BATCH}, f32): "
+        f"forward {total['ms']:.3f} ms (plain {total['plain_ms']:.3f}, bound {total['bound_ms']:.3f}), backward "
+        f"{total['bwd_ms']:.3f} ms (plain {total['bwd_plain_ms']:.3f}, bound {total['bwd_bound_ms']:.3f}); "
+        f"CUDA-event medians ({card})")
+    return dict(total, fwd_err=worst[torch.bfloat16][0], bwd_err=bwd_worst)
+
+
+def vae_module(cfg: dict, device: str):
+    from viscy_tpu_torch.apps.dynaclr.vae_engine import BetaVaeModule
+
+    return BetaVaeModule(vae=dict(cfg), beta=0.5, device=device)
+
+
+def vae_cross_check() -> None:
+    """Phase 18 (b): f32 (TF32 off), card against CPU on the same weights
+    (GRN gamma/beta non-zero) at (2, 2, 16, 128, 128): the default
+    ``BetaVae25D`` (``convnext_tiny``) eval forward (reconstruction at twice
+    the YX, mean, logvar), then one ``BetaVaeModule`` train step of the
+    ``convnextv2_tiny`` model with the (2, 8, 8) stem on the same latent
+    noise (drawn on the CPU): the ELBO and every gradient, the fused kernels
+    in the encoder and the decoder."""
+    g = torch.Generator().manual_seed(1850)
+    x = torch.rand(VAE_XCHECK, generator=g)
+    size = dict(input_spatial_size=list(VAE_XCHECK[-2:]))
+    on_cpu, on_card = vae_module(size, "cpu"), vae_module(size, "cuda")
+    randomize_grn(on_cpu, 1851)
+    on_card.load_state_dict(on_cpu.state_dict())
+    with torch.no_grad():
+        outs = [m.eval().model(x.to(dev)) for m, dev in ((on_card, "cuda"), (on_cpu, "cpu"))]
+    errs = {name: compare(a.cpu(), w)[1:] for name, a, w in zip(("recon", "mean", "logvar"), outs[0], outs[1])}
+    log(f"[vae] BetaVae25D defaults f32 eval forward {VAE_XCHECK}, card vs CPU: " + ", ".join(
+        f"{k} {e:.2e} of range r={r:.8f}" for k, (e, r) in errs.items())
+        + f"; reconstruction {tuple(outs[0].recon_x.shape)}; {sum(p.numel() for p in on_cpu.parameters())} parameters")
+    if not all(e <= 2e-3 and r > 0.9999 for e, r in errs.values()):
+        raise AssertionError("the BetaVae25D forward on the card disagrees with the CPU")
+    del on_card, on_cpu, outs
+    cfg = dict(VAE_TRAIN, backbone="convnextv2_tiny", **size)
+    on_cpu, on_card = vae_module(cfg, "cpu"), vae_module(cfg, "cuda")
+    randomize_grn(on_cpu, 1852)
+    on_card.load_state_dict(on_cpu.state_dict())
+    eps = torch.randn((VAE_XCHECK[0], 1024), generator=g)
+    _zero_counts()
+    _xcheck_step(f"BetaVaeModule f32 step (convnextv2_tiny, (2, 8, 8) stem) at {VAE_XCHECK}", on_card, on_cpu,
+                 {"anchor": x}, lambda m, b: m.training_loss(b, eps=eps.to(b["anchor"].device)),
+                 {"model.head.conv.0.conv.bias": "model.head.conv.0.conv.weight"}, phase="vae")
+    counts = _counts()
+    want = _vae_launches(cfg, VAE_XCHECK[-1], VAE_XCHECK[0])
+    log(f"[vae] the step's launches on the card {counts} (expected {want} forward and backward)")
+    if counts["fwd"] != want or counts["bwd"] != want:
+        raise AssertionError(f"the VAE step launched {counts}, expected {want}")
+    del on_card, on_cpu
+    torch.cuda.empty_cache()
+
+
+def vae_cli(card: str, tmp: Path, plate: Path, tracks: Path) -> dict:
+    """Phase 18 (c): ``viscy-torch fit -c configs/dynaclr_fit.yml`` with the
+    model replaced by ``BetaVaeModule`` (BetaVae25D at its defaults but the
+    (2, 8, 8) stem) and the windows 16 deep and (256, 256) after the crop,
+    on phase 14's plate and tracks: one epoch of 3 steps and 1 validation
+    batch; then ``predict -c configs/dynaclr_predict.yml`` from ``last``
+    through the ``EmbeddingWriter``: launch counts, finite losses, the
+    store's features (the mean) and projections (z, the mean in eval).
+    Returns the launch counts."""
+    from viscy_tpu_torch.training import cli
+    from viscy_tpu_torch.training.callbacks.embedding_writer import read_embedding_dataset
+
+    vae = dict(VAE_TRAIN, input_spatial_size=[VAE_YX, VAE_YX])
+    model = {"class_path": "dynaclr.vae_engine.BetaVaeModule", "init_args": {"vae": vae, "beta": 0.5}}
+    data = {"data_path": str(plate), "tracks_path": str(tracks), "z_range": [24, 40],
+            "final_yx_patch_size": [VAE_YX, VAE_YX], "num_workers": 8}
+    root = tmp / "vae_fit"
+    store = tmp / "vae_embeddings.zarr"
+
+    def fit_edit(cfg):
+        cfg["data"]["init_args"].update(data)
+        cfg["trainer"].update(default_root_dir=str(root), max_epochs=1, limit_train_batches=VAE_STEPS,
+                              limit_val_batches=VAE_VAL, log_every_n_steps=1)
+
+    def pred_edit(cfg):
+        cfg["data"]["init_args"].update(data, initial_yx_patch_size=[VAE_YX, VAE_YX], predict_cells=False)
+        cfg["trainer"]["default_root_dir"] = str(tmp / "vae_predict")
+        cfg["trainer"]["callbacks"][0]["init_args"].update(output_path=str(store))
+        cfg.pop("ckpt_path", None)
+
+    fit_cfg = _composed(tmp, "dynaclr_fit.yml", "vae_fit.yml", model, fit_edit)
+    pred_cfg = _composed(tmp, "dynaclr_predict.yml", "vae_predict.yml", model, pred_edit)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    trainer = cli.main(["fit", "-c", fit_cfg])
+    fit_s = time.perf_counter() - t0
+    fit_counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    _zero_counts()
+    t0 = time.perf_counter()
+    predictor = cli.main(["predict", "-c", pred_cfg, "--ckpt_path", str(root / "checkpoints/last")])
+    pred_s = time.perf_counter() - t0
+    pred_counts = _counts()
+    per = _vae_launches(VAE_TRAIN, VAE_YX, VAE_BATCH)
+    want_fit = dict(fwd=per * (VAE_STEPS + VAE_VAL), bwd=per * VAE_STEPS, masked_fwd=0, masked_bwd=0, warp=0)
+    dm = predictor._active_datamodule
+    n = len(dm.predict_dataset)
+    bs = dm.batch_size
+    want_pred = dict(fwd=_vae_launches(VAE_TRAIN, VAE_YX, bs) * (n // bs)
+                     + (_vae_launches(VAE_TRAIN, VAE_YX, n % bs) if n % bs else 0),
+                     bwd=0, masked_fwd=0, masked_bwd=0, warp=0)
+    got = read_embedding_dataset(store)
+    feed = trainer.feed_stats
+    metrics = trainer.logged_metrics
+    if (fit_counts != want_fit or pred_counts != want_pred or feed["steps"] != VAE_STEPS
+            or not all(math.isfinite(metrics.get(k, math.nan)) for k in ("loss/train", "loss/validate"))
+            or got.X.shape != (n, 1024) or not np.isfinite(got.X).all()
+            or not np.array_equal(got.obsm["X_projections"], got.X)):
+        raise AssertionError(f"VAE cli: fit launches {fit_counts} (expected {want_fit}), predict {pred_counts} "
+                             f"(expected {want_pred}), steps {feed['steps']}, metrics {metrics}, X {got.X.shape}")
+    log(f"[vae] viscy-torch fit (configs/dynaclr_fit.yml with BetaVaeModule: BetaVae25D defaults with a (2, 8, 8) "
+        f"stem, windows (2, 16, {VAE_YX}, {VAE_YX}), batch {VAE_BATCH}): {fit_s:.1f} s in all, train loop "
+        f"{feed['seconds']:.2f} s for {VAE_STEPS} steps = {VAE_STEPS * VAE_BATCH / feed['seconds']:.3f} cells/s "
+        f"(first step included), waited {feed['wait_s'] / feed['seconds']:.1%} of the loop; peak memory "
+        f"{peak / 2**30:.2f} GiB; loss/train {metrics['loss/train']:.5f}, loss/validate "
+        f"{metrics['loss/validate']:.5f}; predict {n} cells in batches of {bs} {pred_s:.2f} s disk to store = "
+        f"{n / pred_s:.2f} cells/s, X {got.X.shape} finite, projections = the mean; launches fit {fit_counts}, "
+        f"predict {pred_counts} ({card})")
+    module = vae_module(vae, "cuda").train()
+    g = torch.Generator(device="cuda").manual_seed(1860)
+    batch = {"anchor": torch.rand((VAE_BATCH, 2, 16, VAE_YX, VAE_YX), generator=g, device="cuda")}
+    busy_share("vae", f"one BetaVaeModule train step at batch {VAE_BATCH} of (2, 16, {VAE_YX}, {VAE_YX})",
+               _engine_step(module, batch, g))
+    shutil.rmtree(store)
+    del trainer, predictor, module, batch
+    torch.cuda.empty_cache()
+    return {k: fit_counts[k] + pred_counts[k] for k in fit_counts}
+
+
+def phase_vae(card: str, tmp: Path, plate: Path, tracks: Path) -> dict:
+    """Phase 18: the beta-VAEs (see the module docstring)."""
+    kernels = vae_kernels(card)
+    vae_cross_check()
+    launches = vae_cli(card, tmp, plate, tracks)
+    shutil.rmtree(plate)
+    return dict(kernels=kernels, launches=launches)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is False")
@@ -3924,9 +4781,12 @@ def main() -> None:
         stages = phase_stages(card, Path(tmp), cli)
         pre = phase_pretrain(card, Path(tmp), cli["fit_plate"])
         unext2 = phase_unext2(card, Path(tmp), cli["fit_plate"])
+        legacy = phase_legacy(card, Path(tmp), cli["fit_plate"])
+        gan = phase_gan(card, Path(tmp), cli["fit_plate"])
     dynaclr = phase_dynaclr(card)
     with tempfile.TemporaryDirectory(prefix="viscy-dynaclr-") as tmp:
         dynaclr_cli = phase_dynaclr_cli(card, Path(tmp))
+        vae = phase_vae(card, Path(tmp), dynaclr_cli["plate"], dynaclr_cli["tracks"])
     with tempfile.TemporaryDirectory(prefix="viscy-celldiff-") as tmp:
         phase_celldiff(card, Path(tmp))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
@@ -3938,10 +4798,11 @@ def main() -> None:
             route="cuda",
             source="viscy_tpu_torch/csrc/fused_mlp_grn.cu",
             replaces="viscy_tpu/ops/pallas/fused_block.py:164,183",
-            launches=sl["launches"] + pre["launches"]["fwd"] + unext2["launches"]["fwd"],
+            launches=sl["launches"] + pre["launches"]["fwd"] + unext2["launches"]["fwd"] + gan["launches"]["fwd"]
+            + vae["launches"]["fwd"],
             **{k: kern[k] for k in keys if k != "max_abs_err"},
             max_abs_err=max(kern["max_abs_err"], pre["kernels"]["fwd_err"], pre["fwd_err"],
-                            unext2["kernels"]["fwd_err"]),
+                            unext2["kernels"]["fwd_err"], gan["kernels"]["fwd_err"], vae["kernels"]["fwd_err"]),
             library_ms=None,
         ),
         dict(
@@ -3949,9 +4810,11 @@ def main() -> None:
             route="cuda",
             source="viscy_tpu_torch/csrc/fused_mlp_grn.cu",
             replaces="viscy_tpu/ops/pallas/fused_block.py:233,307",
-            launches=tr["bwd_launches"] + pre["launches"]["bwd"] + unext2["launches"]["bwd"],
+            launches=tr["bwd_launches"] + pre["launches"]["bwd"] + unext2["launches"]["bwd"] + gan["launches"]["bwd"]
+            + vae["launches"]["bwd"],
             **{k: bwd[k] for k in keys if k != "max_abs_err"},
-            max_abs_err=max(bwd["max_abs_err"], pre["kernels"]["bwd_err"], unext2["kernels"]["bwd_err"]),
+            max_abs_err=max(bwd["max_abs_err"], pre["kernels"]["bwd_err"], unext2["kernels"]["bwd_err"],
+                            gan["kernels"]["bwd_err"], vae["kernels"]["bwd_err"]),
             library_ms=None,
         ),
         dict(
@@ -3960,10 +4823,11 @@ def main() -> None:
             source="viscy_tpu_torch/csrc/affine_warp3d.cu",
             replaces="viscy_tpu/ops/pallas/warp3d.py:226,352",
             launches=tr["warp_launches"] + pre["launches"]["warp"] + unext2["launches"]["warp"]
-            + dynaclr["warp_launches"] + dynaclr_cli["warp_launches"],
+            + dynaclr["warp_launches"] + dynaclr_cli["warp_launches"] + legacy["warp_launches"]
+            + gan["launches"]["warp"],
             **{k: warp[k] for k in keys if k != "max_abs_err"},
             max_abs_err=max(warp["max_abs_err"], fit["warp_max_abs_err"], pre["warp_err"], dynaclr["warp_err"],
-                            dynaclr_cli["warp_err"]),
+                            dynaclr_cli["warp_err"], legacy["warp_err"], gan["warp_err"]),
             library_ms=warp["library_ms"],
         ),
     ]

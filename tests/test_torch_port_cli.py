@@ -77,6 +77,12 @@ def test_the_port_resolves_configs_without_importing_viscy_tpu():
         "from viscy_tpu_torch.training.instantiate import resolve_class; "
         "from viscy_tpu_torch.training.compose import load_composed_config as L; "
         f"[resolve_class(c) for c in {sorted(set(_class_paths(load_composed_config(ROOT / 'configs/vscyto3d_fit.yml'))))}]; "
+        # the legacy U-Nets, the GAN and the VAEs (their engines, models and bridges)
+        "[resolve_class(c) for c in ('cytoland.engine.VSUNet', 'dynacell.engine.DynacellGAN', "
+        "'dynaclr.vae_engine.BetaVaeModule', 'viscy_models.vae.BetaVae25D', "
+        "'viscy_models.vae.beta_vae_monai.BetaVaeMonai', 'viscy_models.gan.MultiScalePatchGAN3D')]; "
+        "import viscy_tpu_torch.models.unet.unet2d, viscy_tpu_torch.models.unet.unet25d, "
+        "viscy_tpu_torch.models.gan.losses, viscy_tpu_torch.models.schedule, viscy_tpu_torch.training.convert; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'viscy_tpu', 'tensorstore')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )

@@ -22,18 +22,28 @@ from pathlib import Path
 
 KEEP = ("[env] nvidia-smi", "per step", "per forward", "time S=", "stage S=", "stages sum",
         "patches/s median", "FOVs/s median", "[profile] one train step", "[profile] one request",
-        "[warp]", "[train] warp", "[dynaclr-cli]", "[celldiff]", "[done]")
-# phases that take the card's name, and those that also take a scratch directory
+        "[warp]", "[train] warp", "[dynaclr-cli]", "[celldiff]", "[legacy]", "[gan]", "[vae]", "[done]")
+# phases that take the card's name, those that also take a scratch directory,
+# and those that also take phase 9's fit plate (written first) or phase 14's
+# plate and tracks
 CARD_PHASES = ("train", "slice")
 TMP_PHASES = ("dynaclr_cli", "celldiff")
+PLATE_PHASES = ("legacy", "gan")
+TRACK_PHASES = ("vae",)
 
 
 def turn_code(phases: list[str]) -> str:
     calls = []
     for p in phases:
-        if p in TMP_PHASES:
+        if p in TMP_PHASES + PLATE_PHASES + TRACK_PHASES:
             calls += ["with tempfile.TemporaryDirectory(prefix='ab-') as tmp:",
-                      f"    cs.phase_{p}(card, pathlib.Path(tmp))"]
+                      "    tmp = pathlib.Path(tmp)"]
+            if p in PLATE_PHASES:
+                calls.append(f"    cs.phase_{p}(card, tmp, cs.seeded_fit_plate(tmp, card))")
+            elif p in TRACK_PHASES:
+                calls.append(f"    cs.phase_{p}(card, tmp, *cs.dynaclr_plate(tmp, card))")
+            else:
+                calls.append(f"    cs.phase_{p}(card, tmp)")
         else:
             calls.append(f"cs.phase_{p}(card)" if p in CARD_PHASES else f"cs.phase_{p}()")
     return "\n".join([

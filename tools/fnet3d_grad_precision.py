@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Where FNet3D's f32 gradients lose precision, card against CPU.
+"""Where a U-Net's f32 gradients lose precision, card against CPU.
 
-    python3 tools/fnet3d_grad_precision.py [--shape 2,1,16,128,128] [--device cuda]
+    python3 tools/fnet3d_grad_precision.py [--arch FNet3D] [--shape 2,1,16,128,128] [--device cuda]
 
-One ``VSUNet("FNet3D")`` train-mode step (the engine's seeded weights, as
-in ``chip_smoke.py`` phase 15 (a), and a seeded batch) is taken in f64 on the CPU as the reference
+One ``VSUNet(arch)`` train-mode step (``FNet3D``, or the legacy ``2D`` /
+``2.5D`` U-Net at the JAX defaults with dropout 0, so no draw differs; the
+engine's seeded weights, as in ``chip_smoke.py`` phases 15 (a) and 16 (a),
+and a seeded batch) is taken in f64 on the CPU as the reference
 and then in f32 by several variants: the CPU; the card with cuDNN (as the
 engine trains; also in f64), with ``cudnn.deterministic``, without cuDNN (PyTorch's own
 CUDA convolutions) and with TF32 allowed. For each variant it prints the
@@ -76,7 +78,7 @@ def report(tag: str, got: tuple, ref: tuple) -> None:
     max |d| over the range and ||d|| / ||ref|| (the worst three each) and
     Pearson r (the lowest); over every gradient at once, ||d|| / ||ref||."""
     loss, outs, grads = got
-    names = [k for k in ref[2] if not k.endswith("proj.bias")]  # 0 up to rounding before a BatchNorm
+    names = [k for k in ref[2] if not k.endswith("proj.bias")]  # FNet3D: 0 up to rounding before a BatchNorm
     out_err = sorted(((rel(outs[k], ref[1][k]), k) for k in ref[1]), reverse=True)
     of_range = sorted(((rel(grads[k], ref[2][k]), k) for k in names), reverse=True)
     l2 = sorted((((grads[k] - ref[2][k]).norm() / ref[2][k].norm(), k) for k in names), reverse=True)
@@ -94,6 +96,7 @@ def report(tag: str, got: tuple, ref: tuple) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--arch", default="FNet3D", choices=["FNet3D", "2D", "2.5D"])
     ap.add_argument("--shape", default="2,1,16,128,128")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
@@ -106,10 +109,14 @@ def main() -> int:
                              capture_output=True, text=True).stdout.strip()
         print(f"card: {smi}")
     g = torch.Generator().manual_seed(1502)
-    batch = {"source": torch.randn(shape, generator=g), "target": torch.randn(shape, generator=g)}
+    config = {"FNet3D": dict(in_stack_depth=shape[2]),
+              "2D": dict(in_channels=shape[1], out_channels=2, task="reg", dropout=0.0),
+              "2.5D": dict(in_channels=shape[1], out_channels=2, in_stack_depth=shape[2], task="reg", dropout=0.0)}
+    out_shape = (shape[0], 2 if args.arch != "FNet3D" else shape[1], 1 if args.arch == "2.5D" else shape[2], *shape[3:])
+    batch = {"source": torch.randn(shape, generator=g), "target": torch.randn(out_shape, generator=g)}
 
     def build(device: str, dtype: torch.dtype):
-        m = VSUNet("FNet3D", dict(in_stack_depth=shape[2]), device="cpu",
+        m = VSUNet(args.arch, dict(config[args.arch]), device="cpu",
                    loss_function=MixedLoss(l1_alpha=0.5, l2_alpha=0.5, ms_dssim_alpha=0.0))
         return m.to(device, dtype)
 
@@ -123,7 +130,7 @@ def main() -> int:
                      ("card f32 cuDNN deterministic", "cuda", f32, {"deterministic": True}),
                      ("card f32 no cuDNN", "cuda", f32, {"cudnn": False}), ("card TF32 cuDNN", "cuda", f32, {"tf32": True})]
     for loss_name, loss_fn in losses.items():
-        print(f"FNet3D train-mode step at {shape}, {loss_name}, error against the CPU's f64 (of range):")
+        print(f"VSUNet('{args.arch}') train-mode step at {shape}, {loss_name}, error against the CPU's f64 (of range):")
         ref_mod = build("cpu", f64)
         ref_mod.model.load_state_dict(base)
         ref = run(ref_mod, batch, loss_fn, "cpu", f64)

@@ -2,8 +2,8 @@
 ``viscy_tpu/apps/cytoland/engine.py``), training and prediction.
 
 ``VSUNet`` wraps UNeXt2 (``"UNeXt2"``, the released VSCyto3D architecture),
-the FNet3D 3-D U-Net (``"FNet3D"``) or the FCMAE-based UNeXt2 (``"fcmae"`` /
-``"UNeXt2_2D"``) with the reference supervised training and validation losses (MixedLoss by
+the legacy 2-D and 2.5-D U-Nets (``"2D"``, ``"2.5D"``), the FNet3D 3-D U-Net
+(``"FNet3D"``) or the FCMAE-based UNeXt2 (``"fcmae"`` / ``"UNeXt2_2D"``) with the reference supervised training and validation losses (MixedLoss by
 default, with the optional bf16 loss inputs; a batch's ``fg_mask`` goes to
 the loss, e.g. ``SpotlightLoss``; stochastic depth in the encoder while
 training), its AdamW + schedule (optionally with
@@ -29,6 +29,8 @@ import torch.nn.functional as F
 from viscy_tpu_torch.apps.cytoland.prediction import rotation_tta_transforms, tiled_forward_yx
 from viscy_tpu_torch.device import resolve_device
 from viscy_tpu_torch.models.unet.fcmae import FullyConvolutionalMAE
+from viscy_tpu_torch.models.unet.unet2d import Unet2d
+from viscy_tpu_torch.models.unet.unet25d import Unet25d
 from viscy_tpu_torch.models.unet.unet3d import Unet3d
 from viscy_tpu_torch.models.unet.unext2 import UNeXt2
 from viscy_tpu_torch.ops.ssim import ssim_25d
@@ -38,7 +40,9 @@ from viscy_tpu_torch.training.module import TrainModule
 _logger = logging.getLogger("viscy_tpu_torch")
 
 _UNET_ARCHITECTURE = {
+    "2D": Unet2d,
     "UNeXt2": UNeXt2,
+    "2.5D": Unet25d,
     "FNet3D": Unet3d,
     "fcmae": FullyConvolutionalMAE,
     "UNeXt2_2D": FullyConvolutionalMAE,
@@ -70,10 +74,17 @@ def _divisible_pad(x: torch.Tensor, factor: int, pad_z: bool = False) -> torch.T
 
 
 def _center_crop_to_shape(x: torch.Tensor, spatial: Sequence[int]) -> torch.Tensor:
+    """The centred ``spatial`` window of ``x``'s trailing axes, sliced as
+    numpy (and the JAX engine) slice ``[start, start + size)`` with ``start =
+    (extent - size) // 2``: where the extent is smaller than the window (a
+    2.5-D U-Net's depth-1 output under a 5-deep window) the start is
+    negative and Python's slice rule clamps it, e.g. depth 1 keeps its slice
+    and depth 3 under 5 keeps only its last."""
     slices = [slice(None)] * (x.ndim - len(spatial))
     for dim, size in zip(range(x.ndim - len(spatial), x.ndim), spatial):
         start = (x.shape[dim] - size) // 2
-        slices.append(slice(start, start + size))
+        lo, hi, _ = slice(start, start + size).indices(x.shape[dim])
+        slices.append(slice(lo, max(lo, hi)))
     return x[tuple(slices)]
 
 
@@ -95,7 +106,7 @@ class VSUNet(TrainModule):
 
     def __init__(
         self,
-        architecture: Literal["UNeXt2", "FNet3D", "fcmae", "UNeXt2_2D"],
+        architecture: Literal["2D", "UNeXt2", "2.5D", "FNet3D", "fcmae", "UNeXt2_2D"],
         model_config: dict | None = None,
         loss_function=None,
         lr: float = 1e-3,
@@ -160,9 +171,10 @@ class VSUNet(TrainModule):
 
     def example_input(self) -> dict:
         """Zero ``source`` (1, C_in, D, *example_input_yx_shape) and ``target``
-        (1, C_out, D_out, ...) arrays, as the JAX engine's."""
+        (1, C_out, D_out, ...) arrays, as the JAX engine's (D = 1 for
+        ``"2D"``)."""
         cfg = self.model_config
-        depth = cfg.get("in_stack_depth", 5)
+        depth = 1 if self.architecture == "2D" else cfg.get("in_stack_depth", 5)
         out_depth = getattr(self.model, "out_stack_depth", None) or depth
         yx = self.example_input_yx_shape
         return {
@@ -182,8 +194,11 @@ class VSUNet(TrainModule):
         """Supervised loss of the forward on ``batch["source"]`` against
         ``batch["target"]`` (NCDHW); a batch's ``fg_mask`` goes to the loss
         as ``fg_mask=``. ``generator`` draws the encoder's stochastic-depth
-        masks (``encoder_drop_path_rate``) in training mode; a model with a
-        rate above 0 in training mode needs it."""
+        masks (``encoder_drop_path_rate``), or the legacy U-Nets' dropout
+        masks, in training mode; a model with a rate above 0 in training
+        mode needs it. A model's BatchNorms (the legacy U-Nets', FNet3D's)
+        update their running statistics in this forward, as the JAX engine
+        takes its ``batch_stats`` updates from it."""
         pred = self.model(batch["source"], generator=generator)
         return self._compute_loss(pred, batch["target"], batch)
 

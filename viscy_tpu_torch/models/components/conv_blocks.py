@@ -1,20 +1,22 @@
-"""Residual conv blocks of the 3-D U-Net family (counterpart of
+"""Residual conv blocks (counterpart of
 ``viscy_tpu/models/components/conv_blocks.py``): the activations, the
-configurable norm, the sinusoidal timestep embedder and the
+configurable norm, the legacy U-Nets' ``ConvBlock`` (``ConvBlock2D`` /
+``ConvBlock3D``), the sinusoidal timestep embedder and the
 (time-conditioned) ``ResnetBlock`` that ``UNet3DBase`` builds FNet3D,
 ``UNetViT3D`` and ``CELLDiffNet`` from.
 
-Activations are NCDHW, as torch's convolutions take them. Parameters use
-the reference VisCy torch names (``block1.proj``, ``block1.norm``,
-``mlp.1``, ``res_conv``; ``mlp.0`` / ``mlp.2`` of the embedder), so
-``viscy_tpu.training.convert.convert_unet3d_state_dict`` /
-``convert_celldiff_state_dict`` read them unchanged.
+Activations are NC(D)HW, as torch's convolutions take them. Parameters use
+the reference VisCy torch names (``Conv2d_{i}`` / ``Conv3d_{i}``,
+``batch_norm_{i}``, ``resid_conv`` of a ``ConvBlock``; ``block1.proj``,
+``block1.norm``, ``mlp.1``, ``res_conv``; ``mlp.0`` / ``mlp.2`` of the
+embedder), so ``viscy_tpu.training.convert``'s converters read them
+unchanged.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Literal
+from typing import Callable, Iterator, Literal, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -37,6 +39,42 @@ _ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
 def _activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
     """The activation of the JAX package's ``_activation`` table."""
     return _ACTIVATIONS[name]
+
+
+def same_padding(size: int, kernel: int, stride: int = 1) -> tuple[int, int]:
+    """XLA ``"SAME"`` padding of one axis: ``ceil(size / stride)`` outputs,
+    the total pad split with the smaller half first (so an even kernel, or a
+    stride, pads more on the high side than torch's symmetric ``padding``)."""
+    total = max((-(-size // stride) - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv_same(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
+              stride: int | Sequence[int] = 1) -> torch.Tensor:
+    """flax ``nn.Conv(padding="SAME")`` on NC(D)HW ``x`` with a torch-layout
+    ``weight`` (1-3 spatial dims): symmetric pads go to the convolution,
+    others through ``F.pad`` first."""
+    nd = x.ndim - 2
+    stride = (stride,) * nd if isinstance(stride, int) else tuple(stride)
+    pads = [same_padding(n, k, s) for n, k, s in zip(x.shape[2:], weight.shape[2:], stride)]
+    conv = (F.conv1d, F.conv2d, F.conv3d)[nd - 1]
+    if all(lo == hi for lo, hi in pads):
+        return conv(x, weight, bias, stride, tuple(lo for lo, _ in pads))
+    x = F.pad(x, [p for lo_hi in reversed(pads) for p in lo_hi])
+    return conv(x, weight, bias, stride)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None = None,
+            keep: torch.Tensor | None = None) -> torch.Tensor:
+    """flax ``nn.Dropout(rate)`` in training: ``where(keep, x / (1 - rate),
+    0)``, each element kept with probability ``1 - rate``; the keep mask is
+    drawn from ``generator`` or given (``x``'s shape, bool)."""
+    if keep is None:
+        if generator is None:
+            raise ValueError("dropout in training needs a torch.Generator or a keep mask")
+        keep = torch.rand(x.shape, generator=generator, device=generator.device) < 1.0 - rate
+    keep_prob = torch.full((), 1.0 - rate, dtype=x.dtype, device=x.device)
+    return torch.where(keep.to(x.device), x / keep_prob, x.new_zeros(()))
 
 
 class _BatchNorm(BatchNorm):
@@ -159,3 +197,76 @@ class ResnetBlock(nn.Module):
                 x = F.conv3d(x, self.res_conv.weight, self.res_conv.bias)
             h = h + x
         return h
+
+
+class ConvBlock(nn.Module):
+    """``num_repeats`` x [conv -> dropout -> activation -> norm] (the
+    reference's layer order ``'can'``, dropout right after each conv), XLA
+    ``"SAME"`` padding for every kernel size, with an optional residual:
+    a 1x1 ``resid_conv`` only when the channels SHRINK; when they grow the
+    input is zero-padded on the LOW side of the channel axis, so it lands
+    in the trailing channels (``conv_block_2d.py:330-339``).
+
+    ``kernel_size`` sets the dimensionality: 2-D blocks name their convs
+    ``Conv2d_{i}``, 3-D ones ``Conv3d_{i}``; every norm is
+    ``batch_norm_{i}`` (flax BatchNorm semantics for ``"batch"``). A
+    ``resid_conv`` exists only where the forward runs it. Dropout acts in
+    training at ``dropout > 0``, its keep masks drawn from ``generator`` or
+    taken in order from ``masks`` (an iterator of bool tensors)."""
+
+    def __init__(
+        self,
+        in_filters: int,
+        out_filters: int,
+        generator: torch.Generator,
+        kernel_size: Sequence[int] = (3, 3, 3),
+        num_repeats: int = 2,
+        residual: bool = True,
+        norm: str = "batch",
+        activation: str = "relu",
+        dropout: float = 0.0,
+    ) -> None:
+        super().__init__()
+        self.kernel_size = tuple(kernel_size)
+        self.num_repeats = num_repeats
+        self.residual = residual
+        self.dropout = float(dropout)
+        self.act = _activation(activation)
+        self.in_filters, self.out_filters = in_filters, out_filters
+        nd = len(self.kernel_size)
+        self._conv_name = f"Conv{nd}d"
+        for i in range(num_repeats):
+            setattr(self, f"{self._conv_name}_{i}",
+                    Conv(in_filters if i == 0 else out_filters, out_filters, self.kernel_size, generator))
+            setattr(self, f"batch_norm_{i}", norm_layer(norm, out_filters))
+        self.resid_conv = (Conv(in_filters, out_filters, (1,) * nd, generator)
+                           if residual and in_filters > out_filters else None)
+
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None,
+                masks: Iterator[torch.Tensor] | None = None) -> torch.Tensor:
+        inp = x
+        for i in range(self.num_repeats):
+            conv = getattr(self, f"{self._conv_name}_{i}")
+            x = conv_same(x, conv.weight, conv.bias)
+            if self.dropout and self.training:
+                x = dropout(x, self.dropout, generator, None if masks is None else next(masks))
+            x = getattr(self, f"batch_norm_{i}")(self.act(x))
+        if not self.residual:
+            return x
+        if self.resid_conv is not None:
+            inp = conv_same(inp, self.resid_conv.weight, self.resid_conv.bias)
+        elif self.in_filters < self.out_filters:
+            inp = F.pad(inp, [0, 0] * (inp.ndim - 2) + [self.out_filters - self.in_filters, 0])
+        return x + inp
+
+
+class ConvBlock2D(ConvBlock):
+    """Reference-named 2-D variant (``conv_block_2d.py:11``): 3x3 kernels."""
+
+    def __init__(self, in_filters: int, out_filters: int, generator: torch.Generator,
+                 kernel_size: Sequence[int] = (3, 3), **kwargs) -> None:
+        super().__init__(in_filters, out_filters, generator, kernel_size, **kwargs)
+
+
+class ConvBlock3D(ConvBlock):
+    """Reference-named 3-D variant (``conv_block_3d.py:11``): 3x3x3 kernels."""

@@ -10,15 +10,9 @@ from typing import Literal
 
 import torch
 
+from viscy_tpu_torch.models.schedule import cosine_anneal
+
 __all__ = ["ntxent_loss", "NTXentLoss", "NTXentHCL", "triplet_margin_loss", "cosine_anneal"]
-
-
-def cosine_anneal(start: float, end: float, step: int, total_steps: int) -> float:
-    """Cosine annealing from ``start`` to ``end`` over ``total_steps``
-    (``viscy_tpu/models/schedule.py``)."""
-    if total_steps <= 0 or step >= total_steps:
-        return end
-    return end + (start - end) * 0.5 * (1 + math.cos(math.pi * step / total_steps))
 
 
 def _norm(z: torch.Tensor) -> torch.Tensor:

@@ -145,6 +145,39 @@ _RESNET3D_RULES: list[Rule] = [
 ]
 
 
+def _conv_block_rules(src: str, dst: str, conv: str, transform: Callable) -> list[Rule]:
+    """A ``ConvBlock`` (flax ``conv{j}``, ``norm{j}/<Norm child>``,
+    ``res_proj``) -> the reference's ``Conv{2,3}d_{j}``, ``batch_norm_{j}``,
+    ``resid_conv``; ``src`` may hold groups, ``dst`` refers to them."""
+    n = src.count("(")
+    return [
+        (rf"{src}/conv(\d+)", f"{dst}.{conv}_{{{n}}}", transform),
+        (rf"{src}/norm(\d+)/(?:BatchNorm_0|GroupNorm_0)", f"{dst}.batch_norm_{{{n}}}", None),
+        (rf"{src}/res_proj", f"{dst}.resid_conv", transform),
+    ]
+
+
+def _legacy_unet_rules(conv: str, transform: Callable) -> list[Rule]:
+    """The legacy U-Nets' levels (flax ``{down,up}_conv_block{i}``,
+    ``bottom_conv_block``, ``terminal_block``) -> the reference's
+    ``{down,up}_conv_block_{i}``, ``bottom_transition_block`` (the 2-D
+    model's bottom ConvBlock), ``terminal_block``."""
+    return [
+        *_conv_block_rules(r"(down|up)_conv_block(\d+)", "{0}_conv_block_{1}", conv, transform),
+        *_conv_block_rules(r"bottom_conv_block", "bottom_transition_block", conv, transform),
+        *_conv_block_rules(r"terminal_block", "terminal_block", conv, transform),
+    ]
+
+
+_UNET2D_RULES: list[Rule] = _legacy_unet_rules("Conv2d", _conv2d)
+# the 2.5-D model's bottom transition is a bare (zk, 1, 1) conv
+_UNET25D_RULES: list[Rule] = [
+    *_legacy_unet_rules("Conv3d", _conv3d),
+    (r"bottom_transition_block", "bottom_transition_block", _conv3d),
+    (r"skip_conv_layer(\d+)", "skip_conv_layer_{0}", _conv3d),
+]
+
+
 def _unet3d_rules() -> list[Rule]:
     """``UNet3DBase`` (flax ``unet/...``) -> the reference torch names; the
     norms are the flax ``Norm`` wrapper's child (group or batch)."""
@@ -340,6 +373,143 @@ def unet3d_state_dict_from_flax(
     return out
 
 
+def unet2d_state_dict_from_flax(
+    params: dict[str, Any], batch_stats: dict[str, Any] | None = None
+) -> dict[str, torch.Tensor]:
+    """Map a ``Unet2d`` flax ``params`` tree, and its ``batch_stats`` when
+    given, to a float32 ``state_dict`` under the reference torch names (the
+    names ``viscy_tpu.training.convert.convert_unet2d_state_dict`` reads:
+    flax ``bottom_conv_block`` is the reference's ``bottom_transition_block``;
+    ``num_batches_tracked`` is not produced)."""
+    out = _bridge(params, _UNET2D_RULES, [], "Unet2d")
+    if batch_stats:
+        out.update(_bridge(batch_stats, _UNET2D_RULES, [], "Unet2d", stats=True))
+    return out
+
+
+def unet25d_state_dict_from_flax(
+    params: dict[str, Any], batch_stats: dict[str, Any] | None = None
+) -> dict[str, torch.Tensor]:
+    """Map a ``Unet25d`` flax ``params`` tree, and its ``batch_stats`` when
+    given, to a float32 ``state_dict`` under the reference torch names (those
+    ``convert_unet25d_state_dict`` reads)."""
+    out = _bridge(params, _UNET25D_RULES, [], "Unet25d")
+    if batch_stats:
+        out.update(_bridge(batch_stats, _UNET25D_RULES, [], "Unet25d", stats=True))
+    return out
+
+
+def patchgan_state_dict_from_flax(
+    params: dict[str, Any], batch_stats: dict[str, Any] | None = None
+) -> dict[str, torch.Tensor]:
+    """Map a ``MultiScalePatchGAN3D`` flax ``params`` tree (``scale{s}/
+    conv{i}``, ``norm{i}``, ``conv_out``), and its spectral-norm
+    ``batch_stats`` (``scale{s}/SpectralNorm_{k}/<conv>/kernel/{u,sigma}``)
+    when given, to the port's names: ``discriminators.{s}.layer{i}.0``
+    (conv; ``u`` (1, C_out) and ``sigma`` buffers), ``.layer{i}.1``
+    (instance norm) and ``layer{n+1}`` (the logit conv), as the reference
+    (``viscy_tpu.training.convert``'s ``_PATCHGAN3D_RULES``) names them."""
+    out: dict[str, torch.Tensor] = {}
+    for scale, tree in params.items():
+        s = int(re.fullmatch(r"scale(\d+)", scale).group(1))
+        n = sum(1 for k in tree if re.fullmatch(r"conv\d+", k))
+        rules: list[Rule] = [
+            (r"conv(\d+)", f"discriminators.{s}.layer{{0}}.0", _conv3d),
+            (r"norm(\d+)", f"discriminators.{s}.layer{{0}}.1", None),
+            (r"conv_out", f"discriminators.{s}.layer{n + 1}", _conv3d),
+        ]
+        out.update(_bridge(tree, rules, [], "PatchGAN3D"))
+        for path, value in _leaves((batch_stats or {}).get(scale, {})):
+            m = re.fullmatch(r"SpectralNorm_\d+/(conv\d+|conv_out)/kernel/(u|sigma)", path)
+            if m is None:
+                raise KeyError(f"no PatchGAN3D rule for flax batch statistic {path!r}")
+            conv, leaf = m.groups()
+            layer = f"layer{n + 1}" if conv == "conv_out" else f"layer{conv[4:]}.0"
+            out[f"discriminators.{s}.{layer}.{leaf}"] = torch.from_numpy(np.array(value, dtype=np.float32))
+    return out
+
+
+def gan_state_dict_from_flax(generator: nn.Module, variables: dict[str, Any]) -> dict[str, Any]:
+    """Map the JAX ``DynacellGAN``'s variables (``params/{generator,
+    discriminator}``, ``batch_stats/discriminator``, ``gan_state``) to the
+    port engine's state: ``{"model": the generator's state_dict (through the
+    bridge of ``generator``'s type), "discriminator": the discriminator's
+    (the ``u`` and ``sigma`` vectors included), "ema_generator": the EMA
+    tree through the generator's bridge (None without one), "gan_state":
+    {"d_step": int, "lecam_real", "lecam_fake": 0-d float32}}``, the layout
+    ``DynacellGAN.load_checkpoint_state`` takes."""
+    params = variables["params"]
+    state = variables.get("gan_state", {})
+    ema = state.get("ema_generator")
+    return {
+        "model": state_dict_from_flax(generator, params["generator"]),
+        "discriminator": patchgan_state_dict_from_flax(params["discriminator"],
+                                                       variables.get("batch_stats", {}).get("discriminator")),
+        "ema_generator": None if ema is None else state_dict_from_flax(generator, ema),
+        "gan_state": {"d_step": int(np.asarray(state.get("d_step", 0))),
+                      **{k: torch.tensor(float(np.asarray(state.get(k, 0.0))), dtype=torch.float32)
+                         for k in ("lecam_real", "lecam_fake")}},
+    }
+
+
+def _convnext_stage_rules(src: str, dst: str) -> list[Rule]:
+    """A ``ConvNeXtStage`` with dense fc1 / fc2 (flax ``downsample_*``,
+    ``block{j}/...``) -> the port's ``ConvNeXtStage`` names; ``src`` holds
+    one group, ``dst`` refers to it."""
+    return [
+        (rf"{src}/downsample_norm", f"{dst}.downsample.0", None),
+        (rf"{src}/downsample_conv", f"{dst}.downsample.1", _conv2d),
+        (rf"{src}/block(\d+)/dwconv", dst + ".blocks.{1}.conv_dw", _conv2d),
+        (rf"{src}/block(\d+)/norm", dst + ".blocks.{1}.norm", None),
+        (rf"{src}/block(\d+)/fc1", dst + ".blocks.{1}.mlp.fc1", _linear),
+        (rf"{src}/block(\d+)/grn", dst + ".blocks.{1}.mlp.grn", "grn"),
+        (rf"{src}/block(\d+)/fc2", dst + ".blocks.{1}.mlp.fc2", _linear),
+    ]
+
+
+_BETA_VAE_25D_RULES: list[Rule] = [
+    (r"stem/conv", "stem.conv", _conv3d),
+    *_timm_encoder_rules("encoder.stem_1", "encoder.stages_{0}"),
+    (r"fc_(mean|logvar|decode)", "fc_{0}", _linear),
+    *_convnext_stage_rules(r"up(\d+)/conv", "up{0}.conv"),
+    *_HEAD_RULES,
+]
+
+
+def _flax_named(params: dict[str, Any]) -> dict[str, torch.Tensor]:
+    """A flax tree under its own names: ``a/b/kernel`` -> ``a.b.weight``
+    (transposed to torch's layout by its rank: dense, 2-D or 3-D conv,
+    transposed-conv kernels as stored), other leaves as they are (a PReLU's
+    ``prelu`` (1,))."""
+    out = {}
+    for path, value in _leaves(params):
+        module_path, leaf = path.rsplit("/", 1)
+        key = module_path.replace("/", ".")
+        if leaf == "kernel":
+            value = {2: _linear, 4: _conv2d, 5: _conv3d}[value.ndim](value)
+            leaf = "weight"
+        out[f"{key}.{leaf}"] = torch.from_numpy(np.array(value, dtype=np.float32))
+    return out
+
+
+def vae_state_dict_from_flax(model: nn.Module, params: dict[str, Any]) -> dict[str, torch.Tensor]:
+    """Map a VAE's flax ``params`` to the port model's state_dict. The JAX
+    package has no VAE converter, so: a ``BetaVae25D``'s stem, encoder (timm
+    ``features_only`` names, v1 layer scales included) and head take the
+    port's names for those parts elsewhere, the rest (``fc_*``,
+    ``up{i}/conv`` as the port's ``ConvNeXtStage``) the flax tree's; a
+    ``BetaVaeConv``'s every name is the flax tree's (``.``-joined, kernels
+    as ``weight`` in torch's layout)."""
+    from viscy_tpu_torch.models.vae import BetaVae25D, BetaVaeConv
+
+    if isinstance(model, BetaVae25D):
+        return _bridge(params, _BETA_VAE_25D_RULES, [_PRELU, (_LAYER_SCALE, "encoder.stages_{0}.blocks.{1}.gamma")],
+                       "BetaVae25D")
+    if isinstance(model, BetaVaeConv):
+        return _flax_named(params)
+    raise TypeError(f"no flax -> torch VAE bridge for a {type(model).__name__}")
+
+
 def state_dict_from_flax(
     model: nn.Module, params: dict[str, Any], batch_stats: dict[str, Any] | None = None
 ) -> dict[str, torch.Tensor]:
@@ -349,10 +519,20 @@ def state_dict_from_flax(
     from viscy_tpu_torch.models.contrastive.encoder import ContrastiveEncoder
     from viscy_tpu_torch.models.contrastive.resnet3d import ResNet3dEncoder
     from viscy_tpu_torch.models.unet.fcmae import FullyConvolutionalMAE
+    from viscy_tpu_torch.models.unet.unet2d import Unet2d
+    from viscy_tpu_torch.models.unet.unet25d import Unet25d
     from viscy_tpu_torch.models.unet.unet3d import Unet3d
     from viscy_tpu_torch.models.unet.unet3d_base import UNet3DBase
     from viscy_tpu_torch.models.unet.unext2 import UNeXt2
 
+    from viscy_tpu_torch.models.vae import BetaVae25D, BetaVaeConv
+
+    if isinstance(model, (BetaVae25D, BetaVaeConv)) and not batch_stats:
+        return vae_state_dict_from_flax(model, params)
+    if isinstance(model, Unet2d):
+        return unet2d_state_dict_from_flax(params, batch_stats)
+    if isinstance(model, Unet25d):
+        return unet25d_state_dict_from_flax(params, batch_stats)
     if isinstance(model, ContrastiveEncoder):
         return contrastive_state_dict_from_flax(params, batch_stats)
     if isinstance(model, ResNet3dEncoder):

@@ -51,3 +51,15 @@ class TrainModule(nn.Module):
 
     def on_epoch_start(self, epoch: int) -> None:
         """Per-epoch hook, called before the epoch's first step."""
+
+    def checkpoint_state(self) -> dict:
+        """Engine state beyond ``model``'s weights that a checkpoint carries
+        (nested dicts of tensors and numbers, such as a GAN's discriminator,
+        its spectral-norm vectors, the EMA generator and counters); the
+        trainer saves it as ``engine_state`` and hands it back to
+        :meth:`load_checkpoint_state` when it loads the checkpoint. None
+        by default."""
+        return {}
+
+    def load_checkpoint_state(self, state: dict) -> None:
+        """Restore what :meth:`checkpoint_state` returned."""

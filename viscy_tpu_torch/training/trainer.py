@@ -620,7 +620,9 @@ class Trainer:
         """Save a checkpoint laid out as a Lightning one: ``state_dict``
         (``model.<reference name>``, float32 on the CPU), ``optimizer`` and
         ``scheduler`` state dicts, ``step`` and ``epoch``; with accumulation
-        also the mini-step and the running mean gradient."""
+        also the mini-step and the running mean gradient; the engine's
+        :meth:`~TrainModule.checkpoint_state`, where it has one, as
+        ``engine_state`` (on the CPU)."""
         score = val_metrics.get(self.checkpoint_monitor)
         name = f"epoch={self.current_epoch}-step={self.global_step}"
         if score is not None:
@@ -635,6 +637,9 @@ class Trainer:
         }
         if self.accumulate_grad_batches > 1:
             payload["accumulation"] = {"mini_step": self._mini_step, "grads": dict(self._acc)}
+        engine_state = module.checkpoint_state() if hasattr(module, "checkpoint_state") else {}
+        if engine_state:
+            payload["engine_state"] = _to_cpu(engine_state)
         tmp = path.with_name(path.name + ".tmp")
         torch.save(payload, tmp)
         os.replace(tmp, path)
@@ -661,12 +666,15 @@ class Trainer:
 
     def load_checkpoint(self, path: str | Path, module: TrainModule) -> None:
         """Load a checkpoint (a port one, a Lightning one, or a bare
-        ``state_dict``) into ``module`` and the trainer: the weights always;
+        ``state_dict``) into ``module`` and the trainer: the weights always,
+        and the engine state (``engine_state``) when the payload has it;
         the optimizer, scheduler and accumulation state when the payload has
         them and they fit this trainer (else a warning and the fresh
         optimizer); the epoch after the saved one and the saved step."""
         payload, state = read_checkpoint(path)
         module.model.load_state_dict(state, strict=True)
+        if "engine_state" in payload:
+            module.load_checkpoint_state(payload["engine_state"])
         if "optimizer" in payload and self.optimizer is not None:
             accumulating = self.accumulate_grad_batches > 1
             try:
@@ -687,6 +695,13 @@ class Trainer:
         # the payload records the finished epoch: resume at the next one
         self.current_epoch = int(payload.get("epoch", -1)) + 1
         self.global_step = int(payload.get("step", 0))
+
+
+def _to_cpu(node):
+    """A nested dict's tensors detached and on the CPU."""
+    if isinstance(node, dict):
+        return {k: _to_cpu(v) for k, v in node.items()}
+    return node.detach().cpu() if isinstance(node, torch.Tensor) else node
 
 
 def read_checkpoint(path: str | Path) -> tuple[dict, dict]:
