@@ -312,7 +312,30 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
            the mean, projections equal to it in eval); the device busy share
            of one profiled train step.
 
-Phases 16 and 17 run after phase 12, on phase 9's plate; phase 18 after
+19. ddp   data parallelism across processes (``viscy_tpu_torch.parallel``).
+           (a) ``fit -c configs/vscyto3d_fit.yml`` on phase 9's plate (3
+           steps, 1 validation batch), first in one process without a
+           process group, then in ``torch.cuda.device_count()`` processes
+           over NCCL (the ``VISCY_*`` environment, ``LOCAL_RANK`` each
+           rank's card), each a fresh process with deterministic cuDNN:
+           on one card (world 1) the loss curve and every weight of the
+           final checkpoint must be bit-identical; on more, the ranks'
+           training reads disjoint and the curve within 2e-3 of one
+           process's at the global batch (both then without the device
+           augmentation and drop path, which each rank draws on its own).
+           Every rank on its own card launching every kernel; patches/s of
+           both, the gradient all-reduce's CUDA-event time a step. (b) Two
+           processes on the one card over gloo: the flagship step in f32
+           (8 patches a rank of (15, 384, 384), each rank's own production
+           augmentation: the warp at the per-rank batch), its gradients
+           reduced, then DynaCLR's f32 step (16 pairs a rank: global
+           BatchNorm statistics and NT-Xent negatives); rank 0 then runs
+           both as one process on the gathered global batch: losses, every
+           gradient, the DynaCLR embedding, projection and running
+           statistics within 2e-3 of range and r > 0.9999; step and reduce
+           times, launches and peaks per rank. Every process has a watchdog.
+
+Phases 16, 17 and 19 run after phase 12, on phase 9's plate; phase 18 after
 phase 14, on its plate and tracks. The last two lines are a JSON
 ``kernels`` record and the JSON result line.
 Needs ``torch.cuda.is_available()`` and the repo's ``viscy_tpu_torch``
@@ -942,7 +965,7 @@ def randomize_grn(module, seed: int) -> None:
 
 def compare(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float, float]:
     """(max |d|, max |d| / range(want), Pearson r) in float64."""
-    gotf, wantf = got.double(), want.double()
+    gotf, wantf = got.double(), want.double().to(got.device)
     err = float((gotf - wantf).abs().max())
     rng = float(wantf.max() - wantf.min())
     return err, err / max(rng, 1e-30), pearson(gotf, wantf)
@@ -972,7 +995,8 @@ def _compare_grads(on_card, on_cpu, zero: dict, tag: str) -> tuple[int, tuple]:
                                      f"is {ratios[0]:.2e} (card) and {ratios[1]:.2e} (CPU) of {zero[name]}'s")
             continue
         if p_cpu.numel() == 1:  # the head's PReLU slope: relative error, no correlation
-            g_rel, g_r = float((g_card.cpu() - p_cpu.grad).abs() / p_cpu.grad.abs().clamp_min(1e-30)), 1.0
+            want = p_cpu.grad.cpu()
+            g_rel, g_r = float((g_card.cpu() - want).abs() / want.abs().clamp_min(1e-30)), 1.0
         else:
             _, g_rel, g_r = compare(g_card.cpu(), p_cpu.grad)
         if not (g_rel <= 2e-3 and g_r > 0.9999):
@@ -4757,6 +4781,377 @@ def phase_vae(card: str, tmp: Path, plate: Path, tracks: Path) -> dict:
     return dict(kernels=kernels, launches=launches)
 
 
+# -- phase 19: data parallelism across processes ---------------------------------------------------------
+
+
+# (a): `viscy-torch fit` of the shipped recipe, 3 steps and 1 validation batch
+DDP_STEPS = 3
+DDP_VAL = 1
+# (b): two processes on the one card over gloo; per-rank batches of the
+# flagship f32 step (from TRAIN_STACK stacks, cut to TRAIN_PATCH; the
+# recipe's 16 over the two, about 0.45 GiB of peak memory a patch) and of
+# DynaCLR's step (DYNACLR_PATCH pairs; the config's 32 over the two)
+DDP_RANK_BATCH = 8
+DDP_DYNACLR_RANK_BATCH = 16
+DDP_WATCHDOG_S = 240
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _rank_env(world: int, rank: int, port: int, local_rank: int) -> dict:
+    """The environment of one rank: the ``VISCY_*`` contract, the rank's
+    card, cuBLAS's fixed workspace (deterministic GEMMs); any launcher's
+    variables removed."""
+    import os
+
+    env = {k: v for k, v in os.environ.items() if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                                                             "MASTER_PORT")}
+    env.update(VISCY_COORDINATOR=f"localhost:{port}", VISCY_NUM_PROCESSES=str(world), VISCY_PROCESS_ID=str(rank),
+               LOCAL_RANK=str(local_rank), CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    return env
+
+
+def run_processes(call: str, envs: list[dict], out: Path, tag: str) -> list[dict]:
+    """Start one ``python3 -c`` process a rank, all together, each running
+    ``chip_smoke.<call>`` with its result path; wait under a watchdog (all
+    killed, and the phase failed, when one is late or fails); return each
+    rank's JSON result. Each process writes its output to a log file
+    beside its result, printed when a process fails."""
+    procs = []
+    for i, env in enumerate(envs):
+        code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke as cs; "
+                f"cs.{call}({str(out / f'{tag}{i}.json')!r})")
+        with open(out / f"{tag}{i}.log", "w") as fh:
+            procs.append(subprocess.Popen([sys.executable, "-c", code], env=env, cwd=str(ROOT), stdout=fh,
+                                          stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + DDP_WATCHDOG_S
+    late = False
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        late = True
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if late or any(p.returncode for p in procs):
+        for i in range(len(procs)):
+            for line in (out / f"{tag}{i}.log").read_text().splitlines()[-60:]:
+                log(f"[ddp]   {tag} rank {i}: {line}")
+        raise AssertionError(f"[ddp] {tag}: exit codes {[p.returncode for p in procs]}"
+                             + (f" (killed after {DDP_WATCHDOG_S} s)" if late else ""))
+    return [json.loads((out / f"{tag}{i}.json").read_text()) for i in range(len(envs))]
+
+
+def _worker_setup() -> None:
+    """A phase-19 process: a watchdog that ends it with every thread's
+    traceback, TF32 off, deterministic cuDNN."""
+    import faulthandler
+
+    faulthandler.dump_traceback_later(DDP_WATCHDOG_S - 20, exit=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
+def ddp_fit_worker(out: str) -> None:
+    """One process of phase 19 (a): ``cli.main(["fit", "-c", <config>])``
+    with the config named by ``VISCY_DDP_CONFIG``, the trainer's gradient
+    reduce timed between CUDA events and every window read recorded;
+    writes the launches, the train loop's feed statistics, the reduce's
+    times, the host clock at each reduce's end (after the step's backward,
+    synchronized) and the reads to ``out``."""
+    import os
+
+    _worker_setup()
+    from viscy_tpu_torch.data import loader
+    from viscy_tpu_torch.ops import fused_block as fb
+    from viscy_tpu_torch.ops import warp3d
+    from viscy_tpu_torch.parallel import process_count, process_index
+    from viscy_tpu_torch.training import cli
+    from viscy_tpu_torch.training import trainer as trainer_mod
+
+    reduce_ms, step_ends, devices, reads = [], [], set(), []
+    reduce = trainer_mod.all_reduce_gradients_
+
+    def timed_reduce(parameters):
+        params = list(parameters)
+        devices.add(str(params[0].device))
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        reduce(params)
+        end.record()
+        end.synchronize()
+        reduce_ms.append(start.elapsed_time(end))
+        step_ends.append(time.perf_counter())
+
+    load_item = loader.DataLoader._load_item
+
+    def spy(self, idx):
+        reads.append((bool(self.shuffle), int(idx)))
+        return load_item(self, idx)
+
+    trainer_mod.all_reduce_gradients_ = timed_reduce
+    loader.DataLoader._load_item = spy
+    t0 = time.perf_counter()
+    trainer = cli.main(["fit", "-c", os.environ["VISCY_DDP_CONFIG"]])
+    torch.cuda.synchronize()
+    Path(out).write_text(json.dumps(dict(
+        rank=process_index(), world=process_count(), device=str(trainer.device), param_devices=sorted(devices),
+        seconds=time.perf_counter() - t0, feed=trainer.feed_stats, reduce_ms=reduce_ms, step_ends=step_ends,
+        launches=dict(fwd=fb.launches, bwd=fb.bwd_launches, warp=warp3d.launches),
+        train_reads=sorted({i for shuffled, i in reads if shuffled}),
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30)))
+
+
+def _curve(root: Path) -> list[dict]:
+    """``metrics.csv`` without the host's step times."""
+    lines = [json.loads(s) for s in (root / "metrics.csv").read_text().splitlines()]
+    return [{k: v for k, v in line.items() if k != "step_time_ms"} for line in lines]
+
+
+def ddp_fit(card: str, tmp: Path, plate: Path) -> dict:
+    """Phase 19 (a): ``fit -c configs/vscyto3d_fit.yml`` on phase 9's plate,
+    in one process without a process group, then in
+    ``torch.cuda.device_count()`` processes over NCCL. On one card (world 1)
+    the loss curve and the final weights must be bit-identical; on more,
+    each rank's per-rank batch is 16 / world, the ranks' training reads are
+    disjoint, and since each rank draws its own augmentation both runs then
+    train without the device augmentation and drop path and the curves agree
+    within the f32 bound."""
+    world = torch.cuda.device_count()
+    override = {"data": {"init_args": {"data_path": str(plate), "num_workers": 8}},
+                "trainer": {"max_epochs": 1, "limit_train_batches": DDP_STEPS, "limit_val_batches": DDP_VAL,
+                            "log_every_n_steps": 1}}
+    if world > 1:
+        shipped = load_composed_config_node("vscyto3d_fit.yml", "data")["init_args"]
+        model = load_composed_config_node("vscyto3d_fit.yml", "model")
+        override["data"]["init_args"]["augmentations"] = shipped["augmentations"][:1]  # the host crop
+        override["model"] = {"init_args": {"model_config": dict(model["init_args"]["model_config"],
+                                                                encoder_drop_path_rate=0.0)}}
+    runs = {}
+    for name, n in (("single", 1), ("nccl", world)):
+        cfg = json.loads(json.dumps(override))
+        cfg["trainer"]["default_root_dir"] = str(tmp / f"ddp_{name}")
+        if name == "nccl" and world > 1:
+            cfg["data"]["init_args"]["batch_size"] = TRAIN_BATCH // world
+        path = _cli_config(tmp / f"ddp_{name}.yml", cfg, ROOT / "configs/vscyto3d_fit.yml")
+        port = _free_port()
+        envs = [dict(_rank_env(n, r, port, r), VISCY_DDP_CONFIG=path) for r in range(n)]
+        if name == "single":
+            for k in ("VISCY_COORDINATOR", "VISCY_NUM_PROCESSES", "VISCY_PROCESS_ID", "LOCAL_RANK"):
+                envs[0].pop(k)
+        runs[name] = run_processes("ddp_fit_worker", envs, tmp, f"ddp_{name}")
+    single, nccl = runs["single"][0], runs["nccl"]
+    curves = {name: _curve(tmp / f"ddp_{name}") for name in runs}
+    for r in nccl:
+        if r["launches"]["fwd"] == 0 or r["launches"]["bwd"] == 0 or r["launches"]["warp"] == 0:
+            raise AssertionError(f"[ddp] rank {r['rank']} launched {r['launches']}: every kernel must run on every rank")
+        if r["param_devices"] != [f"cuda:{r['rank']}"] or r["device"] != f"cuda:{r['rank']}":
+            raise AssertionError(f"[ddp] rank {r['rank']} trained on {r['param_devices']} ({r['device']})")
+    if world == 1:
+        ckpt = {name: torch.load(tmp / f"ddp_{name}" / "checkpoints" / "last", map_location="cpu",
+                                 weights_only=True)["state_dict"] for name in runs}
+        differ = [k for k in ckpt["single"] if not torch.equal(ckpt["single"][k], ckpt["nccl"][k])]
+        if curves["single"] != curves["nccl"] or differ or set(ckpt["single"]) != set(ckpt["nccl"]):
+            raise AssertionError(f"[ddp] the world-1 NCCL fit is not bit-identical to the fit without a process "
+                                 f"group: curves {curves}, {len(differ)} weights differ ({differ[:3]})")
+        verdict = (f"loss curve ({len(curves['nccl'])} lines) and all {len(ckpt['nccl'])} weights of the final "
+                   f"checkpoint bit-identical")
+    else:
+        reads = [set(r["train_reads"]) for r in nccl]
+        if any(a & b for i, a in enumerate(reads) for b in reads[i + 1:]):
+            raise AssertionError(f"[ddp] ranks read overlapping training windows: {reads}")
+        got = [v for line in curves["nccl"] for k, v in sorted(line.items()) if k.startswith("loss/")]
+        want = [v for line in curves["single"] for k, v in sorted(line.items()) if k.startswith("loss/")]
+        if len(got) != len(want) or max(abs(a - b) / abs(b) for a, b in zip(got, want)) > 2e-3:
+            raise AssertionError(f"[ddp] the {world}-rank curve {got} is not within 2e-3 of one process's {want}")
+        verdict = f"training reads disjoint; loss curve within 2e-3 relative of one process's: {got} vs {want}"
+    rate = lambda r: DDP_STEPS * TRAIN_BATCH / r["feed"]["seconds"]
+    # steps 2..: the spans between the synchronized ends of the steps' reduces
+    steady = lambda r: (len(r["step_ends"]) - 1) * TRAIN_BATCH / (r["step_ends"][-1] - r["step_ends"][0])
+    reduce_ms = [statistics.median(r["reduce_ms"]) for r in nccl]
+    log(f"[ddp] (a) fit -c configs/vscyto3d_fit.yml, {DDP_STEPS} steps + {DDP_VAL} validation batch, global batch "
+        f"{TRAIN_BATCH}: without a process group {rate(single):.2f} patches/s over the train loop "
+        f"({single['feed']['seconds']:.2f} s), {steady(single):.2f} over steps 2-{DDP_STEPS}, process "
+        f"{single['seconds']:.1f} s; {world} NCCL rank(s) {', '.join(f'{rate(r):.2f}' for r in nccl)} over the "
+        f"loop ({', '.join(f'{r['feed']['seconds']:.2f}' for r in nccl)} s), "
+        f"{', '.join(f'{steady(r):.2f}' for r in nccl)} over steps 2-{DDP_STEPS}; gradient all-reduce "
+        f"{', '.join(f'{m:.3f}' for m in reduce_ms)} ms a step (median of {len(nccl[0]['reduce_ms'])}, CUDA "
+        f"events) ({card})")
+    for r in nccl:
+        log(f"[ddp] (a) rank {r['rank']} on {r['device']}: launches A+B {r['launches']['fwd']}, C+D "
+            f"{r['launches']['bwd']}, warp {r['launches']['warp']}; peak {r['peak_gib']:.2f} GiB")
+    log(f"[ddp] (a) {verdict}")
+    launches = {k: sum(r["launches"][k] for r in nccl) for k in ("fwd", "bwd", "warp")}
+    return dict(launches=launches, reduce_ms=reduce_ms, rate_single=rate(single), rate_nccl=[rate(r) for r in nccl],
+                steady_single=steady(single), steady_nccl=[steady(r) for r in nccl])
+
+
+def ddp_step_worker(out: str) -> None:
+    """One of phase 19 (b)'s two processes on the one card over gloo: the
+    flagship f32 train step on its rows (augmented on its own draws: the
+    warp at the per-rank batch), its gradients reduced, then DynaCLR's f32
+    step on its rows of a seeded global batch (global BatchNorm statistics
+    and NT-Xent negatives); rank 0 keeps the gathered global batch, the
+    reduced gradients and copies of both engines as they were before the
+    steps (no optimizer step runs), leaves the group and runs both steps as
+    one process on the global batch; writes the checks, times, launches,
+    peaks and the seconds since the start at each stage."""
+    import copy
+
+    t_start = time.perf_counter()
+    marks = {}
+    _worker_setup()
+    from viscy_tpu_torch.ops import fused_block as fb
+    from viscy_tpu_torch.ops import warp3d
+    from viscy_tpu_torch.parallel import (all_reduce_gradients_, all_reduce_mean, barrier, broadcast_module_,
+                                          gather_batch, maybe_initialize, process_count, process_index)
+
+    maybe_initialize(backend="gloo")
+    rank, world = process_index(), process_count()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    res: dict = {"rank": rank, "world": world, "device": str(dev)}
+    cfg32 = dict(FLAGSHIP, dtype="float32")
+    module = train_engine(cfg32, "cuda", bf16_loss=False)
+    randomize_grn(module, 1900)
+    broadcast_module_(module)
+    ref = copy.deepcopy(module) if rank == 0 else None
+    marks["built"] = time.perf_counter() - t_start
+    g = torch.Generator(device=dev).manual_seed(1901 + rank)
+    stacks = {"source": torch.rand((DDP_RANK_BATCH, 1, *TRAIN_STACK), generator=g, device=dev),
+              "target": torch.rand((DDP_RANK_BATCH, 2, *TRAIN_STACK), generator=g, device=dev)}
+    aug = production_aug(TRAIN_PATCH)
+    torch.cuda.synchronize()
+    fb.launches = fb.bwd_launches = warp3d.launches = 0
+    batch = aug(stacks, torch.Generator(device=dev).manual_seed(1950 + rank))
+    step_s = []
+    for _ in range(2):  # a warm-up, then the timed step
+        module.zero_grad(set_to_none=True)
+        barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = module.training_loss(batch)
+        loss.backward()
+        all_reduce_gradients_(module.parameters())
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    res["launches"] = dict(fwd=fb.launches, bwd=fb.bwd_launches, warp=warp3d.launches)
+    reduce_ms = []
+    for _ in range(3):  # the mean of equal gradients is exact: timing it again changes nothing
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        all_reduce_gradients_(module.parameters())
+        end.record()
+        end.synchronize()
+        reduce_ms.append(start.elapsed_time(end))
+    res.update(step_s=step_s[-1], reduce_ms=statistics.median(reduce_ms),
+               loss=float(all_reduce_mean(loss.detach())), peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    global_batch = {k: gather_batch(v.contiguous()) for k, v in batch.items()}
+    del batch, stacks, loss
+    marks["flagship"] = time.perf_counter() - t_start
+
+    clr = dynaclr_module("cuda")
+    broadcast_module_(clr)
+    clr_ref = copy.deepcopy(clr).train() if rank == 0 else None
+    clr.train()
+    gc = torch.Generator(device=dev).manual_seed(1990)
+    n = DDP_DYNACLR_RANK_BATCH
+    views = {v: torch.rand((n * world, 2, *DYNACLR_PATCH), generator=gc, device=dev) for v in ("anchor", "positive")}
+    local = {k: v[rank * n:(rank + 1) * n] for k, v in views.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (a_proj, p_proj, n_proj), a_emb = clr._views(local, None, embedding=True)
+    clr_loss = clr._contrastive_loss(a_proj, p_proj, n_proj)
+    clr_loss.backward()
+    all_reduce_gradients_(clr.parameters())
+    torch.cuda.synchronize()
+    res["dynaclr_step_s"] = time.perf_counter() - t0
+    clr_emb, clr_proj = gather_batch(a_emb.detach()), gather_batch(a_proj.detach())
+    marks["dynaclr"] = time.perf_counter() - t_start
+    barrier()
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    if rank == 0:
+        t0 = time.perf_counter()
+        ref_loss = ref.training_loss(global_batch)
+        ref_loss.backward()
+        torch.cuda.synchronize()
+        res["single_step_s"] = time.perf_counter() - t0
+        res["loss_rel"] = abs(res["loss"] - float(ref_loss.detach())) / abs(float(ref_loss.detach()))
+        res["grads"], res["worst"] = _compare_grads(module, ref, {}, "[ddp] two ranks vs one process, flagship")
+        del ref, module, global_batch
+        torch.cuda.empty_cache()
+        (a_proj, p_proj, n_proj), a_emb = clr_ref._views(views, None, embedding=True)
+        ref_loss = clr_ref._contrastive_loss(a_proj, p_proj, n_proj)
+        ref_loss.backward()
+        checks = {"embedding": compare(clr_emb, a_emb.detach()), "projection": compare(clr_proj, a_proj.detach())}
+        clr_state, ref_state = clr.model.state_dict(), clr_ref.model.state_dict()
+        for k in ref_state:
+            if k.endswith(("running_mean", "running_var")):
+                checks[k] = compare(clr_state[k], ref_state[k])
+        bad = {k: v for k, v in checks.items() if not (v[1] <= 2e-3 and v[2] > 0.9999)}
+        res["dynaclr_loss_rel"] = abs(float(clr_loss.detach()) - float(ref_loss.detach())) / abs(float(ref_loss))
+        if bad or res["dynaclr_loss_rel"] > 2e-3:
+            raise AssertionError(f"[ddp] DynaCLR two ranks vs one process: {bad}, loss {res['dynaclr_loss_rel']:.2e}")
+        res["dynaclr_worst"] = max(v[1] for v in checks.values())
+        zero = {f"model.{m}": f"model.{m.replace('bias', 'weight')}"
+                for m in ("encoder.head.norm.bias", "projection.0.bias", "projection.3.bias")}
+        res["dynaclr_grads"], res["dynaclr_grad_worst"] = _compare_grads(clr, clr_ref, zero,
+                                                                         "[ddp] two ranks vs one process, DynaCLR")
+        if res["loss_rel"] > 2e-3:
+            raise AssertionError(f"[ddp] flagship loss of two ranks vs one process: rel {res['loss_rel']:.2e}")
+    res["marks"] = dict(marks, done=time.perf_counter() - t_start)
+    Path(out).write_text(json.dumps(res))
+
+
+def ddp_steps(card: str, tmp: Path) -> dict:
+    """Phase 19 (b): two processes on the one card over gloo (see
+    :func:`ddp_step_worker`)."""
+    port = _free_port()
+    ranks = run_processes("ddp_step_worker", [_rank_env(2, r, port, 0) for r in range(2)], tmp, "ddp_gloo")
+    r0 = ranks[0]
+    for r in ranks:
+        if min(r["launches"].values()) == 0:
+            raise AssertionError(f"[ddp] rank {r['rank']} launched {r['launches']}: every kernel must run")
+        log(f"[ddp] (b) rank {r['rank']} on {r['device']}: flagship f32 step of {DDP_RANK_BATCH} "
+            f"{TRAIN_PATCH} patches {r['step_s'] * 1e3:.1f} ms (forward, backward, gloo reduce; second step), "
+            f"reduce {r['reduce_ms']:.1f} ms (CUDA events, median of 3); launches A+B {r['launches']['fwd']}, C+D "
+            f"{r['launches']['bwd']}, warp {r['launches']['warp']}; DynaCLR step of {DDP_DYNACLR_RANK_BATCH} pairs "
+            f"{r['dynaclr_step_s'] * 1e3:.1f} ms; peak {r['peak_gib']:.2f} GiB; seconds since the process's "
+            f"start: {', '.join(f'{k} {v:.1f}' for k, v in r['marks'].items())} ({card})")
+    log(f"[ddp] (b) against one process at the global batch ({2 * DDP_RANK_BATCH} patches, "
+        f"{r0['single_step_s'] * 1e3:.1f} ms a forward + backward there): flagship loss rel {r0['loss_rel']:.2e}, "
+        f"{r0['grads']} gradients within 2e-3 of range and r > 0.9999, worst {r0['worst'][1]} "
+        f"{r0['worst'][0]:.2e}; DynaCLR ({2 * DDP_DYNACLR_RANK_BATCH} pairs) loss rel "
+        f"{r0['dynaclr_loss_rel']:.2e}, embedding, projection and running statistics worst "
+        f"{r0['dynaclr_worst']:.2e} of range, {r0['dynaclr_grads']} gradients, worst "
+        f"{r0['dynaclr_grad_worst'][1]} {r0['dynaclr_grad_worst'][0]:.2e}")
+    return dict(launches={k: sum(r["launches"][k] for r in ranks) for k in ("fwd", "bwd", "warp")},
+                step_ms=[r["step_s"] * 1e3 for r in ranks], reduce_ms=[r["reduce_ms"] for r in ranks])
+
+
+def phase_ddp(card: str, tmp: Path, plate: Path) -> dict:
+    """Phase 19: data parallelism across processes (see the module docstring)."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    fit = ddp_fit(card, tmp, plate)
+    steps = ddp_steps(card, tmp)
+    log(f"[ddp] phase 19 in {time.perf_counter() - t0:.1f} s")
+    return dict(fit=fit, steps=steps,
+                launches={k: fit["launches"][k] + steps["launches"][k] for k in ("fwd", "bwd", "warp")})
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is False")
@@ -4783,6 +5178,7 @@ def main() -> None:
         unext2 = phase_unext2(card, Path(tmp), cli["fit_plate"])
         legacy = phase_legacy(card, Path(tmp), cli["fit_plate"])
         gan = phase_gan(card, Path(tmp), cli["fit_plate"])
+        ddp = phase_ddp(card, Path(tmp), cli["fit_plate"])
     dynaclr = phase_dynaclr(card)
     with tempfile.TemporaryDirectory(prefix="viscy-dynaclr-") as tmp:
         dynaclr_cli = phase_dynaclr_cli(card, Path(tmp))
@@ -4799,7 +5195,7 @@ def main() -> None:
             source="viscy_tpu_torch/csrc/fused_mlp_grn.cu",
             replaces="viscy_tpu/ops/pallas/fused_block.py:164,183",
             launches=sl["launches"] + pre["launches"]["fwd"] + unext2["launches"]["fwd"] + gan["launches"]["fwd"]
-            + vae["launches"]["fwd"],
+            + vae["launches"]["fwd"] + ddp["launches"]["fwd"],
             **{k: kern[k] for k in keys if k != "max_abs_err"},
             max_abs_err=max(kern["max_abs_err"], pre["kernels"]["fwd_err"], pre["fwd_err"],
                             unext2["kernels"]["fwd_err"], gan["kernels"]["fwd_err"], vae["kernels"]["fwd_err"]),
@@ -4811,7 +5207,7 @@ def main() -> None:
             source="viscy_tpu_torch/csrc/fused_mlp_grn.cu",
             replaces="viscy_tpu/ops/pallas/fused_block.py:233,307",
             launches=tr["bwd_launches"] + pre["launches"]["bwd"] + unext2["launches"]["bwd"] + gan["launches"]["bwd"]
-            + vae["launches"]["bwd"],
+            + vae["launches"]["bwd"] + ddp["launches"]["bwd"],
             **{k: bwd[k] for k in keys if k != "max_abs_err"},
             max_abs_err=max(bwd["max_abs_err"], pre["kernels"]["bwd_err"], unext2["kernels"]["bwd_err"],
                             gan["kernels"]["bwd_err"], vae["kernels"]["bwd_err"]),
@@ -4824,7 +5220,7 @@ def main() -> None:
             replaces="viscy_tpu/ops/pallas/warp3d.py:226,352",
             launches=tr["warp_launches"] + pre["launches"]["warp"] + unext2["launches"]["warp"]
             + dynaclr["warp_launches"] + dynaclr_cli["warp_launches"] + legacy["warp_launches"]
-            + gan["launches"]["warp"],
+            + gan["launches"]["warp"] + ddp["launches"]["warp"],
             **{k: warp[k] for k in keys if k != "max_abs_err"},
             max_abs_err=max(warp["max_abs_err"], fit["warp_max_abs_err"], pre["warp_err"], dynaclr["warp_err"],
                             dynaclr_cli["warp_err"], legacy["warp_err"], gan["warp_err"]),

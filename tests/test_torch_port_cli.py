@@ -83,6 +83,9 @@ def test_the_port_resolves_configs_without_importing_viscy_tpu():
         "'viscy_models.vae.beta_vae_monai.BetaVaeMonai', 'viscy_models.gan.MultiScalePatchGAN3D')]; "
         "import viscy_tpu_torch.models.unet.unet2d, viscy_tpu_torch.models.unet.unet25d, "
         "viscy_tpu_torch.models.gan.losses, viscy_tpu_torch.models.schedule, viscy_tpu_torch.training.convert; "
+        # data parallelism: the process group, the collectives and the sharded sampler
+        "import viscy_tpu_torch.parallel.distributed, viscy_tpu_torch.parallel.mesh, "
+        "viscy_tpu_torch.data.distributed; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'viscy_tpu', 'tensorstore')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )

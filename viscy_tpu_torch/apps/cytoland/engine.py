@@ -34,6 +34,7 @@ from viscy_tpu_torch.models.unet.unet25d import Unet25d
 from viscy_tpu_torch.models.unet.unet3d import Unet3d
 from viscy_tpu_torch.models.unet.unext2 import UNeXt2
 from viscy_tpu_torch.ops.ssim import ssim_25d
+from viscy_tpu_torch.parallel.mesh import global_sum
 from viscy_tpu_torch.training.losses.mixed_loss import MixedLoss
 from viscy_tpu_torch.training.module import TrainModule
 
@@ -52,11 +53,13 @@ _UNET_ARCHITECTURE = {
 class MaskedMSELoss:
     """Masked MSE for FCMAE pretraining (reference ``engine.py:106``): the
     per-pixel squared error in float32 averaged over Z, summed where the
-    ``(B, 1, H, W)`` mask is 1 and divided by ``max(mask.sum(), 1)``."""
+    ``(B, 1, H, W)`` mask is 1 and divided by ``max(mask.sum(), 1)``; in a
+    job of several processes both sums are the global batch's."""
 
     def __call__(self, preds: torch.Tensor, original: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         loss = (preds.float() - original.float()).square()
-        return (loss.mean(dim=2) * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+        sums = global_sum(torch.stack([(loss.mean(dim=2) * mask).sum(), mask.sum().to(loss.dtype)]))
+        return sums[0] / torch.clamp_min(sums[1], 1.0)
 
 
 def _divisible_pad(x: torch.Tensor, factor: int, pad_z: bool = False) -> torch.Tensor:

@@ -31,6 +31,7 @@ from viscy_tpu_torch.models.gan import (
     lecam_penalty,
     mean_logit,
 )
+from viscy_tpu_torch.parallel.distributed import process_count
 from viscy_tpu_torch.training.losses.mixed_loss import MixedLoss
 from viscy_tpu_torch.training.module import TrainModule
 
@@ -321,7 +322,19 @@ class DynacellGAN(TrainModule):
     def adversarial_losses(self, batch: dict, generator: torch.Generator | None = None):
         """``(g_loss, d_loss)`` of one batch, and the step's state updates
         (see the class docstring); ``generator`` draws the generator
-        network's random masks."""
+        network's random masks. In a job of several processes the EMA's
+        ``B`` is the global batch, and the terms that couple samples other
+        than by a mean (LeCam's EMAs of batch logit means, the R1 / R2
+        penalties' per-batch scaling) are refused by name."""
+        world = process_count()
+        if world > 1 and self.lecam_gamma > 0:
+            raise NotImplementedError(
+                "DynacellGAN: the LeCam term (lecam_gamma > 0) keeps EMAs of per-batch logit means and is not "
+                f"ported to a job of {world} processes; set lecam_gamma: 0 or train in one process")
+        if world > 1 and (self.r1_gamma > 0 or self.r2_gamma > 0):
+            raise NotImplementedError(
+                "DynacellGAN: the R1 / R2 penalties (r1_gamma, r2_gamma > 0) scale with the per-batch sample count "
+                f"and are not ported to a job of {world} processes; set them to 0 or train in one process")
         source, target = batch["source"], batch["target"]
         pred = self.model(source, generator=generator)
         frozen = {n: p.detach() for n, p in self.discriminator.named_parameters()}
@@ -355,7 +368,7 @@ class DynacellGAN(TrainModule):
             self.lecam_real, self.lecam_fake = ema_r, ema_f
         self.d_step += 1
         if self.ema_generator is not None:
-            beta = 0.5 ** (source.shape[0] / max(self.ema_kimg * 1000.0, 1e-8))
+            beta = 0.5 ** (source.shape[0] * world / max(self.ema_kimg * 1000.0, 1e-8))
             with torch.no_grad():
                 for name, p in self.model.named_parameters():
                     e = self.ema_generator[name]

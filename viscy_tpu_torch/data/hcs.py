@@ -13,7 +13,10 @@ As in the JAX package:
   (``ceil(z_window_size * (1 + max scale - 1))``, even), so the affine
   can zoom out without reading past the stack;
 - ``caching`` preloads the selected channels of every FOV into RAM (with
-  the weighted crop as the only host transform, the crop is pushed down).
+  the weighted crop as the only host transform, the crop is pushed down);
+- in a job of several processes the train and validation loaders read
+  through the sharded sampler, each rank its own windows; the test and
+  predict loaders read every window on every rank.
 
 One difference: the predict stage reads the target channels as the JAX
 package does only when the plate has them; a plate without them (the
@@ -323,10 +326,11 @@ class HCSDataModule(DataModule):
         )
 
     def test_dataloader(self) -> DataLoader:
-        return DataLoader(self.test_dataset, batch_size=1, num_workers=self.num_workers)
+        return DataLoader(self.test_dataset, batch_size=1, num_workers=self.num_workers, distributed=False)
 
     def predict_dataloader(self) -> DataLoader:
-        return DataLoader(self.predict_dataset, batch_size=self.batch_size, num_workers=self.num_workers)
+        return DataLoader(self.predict_dataset, batch_size=self.batch_size, num_workers=self.num_workers,
+                          distributed=False)
 
     # -- the device transform --------------------------------------------------------
     def _apply_device_normalizations(self, batch: dict) -> dict:

@@ -4,7 +4,10 @@ of ``viscy_tpu/data/loader.py``).
 A thread pool loads the items of a few batches ahead (chunk reads and
 decompression release the GIL) and collates them in order into numpy
 batches; a bounded queue hands them to the consumer. Shuffling is a numpy
-permutation seeded with ``seed + epoch``.
+permutation seeded with ``seed + epoch``. In a job of several processes a
+loader with ``distributed="auto"`` reads through a
+:class:`~viscy_tpu_torch.data.distributed.ShardedDistributedSampler`, so
+each rank loads its own slice of the indices.
 """
 
 from __future__ import annotations
@@ -17,10 +20,16 @@ from typing import Iterator
 import numpy as np
 
 from viscy_tpu_torch.data.utils import collate_samples
+from viscy_tpu_torch.parallel.distributed import process_count
 
 
 class DataLoader:
-    """Iterable over collated numpy batches with background prefetch."""
+    """Iterable over collated numpy batches with background prefetch.
+
+    With ``distributed="auto"``, a job of more than one process reads
+    through a ``ShardedDistributedSampler`` (``shuffle``, ``seed`` and
+    ``drop_last`` passed on), as the JAX loader does; loaders whose
+    consumer writes on one host (predict, test) pass ``False``."""
 
     def __init__(
         self,
@@ -31,10 +40,16 @@ class DataLoader:
         drop_last: bool = False,
         prefetch_factor: int = 2,
         seed: int = 42,
+        distributed: bool | str = "auto",
     ) -> None:
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
+        self.sampler = None
+        if distributed and process_count() > 1:
+            from viscy_tpu_torch.data.distributed import ShardedDistributedSampler
+
+            self.sampler = ShardedDistributedSampler(dataset, shuffle=shuffle, seed=seed, drop_last=drop_last)
         self.num_workers = max(0, num_workers)
         self.drop_last = drop_last
         self.prefetch_factor = prefetch_factor
@@ -43,11 +58,16 @@ class DataLoader:
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
+        if self.sampler is not None:
+            self.sampler.set_epoch(epoch)
 
     def _batches(self) -> list[list[int]]:
-        indices = list(range(len(self.dataset)))
-        if self.shuffle:
-            np.random.default_rng(self.seed + self.epoch).shuffle(indices)
+        if self.sampler is not None:
+            indices = list(self.sampler)
+        else:
+            indices = list(range(len(self.dataset)))
+            if self.shuffle:
+                np.random.default_rng(self.seed + self.epoch).shuffle(indices)
         batches = [indices[i : i + self.batch_size] for i in range(0, len(indices), self.batch_size)]
         if self.drop_last and batches and len(batches[-1]) < self.batch_size:
             batches.pop()

@@ -15,6 +15,11 @@ On the device (``device_transform``) each view (anchor, positive,
 negative) is normalized and augmented on its own draws, then center-cropped
 to ``(z_window_size, *final_yx_patch_size)``; the crop is a member of the
 view's ``Compose``, so the affine+crop and smooth+crop fusions apply.
+
+In a job of several processes the train and validation loaders give each
+rank its rows of the global batch one process would draw (the JAX loader
+reads the same cells on every process: ROADMAP.md Queue 3); each rank's
+dataset draws the negatives of its own rows.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from viscy_tpu_torch.data.hcs import DataModule
 from viscy_tpu_torch.data.typing import ULTRACK_INDEX_COLUMNS
 from viscy_tpu_torch.data.utils import read_norm_meta
 from viscy_tpu_torch.evaluation.anndata_lite import Frame
+from viscy_tpu_torch.parallel.distributed import process_count, process_index
 from viscy_tpu_torch.transforms.base import Compose
 from viscy_tpu_torch.transforms.crop import BatchedCenterSpatialCropd
 from viscy_tpu_torch.zarr_io.store import Position, open_ome_zarr
@@ -337,7 +343,7 @@ class TripletDataModule(DataModule):
         """Every cell, the last batch short: the JAX loader drops the last
         ``len % batch_size`` cells from the embedding store."""
         return _BatchedTripletLoader(self.predict_dataset, self.batch_size, shuffle=False, seed=self.seed,
-                                     drop_last=False)
+                                     drop_last=False, distributed=False)
 
     # -- device-side normalization + augmentation ------------------------------------
     def _chunk(self, b: int) -> int:
@@ -407,32 +413,52 @@ class _BatchedTripletLoader:
     """Batches of ``__getitems__``: shuffled with ``default_rng(seed +
     epoch)``; with ``drop_last``, ``n // batch_size`` full batches (the rest
     dropped) or one short batch when the dataset is smaller than a batch,
-    else every row, the last batch short."""
+    else every row, the last batch short.
+
+    With ``distributed`` in a job of ``world`` processes, ``batch_size`` is
+    each rank's: the loader cuts global batches of ``batch_size * world``
+    rows from the permutation one process would draw with that batch, and
+    rank ``r`` yields rows ``[r * batch_size, (r + 1) * batch_size)`` of
+    each, so the ranks' batches together are the one-process batch. A
+    global batch that does not divide (the short one) is padded by
+    wrapping to a multiple of ``world`` and split evenly."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool, seed: int = 42, epoch: int = 0,
-                 drop_last: bool = True) -> None:
+                 drop_last: bool = True, distributed: bool = True) -> None:
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.epoch = epoch
         self.drop_last = drop_last
+        self.world = process_count() if distributed else 1
+        self.rank = process_index() if distributed else 0
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
 
     def __len__(self) -> int:
+        size = self.batch_size * self.world
         if not self.drop_last:
-            return -(-len(self.dataset) // self.batch_size)
-        return max(1, len(self.dataset) // self.batch_size)
+            return -(-len(self.dataset) // size)
+        return max(1, len(self.dataset) // size)
+
+    def _rows(self, batch: np.ndarray) -> list:
+        """This rank's rows of a global batch."""
+        if self.world == 1:
+            return list(batch)
+        batch = np.resize(batch, -(-len(batch) // self.world) * self.world)
+        per = len(batch) // self.world
+        return list(batch[self.rank * per : (self.rank + 1) * per])
 
     def __iter__(self):
         indices = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng(self.seed + self.epoch).shuffle(indices)
-        n = len(indices) if not self.drop_last else (len(indices) // self.batch_size) * self.batch_size
+        size = self.batch_size * self.world
+        n = len(indices) if not self.drop_last else (len(indices) // size) * size
         if n == 0 and len(indices) > 0:
-            yield self.dataset.__getitems__(list(indices))
+            yield self.dataset.__getitems__(self._rows(indices))
             return
-        for i in range(0, n, self.batch_size):
-            yield self.dataset.__getitems__(list(indices[i : i + self.batch_size]))
+        for i in range(0, n, size):
+            yield self.dataset.__getitems__(self._rows(indices[i : i + size]))

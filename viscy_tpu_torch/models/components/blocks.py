@@ -27,6 +27,7 @@ from einops import rearrange
 from torch import nn
 
 from viscy_tpu_torch.ops.fused_block import fused_mlp_grn
+from viscy_tpu_torch.parallel.mesh import data_parallel, global_sum
 
 Init = Callable[[torch.Tensor, torch.Generator], torch.Tensor]
 
@@ -206,7 +207,13 @@ class BatchNorm(nn.Module):
     variance ``max(E[x^2] - mu^2, 0)``, the BIASED variance, and the running
     statistics take ``momentum * running + (1 - momentum) * batch`` with
     that biased variance, as flax updates them (torch's own BatchNorm would
-    store the unbiased one). In eval the running statistics normalize."""
+    store the unbiased one). In eval the running statistics normalize.
+
+    In a job of several processes the training statistics are the global
+    batch's, as in the JAX step over the sharded batch: the sums of ``x``
+    and ``x * x`` and the count are summed over the processes
+    (:func:`~viscy_tpu_torch.parallel.mesh.global_sum`, gradient included),
+    so the running statistics stay equal on every rank."""
 
     def __init__(self, dim: int, momentum: float = 0.9, eps: float = 1e-5) -> None:
         super().__init__()
@@ -222,8 +229,15 @@ class BatchNorm(nn.Module):
         if self.training:
             xs = x.to(torch.promote_types(x.dtype, torch.float32))
             axes = tuple(range(x.ndim - 1))
-            mean = xs.mean(dim=axes)
-            var = torch.clamp_min((xs * xs).mean(dim=axes) - mean * mean, 0.0)
+            if data_parallel():
+                c = x.shape[-1]
+                count = xs.new_full((1,), xs.numel() // c)
+                sums = global_sum(torch.cat([xs.sum(dim=axes), (xs * xs).sum(dim=axes), count]))
+                mean = sums[:c] / sums[-1]
+                var = torch.clamp_min(sums[c : 2 * c] / sums[-1] - mean * mean, 0.0)
+            else:
+                mean = xs.mean(dim=axes)
+                var = torch.clamp_min((xs * xs).mean(dim=axes) - mean * mean, 0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)

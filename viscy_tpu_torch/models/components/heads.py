@@ -25,6 +25,7 @@ from viscy_tpu_torch.models.components.blocks import (
     pad_pool_blur_2d,
     pixel_shuffle_2d,
 )
+from viscy_tpu_torch.parallel.mesh import gather_batch
 
 
 def normal_init(std: float):
@@ -298,7 +299,10 @@ class CrossModalContrastiveHead(BaseHead):
     """Cross-modal InfoNCE head (reference ``heads.py:274``): image features
     and a paired ``(B, target_dims)`` vector projected into one space,
     symmetric InfoNCE across the batch; rows with a NaN target are unpaired:
-    they weigh nothing and their columns are left out of every softmax."""
+    they weigh nothing and their columns are left out of every softmax. In a
+    job of several processes the batch is the global one
+    (:func:`~viscy_tpu_torch.parallel.mesh.gather_batch`), every rank
+    computing the one loss."""
 
     def __init__(
         self,
@@ -321,9 +325,9 @@ class CrossModalContrastiveHead(BaseHead):
 
     def forward(self, x: torch.Tensor, y: torch.Tensor) -> tuple[torch.Tensor, dict]:
         unit = lambda z: z / (torch.linalg.vector_norm(z, dim=-1, keepdim=True) + 1e-12)
-        z_img = unit(self.image_proj(x))
-        valid = ~torch.isnan(y).any(dim=-1)
-        z_tgt = unit(self.target_proj(torch.nan_to_num(y, nan=0.0)))
+        z_img = gather_batch(unit(self.image_proj(x)))
+        z_tgt = gather_batch(unit(self.target_proj(torch.nan_to_num(y, nan=0.0))))
+        valid = gather_batch((~torch.isnan(y).any(dim=-1)).to(z_img.dtype)) > 0.5
         logits = (z_img @ z_tgt.T) / self.temperature
         neg_inf = torch.finfo(logits.dtype).min
         l_i2t = torch.where(valid[None, :], logits, neg_inf)

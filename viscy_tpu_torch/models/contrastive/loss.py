@@ -1,7 +1,14 @@
 """NT-Xent losses with an optional temperature schedule and hard-negative
 concentration, and the triplet margin loss (counterpart of
 ``viscy_tpu/models/contrastive/loss.py``; reference
-``contrastive/loss.py:20,73``)."""
+``contrastive/loss.py:20,73``).
+
+In a job of several processes each loss takes the global batch
+(:func:`~viscy_tpu_torch.parallel.mesh.gather_batch`): NT-Xent draws its
+negatives from every rank's rows, as the JAX step over the sharded batch
+does, and every rank computes the one global loss; the gather's backward
+sums the ranks' gradients and the trainer's mean over the ranks then gives
+that loss's gradient."""
 
 from __future__ import annotations
 
@@ -11,6 +18,7 @@ from typing import Literal
 import torch
 
 from viscy_tpu_torch.models.schedule import cosine_anneal
+from viscy_tpu_torch.parallel.mesh import gather_batch
 
 __all__ = ["ntxent_loss", "NTXentLoss", "NTXentHCL", "triplet_margin_loss", "cosine_anneal"]
 
@@ -26,7 +34,8 @@ def ntxent_loss(
     projections: positives are the ``(i, i + B)`` pairs of the concatenated
     batch. ``beta > 0`` weights each negative's exponential by
     ``exp(beta * sim)``, normalized to keep the per-anchor negative count
-    (HCL)."""
+    (HCL). Over the global batch in a job of several processes."""
+    z1, z2 = gather_batch(z1), gather_batch(z2)
     z = torch.cat([z1, z2], dim=0)
     z = z / (_norm(z) + eps)
     n, b = z.shape[0], z1.shape[0]
@@ -53,7 +62,8 @@ def ntxent_loss(
 def triplet_margin_loss(
     anchor: torch.Tensor, positive: torch.Tensor, negative: torch.Tensor, margin: float = 0.5
 ) -> torch.Tensor:
-    """Euclidean triplet margin loss, the mean over the batch."""
+    """Euclidean triplet margin loss, the mean over the (global) batch."""
+    anchor, positive, negative = gather_batch(anchor), gather_batch(positive), gather_batch(negative)
     d_pos = _norm(anchor - positive)[:, 0]
     d_neg = _norm(anchor - negative)[:, 0]
     return torch.clamp_min(d_pos - d_neg + margin, 0.0).mean()

@@ -3,7 +3,9 @@
 
 Uniform windows, the depth window spanning the full stack depth, statistics
 in float32, contrast sensitivity clamped for bf16 training, and no depth
-downsampling across MS-SSIM scales. Plain PyTorch, differentiable.
+downsampling across MS-SSIM scales. Plain PyTorch, differentiable. The
+default data range is the target's maximum over the batch: over the global
+batch in a job of several processes.
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ from typing import Sequence
 
 import torch
 import torch.nn.functional as F
+
+from viscy_tpu_torch.parallel.mesh import global_max
 
 _MS_SSIM_BETAS = (0.0448, 0.2856, 0.3001, 0.2363, 0.1333)
 
@@ -66,7 +70,7 @@ def ssim_25d(
     if preds.ndim != 5:
         raise ValueError(f"Input shape must be (B, C, D, H, W), got {tuple(preds.shape)}")
     if data_range is None:
-        data_range = target.max().float()
+        data_range = global_max(target.max().float())
     ssim_img, cs_img = _ssim_and_cs(
         preds, target, (preds.shape[2], *in_plane_window_size), data_range=data_range
     )
@@ -111,7 +115,7 @@ def ms_ssim_25d(
     for _ in range(len(betas)):
         ssim, cs = ssim_25d(
             p, t, in_plane_window_size, return_contrast_sensitivity=True,
-            data_range=t.max().float(),
+            data_range=global_max(t.max().float()),
         )
         if clamp:
             cs = torch.clamp_min(cs, base_min)

@@ -15,6 +15,13 @@ there too). ``convert_to_anndata`` reads ``embeddings_path`` and
 Run as ``viscy-torch fit -c config.yml`` or
 ``python -m viscy_tpu_torch.training.cli fit -c config.yml``; in a
 program, ``main(["fit", "-c", path])`` returns the Trainer.
+
+Several processes (data parallelism): start one per card with the
+environment of :mod:`viscy_tpu_torch.parallel.distributed`
+(``VISCY_COORDINATOR`` / ``VISCY_NUM_PROCESSES`` / ``VISCY_PROCESS_ID``,
+or torchrun's); the process group starts before the model is built, so the
+model lands on the process's card, and only rank 0 writes
+``hparams.yaml`` and an export.
 """
 
 from __future__ import annotations
@@ -28,12 +35,14 @@ from pathlib import Path
 import click
 import yaml
 
+from viscy_tpu_torch.parallel.distributed import is_rank_zero, maybe_initialize
 from viscy_tpu_torch.training.compose import load_composed_config
 from viscy_tpu_torch.training.instantiate import instantiate, resolve_class
 
 _logger = logging.getLogger("viscy_tpu_torch")
 
-# Lightning trainer keys with no meaning for a one-device eager trainer
+# Lightning trainer keys with no meaning here (the process count comes from the
+# launch environment: viscy_tpu_torch.parallel.distributed)
 _IGNORED_TRAINER_KEYS = {
     "strategy",
     "devices",
@@ -69,7 +78,9 @@ def build_trainer(trainer_cfg: dict, subcommand: str | None = None):
 
     trainer_cfg = dict(trainer_cfg or {})
     callbacks = instantiate(trainer_cfg.pop("callbacks", []) or [])
-    loggers = build_loggers_from_config(trainer_cfg.pop("logger", None), subcommand)
+    logger_cfg = trainer_cfg.pop("logger", None)
+    # metric sinks live on rank 0 only
+    loggers = build_loggers_from_config(logger_cfg, subcommand) if is_rank_zero() else []
     accepted = _trainer_arg_keys()
     for key in list(trainer_cfg):
         if key in _IGNORED_TRAINER_KEYS:
@@ -165,6 +176,9 @@ def run_subcommand(subcommand: str, config_path: str, ckpt_path: str | None = No
         return None
     if subcommand not in ("fit", "validate", "test", "predict", "export"):
         raise click.UsageError(f"Unknown subcommand {subcommand}")
+    device = (cfg.get("trainer") or {}).get("device")
+    # the process group (and each process's card) before any device use
+    maybe_initialize(device=device or "cuda")
     ckpt = ckpt_path or cfg.get("ckpt_path")
     # on fit, the hparams saved with the checkpoint win over the config
     # (a resume restores the model it trained); elsewhere the config wins
@@ -172,12 +186,11 @@ def run_subcommand(subcommand: str, config_path: str, ckpt_path: str | None = No
         saved = _load_ckpt_hparams(ckpt)
         if saved is not None:
             cfg["model"] = saved
-    device = (cfg.get("trainer") or {}).get("device")
     model = instantiate(_with_device(cfg["model"], device)) if "model" in cfg else None
     datamodule = instantiate(cfg["data"]) if "data" in cfg else None
     trainer = build_trainer(cfg.get("trainer", {}), subcommand)
     if subcommand == "fit":
-        if "model" in cfg:
+        if "model" in cfg and is_rank_zero():
             _save_ckpt_hparams(trainer, cfg["model"])
         trainer.fit(model, datamodule, ckpt_path=ckpt)
     elif subcommand == "validate":
@@ -187,7 +200,7 @@ def run_subcommand(subcommand: str, config_path: str, ckpt_path: str | None = No
         trainer.test(model, datamodule, ckpt_path=ckpt)
     elif subcommand == "predict":
         trainer.predict(model, datamodule, ckpt_path=ckpt)
-    else:
+    elif is_rank_zero():
         from viscy_tpu_torch.training.export import export_model
 
         export_model(model, cfg.get("export", {}))

@@ -4,12 +4,15 @@ arXiv:2507.05383), plain PyTorch.
 
 Masked MSE + Dice on a tunable-sigmoid soft threshold; the foreground mask
 comes from a precomputed ``fg_mask``, a fixed threshold, or a per-(B, C)
-Otsu threshold on the target.
+Otsu threshold on the target. In a job of several processes the Dice term
+averages over the real masks of the global batch.
 """
 
 from __future__ import annotations
 
 import torch
+
+from viscy_tpu_torch.parallel.mesh import global_sum
 
 __all__ = ["SpotlightLoss", "otsu_threshold_batch", "tunable_sigmoid"]
 
@@ -96,10 +99,8 @@ class SpotlightLoss:
         intersection = (soft_pred * mask).sum(dim=spatial)
         soft_sum = soft_pred.sum(dim=spatial)
         channel_dice = 1 - (2 * intersection) / (soft_sum + fg_per_ch + self.eps)
-        n_real = has_real_mask.sum()
-        dice = torch.where(
-            n_real > 0,
-            (channel_dice * has_real_mask.float()).sum() / torch.clamp_min(n_real, 1),
-            torch.zeros((), device=pred.device),
-        )
+        # the dice mean over the real masks of the global batch
+        dice_sum, n_real = global_sum(torch.stack([(channel_dice * has_real_mask.float()).sum(),
+                                                   has_real_mask.sum().to(channel_dice.dtype)]))
+        dice = torch.where(n_real > 0, dice_sum / torch.clamp_min(n_real, 1), torch.zeros((), device=pred.device))
         return self.lambda_mse * masked_mse + (1 - self.lambda_mse) * dice

@@ -12,7 +12,17 @@ any token masks drawn from a second generator) and ``backward``; every
 ``accumulate_grad_batches`` steps the (mean) gradient is clipped and AdamW
 and its scheduler step. ``test`` runs the engine's test step over the test
 loader and means its metrics. Metrics go to ``metrics.csv``, a TensorBoard
-event file and any extra sinks (W&B). Multi-device meshes are not ported.
+event file and any extra sinks (W&B).
+
+Data parallelism across processes (the JAX trainer's ``data`` axis): under
+a ``torch.distributed`` process group
+(:func:`viscy_tpu_torch.parallel.maybe_initialize`) each process trains on
+its loader's rows, rank 0's weights are broadcast at the fit's start, the
+gradient is averaged over the processes after accumulation and before
+clipping, the rank is folded into the seeds of the device generators,
+validation and test metrics are averaged over the processes, and only rank
+0 writes checkpoints and logs. ``predict`` runs in one process only.
+FSDP, tensor and pipeline parallelism are not ported.
 """
 
 from __future__ import annotations
@@ -28,6 +38,8 @@ import numpy as np
 import torch
 
 from viscy_tpu_torch.device import resolve_device
+from viscy_tpu_torch.parallel.distributed import is_rank_zero, process_count, process_index
+from viscy_tpu_torch.parallel.mesh import all_reduce_gradients_, all_reduce_mean, barrier, broadcast_module_
 from viscy_tpu_torch.training.callbacks.base import Callback
 from viscy_tpu_torch.training.module import TrainModule
 from viscy_tpu_torch.training.optimizers import clip_by_global_norm_, clip_by_value_
@@ -37,6 +49,9 @@ _logger = logging.getLogger("viscy_tpu_torch")
 
 
 _STOP = object()  # prefetch-queue sentinel
+
+# seed offset between the device generators of consecutive ranks
+RANK_SEED_STRIDE = 1 << 40
 
 
 class _Slot:
@@ -214,8 +229,27 @@ class CSVLogger:
                 _logger.warning("metrics sink %r failed to close", sink, exc_info=True)
 
 
+class _NullLogger:
+    """The metric sinks of a rank other than 0: nothing is written."""
+
+    def log_metrics(self, metrics: dict[str, float], step: int) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def _mean_over_ranks(metrics: dict[str, float], device: torch.device) -> dict[str, float]:
+    """Each metric's mean over the processes (every rank holds the same keys)."""
+    if not metrics or process_count() == 1:
+        return metrics
+    keys = sorted(metrics)
+    values = all_reduce_mean(torch.tensor([metrics[k] for k in keys], dtype=torch.float64, device=device))
+    return dict(zip(keys, values.tolist()))
+
+
 class Trainer:
-    """Drives TrainModule engines over DataModules on one device.
+    """Drives TrainModule engines over DataModules on one device per process.
 
     - ``max_steps`` ends the fit (and sets the schedule's length); without
       it the fit runs ``max_epochs`` passes over ``train_dataloader()``
@@ -249,7 +283,11 @@ class Trainer:
       ``trainer.logger`` to them).
 
     The augmentation generator is seeded with ``seed + 1`` at every fit
-    start, the stochastic-depth generator with ``seed + 2**32``.
+    start, the stochastic-depth generator with ``seed + 2**32``; rank ``r``
+    of a job of several processes adds ``r * RANK_SEED_STRIDE`` to these
+    and to the validation seeds, so no two ranks draw the same
+    augmentation. In such a job only rank 0 writes ``metrics.csv``, the
+    event file, the extra sinks, the checkpoints and the profile.
     """
 
     def __init__(
@@ -297,7 +335,11 @@ class Trainer:
         self.profile_dir = profile_dir
         self.profile_steps = profile_steps
         self.device = resolve_device(device)
-        self.logger = CSVLogger(self.default_root_dir, use_tensorboard, extra=loggers)
+        self.is_rank_zero = is_rank_zero()
+        if self.is_rank_zero:
+            self.logger = CSVLogger(self.default_root_dir, use_tensorboard, extra=loggers)
+        else:
+            self.logger = _NullLogger()
         self.optimizer = None
         self.scheduler = None
         self._schedule = None
@@ -335,7 +377,8 @@ class Trainer:
 
     def _train_step(self, module: TrainModule, batch: dict) -> torch.Tensor:
         """Forward and backward of one batch; the optimizer steps on every
-        ``accumulate_grad_batches``-th call, on the mean gradient."""
+        ``accumulate_grad_batches``-th call, on the mean gradient (over the
+        accumulated steps and the processes)."""
         module.zero_grad(set_to_none=True)
         loss = module.training_loss(batch, self.drop_path_generator)
         loss.backward()
@@ -357,6 +400,8 @@ class Trainer:
                 return loss
             for name, p in module.named_parameters():
                 p.grad = self._acc.pop(name, None)
+        # the global mean gradient: after accumulation, before clipping
+        all_reduce_gradients_(module.parameters())
         if self.gradient_clip_val:
             if self.gradient_clip_algorithm == "value":
                 clip_by_value_(module.parameters(), self.gradient_clip_val)
@@ -368,7 +413,8 @@ class Trainer:
 
     def _profile_start(self) -> None:
         """Start the step trace before step ``profile_steps[0]``."""
-        if self.profile_dir and self._profiler is None and self.global_step == self.profile_steps[0]:
+        if (self.profile_dir and self.is_rank_zero and self._profiler is None
+                and self.global_step == self.profile_steps[0]):
             from torch.profiler import ProfilerActivity, profile
 
             activities = [ProfilerActivity.CPU]
@@ -403,6 +449,7 @@ class Trainer:
         datamodule.setup("fit")
         module.to(self.device).train()
         self._load_pretrained(module)
+        broadcast_module_(module)
         if self.optimizer is None:
             total = self._total_steps(datamodule, datamodule.train_dataloader())
             self.optimizer, self.scheduler, self._schedule = module.configure_optimizers(total)
@@ -411,8 +458,8 @@ class Trainer:
         transform = getattr(datamodule, "device_transform", None)
         for cb in self.callbacks:
             cb.on_fit_start(self, module)
-        self.generator = torch.Generator(device=self.device).manual_seed(self.seed + 1)
-        self.drop_path_generator = torch.Generator(device=self.device).manual_seed(self.seed + 2**32)
+        self.generator = torch.Generator(device=self.device).manual_seed(self._rank_seed(self.seed + 1))
+        self.drop_path_generator = torch.Generator(device=self.device).manual_seed(self._rank_seed(self.seed + 2**32))
         max_epochs = 1 if self.fast_dev_run else self.max_epochs
         for epoch in range(self.current_epoch, max_epochs):
             self.current_epoch = epoch
@@ -434,7 +481,7 @@ class Trainer:
                 if self.global_step % self.log_every_n_steps == 0 or self.fast_dev_run:
                     now = time.perf_counter()
                     host = {
-                        "loss/train": float(loss.detach()),
+                        "loss/train": float(all_reduce_mean(loss.detach())),
                         "lr": float(self._schedule(self.global_step)),
                         "step_time_ms": (now - step_t0) / max(self.log_every_n_steps, 1) * 1e3,
                     }
@@ -450,7 +497,7 @@ class Trainer:
             self._log_epoch_feed(epoch, feed, time.perf_counter() - epoch_t0)
             val_metrics = {}
             if (epoch + 1) % self.check_val_every_n_epoch == 0 or self.fast_dev_run:
-                val_gen = torch.Generator(device=self.device).manual_seed(self.seed + 2 + epoch)
+                val_gen = torch.Generator(device=self.device).manual_seed(self._rank_seed(self.seed + 2 + epoch))
                 val_metrics = self._run_validation(module, datamodule, val_gen)
             for cb in self.callbacks:
                 cb.on_train_epoch_end(self, module, epoch)
@@ -461,6 +508,10 @@ class Trainer:
         self._profile_stop(fit_end=True)
         for cb in self.callbacks:
             cb.on_fit_end(self, module)
+
+    @staticmethod
+    def _rank_seed(seed: int) -> int:
+        return seed + process_index() * RANK_SEED_STRIDE
 
     def _load_pretrained(self, module: TrainModule) -> None:
         """``module.load_pretrained()``, once per trainer, after the weights
@@ -492,7 +543,7 @@ class Trainer:
                 for cb in self.callbacks:
                     cb.on_validation_batch_end(self, module, host, batch, i)
         module.train(was_training)
-        mean_metrics = {k: float(np.mean(v)) for k, v in agg.items()}
+        mean_metrics = _mean_over_ranks({k: float(np.mean(v)) for k, v in agg.items()}, self.device)
         if mean_metrics:
             self.logged_metrics.update(mean_metrics)
             self.logger.log_metrics(mean_metrics, self.global_step)
@@ -503,7 +554,7 @@ class Trainer:
     def validate(self, module: TrainModule, datamodule, ckpt_path: str | Path | None = None) -> dict:
         """Mean validation metrics of ``module`` over ``val_dataloader()``
         (device transforms and the loss's token masks drawn from a
-        generator seeded with 0)."""
+        generator seeded with 0, plus the rank's seed stride)."""
         self._active_datamodule = datamodule
         prepare = getattr(datamodule, "prepare_data", None)
         if prepare is not None:
@@ -513,7 +564,7 @@ class Trainer:
         self._load_pretrained(module)
         if ckpt_path:
             self.load_checkpoint(ckpt_path, module)
-        generator = torch.Generator(device=self.device).manual_seed(0)
+        generator = torch.Generator(device=self.device).manual_seed(self._rank_seed(0))
         return self._run_validation(module, datamodule, generator)
 
     def test(self, module: TrainModule, datamodule, ckpt_path: str | Path | None = None) -> dict:
@@ -539,7 +590,7 @@ class Trainer:
                     agg.setdefault(k, []).append(v)
                 for cb in self.callbacks:
                     cb.on_test_batch_end(self, module, host, batch, i)
-        mean_metrics = {k: float(np.mean(v)) for k, v in agg.items()}
+        mean_metrics = _mean_over_ranks({k: float(np.mean(v)) for k, v in agg.items()}, self.device)
         self.logger.log_metrics({f"test/{k}": v for k, v in mean_metrics.items()}, self.global_step)
         if mean_metrics:
             width = max(len(k) for k in mean_metrics)
@@ -569,7 +620,15 @@ class Trainer:
         where the step put them and go to the callbacks (and the returned
         list) as they are, so a writer that ``wants_device_predictions``
         blends on the device.
+
+        Runs in one process only, as the JAX trainer does: the writers
+        assemble whole stores on one host.
         """
+        if process_count() > 1:
+            raise NotImplementedError(
+                "Trainer.predict runs in one process: run one process per output store (shard the work by FOV "
+                f"or plate) instead of a {process_count()}-process job"
+            )
         self._active_datamodule = datamodule
         prepare = getattr(datamodule, "prepare_data", None)
         if prepare is not None:
@@ -616,7 +675,19 @@ class Trainer:
         d.mkdir(parents=True, exist_ok=True)
         return d
 
-    def _save_checkpoint(self, module: TrainModule, val_metrics: dict) -> Path:
+    def _save_checkpoint(self, module: TrainModule, val_metrics: dict) -> Path | None:
+        """:meth:`_write_checkpoint` on rank 0, between barriers in a job of
+        several processes (the others wait and get None). A running mean
+        gradient of an unfinished accumulation becomes its mean over the
+        processes first, on every rank, so a resume from rank 0's file
+        continues the global mean (the update's final mean is unchanged)."""
+        self._acc = {name: all_reduce_mean(g) for name, g in self._acc.items()}
+        barrier()
+        path = self._write_checkpoint(module, val_metrics) if self.is_rank_zero else None
+        barrier()
+        return path
+
+    def _write_checkpoint(self, module: TrainModule, val_metrics: dict) -> Path:
         """Save a checkpoint laid out as a Lightning one: ``state_dict``
         (``model.<reference name>``, float32 on the CPU), ``optimizer`` and
         ``scheduler`` state dicts, ``step`` and ``epoch``; with accumulation
