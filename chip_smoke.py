@@ -333,10 +333,36 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
            both as one process on the gathered global batch: losses, every
            gradient, the DynaCLR embedding, projection and running
            statistics within 2e-3 of range and r > 0.9999; step and reduce
-           times, launches and peaks per rank. Every process has a watchdog.
+           times, launches and peaks per rank. Then phase 17's DynacellGAN in
+           f32 (R1 / R2 every second step, LeCam and the EMA on) over the two
+           ranks, 2 windows of (15, 128, 128) a rank, two passes (d_step 0
+           with R1 / R2, d_step 1 without), against one process at the global
+           batch: the loss, each term and the LeCam EMAs (the same on both
+           ranks) within 2e-3 relative, every gradient within 2e-3 of range
+           and r > 0.9999. Every process has a watchdog.
+20. qc, tta, seg, callbacks. (a) ``python -m viscy_tpu_torch.apps.qc.cli run
+           -c`` on ``configs/qc_run.yml`` rewritten for phase 9's plate (its
+           path; the annotated GFP channel renamed Nucleus): every focus index
+           against a float64 FFT's argmax on the host (the smallest margin
+           printed), every ``.zattrs`` against the ``--device cpu`` run's,
+           seconds per FOV; the plate's ``.zattrs`` restored. (b)
+           ``AugmentedPredictionVSUNet.with_rotation_tta`` (4 rotations,
+           median) on ``configs/vscyto3d_predict.yml``'s model (f32, full
+           width) through ``Trainer.predict``: one seeded (1, 1, 15, 2048,
+           2048) FOV, untiled (seconds, fused-forward launches), a (15, 400,
+           360) crop card against CPU (<= 2e-3 of range, r > 0.9999), the
+           forward kernels at the path's B = 1 full-frame shapes against their
+           plain version. (c) ``Trainer.test(SegmentationMetrics2D(),
+           SegmentationDataModule)`` on seeded label plates (2 FOVs of (4,
+           512, 512)): every metric equal to the plain computation. (d) after
+           phase 14 (before phase 18, which removes its plate): its DynaCLR fit with ``EmbeddingSnapshotCallback``
+           and ``OnlineEvalCallback`` added, one epoch: the snapshot against a
+           CPU forward of the same validation anchors, the logged effective
+           rank against the host's on the collected features.
 
-Phases 16, 17 and 19 run after phase 12, on phase 9's plate; phase 18 after
-phase 14, on its plate and tracks. The last two lines are a JSON
+Phase 20 (a) runs after phase 10, on phase 9's plate of 4 FOVs; phases 16,
+17, 19 and 20 (b)-(c) after phase 12, on that plate grown by phase 11;
+phases 20 (d) and 18 after phase 14, in that order, on its plate and tracks. The last two lines are a JSON
 ``kernels`` record and the JSON result line.
 Needs ``torch.cuda.is_available()`` and the repo's ``viscy_tpu_torch``
 beside this file. Imports nothing of JAX or ``viscy_tpu``.
@@ -973,35 +999,40 @@ def compare(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float, float]
 
 def _compare_grads(on_card, on_cpu, zero: dict, tag: str) -> tuple[int, tuple]:
     """Every parameter gradient of two copies of one engine, card against
-    CPU: within 2e-3 of the range and Pearson r > 0.9999 (a single value:
-    within 2e-3 of itself); ``zero`` maps the
-    parameters whose gradient is 0 up to rounding (a shift a following
-    normalization removes) to the parameter whose gradient sets its scale:
-    both sides below 1e-3 of it (a gradient that mattered would be of its
-    order). Returns (gradients compared, worst)."""
-    grads_card = {n: p.grad for n, p in on_card.named_parameters()}
+    CPU (:func:`compare_grad_dicts`). Returns (gradients compared, worst)."""
+    return compare_grad_dicts({n: p.grad for n, p in on_card.named_parameters()},
+                              {n: p.grad for n, p in on_cpu.named_parameters()}, zero, tag)
+
+
+def compare_grad_dicts(got: dict, want: dict, zero: dict, tag: str) -> tuple[int, tuple]:
+    """Gradients by parameter name (``None``: no gradient), ``got`` against
+    ``want``: within 2e-3 of the range and Pearson r > 0.9999 (a single
+    value: within 2e-3 of itself); ``zero`` maps the parameters whose
+    gradient is 0 up to rounding (a shift a following normalization
+    removes) to the parameter whose gradient sets its scale: both sides
+    below 1e-3 of it (a gradient that mattered would be of its order).
+    Returns (gradients compared, worst)."""
     worst, n_grads = (0.0, "", 1.0), 0
-    for name, p_cpu in on_cpu.named_parameters():
-        g_card = grads_card[name]
-        if p_cpu.grad is None or g_card is None:
-            if (p_cpu.grad is None) != (g_card is None):
+    for name, w in want.items():
+        g = got[name]
+        if w is None or g is None:
+            if (w is None) != (g is None):
                 raise AssertionError(f"{tag}: {name} has a gradient on one side only")
             continue
         if name in zero:
-            scale = float(grads_card[zero[name]].abs().max())
-            ratios = float(g_card.abs().max()) / scale, float(p_cpu.grad.abs().max()) / scale
+            scale = float(got[zero[name]].abs().max())
+            ratios = float(g.abs().max()) / scale, float(w.abs().max()) / scale
             if not max(ratios) < 1e-3:
                 raise AssertionError(f"{tag}: {name} should have a gradient of 0 up to rounding: its largest "
-                                     f"is {ratios[0]:.2e} (card) and {ratios[1]:.2e} (CPU) of {zero[name]}'s")
+                                     f"is {ratios[0]:.2e} and {ratios[1]:.2e} of {zero[name]}'s")
             continue
-        if p_cpu.numel() == 1:  # the head's PReLU slope: relative error, no correlation
-            want = p_cpu.grad.cpu()
-            g_rel, g_r = float((g_card.cpu() - want).abs() / want.abs().clamp_min(1e-30)), 1.0
+        if w.numel() == 1:  # a PReLU slope, a one-channel bias: relative error, no correlation
+            wc = w.cpu()
+            g_rel, g_r = float((g.cpu() - wc).abs() / wc.abs().clamp_min(1e-30)), 1.0
         else:
-            _, g_rel, g_r = compare(g_card.cpu(), p_cpu.grad)
+            _, g_rel, g_r = compare(g.cpu(), w.cpu())
         if not (g_rel <= 2e-3 and g_r > 0.9999):
-            raise AssertionError(f"{tag}: gradient of {name} on the card disagrees with the CPU: "
-                                 f"{g_rel:.2e} of range, r={g_r:.8f}")
+            raise AssertionError(f"{tag}: gradient of {name} disagrees: {g_rel:.2e} of range, r={g_r:.8f}")
         n_grads += 1
         if g_rel >= worst[0]:
             worst = (g_rel, name, min(worst[2], g_r))
@@ -3387,21 +3418,24 @@ def dynaclr_plate(tmp: Path, card: str) -> tuple[Path, Path]:
     return plate_path, tracks
 
 
-def _dynaclr_fit(tmp: Path, name: str, plate: Path, tracks: Path, augmentations: list | None, card: str):
+def _dynaclr_fit(tmp: Path, name: str, plate: Path, tracks: Path, augmentations: list | None, card: str,
+                 callbacks: list | None = None):
     """``fit -c configs/dynaclr_fit.yml`` with the paths, the root dir and
-    the epoch's length overridden (and ``augmentations`` when given);
-    returns the trainer, its root and the launch counts."""
+    the epoch's length overridden (and ``augmentations`` and the trainer's
+    ``callbacks`` when given); returns the trainer, its root and the launch
+    counts."""
     from viscy_tpu_torch.training import cli
 
     root = tmp / name
     data = {"data_path": str(plate), "tracks_path": str(tracks)}
     if augmentations is not None:
         data["augmentations"] = augmentations
-    cfg = _cli_config(tmp / f"{name}.yml", {
-        "data": {"init_args": data},
-        "trainer": {"default_root_dir": str(root), "max_epochs": 1, "limit_train_batches": DYNACLR_CLI_STEPS,
-                    "limit_val_batches": DYNACLR_CLI_VAL, "log_every_n_steps": 1},
-    }, ROOT / "configs/dynaclr_fit.yml")
+    trainer_cfg = {"default_root_dir": str(root), "max_epochs": 1, "limit_train_batches": DYNACLR_CLI_STEPS,
+                   "limit_val_batches": DYNACLR_CLI_VAL, "log_every_n_steps": 1}
+    if callbacks is not None:
+        trainer_cfg["callbacks"] = callbacks
+    cfg = _cli_config(tmp / f"{name}.yml", {"data": {"init_args": data}, "trainer": trainer_cfg},
+                      ROOT / "configs/dynaclr_fit.yml")
     torch.cuda.empty_cache()
     _zero_counts()
     t0 = time.perf_counter()
@@ -4794,6 +4828,15 @@ DDP_VAL = 1
 DDP_RANK_BATCH = 8
 DDP_DYNACLR_RANK_BATCH = 16
 DDP_WATCHDOG_S = 240
+# phase 17's DynacellGAN in f32 over the two ranks, R1 / R2 every second
+# step: DDP_GAN_STEPS passes (d_step 0 applies R1 / R2, d_step 1 does not)
+# of DDP_GAN_RANK_BATCH windows a rank
+DDP_GAN_RANK_BATCH = 2
+DDP_GAN_ZYX = (15, 128, 128)
+DDP_GAN_STEPS = 2
+# the discriminator's conv biases an instance norm follows: 0 up to rounding
+GAN_NORMED_BIASES = {f"discriminator.discriminators.{s}.layer{i}.0.bias":
+                     f"discriminator.discriminators.{s}.layer{i}.0.weight" for s in range(2) for i in (2, 3, 4)}
 
 
 def _free_port() -> int:
@@ -5078,6 +5121,20 @@ def ddp_step_worker(out: str) -> None:
     res["dynaclr_step_s"] = time.perf_counter() - t0
     clr_emb, clr_proj = gather_batch(a_emb.detach()), gather_batch(a_proj.detach())
     marks["dynaclr"] = time.perf_counter() - t_start
+    gan = ddp_gan_engine()
+    gan_ref = copy.deepcopy(gan) if rank == 0 else None
+    gg = torch.Generator(device=dev).manual_seed(1961)
+    n = DDP_GAN_RANK_BATCH
+    gan_batch = {"source": torch.rand((n * world, 1, *DDP_GAN_ZYX), generator=gg, device=dev),
+                 "target": torch.rand((n * world, 2, *DDP_GAN_ZYX), generator=gg, device=dev)}
+    torch.cuda.synchronize()
+    fb.launches = fb.bwd_launches = warp3d.launches = 0
+    gan_two = ddp_gan_steps(gan, {k: v[rank * n:(rank + 1) * n] for k, v in gan_batch.items()})
+    res["gan_launches"] = dict(fwd=fb.launches, bwd=fb.bwd_launches, warp=warp3d.launches)
+    res.update(gan_step_s=[t["seconds"] for t in gan_two], gan_lecam=[t["lecam"] for t in gan_two],
+               gan_peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del gan
+    marks["gan"] = time.perf_counter() - t_start
     barrier()
     import torch.distributed as dist
 
@@ -5109,10 +5166,69 @@ def ddp_step_worker(out: str) -> None:
                 for m in ("encoder.head.norm.bias", "projection.0.bias", "projection.3.bias")}
         res["dynaclr_grads"], res["dynaclr_grad_worst"] = _compare_grads(clr, clr_ref, zero,
                                                                          "[ddp] two ranks vs one process, DynaCLR")
+        del clr, clr_ref
+        torch.cuda.empty_cache()
+        res.update(ddp_gan_check(gan_two, ddp_gan_steps(gan_ref, gan_batch)))
         if res["loss_rel"] > 2e-3:
             raise AssertionError(f"[ddp] flagship loss of two ranks vs one process: rel {res['loss_rel']:.2e}")
     res["marks"] = dict(marks, done=time.perf_counter() - t_start)
     Path(out).write_text(json.dumps(res))
+
+
+def ddp_gan_engine():
+    """Phase 19 (b)'s GAN: phase 17's engine (R1, R2, LeCam, EMA) in f32
+    with drop path 0, R1 / R2 every second step, GRN gamma/beta non-zero."""
+    module = gan_engine("cuda", "float32", 0.0)
+    module.r1_every = 2
+    randomize_grn(module, 1960)
+    return module.train()
+
+
+def ddp_gan_steps(module, batch: dict) -> list[dict]:
+    """``DDP_GAN_STEPS`` forward and backward passes of ``module`` on
+    ``batch``, the gradients averaged over the processes (no optimizer step):
+    per step the loss and its terms averaged over the processes, the LeCam
+    EMAs, every gradient, and the seconds."""
+    from viscy_tpu_torch.parallel import all_reduce_gradients_, all_reduce_mean
+
+    out = []
+    for _ in range(DDP_GAN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        module.zero_grad(set_to_none=True)
+        loss = module.training_loss(batch)
+        loss.backward()
+        all_reduce_gradients_(module.parameters())
+        torch.cuda.synchronize()
+        out.append(dict(seconds=time.perf_counter() - t0, loss=float(all_reduce_mean(loss.detach())),
+                        terms={k: float(all_reduce_mean(v)) for k, v in module.last_metrics.items()},
+                        lecam=[float(module.lecam_real), float(module.lecam_fake)],
+                        grads={n: None if p.grad is None else p.grad.detach().clone()
+                               for n, p in module.named_parameters()}))
+    return out
+
+
+def ddp_gan_check(two: list[dict], one: list[dict]) -> dict:
+    """Phase 19 (b) on rank 0: the two ranks' GAN passes against one
+    process's at the global batch: the loss, each term and the LeCam EMAs
+    within 2e-3 relative, every gradient within 2e-3 of range and r >
+    0.9999 (:func:`compare_grad_dicts`)."""
+    worst_rel, grads, worst = 0.0, [], []
+    for i, (got, want) in enumerate(zip(two, one)):
+        if ("loss/r1" in got["terms"]) != (i == 0) or got["terms"].keys() != want["terms"].keys():
+            raise AssertionError(f"[ddp] GAN pass {i}: terms {sorted(got['terms'])} vs {sorted(want['terms'])}")
+        pairs = [(got["loss"], want["loss"]), *zip(got["lecam"], want["lecam"]),
+                 *((got["terms"][k], want["terms"][k]) for k in want["terms"])]
+        rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in pairs)
+        if rel > 2e-3:
+            raise AssertionError(f"[ddp] GAN pass {i}: loss, terms or LeCam EMAs {rel:.2e} relative from one process")
+        worst_rel = max(worst_rel, rel)
+        n, w = compare_grad_dicts(got["grads"], want["grads"], GAN_NORMED_BIASES,
+                                  f"[ddp] GAN pass {i}, two ranks vs one process")
+        grads.append(n)
+        worst.append(w)
+    return dict(gan_rel=worst_rel, gan_grads=grads, gan_grad_worst=max(worst),
+                gan_terms=[sorted(t["terms"]) for t in two], gan_single_s=[t["seconds"] for t in one])
 
 
 def ddp_steps(card: str, tmp: Path) -> dict:
@@ -5121,6 +5237,11 @@ def ddp_steps(card: str, tmp: Path) -> dict:
     port = _free_port()
     ranks = run_processes("ddp_step_worker", [_rank_env(2, r, port, 0) for r in range(2)], tmp, "ddp_gloo")
     r0 = ranks[0]
+    if ranks[0]["gan_lecam"] != ranks[1]["gan_lecam"]:
+        raise AssertionError(f"[ddp] the ranks' LeCam EMAs differ: {[r['gan_lecam'] for r in ranks]}")
+    for r in ranks:
+        if r["gan_launches"]["fwd"] == 0 or r["gan_launches"]["bwd"] == 0:
+            raise AssertionError(f"[ddp] rank {r['rank']}'s GAN passes launched {r['gan_launches']}")
     for r in ranks:
         if min(r["launches"].values()) == 0:
             raise AssertionError(f"[ddp] rank {r['rank']} launched {r['launches']}: every kernel must run")
@@ -5137,7 +5258,16 @@ def ddp_steps(card: str, tmp: Path) -> dict:
         f"{r0['dynaclr_loss_rel']:.2e}, embedding, projection and running statistics worst "
         f"{r0['dynaclr_worst']:.2e} of range, {r0['dynaclr_grads']} gradients, worst "
         f"{r0['dynaclr_grad_worst'][1]} {r0['dynaclr_grad_worst'][0]:.2e}")
-    return dict(launches={k: sum(r["launches"][k] for r in ranks) for k in ("fwd", "bwd", "warp")},
+    log(f"[ddp] (b) DynacellGAN f32 (FCMAE generator, PatchGAN3D, R1 / R2 every second step, LeCam, EMA), "
+        f"{DDP_GAN_RANK_BATCH} windows of {DDP_GAN_ZYX} a rank, {DDP_GAN_STEPS} passes (terms "
+        f"{r0['gan_terms']}): a rank's pass {', '.join(f'{s * 1e3:.1f}' for s in r0['gan_step_s'])} ms, one "
+        f"process at the global batch {', '.join(f'{s * 1e3:.1f}' for s in r0['gan_single_s'])} ms; loss, terms and "
+        f"LeCam EMAs (equal on both ranks) within {r0['gan_rel']:.2e} relative of one process; "
+        f"{'+'.join(str(n) for n in r0['gan_grads'])} gradients within 2e-3 of range and r > 0.9999, worst "
+        f"{r0['gan_grad_worst'][1]} {r0['gan_grad_worst'][0]:.2e}; launches a rank "
+        f"{[r['gan_launches'] for r in ranks]}; peak {', '.join(f'{r['gan_peak_gib']:.2f}' for r in ranks)} GiB "
+        f"({card})")
+    return dict(launches={k: sum(r["launches"][k] + r["gan_launches"][k] for r in ranks) for k in ("fwd", "bwd", "warp")},
                 step_ms=[r["step_s"] * 1e3 for r in ranks], reduce_ms=[r["reduce_ms"] for r in ranks])
 
 
@@ -5150,6 +5280,296 @@ def phase_ddp(card: str, tmp: Path, plate: Path) -> dict:
     log(f"[ddp] phase 19 in {time.perf_counter() - t0:.1f} s")
     return dict(fit=fit, steps=steps,
                 launches={k: fit["launches"][k] + steps["launches"][k] for k in ("fwd", "bwd", "warp")})
+
+
+# -- phase 20: QC, rotation-TTA prediction, the segmentation test stage, the callbacks in a fit ------------
+
+
+# (b): one FOV of the predict plates' frame (the serving phase's 2048^2 x 15), untiled; the cross-check on
+# a crop whose X the model's 2^4 factor does not divide
+TTA_FOV = (1, 1, 15, 2048, 2048)
+TTA_XCHECK = (1, 1, 15, 400, 360)
+# (c): label plates of SEG_FOVS FOVs of SEG_ZYX (int labels as f32), SEG_CELLS instances a slice
+SEG_FOVS = ("0", "1")
+SEG_ZYX = (4, 512, 512)
+SEG_CELLS = 60
+
+
+def qc_config(tmp: Path, plate: Path) -> tuple[Path, dict]:
+    """``configs/qc_run.yml`` rewritten for phase 9's fit plate: its path,
+    and the annotated fluorescence channel ``GFP`` renamed to the plate's
+    ``Nucleus`` (the focus channel Phase3D and the well A/1 are the
+    plate's already)."""
+    import yaml
+
+    cfg = yaml.safe_load((ROOT / "configs/qc_run.yml").read_text())
+    cfg["data_path"] = str(plate)
+    channels = cfg["annotation"]["channels_metadata"]
+    channels["Nucleus"] = channels.pop("GFP")
+    path = tmp / "qc_run.yml"
+    path.write_text(yaml.safe_dump(cfg))
+    return path, cfg
+
+
+def _zattrs(plate: Path) -> dict:
+    return {str(f.relative_to(plate)): json.loads(f.read_text()) for f in sorted(plate.rglob(".zattrs"))}
+
+
+def phase_qc(card: str, tmp: Path, plate: Path) -> dict:
+    """Phase 20 (a): ``python -m viscy_tpu_torch.apps.qc.cli run -c`` on the
+    rewritten ``configs/qc_run.yml`` (focus slice of Phase3D, channel and
+    experiment annotation) over phase 9's fit plate, on the card; every
+    focus index against the argmax of a float64 FFT on the host (the
+    smallest relative margin between the best and the second band power
+    printed); every ``.zattrs`` against the same command with ``--device
+    cpu``; the seconds per FOV of the metric in process on the card. The
+    plate's ``.zattrs`` are restored afterwards."""
+    import scipy.fft
+
+    from viscy_tpu_torch.apps.qc import cli as qc_cli
+    from viscy_tpu_torch.apps.qc.focus import FocusSliceMetric
+    from viscy_tpu_torch.zarr_io.store import open_ome_zarr
+
+    path, cfg = qc_config(tmp, plate)
+    saved = {f: f.read_bytes() for f in plate.rglob(".zattrs")}
+
+    def restore() -> None:
+        for f, raw in saved.items():
+            f.write_bytes(raw)
+
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "viscy_tpu_torch.apps.qc.cli", "run", "-c", str(path)], cwd=str(ROOT),
+                         capture_output=True, text=True, timeout=600)
+    command_s = time.perf_counter() - t0
+    if run.returncode:
+        raise AssertionError(f"[qc] the QC command failed ({run.returncode}): {run.stdout[-2000:]}{run.stderr[-4000:]}")
+    on_card = _zattrs(plate)
+    restore()
+    qc_cli.main(["run", "-c", str(path), "--device", "cpu"], standalone_mode=False)
+    on_cpu = _zattrs(plate)
+    restore()
+    if on_card != on_cpu:
+        differ = sorted(k for k in on_cpu if on_card.get(k) != on_cpu[k])
+        raise AssertionError(f"[qc] the card's .zattrs differ from the CPU's in {differ}")
+    focus = cfg["focus_slice"]
+    metric = FocusSliceMetric(focus["NA_det"], focus["lambda_ill"], focus["pixel_size"], focus["channel_names"],
+                              focus["midband_fractions"], device="cuda")
+    store = open_ome_zarr(plate)
+    ch = store.channel_names.index("Phase3D")
+    margins, per_fov = [], []
+    for name, pos in store.positions():
+        stack = pos["0"][:, ch]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metric(pos, "Phase3D", ch)
+        torch.cuda.synchronize()
+        per_fov.append(time.perf_counter() - t0)
+        _, y, x = stack.shape[1:]
+        frr = np.hypot(*np.meshgrid(np.fft.fftfreq(y, focus["pixel_size"]), np.fft.fftfreq(x, focus["pixel_size"]),
+                                    indexing="ij"))
+        cut = 2 * focus["NA_det"] / focus["lambda_ill"]
+        lo, hi = focus["midband_fractions"]
+        band = (frr > lo * cut) & (frr < hi * cut)
+        got = on_card[f"{name}/.zattrs"]["focus_slice"]["Phase3D"]["per_timepoint"]
+        for t in range(stack.shape[0]):
+            power = (np.abs(scipy.fft.fft2(stack[t].astype(np.float64), axes=(1, 2), workers=8)) * band).sum(axis=(1, 2))
+            order = np.argsort(power)[::-1]
+            margins.append((power[order[0]] - power[order[1]]) / power[order[0]])
+            if got[str(t)] != int(order[0]):
+                raise AssertionError(f"[qc] {name} t={t}: focus index {got[str(t)]} on the card, {order[0]} in f64")
+    annotated = [k for k, v in on_card.items() if "experiment_metadata" in v]
+    log(f"[qc] python -m viscy_tpu_torch.apps.qc.cli run -c configs/qc_run.yml (rewritten for phase 9's plate: "
+        f"{len(per_fov)} FOVs of (1, 3, {', '.join(map(str, CLI_FIT_ZYX))})): {command_s:.2f} s for the command "
+        f"(interpreter start included); the focus metric in process {np.mean(per_fov):.3f} s per FOV (read + "
+        f"FFT on the card; {', '.join(f'{v:.3f}' for v in per_fov)}); every focus index equals the float64 "
+        f"FFT's argmax on the host (smallest margin between the best and the second band power "
+        f"{min(margins):.3e} of the best); all {len(on_card)} .zattrs equal to the --device cpu run's "
+        f"(experiment_metadata on {len(annotated)} positions) ({card})")
+    return dict(per_fov_s=float(np.mean(per_fov)), command_s=command_s, margin=float(min(margins)))
+
+
+class _PredictBatches:
+    """A datamodule whose predict loader yields the given batches."""
+
+    def __init__(self, batches: list[dict]) -> None:
+        self.batches = batches
+
+    def setup(self, stage: str) -> None:
+        pass
+
+    def predict_dataloader(self):
+        return self.batches
+
+
+def phase_tta(card: str) -> dict:
+    """Phase 20 (b): ``AugmentedPredictionVSUNet.with_rotation_tta`` (4
+    rotations, median) around the flagship predict model
+    (``configs/vscyto3d_predict.yml``: f32, full width, seeded weights, GRN
+    gamma/beta non-zero) through ``Trainer.predict``: one seeded host FOV of
+    ``TTA_FOV`` (one untiled forward a rotation), a warm-up request, then a
+    timed one with its fused-forward launches counted; the median of the
+    four rotations on a ``TTA_XCHECK`` crop on the card against the same
+    call on the CPU (plain kernels): max |d| <= 2e-3 of range, r > 0.9999;
+    then the forward kernels at this path's shapes (B = 1, full frames)
+    against their plain version."""
+    import copy
+
+    from viscy_tpu_torch.apps.cytoland.engine import VSUNet
+    from viscy_tpu_torch.apps.cytoland.prediction import AugmentedPredictionVSUNet
+    from viscy_tpu_torch.training.trainer import Trainer
+
+    cfg = shipped_model_config("vscyto3d_predict.yml")
+    engine = VSUNet("fcmae", cfg, device="cuda")
+    randomize_grn(engine, 2000)
+    module = AugmentedPredictionVSUNet.with_rotation_tta(engine.model, 4, "median")
+    fov = np.random.default_rng(2001).random(TTA_FOV, dtype=np.float32)
+    trainer = Trainer(device="cuda", use_tensorboard=False, default_root_dir=str(ROOT / "lightning_logs"))
+    trainer.predict(module, _PredictBatches([{"source": fov}]))
+    _zero_counts()
+    t0 = time.perf_counter()
+    (pred,) = trainer.predict(module, _PredictBatches([{"source": fov}]), return_predictions=True)
+    torch.cuda.synchronize()
+    fov_s = time.perf_counter() - t0
+    counts = _counts()
+    want = 4 * _fused_launches(cfg, TTA_FOV[-1], 1)
+    if tuple(pred.shape) != (1, 2, *TTA_FOV[2:]) or not torch.isfinite(pred).all() or counts["fwd"] != want:
+        raise AssertionError(f"[tta] prediction {tuple(pred.shape)}, launches {counts} (expected {want} forward)")
+    del pred
+    crop = torch.from_numpy(np.ascontiguousarray(fov[..., :TTA_XCHECK[-2], :TTA_XCHECK[-1]]))
+    on_cpu = AugmentedPredictionVSUNet.with_rotation_tta(copy.deepcopy(engine.model).cpu(), 4, "median").eval()
+    with torch.inference_mode():
+        got = module.eval().predict_step({"source": crop.cuda()}).cpu()
+        ref = on_cpu.predict_step({"source": crop})
+    _, rel, r = compare(got, ref)
+    if not (rel <= 2e-3 and r > 0.9999):
+        raise AssertionError(f"[tta] the card's TTA median disagrees with the CPU's: {rel:.2e} of range, r={r:.8f}")
+    del engine, module, on_cpu
+    torch.cuda.empty_cache()
+    worst: dict = {}
+    shapes = kernel_shapes(cfg, TTA_FOV[-1])
+    for k, (s_, c, m) in enumerate(sorted(set(shapes), key=shapes.index)):
+        check_forward(1, s_, c, m, 2010 + k, (False,), worst)
+    log_worst("the TTA path's shapes (B=1, full 2048^2 frames)", worst)
+    log(f"[tta] AugmentedPredictionVSUNet.with_rotation_tta(4, median) on configs/vscyto3d_predict.yml's model (f32, "
+        f"full width) through Trainer.predict: one {TTA_FOV} FOV in {fov_s:.3f} s ({1 / fov_s:.4f} FOVs/s, host "
+        f"FOV to prediction on the card, four untiled forwards and the median); fused-forward launches "
+        f"{counts['fwd']} (4 rotations x {want // 4}); {TTA_XCHECK} crop card vs CPU {rel:.2e} of range, "
+        f"r={r:.8f} ({card})")
+    return dict(launches=counts, fov_s=fov_s, rel=rel, max_abs_err=worst[torch.float32][0])
+
+
+def _seg_labels(rng, shape) -> np.ndarray:
+    """Rectangular instances on a 2-D frame, some overlapping."""
+    out = np.zeros(shape, np.float32)
+    for i in range(1, SEG_CELLS + 1):
+        y, x = rng.integers(0, shape[0] - 40), rng.integers(0, shape[1] - 40)
+        h, w = rng.integers(12, 40, 2)
+        out[y:y + h, x:x + w] = i
+    return out
+
+
+def phase_seg(card: str, tmp: Path) -> dict:
+    """Phase 20 (c): ``Trainer.test(SegmentationMetrics2D(),
+    SegmentationDataModule(...))`` on the card over seeded target and
+    prediction label plates (the prediction: the target's instances
+    shifted, some dropped, others added); every mean metric equal to the
+    plain computation (``evaluation/metrics.py`` on each slice, averaged)."""
+    from viscy_tpu_torch.apps.cytoland.evaluation import SegmentationMetrics2D
+    from viscy_tpu_torch.data.segmentation import SegmentationDataModule
+    from viscy_tpu_torch.evaluation.metrics import pod_metric, voi_score
+    from viscy_tpu_torch.training.trainer import Trainer
+    from viscy_tpu_torch.zarr_io.store import open_ome_zarr
+
+    rng = np.random.default_rng(2020)
+    plates = {side: open_ome_zarr(tmp / f"seg_{side}.zarr", layout="hcs", mode="w-", channel_names=["seg"])
+              for side in ("target", "pred")}
+    slices = []
+    for fov in SEG_FOVS:
+        target = np.stack([_seg_labels(rng, SEG_ZYX[1:]) for _ in range(SEG_ZYX[0])])
+        pred = np.roll(target, (3, -2), axis=(1, 2))
+        pred[np.isin(pred, rng.choice(SEG_CELLS, 10))] = 0
+        pred[:, :30, :30] = SEG_CELLS + 1
+        for side, labels in (("target", target), ("pred", pred)):
+            plates[side].create_position("A", "1", fov).create_image("0", labels[None, None])
+        slices.extend(zip(pred.astype(np.int16), target.astype(np.int16)))
+    t0 = time.perf_counter()
+    got = Trainer(device="cuda", default_root_dir=str(tmp / "seg_test"), use_tensorboard=False).test(
+        SegmentationMetrics2D(), SegmentationDataModule(tmp / "seg_pred.zarr", tmp / "seg_target.zarr", "seg", "seg"))
+    test_s = time.perf_counter() - t0
+    plain: dict[str, list] = {}
+    for p_, t_ in slices:
+        pb, tb = p_ > 0, t_ > 0
+        pod, voi = pod_metric(p_, t_), voi_score(p_, t_)
+        values = {"accuracy": (pb == tb).mean(), "dice": 2 * np.logical_and(pb, tb).sum() / max(pb.sum() + tb.sum(), 1),
+                  "jaccard": np.logical_and(pb, tb).sum() / max(np.logical_or(pb, tb).sum(), 1),
+                  "pod_f1": pod["f1"], "pod_precision": pod["precision"], "pod_recall": pod["recall"],
+                  "voi": voi[0] + voi[1]}
+        for k, v in values.items():
+            plain.setdefault(f"test_metrics/{k}", []).append(float(v))
+    want = {k: float(np.mean(v)) for k, v in plain.items()}
+    if got.keys() != want.keys() or any(abs(got[k] - want[k]) > 1e-12 for k in want):
+        raise AssertionError(f"[seg] Trainer.test {got} differs from the plain computation {want}")
+    for side in plates:
+        shutil.rmtree(tmp / f"seg_{side}.zarr")
+    log(f"[seg] Trainer.test(SegmentationMetrics2D(), SegmentationDataModule) on the card, {len(slices)} slices of "
+        f"{SEG_ZYX[1]}^2 ({SEG_CELLS} instances each): {test_s:.2f} s = {test_s / len(slices):.3f} s a slice (host "
+        f"metrics); every metric equals the plain computation: "
+        f"{', '.join(f'{k.split('/')[1]} {v:.5f}' for k, v in sorted(got.items()))} ({card})")
+    return dict(slice_s=test_s / len(slices))
+
+
+def phase_callbacks(card: str, tmp: Path, plate: Path, tracks: Path) -> dict:
+    """Phase 20 (d): phase 14's ``fit -c configs/dynaclr_fit.yml`` with
+    ``EmbeddingSnapshotCallback`` and ``OnlineEvalCallback`` added to the
+    recipe's callbacks, one epoch; the snapshot ``embeddings/epoch_0.npy``
+    against a CPU forward of the same validation anchors (the first batch
+    through the datamodule's validation transform) with the ``last``
+    weights (<= 2e-3 of range, r > 0.9999; the transform's draws from epoch
+    0's validation generator); the logged online metrics
+    against the callback's functions run on the host on the features it
+    collected."""
+    from viscy_tpu_torch.training.callbacks.online_eval import OnlineEvalCallback, effective_rank
+    from viscy_tpu_torch.training.trainer import BatchPrefetcher, read_checkpoint
+
+    callbacks = load_composed_config_node("dynaclr_fit.yml", "trainer")["callbacks"] + [
+        {"class_path": "viscy_utils.callbacks.EmbeddingSnapshotCallback", "init_args": {"every_n_epochs": 1}},
+        {"class_path": "viscy_utils.callbacks.OnlineEvalCallback", "init_args": {"every_n_epochs": 1}}]
+    trainer, root, counts = _dynaclr_fit(tmp, "dynaclr_callbacks", plate, tracks, None, card, callbacks=callbacks)
+    snapshot = np.load(root / "embeddings" / "epoch_0.npy")
+    online = next(cb for cb in trainer.callbacks if isinstance(cb, OnlineEvalCallback))
+    feats = np.concatenate(online._features)
+    lines = [json.loads(x) for x in (root / "metrics.csv").read_text().splitlines()]
+    logged = {k: v for x in lines for k, v in x.items() if k.endswith("effective_rank") or "effective_rank/" in k}
+    rank = effective_rank(feats)
+    if logged != {"metrics/effective_rank/val": rank, "online_eval/effective_rank": rank}:
+        raise AssertionError(f"[callbacks] logged {logged}, the host's effective rank {rank}")
+    dm = trainer._active_datamodule
+    (batch,) = list(BatchPrefetcher(dm.val_dataloader(), trainer.device, limit=1))
+    # epoch 0's validation generator, as the trainer seeds it: the first batch's draws again
+    val_gen = torch.Generator(device=trainer.device).manual_seed(trainer._rank_seed(trainer.seed + 2))
+    anchors = dm.device_transform(batch, val_gen, "val")["anchor"].cpu()
+    cpu = dynaclr_module("cpu")
+    cpu.model.load_state_dict(read_checkpoint(root / "checkpoints" / "last")[1])
+    n = min(8, len(anchors))
+    with torch.no_grad():
+        want = cpu.eval().model(anchors[:n])[0]
+    _, rel, r = compare(torch.from_numpy(snapshot[:n]), want)
+    _, frel, _ = compare(torch.from_numpy(feats[:len(snapshot)]), torch.from_numpy(snapshot))
+    if snapshot.shape[0] != len(anchors) or not (rel <= 2e-3 and r > 0.9999 and frel <= 2e-3):
+        raise AssertionError(f"[callbacks] snapshot {snapshot.shape} against the CPU: {rel:.2e} of range, r={r:.8f}; "
+                             f"against the online callback's features {frel:.2e}")
+    del trainer, cpu
+    torch.cuda.empty_cache()
+    import importlib.util
+
+    pairplot = "logged" if importlib.util.find_spec("matplotlib") else "skipped (no matplotlib here)"
+    log(f"[callbacks] fit -c configs/dynaclr_fit.yml with EmbeddingSnapshotCallback and OnlineEvalCallback, one "
+        f"epoch: embeddings/epoch_0.npy {snapshot.shape} (PCA pairplot {pairplot}), its first {n} rows vs a CPU "
+        f"forward of the same anchors "
+        f"{rel:.2e} of range, r={r:.8f}; the online features vs the snapshot {frel:.2e}; logged effective rank "
+        f"{rank:.6f} = the host's on {feats.shape[0]} collected features (no k-NN or smoothness: the validation "
+        f"batches carry no labels or tracks); launches {counts} ({card})")
+    return dict(launches=counts, rank=rank)
 
 
 def main() -> None:
@@ -5174,15 +5594,27 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="viscy-cli-") as tmp:
         cli = phase_cli(card, Path(tmp))
         stages = phase_stages(card, Path(tmp), cli)
+        t0 = time.perf_counter()
+        qc = phase_qc(card, Path(tmp), cli["fit_plate"])
+        twenty_s = time.perf_counter() - t0
         pre = phase_pretrain(card, Path(tmp), cli["fit_plate"])
         unext2 = phase_unext2(card, Path(tmp), cli["fit_plate"])
         legacy = phase_legacy(card, Path(tmp), cli["fit_plate"])
         gan = phase_gan(card, Path(tmp), cli["fit_plate"])
         ddp = phase_ddp(card, Path(tmp), cli["fit_plate"])
+        t0 = time.perf_counter()
+        tta = phase_tta(card)
+        seg = phase_seg(card, Path(tmp))
+        twenty_s += time.perf_counter() - t0
     dynaclr = phase_dynaclr(card)
     with tempfile.TemporaryDirectory(prefix="viscy-dynaclr-") as tmp:
         dynaclr_cli = phase_dynaclr_cli(card, Path(tmp))
-        vae = phase_vae(card, Path(tmp), dynaclr_cli["plate"], dynaclr_cli["tracks"])
+        t0 = time.perf_counter()
+        callbacks = phase_callbacks(card, Path(tmp), dynaclr_cli["plate"], dynaclr_cli["tracks"])
+        twenty_s += time.perf_counter() - t0
+        vae = phase_vae(card, Path(tmp), dynaclr_cli["plate"], dynaclr_cli["tracks"])  # removes the plate
+    log(f"[phase 20] qc, tta, seg and callbacks in {twenty_s:.1f} s (QC {qc['per_fov_s']:.3f} s a FOV, TTA "
+        f"{tta['fov_s']:.3f} s a FOV, segmentation {seg['slice_s']:.3f} s a slice)")
     with tempfile.TemporaryDirectory(prefix="viscy-celldiff-") as tmp:
         phase_celldiff(card, Path(tmp))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
@@ -5195,10 +5627,12 @@ def main() -> None:
             source="viscy_tpu_torch/csrc/fused_mlp_grn.cu",
             replaces="viscy_tpu/ops/pallas/fused_block.py:164,183",
             launches=sl["launches"] + pre["launches"]["fwd"] + unext2["launches"]["fwd"] + gan["launches"]["fwd"]
-            + vae["launches"]["fwd"] + ddp["launches"]["fwd"],
+            + vae["launches"]["fwd"] + ddp["launches"]["fwd"] + tta["launches"]["fwd"]
+            + callbacks["launches"]["fwd"],
             **{k: kern[k] for k in keys if k != "max_abs_err"},
             max_abs_err=max(kern["max_abs_err"], pre["kernels"]["fwd_err"], pre["fwd_err"],
-                            unext2["kernels"]["fwd_err"], gan["kernels"]["fwd_err"], vae["kernels"]["fwd_err"]),
+                            unext2["kernels"]["fwd_err"], gan["kernels"]["fwd_err"], vae["kernels"]["fwd_err"],
+                            tta["max_abs_err"]),
             library_ms=None,
         ),
         dict(

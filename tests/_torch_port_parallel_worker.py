@@ -32,6 +32,15 @@ CONTRASTIVE = dict(backbone="convnext_test", in_channels=2, in_stack_depth=10, s
                    stem_stride=(5, 4, 4), embedding_dim=32, projection_dim=16)
 GLOBAL_BATCH = 8
 CLIP = 1e-3  # far below the narrow model's gradient norm: every update is clipped
+# narrow DynacellGAN of tests/test_torch_port_gan.py (one discriminator scale: its second is held
+# there), every regularizer on, R1 / R2 every second step; its global batch and the steps each rank
+# runs (d_step 0 applies R1 / R2, d_step 1 does not)
+GAN_GEN = dict(in_channels=1, out_channels=2, encoder_blocks=(1, 1, 1, 1), dims=(8, 16, 32, 64), in_stack_depth=10,
+               stem_kernel_size=(5, 4, 4), decoder_conv_blocks=1)
+GAN_DISC = dict(base_channels=4, num_scales=1)
+GAN_REGS = dict(r1_gamma=2.0, r2_gamma=1.0, r1_every=2, ema_kimg=0.01, lecam_gamma=0.5, lecam_decay=0.8)
+GAN_BATCH = 2
+GAN_STEPS = 2
 
 
 def fcmae_engine(state: dict):
@@ -115,6 +124,60 @@ def head_step(batch: dict, rows: slice) -> dict:
     return {"loss": float(loss.detach()), "grads": {n: p.grad.clone() for n, p in head.named_parameters()}}
 
 
+def gan_engine(state: dict, engine_state: dict):
+    from viscy_tpu_torch.apps.dynacell.engine import DynacellGAN
+
+    gan = DynacellGAN(generator_config=dict(GAN_GEN), discriminator_config=dict(GAN_DISC), gan_mode="rpgan",
+                      device="cpu", **GAN_REGS)
+    gan.model.load_state_dict(state)
+    gan.load_checkpoint_state(engine_state)
+    return gan.train()
+
+
+def gan_steps(inputs: dict, rows: slice) -> list[dict]:
+    """``GAN_STEPS`` forward and backward passes of the narrow DynacellGAN on
+    ``rows`` of the global batch, the gradients averaged over the processes
+    (no optimizer step: each step sees the same weights and the advanced
+    ``gan_state``): per step the loss and loss terms averaged over the
+    processes, the LeCam EMAs and every gradient."""
+    from viscy_tpu_torch.parallel import all_reduce_gradients_, all_reduce_mean
+
+    gan = gan_engine(inputs["gan_state"], inputs["gan_engine_state"])
+    local = {k: v[rows] for k, v in inputs["gan_batch"].items()}
+    out = []
+    for _ in range(GAN_STEPS):
+        gan.zero_grad(set_to_none=True)
+        loss = gan.training_loss(local)
+        loss.backward()
+        all_reduce_gradients_(gan.parameters())
+        out.append({"loss": float(all_reduce_mean(loss.detach())),
+                    "metrics": {k: float(all_reduce_mean(v)) for k, v in gan.last_metrics.items()},
+                    "lecam": [float(gan.lecam_real), float(gan.lecam_fake)], "d_step": gan.d_step,
+                    "grads": {n: p.grad.clone() for n, p in gan.named_parameters() if p.grad is not None}})
+    return out
+
+
+def online_eval_epoch(data: dict, rank: int) -> list:
+    """One validation epoch of ``OnlineEvalCallback`` (k 5, cv) on this
+    rank's rows (rank 0 the first ``split``, rank 1 the rest), fed in
+    batches of 8 with their ``anchor_meta``: the metrics it logs."""
+    from types import SimpleNamespace
+
+    from viscy_tpu_torch.training.callbacks.online_eval import OnlineEvalCallback
+
+    rows = slice(0, data["split"]) if rank == 0 else slice(data["split"], None)
+    feats, meta = data["features"][rows], data["meta"][rows]
+    logged: list = []
+    logger = SimpleNamespace(log_metrics=lambda metrics, step: logged.append((dict(metrics), step)))
+    trainer = SimpleNamespace(current_epoch=0, global_step=3, device=torch.device("cpu"), logger=logger)
+    cb = OnlineEvalCallback(k=5)
+    cb.on_validation_epoch_start(trainer, None)
+    for i in range(0, len(meta), 8):
+        cb.on_validation_batch_end(trainer, None, {"features": feats[i:i + 8]}, {"anchor_meta": meta[i:i + 8]}, i // 8)
+    cb.on_validation_epoch_end(trainer, None, {})
+    return logged
+
+
 @contextmanager
 def _replaced(module, name: str, value):
     before = getattr(module, name)
@@ -158,6 +221,9 @@ def main(work: Path) -> None:
                                   accumulate_grad_batches=2, gradient_clip_val=CLIP)
     out["contrastive"] = contrastive_step(inputs["contrastive_state"], inputs["contrastive_batch"], rows)
     out["head"] = head_step(inputs["head_batch"], rows)
+    gan_per = GAN_BATCH // world
+    out["gan"] = gan_steps(inputs, slice(rank * gan_per, (rank + 1) * gan_per))
+    out["online_eval"] = online_eval_epoch(inputs["online_eval"], rank)
     # the same step with each rank's own BatchNorm statistics, then with its own negatives
     with _replaced(blocks, "global_sum", lambda x: x):
         out["local_stats"] = contrastive_step(inputs["contrastive_state"], inputs["contrastive_batch"], rows)

@@ -86,7 +86,17 @@ def test_the_port_resolves_configs_without_importing_viscy_tpu():
         # data parallelism: the process group, the collectives and the sharded sampler
         "import viscy_tpu_torch.parallel.distributed, viscy_tpu_torch.parallel.mesh, "
         "viscy_tpu_torch.data.distributed; "
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'viscy_tpu', 'tensorstore')); "
+        # QC, TTA prediction, the segmentation test stage and the callbacks: no pydantic, no sklearn either
+        "import viscy_tpu_torch.apps.qc, viscy_tpu_torch.apps.qc.cli, viscy_tpu_torch.apps.airtable_utils, "
+        "viscy_tpu_torch.apps.cytoland.prediction, viscy_tpu_torch.apps.cytoland.evaluation, "
+        "viscy_tpu_torch.data.segmentation, viscy_tpu_torch.evaluation.clustering, "
+        "viscy_tpu_torch.training.log_images, viscy_tpu_torch.training.callbacks.embedding_snapshot, "
+        "viscy_tpu_torch.training.callbacks.online_eval; "
+        "[resolve_class(c) for c in ('viscy_utils.callbacks.EmbeddingSnapshotCallback', "
+        "'viscy_utils.callbacks.OnlineEvalCallback', 'cytoland.evaluation.SegmentationMetrics2D', "
+        "'viscy_data.segmentation.SegmentationDataModule')]; "
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'viscy_tpu', 'tensorstore', "
+        "'pydantic', 'sklearn')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)

@@ -13,6 +13,7 @@ kernel within 1e-6 relative over several calls; scalar losses within
 1e-5 relative; bridges and checkpoint restores bit for bit.
 """
 
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -249,14 +250,19 @@ def test_feature_matching_lecam_and_mean_logit_match_jax():
     np.testing.assert_allclose(float(tgan.mean_logit(t(real))), float(jgan.mean_logit(j(real))), rtol=1e-5)
 
 
+@functools.lru_cache(maxsize=None)
+def _penalty_inputs():
+    x = _x((2, 3, 10, 64, 64), 70)
+    jmod = jgan.MultiScalePatchGAN3D(**DISC)
+    return x, jmod, _disc_vars(jmod, x, 71)
+
+
 @pytest.mark.parametrize("which", ["r1_penalty", "r2_penalty"])
 def test_r1_r2_values_and_their_gradients_match_jax(which):
     """The per-scale zero-centred penalty and its gradient in every
     discriminator parameter (a double backward through conv, instance
     norm, LeakyReLU, spectral norm and pooling)."""
-    x = _x((2, 3, 10, 64, 64), 70)
-    jmod = jgan.MultiScalePatchGAN3D(**DISC)
-    v = _disc_vars(jmod, x, 71)
+    x, jmod, v = _penalty_inputs()
 
     def pen(params):
         return getattr(jgan, which)(lambda a: jmod.apply({**v, "params": params}, a), jnp.asarray(x))
@@ -277,12 +283,15 @@ def _batch(seed=80):
     return {"source": _x((2, 1, *SHAPE[1:]), seed), "target": _x((2, 2, *SHAPE[1:]), seed + 1)}
 
 
-def _engines(mode="lsgan", seed=90, **kw):
-    """The JAX and the port engine on the same seeded variables (generator,
-    discriminator, ``u`` vectors, a non-trivial ``gan_state`` and EMA)."""
+@functools.lru_cache(maxsize=None)
+def _jax_engine(mode: str, seed: int, kw: tuple):
+    """The JAX engine and its seeded variables (generator, discriminator,
+    ``u`` vectors, a non-trivial ``gan_state`` and EMA), built once a module
+    for each configuration (``eval_shape`` of the init traces both
+    networks)."""
+    kw = dict(kw)
     j = jdyn.DynacellGAN(generator_config=dict(GEN), discriminator_config=dict(DISC), gan_mode=mode, **kw)
-    b = _batch()
-    jb = {k: jnp.asarray(a) for k, a in b.items()}
+    jb = {k: jnp.asarray(a) for k, a in _batch().items()}
     shapes = jax.eval_shape(lambda: j.init_with_rngs({"params": jax.random.PRNGKey(0)}, jb))
     params = seeded_params(shapes["params"], seed)
     variables = {"params": params, "batch_stats": {"discriminator": _sn_stats(
@@ -291,12 +300,35 @@ def _engines(mode="lsgan", seed=90, **kw):
     if kw.get("ema_kimg") is not None:
         gs["ema_generator"] = seeded_params(shapes["params"]["generator"], seed + 2)
     variables["gan_state"] = gs
+    return j, variables
+
+
+def _engines(mode="lsgan", seed=90, **kw):
+    """The JAX and a new port engine on the same seeded variables."""
+    j, variables = _jax_engine(mode, seed, tuple(sorted(kw.items())))
+    variables = dict(variables)
     t = tdyn.DynacellGAN(generator_config=dict(GEN), discriminator_config=dict(DISC), gan_mode=mode, device="cpu",
                          **kw)
     state = gan_state_dict_from_flax(t.model, variables)
-    load_flax_params(t.model, params["generator"])
+    load_flax_params(t.model, variables["params"]["generator"])
     t.load_checkpoint_state(state)
-    return j, t, variables, b
+    return j, t, variables, _batch()
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_step(mode: str, kw: tuple):
+    """``jax.jit`` of the JAX engine's loss and its parameter gradients, the
+    other collections (``gan_state`` with ``d_step``) an argument: one trace
+    serves every ``d_step``."""
+    j, _ = _jax_engine(mode, 90, kw)
+
+    def step(params, rest, batch):
+        def loss_fn(p):
+            return j.training_loss({**rest, "params": p}, batch, jax.random.PRNGKey(1))
+
+        return jax.value_and_grad(loss_fn, has_aux=True)(params)
+
+    return jax.jit(step)
 
 
 def test_gan_step_with_every_regularizer_matches_jax():
@@ -308,12 +340,8 @@ def test_gan_step_with_every_regularizer_matches_jax():
     the LeCam EMAs) and the EMA generator (from the pre-step parameters)."""
     j, t, v, b = _engines("rpgan", **REGS)
     jb = {k: jnp.asarray(a) for k, a in b.items()}
-
-    def loss_fn(params):
-        loss, (metrics, upd) = j.training_loss({**v, "params": params}, jb, jax.random.PRNGKey(1))
-        return loss, (metrics, upd)
-
-    (loss, (metrics, upd)), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(v["params"])
+    rest = {k: x for k, x in v.items() if k != "params"}
+    (loss, (metrics, upd)), grads = _jax_step("rpgan", tuple(sorted(REGS.items())))(v["params"], rest, jb)
     t.train()
     got = t.training_loss({k: torch.from_numpy(a) for k, a in b.items()})
     got.backward()
@@ -341,16 +369,19 @@ def test_gan_step_with_every_regularizer_matches_jax():
 
 
 def test_lazy_r1_applies_every_r1_every_steps():
-    """d_step 1 of ``r1_every`` 2: no penalty on this step, as JAX's
-    ``apply_reg`` of 0 (the loss equals the JAX loss at that d_step)."""
-    j, t, v, b = _engines("lsgan", r1_gamma=5.0, r1_every=2)
-    v["gan_state"] = dict(v["gan_state"], d_step=np.int32(1))
+    """d_step 1 of ``r1_every`` 2 (R1, R2, LeCam and the EMA on): no
+    penalty on this step, as JAX's ``apply_reg`` of 0 (the loss equals the
+    JAX loss at that d_step, from the jitted step of
+    ``test_gan_step_with_every_regularizer_matches_jax``)."""
+    j, t, v, b = _engines("rpgan", **REGS)
+    rest = {k: x for k, x in v.items() if k != "params"}
+    rest["gan_state"] = dict(rest["gan_state"], d_step=np.int32(1))
     t.d_step = 1
-    loss, _ = jax.jit(lambda v, bb: j.training_loss(v, bb, jax.random.PRNGKey(0)))(
-        v, {k: jnp.asarray(a) for k, a in b.items()})
+    (loss, _), _ = _jax_step("rpgan", tuple(sorted(REGS.items())))(
+        v["params"], rest, {k: jnp.asarray(a) for k, a in b.items()})
     got = t.train().training_loss({k: torch.from_numpy(a) for k, a in b.items()})
     np.testing.assert_allclose(float(got), float(loss), rtol=1e-5)
-    assert "loss/r1" not in t.last_metrics and t.d_step == 2
+    assert "loss/r1" not in t.last_metrics and "loss/r2" not in t.last_metrics and t.d_step == 2
 
 
 def test_each_network_gets_only_its_own_losses_gradient():

@@ -19,6 +19,13 @@ and failed after 120 s) run, each on its half of a global batch of 8:
   anchor embedding and projection, the loss, every gradient and both
   running statistics; the same step with each rank's own BatchNorm
   statistics or its own negatives misses the bound;
+- two forward and backward passes of a narrow ``DynacellGAN`` (LeCam, R1,
+  R2 every second step and the EMA on; a global batch of 2) against the
+  JAX engine's jitted step at d_step 0 and 1: the loss and each term, the
+  LeCam EMAs (the same on both ranks) and every gradient;
+- one validation epoch of ``OnlineEvalCallback`` on uneven shares of 46
+  seeded embeddings with string labels, against the JAX callback on all
+  of them: the gather before the metrics;
 - ``viscy-torch fit`` of a narrow VSCyto3D config on a small plate.
 
 Tolerances, float32: against JAX max|d| <= 2e-3 of the range with Pearson
@@ -44,6 +51,7 @@ import torch
 import yaml
 
 from viscy_tpu.apps.cytoland import engine as jengine
+from viscy_tpu.apps.dynacell import engine as jdynacell
 from viscy_tpu.apps.dynaclr import engine as jdyn
 from viscy_tpu.data import loader as jloader
 from viscy_tpu.data import triplet as jtriplet
@@ -51,6 +59,7 @@ from viscy_tpu.data.distributed import ShardedDistributedSampler as JSampler
 from viscy_tpu.models.contrastive import loss as jloss
 from viscy_tpu.models.contrastive.encoder import ContrastiveEncoder as JEncoder
 from viscy_tpu.models.unet.fcmae import FullyConvolutionalMAE as JFCMAE
+from viscy_tpu.training.callbacks import online_eval as jonline
 from viscy_tpu.training.losses.mixed_loss import MixedLoss as JMixedLoss
 from viscy_tpu_torch.apps.cytoland import engine as tengine
 from viscy_tpu_torch.apps.dynacell import engine as tdynacell
@@ -66,12 +75,15 @@ from viscy_tpu_torch.training import trainer as ttrainer
 from viscy_tpu_torch.training.convert import (
     contrastive_state_dict_from_flax,
     fcmae_state_dict_from_flax,
+    gan_state_dict_from_flax,
     load_flax_params,
+    patchgan_state_dict_from_flax,
 )
 from viscy_tpu_torch.zarr_io.synthetic import build_hcs_plate
 
 import _torch_port_parallel_worker as W
 from _torch_port_helpers import assert_rel_close, flax_params, rel_err, seeded_params
+from test_torch_port_gan import _bias_under_norm, _check_grads, _sn_stats
 
 ROOT = Path(__file__).resolve().parents[1]
 WORKER = Path(__file__).resolve().parent / "_torch_port_parallel_worker.py"
@@ -177,6 +189,52 @@ def _jax_contrastive(params: dict, stats: dict, batch: dict) -> dict:
             "stats": contrastive_state_dict_from_flax({}, host(new_stats))}
 
 
+def _gan_inputs() -> tuple:
+    """The JAX DynacellGAN of the worker's settings, its seeded variables (a
+    non-trivial ``gan_state`` and EMA), a seeded global batch, and the port
+    engine's weights and engine state on those variables."""
+    j = jdynacell.DynacellGAN(generator_config=dict(W.GAN_GEN), discriminator_config=dict(W.GAN_DISC),
+                              gan_mode="rpgan", **W.GAN_REGS)
+    rng = np.random.default_rng(40)
+    batch = {"source": rng.normal(0, 1, (W.GAN_BATCH, 1, 10, 64, 64)).astype(np.float32),
+             "target": rng.normal(0, 1, (W.GAN_BATCH, 2, 10, 64, 64)).astype(np.float32)}
+    shapes = jax.eval_shape(lambda: j.init_with_rngs({"params": jax.random.PRNGKey(0)},
+                                                      {k: jnp.asarray(v) for k, v in batch.items()}))
+    variables = {"params": seeded_params(shapes["params"], 41),
+                 "batch_stats": {"discriminator": _sn_stats(shapes["batch_stats"]["discriminator"], 42)},
+                 "gan_state": {"d_step": np.int32(0), "lecam_real": np.float32(0.3), "lecam_fake": np.float32(-0.2),
+                               "ema_generator": seeded_params(shapes["params"]["generator"], 43)}}
+    t = tdynacell.DynacellGAN(generator_config=dict(W.GAN_GEN), discriminator_config=dict(W.GAN_DISC),
+                              gan_mode="rpgan", device="cpu", **W.GAN_REGS)
+    load_flax_params(t.model, variables["params"]["generator"])
+    t.load_checkpoint_state(gan_state_dict_from_flax(t.model, variables))
+    return j, variables, batch, t.model.state_dict(), t.checkpoint_state()
+
+
+def _jax_gan(j, variables: dict, batch: dict) -> list[dict]:
+    """The JAX engine's jitted loss and gradients at the global batch, twice,
+    the second call from the first's ``gan_state`` and ``u`` (d_step 1): the
+    loss and its terms, the LeCam EMAs and every gradient (port names)."""
+
+    @jax.jit
+    def step(params, rest, b):
+        return jax.value_and_grad(lambda p: j.training_loss({**rest, "params": p}, b, jax.random.PRNGKey(1)),
+                                  has_aux=True)(params)
+
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    rest = {k: v for k, v in variables.items() if k != "params"}
+    out = []
+    for _ in range(W.GAN_STEPS):
+        (loss, (metrics, upd)), grads = step(variables["params"], rest, jb)
+        grads = jax.tree_util.tree_map(np.asarray, grads)
+        out.append({"loss": float(loss), "metrics": {k: float(v) for k, v in metrics.items()},
+                    "lecam": [float(upd["gan_state"][k]) for k in ("lecam_real", "lecam_fake")],
+                    "generator": fcmae_state_dict_from_flax(grads["generator"]),
+                    "discriminator": patchgan_state_dict_from_flax(grads["discriminator"])})
+        rest = {"batch_stats": upd["batch_stats"], "gan_state": upd["gan_state"]}
+    return out
+
+
 def _spawn(work: Path) -> list[subprocess.Popen]:
     procs = []
     for rank in range(WORLD):
@@ -232,9 +290,17 @@ def job(tmp_path_factory):
     y[[1, 6]] = np.nan  # unpaired rows, one on each rank
     head_batch = {"x": torch.from_numpy(hrng.normal(0, 1, (W.GLOBAL_BATCH, 32)).astype(np.float32)),
                   "y": torch.from_numpy(y)}
+    jgan, gan_vars, gan_batch, gan_state, gan_engine_state = _gan_inputs()
+    orng = np.random.default_rng(45)
+    markers = orng.choice(["CAAX", "H2B", "SEC61B"], 46)
+    centers = {m: orng.normal(0, 1, 16) for m in ("CAAX", "H2B", "SEC61B")}
+    online = {"split": 20, "features": torch.from_numpy(np.stack([centers[m] + orng.normal(0, 1.2, 16)
+                                                                  for m in markers]).astype(np.float32)),
+              "meta": [{"marker": str(m), "track_id": i // 4, "t": 2 * (i % 4)} for i, m in enumerate(markers)]}
     inputs = {"fcmae_state": fcmae.model.state_dict(), "fcmae_batches": batches,
               "contrastive_state": contrastive.model.state_dict(), "contrastive_batch": cbatch,
-              "head_batch": head_batch}
+              "head_batch": head_batch, "gan_state": gan_state, "gan_engine_state": gan_engine_state,
+              "gan_batch": {k: torch.from_numpy(v) for k, v in gan_batch.items()}, "online_eval": online}
     torch.save(inputs, work / "inputs.pt")
     plate = build_hcs_plate(work / "plate.zarr", CHANNELS, zyx_shape=(6, 48, 48), num_timepoints=1, rows=("A",),
                             cols=("1",), fovs=("0", "1", "2"), seed=5)
@@ -247,6 +313,7 @@ def job(tmp_path_factory):
         ref = {
             "jax_fcmae": _jax_fcmae(params, batches[:2]),
             "jax_contrastive": _jax_contrastive(cparams, cstats, cbatch),
+            "jax_gan": _jax_gan(jgan, gan_vars, gan_batch),
             "fcmae": W.fcmae_fit(inputs["fcmae_state"], batches[:2], slice(None), work / "fcmae_world1"),
             "accumulate": W.fcmae_fit(inputs["fcmae_state"], batches, slice(None), work / "accumulate_world1",
                                       accumulate_grad_batches=2, gradient_clip_val=W.CLIP),
@@ -530,13 +597,111 @@ def test_predict_refuses_several_processes(monkeypatch):
 @pytest.mark.parametrize("term,kw", [("LeCam", dict(lecam_gamma=0.1)), ("R1 / R2", dict(r1_gamma=1.0)),
                                      ("R1 / R2", dict(r2_gamma=1.0))])
 def test_gan_terms_that_couple_samples_are_refused_by_name(monkeypatch, term, kw):
+    """These terms were once refused under several processes; now they are
+    the global batch's. Two ranks holding the same rows are
+    simulated in this process (the process count 2, a global sum that
+    doubles, as two equal ranks' sum does, forward and backward): the
+    rank's loss, terms, LeCam EMAs and gradients equal one process's on the
+    rows twice over, within 1e-5 (of the range). Without the division of
+    the inner gradient by the process count, R1 / R2 come out 4x."""
+    state = None
+
+    def engine():
+        gan = tdynacell.DynacellGAN(generator_config=dict(W.GAN_GEN), discriminator_config=dict(W.GAN_DISC),
+                                    gan_mode="rpgan", device="cpu", r1_every=1, **kw)
+        if state is not None:
+            gan.model.load_state_dict(state[0])
+            gan.load_checkpoint_state(state[1])
+        return gan.train()
+
+    def step(gan, batch):
+        gan.zero_grad(set_to_none=True)
+        loss = gan.training_loss(batch)
+        loss.backward()
+        return (float(loss), {k: float(v) for k, v in gan.last_metrics.items()},
+                [float(gan.lecam_real), float(gan.lecam_fake)], {n: p.grad for n, p in gan.named_parameters()})
+
+    first = engine()
+    first.lecam_real, first.lecam_fake = torch.tensor(0.3), torch.tensor(-0.2)
+    state = first.model.state_dict(), first.checkpoint_state()
+    rng = np.random.default_rng(44)
+    half = {"source": torch.from_numpy(rng.normal(0, 1, (1, 1, 10, 64, 64)).astype(np.float32)),
+            "target": torch.from_numpy(rng.normal(0, 1, (1, 2, 10, 64, 64)).astype(np.float32))}
+    one = step(engine(), {k: torch.cat([v, v]) for k, v in half.items()})
     monkeypatch.setattr(tdynacell, "process_count", lambda: 2)
-    gan = tdynacell.DynacellGAN(generator_config=dict(in_channels=1, out_channels=2, encoder_blocks=(1, 1, 1, 1),
-                                                      dims=(8, 16, 32, 64), in_stack_depth=10,
-                                                      stem_kernel_size=(5, 4, 4), decoder_conv_blocks=1),
-                                discriminator_config={"base_channels": 4}, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match=f"DynacellGAN: the {term}"):
-        gan.adversarial_losses({"source": None, "target": None})
+    monkeypatch.setattr(tdynacell, "data_parallel", lambda: True)
+    monkeypatch.setattr(tdynacell, "global_sum", lambda x: 2 * x)
+    two = step(engine(), half)
+    np.testing.assert_allclose(two[0], one[0], rtol=1e-5)
+    assert two[1].keys() == one[1].keys() and (term != "R1 / R2" or {"loss/r1", "loss/r2"} & set(one[1]))
+    for k in one[1]:
+        np.testing.assert_allclose(two[1][k], one[1][k], rtol=1e-5, err_msg=k)
+    np.testing.assert_allclose(two[2], one[2], rtol=1e-5)
+    for name, g in one[3].items():
+        got = two[3][name]
+        if g is None:
+            assert got is None, name
+        elif _bias_under_norm(name):  # 0 up to rounding on both sides
+            scale = float(one[3][name[:-4] + "weight"].abs().max())
+            assert max(float(got.abs().max()), float(g.abs().max())) < 1e-3 * scale, name
+        elif g.numel() == 1:
+            assert abs(float(got) - float(g)) <= 1e-5 * abs(float(g)), name
+        else:
+            assert_rel_close(got.numpy(), g.numpy(), 1e-5)
+    if term == "R1 / R2":
+        monkeypatch.setattr(tdynacell, "process_count", lambda: 1)  # the inner gradient left undivided
+        unscaled = step(engine(), half)
+        key = "loss/r1" if "r1_gamma" in kw else "loss/r2"
+        np.testing.assert_allclose(unscaled[1][key], 4 * one[1][key], rtol=1e-5)
+
+
+def test_gan_regularizers_over_two_ranks_match_jax_at_the_global_batch(job):
+    """Two ranks, each on half of a global batch of 2, with LeCam, R1, R2
+    (every second step) and the EMA on, against the JAX engine's step at
+    the global batch: at d_step 0 (R1 / R2 applied) and d_step 1 (not),
+    the loss and its terms (R1 / R2 global on each rank: the inner gradient
+    of the global mean logit divided by the process count), the LeCam EMAs
+    (global means: the same on both ranks) and every gradient."""
+    _, ranks, ref = job
+    for step, want in enumerate(ref["jax_gan"]):
+        r0, r1 = ranks[0]["gan"][step], ranks[1]["gan"][step]
+        assert r0["lecam"] == r1["lecam"] and r0["d_step"] == r1["d_step"] == step + 1
+        assert ("loss/r1" in r0["metrics"]) == (step == 0) and ("loss/r1" in want["metrics"])
+        np.testing.assert_allclose(r0["loss"], want["loss"], rtol=1e-5)
+        for k, v in r0["metrics"].items():
+            np.testing.assert_allclose(v, want["metrics"][k], rtol=2e-4, err_msg=k)
+        np.testing.assert_allclose(r0["lecam"], want["lecam"], rtol=1e-5)
+        grads = r0["grads"]
+        _check_grads({k[len("discriminator."):]: grads.get(k) for k in
+                      (f"discriminator.{n}" for n in want["discriminator"])}, want["discriminator"])
+        for k, w in want["generator"].items():
+            assert_rel_close(grads[f"model.{k}"].numpy(), w.numpy(), 2e-3, 0.9999)
+        assert all(torch.equal(g, ranks[1]["gan"][step]["grads"][n]) for n, g in grads.items())
+
+
+def test_online_eval_gathers_every_rank_before_its_metrics(job):
+    """Ranks holding 20 and 26 of 46 embeddings (string labels encoded by a
+    vocabulary both ranks share, then decoded): each logs what the JAX
+    callback logs in one process on all 46 (k-NN equal, effective rank and
+    temporal smoothness within 1e-9 relative)."""
+    _, ranks, ref = job
+    data = ref["init"]["online_eval"]
+    feats, meta = data["features"].numpy(), data["meta"]
+    logged: list = []
+    trainer = type("T", (), {"current_epoch": 0, "global_step": 3})()
+    trainer.logger = type("L", (), {"log_metrics": lambda self, m, s: logged.append((dict(m), s))})()
+    cb = jonline.OnlineEvalCallback(k=5)
+    cb.on_validation_epoch_start(trainer, None)
+    for i in range(0, len(meta), 8):
+        cb.on_validation_batch_end(trainer, None, {"features": feats[i:i + 8]}, {"anchor_meta": meta[i:i + 8]}, i // 8)
+    cb.on_validation_epoch_end(trainer, None, {})
+    assert len(logged[0][0]) == 3
+    for r in ranks:
+        got = r["online_eval"]
+        assert [(sorted(m), s) for m, s in got] == [(sorted(m), s) for m, s in logged]
+        for (g, _), (w, _) in zip(got, logged):
+            for k, v in w.items():
+                assert (g[k] == v) if "knn" in k else abs(g[k] - v) <= 1e-9 * abs(v), k
 
 
 def test_fov_shard_stays_refused():

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from viscy_tpu_torch.apps.cytoland.prediction import rotation_tta_transforms, tiled_forward_yx
+from viscy_tpu_torch.apps.cytoland.prediction import rotation_tta_transforms, tiled_forward_yx, tta_median
 from viscy_tpu_torch.device import resolve_device
 from viscy_tpu_torch.models.unet.fcmae import FullyConvolutionalMAE
 from viscy_tpu_torch.models.unet.unet2d import Unet2d
@@ -346,10 +346,7 @@ class VSUNet(TrainModule):
         if self.tta_type == "mean":
             return stacked.mean(dim=0)
         if self.tta_type == "median":
-            # numpy/jnp median: mean of the two middle values for even counts
-            s = stacked.sort(dim=0).values
-            n = s.shape[0]
-            return s[n // 2] if n % 2 else (s[n // 2 - 1] + s[n // 2]) / 2
+            return tta_median(stacked)
         return torch.exp(torch.log(stacked + 1e-9).sum(dim=0))
 
     def predict_step(self, batch: dict) -> torch.Tensor:

@@ -32,6 +32,7 @@ from viscy_tpu_torch.models.gan import (
     mean_logit,
 )
 from viscy_tpu_torch.parallel.distributed import process_count
+from viscy_tpu_torch.parallel.mesh import data_parallel, global_sum
 from viscy_tpu_torch.training.losses.mixed_loss import MixedLoss
 from viscy_tpu_torch.training.module import TrainModule
 
@@ -172,6 +173,17 @@ class DynacellFlowMatching(TrainModule):
                                          total_steps=total_steps)
 
 
+def global_mean_logit(logits) -> torch.Tensor:
+    """:func:`mean_logit` over the global batch (differentiable): the local
+    logits' sum and count summed over the processes, so every rank gets the
+    one-process value of the whole batch; ``mean_logit`` in one process."""
+    if not data_parallel():
+        return mean_logit(logits)
+    flat = torch.cat([x.reshape(-1).float() for x in (logits if isinstance(logits, (list, tuple)) else [logits])])
+    sums = global_sum(torch.stack([flat.sum(), flat.new_tensor(float(flat.numel()))]))
+    return sums[0] / sums[1]
+
+
 class DynacellGAN(TrainModule):
     """Adversarial virtual staining: a generator and a multiscale PatchGAN
     (reference ``dynacell/engine.py:692``; the JAX engine's formulation).
@@ -204,6 +216,12 @@ class DynacellGAN(TrainModule):
     ``use_ema_at_predict``. The step's loss terms are in ``last_metrics``.
     The R1 / R2 penalties are computed on the steps that apply them only
     (JAX computes them every step and multiplies by 0 between).
+
+    In a job of several processes each rank steps on its rows and the
+    trainer averages the gradients; the terms follow the JAX step over the
+    global batch: the LeCam EMAs take the global mean logits (the same on
+    every rank), R1 / R2 the gradient of the global mean logit and the
+    global sample count, and the EMA generator's ``B`` is the global batch.
 
     ``configure_optimizers``: one AdamW (beta1 0.5) with the generator's
     and the discriminator's parameter groups at ``lr_g`` and ``lr_d``
@@ -313,28 +331,27 @@ class DynacellGAN(TrainModule):
         return functional_call(self.discriminator, params, (inp,), {"return_features": True})
 
     def _penalty(self, source, x) -> torch.Tensor:
-        """``sum((d mean_logit / d x)^2) / B``, differentiable in the
-        discriminator (a double backward)."""
+        """``sum((d mean_logit / d x)^2) / B`` over the global batch,
+        differentiable in the discriminator (a double backward). Under
+        several processes every rank seeds the same global mean logit, so the
+        backward of its global sum hands each rank ``world`` times its rows'
+        gradient: that is divided out before the square, and the squares
+        and the sample count are summed over the processes."""
         x = x.detach().float().requires_grad_(True)
-        (grad,) = torch.autograd.grad(mean_logit(self._d(source, x)[0]), x, create_graph=True)
-        return (grad * grad).sum() / x.shape[0]
+        (grad,) = torch.autograd.grad(global_mean_logit(self._d(source, x)[0]), x, create_graph=True)
+        if not data_parallel():
+            return (grad * grad).sum() / x.shape[0]
+        grad = grad / process_count()
+        sums = global_sum(torch.stack([(grad * grad).sum(), grad.new_tensor(float(x.shape[0]))]))
+        return sums[0] / sums[1]
 
     def adversarial_losses(self, batch: dict, generator: torch.Generator | None = None):
         """``(g_loss, d_loss)`` of one batch, and the step's state updates
         (see the class docstring); ``generator`` draws the generator
-        network's random masks. In a job of several processes the EMA's
-        ``B`` is the global batch, and the terms that couple samples other
-        than by a mean (LeCam's EMAs of batch logit means, the R1 / R2
-        penalties' per-batch scaling) are refused by name."""
+        network's random masks. In a job of several processes the terms
+        that couple samples other than by a mean (LeCam's EMAs, R1 / R2, the
+        EMA's ``B``) are those of the global batch."""
         world = process_count()
-        if world > 1 and self.lecam_gamma > 0:
-            raise NotImplementedError(
-                "DynacellGAN: the LeCam term (lecam_gamma > 0) keeps EMAs of per-batch logit means and is not "
-                f"ported to a job of {world} processes; set lecam_gamma: 0 or train in one process")
-        if world > 1 and (self.r1_gamma > 0 or self.r2_gamma > 0):
-            raise NotImplementedError(
-                "DynacellGAN: the R1 / R2 penalties (r1_gamma, r2_gamma > 0) scale with the per-batch sample count "
-                f"and are not ported to a job of {world} processes; set them to 0 or train in one process")
         source, target = batch["source"], batch["target"]
         pred = self.model(source, generator=generator)
         frozen = {n: p.detach() for n, p in self.discriminator.named_parameters()}
@@ -362,8 +379,8 @@ class DynacellGAN(TrainModule):
         if self.lecam_gamma > 0:
             keep = self.lecam_decay
             with torch.no_grad():
-                ema_r = self.lecam_real * keep + mean_logit(real_logits_d) * (1 - keep)
-                ema_f = self.lecam_fake * keep + mean_logit(fake_logits_d) * (1 - keep)
+                ema_r = self.lecam_real * keep + global_mean_logit(real_logits_d) * (1 - keep)
+                ema_f = self.lecam_fake * keep + global_mean_logit(fake_logits_d) * (1 - keep)
             d_loss = d_loss + self.lecam_gamma * lecam_penalty(real_logits_d, fake_logits_d, ema_r, ema_f)
             self.lecam_real, self.lecam_fake = ema_r, ema_f
         self.d_step += 1

@@ -1,12 +1,14 @@
-"""Instance-segmentation metrics of the test stage (counterpart of
-``viscy_tpu/evaluation/metrics.py``'s ``mean_average_precision``).
+"""Host-side segmentation metrics (counterpart of
+``viscy_tpu/evaluation/metrics.py``'s ``voi_score``, ``pod_metric`` and
+``mean_average_precision``), in numpy as in the JAX package.
 
-The pairwise IoU comes from the joint histogram of the two label images
-(one ``np.bincount`` of ``pred * (T + 1) + target`` over dense instance
-ids), not from (N, H, W) instance masks and a float64 product: a 1024^2
-frame can hold hundreds of instances, and the dense route needs P x H W
-float64 values per side. The counts are the same exact integers either
-way, so every IoU, AP and AR equals the JAX package's.
+The pairwise IoU of ``mean_average_precision`` comes from the joint
+histogram of the two label images (one ``np.bincount`` of ``pred * (T + 1)
++ target`` over dense instance ids), not from (N, H, W) instance masks and a
+float64 product: a 1024^2 frame can hold hundreds of instances, and the
+dense route needs P x H W float64 values per side. The counts are the same
+exact integers either way, so every IoU, AP and AR equals the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -88,4 +90,61 @@ def mean_average_precision(
         "mar_100": float(np.nanmean(ars)),
         "num_pred": int(iou.shape[0]),
         "num_target": int(iou.shape[1]),
+    }
+
+
+def voi_score(pred_labels: np.ndarray, target_labels: np.ndarray) -> tuple[float, float]:
+    """Variation of information between two label images: ``(H(pred | target),
+    H(target | pred))`` in nats."""
+    p = np.asarray(pred_labels).ravel().astype(np.int64)
+    t = np.asarray(target_labels).ravel().astype(np.int64)
+    n = p.size
+    pu, pi = np.unique(p, return_inverse=True)
+    tu, ti = np.unique(t, return_inverse=True)
+    joint = np.zeros((len(pu), len(tu)), np.float64)
+    np.add.at(joint, (pi, ti), 1.0)
+    joint /= n
+    pm = joint.sum(axis=1, keepdims=True)
+    tm = joint.sum(axis=0, keepdims=True)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        h_p_given_t = -np.nansum(joint * np.log(joint / tm, where=joint > 0))
+        h_t_given_p = -np.nansum(joint * np.log(joint / pm, where=joint > 0))
+    return float(h_p_given_t), float(h_t_given_p)
+
+
+def pod_metric(pred_labels: np.ndarray, target_labels: np.ndarray, iou_threshold: float = 0.5) -> dict:
+    """Probability of detection over instance labels: each predicted instance
+    (in label order) matches its best unmatched target instance by IoU, at
+    or above ``iou_threshold``; true / false positives, false negatives,
+    precision, recall and F1."""
+    pred_ids = [i for i in np.unique(pred_labels) if i != 0]
+    target_ids = [i for i in np.unique(target_labels) if i != 0]
+    matched_t = set()
+    tp = 0
+    for pid in pred_ids:
+        pm = pred_labels == pid
+        best_iou, best_t = 0.0, None
+        for tid in np.unique(target_labels[pm]):
+            if tid == 0 or tid in matched_t:
+                continue
+            tm = target_labels == tid
+            inter = np.logical_and(pm, tm).sum()
+            union = np.logical_or(pm, tm).sum()
+            iou = inter / union if union else 0.0
+            if iou > best_iou:
+                best_iou, best_t = iou, tid
+        if best_t is not None and best_iou >= iou_threshold:
+            matched_t.add(best_t)
+            tp += 1
+    fp = len(pred_ids) - tp
+    fn = len(target_ids) - tp
+    precision = tp / max(tp + fp, 1)
+    recall = tp / max(tp + fn, 1)
+    return {
+        "true_positives": tp,
+        "false_positives": fp,
+        "false_negatives": fn,
+        "precision": precision,
+        "recall": recall,
+        "f1": 2 * precision * recall / max(precision + recall, 1e-8),
     }

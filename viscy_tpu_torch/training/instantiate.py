@@ -42,6 +42,8 @@ _CLASS_FALLBACKS: dict[str, str] = {
     "LearningRateMonitor": "viscy_tpu_torch.training.callbacks.checkpoint.LearningRateMonitor",
     "HCSPredictionWriter": "viscy_tpu_torch.training.callbacks.prediction_writer.HCSPredictionWriter",
     "EmbeddingWriter": "viscy_tpu_torch.training.callbacks.embedding_writer.EmbeddingWriter",
+    "EmbeddingSnapshotCallback": "viscy_tpu_torch.training.callbacks.embedding_snapshot.EmbeddingSnapshotCallback",
+    "OnlineEvalCallback": "viscy_tpu_torch.training.callbacks.online_eval.OnlineEvalCallback",
 }
 
 # the JAX package, JAX itself and the reference packages' import aliases

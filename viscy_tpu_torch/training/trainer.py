@@ -188,8 +188,9 @@ class CSVLogger:
     (:mod:`viscy_tpu_torch.training.tb_events`), each opened at the first
     line; ``extra`` sinks (such as the env-gated W&B logger,
     :class:`viscy_tpu_torch.training.loggers.WandbLogger`) take the same
-    ``log_metrics`` / ``close`` calls, and a failing one never stops
-    training."""
+    ``log_metrics`` / ``log_image`` / ``close`` calls, and a failing one
+    never stops training. ``log_image`` writes an (H, W, 3) image into the
+    event file."""
 
     def __init__(self, log_dir: str | Path, use_tensorboard: bool = True, extra: Sequence | None = None) -> None:
         self.log_dir = Path(log_dir)
@@ -202,7 +203,7 @@ class CSVLogger:
         if self._csv is None:
             self.log_dir.mkdir(parents=True, exist_ok=True)
             self._csv = open(self.log_dir / "metrics.csv", "a")
-            if self.use_tensorboard:
+            if self.use_tensorboard and self._tb is None:
                 self._tb = EventFileWriter(self.log_dir)
         values = {k: float(v) for k, v in metrics.items()}
         self._csv.write(json.dumps({"step": step, **values}) + "\n")
@@ -214,6 +215,19 @@ class CSVLogger:
                 sink.log_metrics(values, step)
             except Exception:  # an observability sink never stops training
                 _logger.warning("metrics sink %r failed", sink, exc_info=True)
+
+    def log_image(self, tag: str, image, step: int) -> None:
+        """An (H, W, 3) image into the event file (opened here if no metric
+        came first) and the extra sinks."""
+        if self.use_tensorboard and self._tb is None:
+            self._tb = EventFileWriter(self.log_dir)
+        if self._tb is not None:
+            self._tb.add_image(tag, image, step)
+        for sink in self.extra:
+            try:
+                sink.log_image(tag, image, step)
+            except Exception:  # an observability sink never stops training
+                _logger.warning("image sink %r failed", sink, exc_info=True)
 
     def close(self) -> None:
         if self._csv is not None:
@@ -233,6 +247,9 @@ class _NullLogger:
     """The metric sinks of a rank other than 0: nothing is written."""
 
     def log_metrics(self, metrics: dict[str, float], step: int) -> None:
+        pass
+
+    def log_image(self, tag: str, image, step: int) -> None:
         pass
 
     def close(self) -> None:
