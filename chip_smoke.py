@@ -360,8 +360,37 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
            CPU forward of the same validation anchors, the logged effective
            rank against the host's on the collected features.
 
+21. transforms  the remaining transforms on phase 9's (grown) plate. (d)
+           first: every new device member (elastic, Z shift, histogram shift,
+           sharpen, pixel shuffling, inversion batched and per call, noise per
+           call, percentiles, weighted crop, Z reduction, zoom linear and
+           cubic with antialias off and on) on a seeded (2, 1+2, 15, 384,
+           384) f32 batch, its draws taken once on the CPU and handed to the
+           card and to the CPU run (max|d| <= 1e-5 of range), then the
+           CUDA-event median of each at (16, 1+2, 15, 384, 384), draws
+           included, beside the affine member's (the warp kernel, in == out).
+           The forward kernels against ``reference_mlp_grn`` (f32 and bf16)
+           at every (S, C, M) of the fits below that no other phase checks:
+           (a)'s validation on 448^2 at batch 16 and (c)'s model on 256^2 at
+           batch 32. Then three ``viscy-torch fit`` runs, one epoch of 3 steps and 1
+           validation batch each, with the launch counts of every kernel, the
+           patches/s and the loader-wait share: (a)
+           ``configs/vscyto3d_fit.yml`` at full width with every augmentation
+           under its MONAI name on the host (all twelve aliases:
+           ``RandWeightedCropd`` ... ``ToDeviced``); (b) the same recipe with
+           its host weighted crop and the batched device list (flip, affine,
+           elastic, Z shift, histogram shift, sharpen, pixel shuffling,
+           inversion, percentiles, contrast, noise); (c)
+           ``configs/vscyto2d_finetune.yml``'s model (2-D stem, no checkpoint)
+           on five-slice windows: host weighted crop, the affine fused with a
+           random 256^2 crop, ``BatchedChannelWiseZReductiond`` (MIP) of the
+           source, contrast, noise, batch 32; then ``BatchedZoomd`` (linear
+           and cubic, antialias off and on), ``TiledSpatialCropSamplesd``,
+           ``BatchedStackChannelsd`` and ``Decollated`` at that batch, card
+           against CPU, with their medians.
+
 Phase 20 (a) runs after phase 10, on phase 9's plate of 4 FOVs; phases 16,
-17, 19 and 20 (b)-(c) after phase 12, on that plate grown by phase 11;
+17, 19, 20 (b)-(c) and 21 after phase 12, on that plate grown by phase 11;
 phases 20 (d) and 18 after phase 14, in that order, on its plate and tracks. The last two lines are a JSON
 ``kernels`` record and the JSON result line.
 Needs ``torch.cuda.is_available()`` and the repo's ``viscy_tpu_torch``
@@ -5572,6 +5601,306 @@ def phase_callbacks(card: str, tmp: Path, plate: Path, tracks: Path) -> dict:
     return dict(launches=counts, rank=rank)
 
 
+# -- phase 21: the remaining transforms through viscy-torch fit ---------------------------------------
+
+TRANSFORM_STEPS = 3
+TRANSFORM_VAL = 1
+TRANSFORM_SHAPE = (15, 384, 384)
+TRANSFORM_XCHECK_BATCH = 2
+TRANSFORM_RUNS = 5
+FIT2D_BATCH = 32
+FIT2D_YX = 256
+FIT2D_DEPTH = 5
+HOST_KEYS = list(CLI_CHANNELS)
+
+# leg (a): every augmentation under its MONAI name, all twelve aliases
+MONAI_AUGS = [
+    ("RandWeightedCropd", {"keys": HOST_KEYS + ["weight"], "w_key": "weight", "spatial_size": [15, 448, 448],
+                           "num_samples": 4}),
+    ("RandSpatialCropd", {"keys": HOST_KEYS, "roi_size": [15, 416, 416]}),
+    ("RandAffined", {"keys": HOST_KEYS, "prob": 0.5, "rotate_range": [3.14, 0.0, 0.0],
+                     "scale_range": [0.0, 0.1, 0.1]}),
+    ("CenterSpatialCropd", {"keys": HOST_KEYS, "roi_size": list(TRANSFORM_SHAPE)}),
+    ("RandFlipd", {"keys": HOST_KEYS, "spatial_axes": [1, 2], "prob": 0.5}),
+    ("RandAdjustContrastd", {"keys": ["Phase3D"], "prob": 0.3, "gamma": [0.8, 1.2]}),
+    ("RandScaleIntensityd", {"keys": ["Phase3D"], "factors": 0.3, "prob": 0.5}),
+    ("RandGaussianNoised", {"keys": ["Phase3D"], "prob": 0.5, "std": 0.1}),
+    ("RandGaussianSmoothd", {"keys": ["Phase3D"], "prob": 0.3}),
+    ("ScaleIntensityRangePercentilesd", {"keys": ["Phase3D"], "lower": 1, "upper": 99, "b_min": 0, "b_max": 1}),
+    ("NormalizeIntensityd", {"keys": ["Nucleus", "Membrane"]}),
+    ("ToDeviced", {"keys": HOST_KEYS, "device": "cuda"}),
+]
+
+# leg (b): the shipped host weighted crop, then every new batched member
+_SRC, _BOTH = {"keys": ["source"]}, {"keys": ["source", "target"]}
+DEVICE_AUGS = [
+    ("BatchedRandFlipd", dict(_BOTH, prob=0.5)),
+    ("BatchedRandAffined", dict(_BOTH, prob=0.5, rotate_range=[3.14, 0.0, 0.0],
+                                scale_range=[[1.0, 1.3], [0.75, 1.3], [0.75, 1.3]])),
+    ("BatchedRand3DElasticd", dict(_BOTH, prob=0.5, sigma_range=[2.0, 3.0], magnitude_range=[2.0, 4.0])),
+    ("BatchedRandZStackShiftd", dict(_BOTH, prob=0.5, max_shift=2)),
+    ("BatchedRandHistogramShiftd", dict(_SRC, prob=0.5)),
+    ("BatchedRandSharpend", dict(_SRC, prob=0.5, alpha=[1.0, 3.0])),
+    ("BatchedRandLocalPixelShufflingd", dict(_SRC, prob=0.5)),
+    ("BatchedRandInvertIntensityd", dict(_SRC, prob=0.5)),
+    ("BatchedScaleIntensityRangePercentilesd", dict(_SRC, lower=1, upper=99, b_min=0, b_max=1)),
+    ("BatchedRandAdjustContrastd", dict(_SRC, prob=0.5, gamma=[0.8, 1.2])),
+    ("BatchedRandGaussianNoised", dict(_SRC, prob=0.5, std=0.5)),
+]
+
+
+def _aug_nodes(members: list, prefix: str = "viscy_transforms") -> list:
+    return [{"class_path": f"{prefix}.{name}", "init_args": dict(kw)} for name, kw in members]
+
+
+def new_members() -> dict:
+    """Every device transform this phase checks, at the shapes of a
+    (B, 1 + 2, 15, 384, 384) source / target batch."""
+    from viscy_tpu_torch import transforms as T
+
+    members = {}
+    for name, kw in DEVICE_AUGS[2:9]:
+        members[name] = getattr(T, name)(**kw)
+    members.update(
+        RandInvertIntensityd=T.RandInvertIntensityd(keys=["source"], prob=1.0),
+        RandGaussianNoiseTensord=T.RandGaussianNoiseTensord(keys=["source"], prob=1.0, std=0.3),
+        BatchedRandWeightedCropd=T.BatchedRandWeightedCropd(keys=["source", "target"], w_key="target",
+                                                            spatial_size=(15, 256, 256)),
+        BatchedChannelWiseZReductiond=T.BatchedChannelWiseZReductiond(keys=["source", "target"]),
+        **{f"BatchedZoomd-{mode}-aa{int(aa)}": T.BatchedZoomd(keys=["source", "target"], scale_factor=(1.0, 0.5, 0.5),
+                                                            mode=mode, antialias=aa)
+           for mode in ("linear", "bicubic") for aa in (False, True)},
+    )
+    return members
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+
+def _member_call(t, data: dict, draws: dict | None):
+    return t(data, draws=draws) if getattr(t, "is_random", False) else t(data)
+
+
+def transform_checks(card: str) -> dict:
+    """Phase 21 (d): each new device member on a seeded (2, 1 + 2, 15, 384,
+    384) f32 batch, its draws taken once on the CPU and handed to the card
+    and to the CPU run: max|d| <= 1e-5 of the output's range; then the
+    CUDA-event median of each (draws included) at batch 16 beside the affine
+    member's (the warp kernel, in == out). Returns the worst relative error
+    and the times."""
+    from viscy_tpu_torch import transforms as T
+
+    g = torch.Generator().manual_seed(2101)
+    small = {"source": torch.rand((TRANSFORM_XCHECK_BATCH, 1, *TRANSFORM_SHAPE), generator=g),
+             "target": torch.rand((TRANSFORM_XCHECK_BATCH, 2, *TRANSFORM_SHAPE), generator=g)}
+    errs = {}
+    for name, t in new_members().items():
+        draws = t.draw(small, torch.Generator().manual_seed(7)) if getattr(t, "is_random", False) else None
+        want = _member_call(t, dict(small), draws)
+        got = _member_call(t, _to(small, "cuda"), _to(draws, "cuda"))
+        errs[name] = 0.0
+        for k in want:
+            span = float(want[k].max() - want[k].min()) or 1.0
+            rel = float((got[k].cpu().double() - want[k].double()).abs().max()) / span
+            if got[k].shape != want[k].shape or not torch.isfinite(got[k]).all() or rel > 1e-5:
+                raise AssertionError(f"{name} on the card against the CPU: {k} {tuple(got[k].shape)} vs "
+                                     f"{tuple(want[k].shape)}, max|d| {rel:.3g} of range")
+            errs[name] = max(errs[name], rel)
+    worst = max(errs.values())
+    log(f"[transforms] card against CPU, the same draws, ({TRANSFORM_XCHECK_BATCH}, 1+2, "
+        f"{', '.join(map(str, TRANSFORM_SHAPE))}) f32, max|d| / range per member: "
+        f"{'; '.join(f'{k} {v:.2g}' for k, v in errs.items())} "
+        f"(bound 1e-5) ({card})")
+    gen = torch.Generator(device="cuda").manual_seed(2102)
+    batch = {"source": torch.rand((TRAIN_BATCH, 1, *TRANSFORM_SHAPE), generator=gen, device="cuda"),
+             "target": torch.rand((TRAIN_BATCH, 2, *TRANSFORM_SHAPE), generator=gen, device="cuda")}
+    affine = T.BatchedRandAffined(**dict(DEVICE_AUGS[1][1], prob=1.0))
+    times = {"BatchedRandAffined (warp kernel)": cuda_median_ms(lambda: affine(batch, gen), TRANSFORM_RUNS)}
+    for name, t in new_members().items():
+        fn = (lambda t=t: t(batch, gen)) if getattr(t, "is_random", False) else (lambda t=t: t(batch))
+        times[name] = cuda_median_ms(fn, TRANSFORM_RUNS)
+    stack = T.BatchedStackChannelsd(stacked=["source", "target"])
+    times["BatchedStackChannelsd"] = cuda_median_ms(lambda: stack(batch), TRANSFORM_RUNS)
+    warp_ms = times["BatchedRandAffined (warp kernel)"]
+    log(f"[transforms] CUDA-event medians of {TRANSFORM_RUNS} calls at ({TRAIN_BATCH}, 1+2, "
+        f"{', '.join(map(str, TRANSFORM_SHAPE))}) f32, draws included: "
+        + "; ".join(f"{k} {v:.3f} ms" for k, v in times.items())
+        + f"; slower than the warp: {[k for k, v in times.items() if v > warp_ms] or 'none'} ({card})")
+    del batch
+    torch.cuda.empty_cache()
+    return dict(max_rel_err=worst, times=times)
+
+
+def transform_fit(card: str, tmp: Path, plate: Path, name: str, edit, want: dict) -> dict:
+    """One ``viscy-torch fit`` of phase 21: ``configs/<shipped>`` composed,
+    ``edit``-ed, one epoch of ``TRANSFORM_STEPS`` steps and
+    ``TRANSFORM_VAL`` validation batch on phase 9's plate; the launch counts
+    against ``want``, finite losses; prints the rate and the wait share."""
+    from viscy_tpu_torch.training import cli
+
+    from viscy_tpu_torch.training.compose import load_composed_config
+
+    root = tmp / f"transforms_{name}"
+
+    def full_edit(cfg):
+        cfg["data"]["init_args"].update(data_path=str(plate), num_workers=8)
+        cfg["trainer"].update(default_root_dir=str(root), max_epochs=1, limit_train_batches=TRANSFORM_STEPS,
+                              limit_val_batches=TRANSFORM_VAL, log_every_n_steps=1)
+        edit(cfg)
+
+    shipped, what = edit(None)
+    model = load_composed_config(ROOT / "configs" / shipped)["model"]
+    model["init_args"].pop("ckpt_path", None)
+    model["init_args"].pop("encoder_only", None)
+    path = _composed(tmp, shipped, f"transforms_{name}.yml", model, full_edit)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    trainer = cli.main(["fit", "-c", path])
+    counts = _counts()
+    fit_s = time.perf_counter() - t0
+    feed = trainer.feed_stats
+    val = trainer.logged_metrics.get("loss/validate")
+    loss = trainer.logged_metrics.get("loss/train")
+    batch = load_composed_config(path)["data"]["init_args"]["batch_size"]
+    if (counts != want or feed["steps"] != TRANSFORM_STEPS or val is None or not math.isfinite(val)
+            or loss is None or not math.isfinite(loss)):
+        raise AssertionError(f"phase 21 ({name}): launches {counts} (expected {want}), {feed['steps']} steps, "
+                             f"loss/train {loss}, loss/validate {val}")
+    rate = TRANSFORM_STEPS * batch / feed["seconds"]
+    log(f"[transforms] ({name}) viscy-torch fit of configs/{shipped} {what}: {fit_s:.1f} s in all; train loop "
+        f"{feed['seconds']:.2f} s for {TRANSFORM_STEPS} steps of {batch} = {rate:.2f} patches/s (first step "
+        f"included); waited {feed['wait_s']:.2f} s = {feed['wait_s'] / feed['seconds']:.1%} of the loop; peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; loss/train {loss:.5f}, loss/validate "
+        f"{val:.5f}; launches {counts} ({card})")
+    shutil.rmtree(root, ignore_errors=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return dict(counts=counts, rate=rate, wait=feed["wait_s"] / feed["seconds"])
+
+
+def fit2d_batch_members(card: str) -> float:
+    """Phase 21 (c), second half: ``BatchedZoomd`` (linear and cubic,
+    antialias on and off), ``TiledSpatialCropSamplesd``,
+    ``BatchedStackChannelsd`` and ``Decollated`` at the 2-D fit's full-width
+    batch ((32, 1 + 2, 1, 256, 256)), each on the card against the CPU
+    (max|d| <= 1e-5 of range; the crops, stacking and splitting exact), with
+    CUDA-event medians. Returns the worst relative error."""
+    from viscy_tpu_torch import transforms as T
+
+    g = torch.Generator().manual_seed(2103)
+    cpu = {"source": torch.rand((FIT2D_BATCH, 1, 1, FIT2D_YX, FIT2D_YX), generator=g),
+           "target": torch.rand((FIT2D_BATCH, 2, 1, FIT2D_YX, FIT2D_YX), generator=g)}
+    card_batch = _to(cpu, "cuda")
+    members = {f"BatchedZoomd-{m}-aa{int(aa)}": T.BatchedZoomd(keys=["source", "target"], scale_factor=(1.0, 0.5, 0.5),
+                                                              mode=m, antialias=aa)
+               for m in ("linear", "bicubic") for aa in (False, True)}
+    members["BatchedStackChannelsd"] = T.BatchedStackChannelsd(stacked=["source", "target"])
+    worst, times = 0.0, {}
+    for name, t in members.items():
+        want, got = t(dict(cpu)), t(dict(card_batch))
+        for k in want:
+            span = float(want[k].max() - want[k].min()) or 1.0
+            rel = float((got[k].cpu() - want[k]).abs().max()) / span
+            if got[k].shape != want[k].shape or rel > 1e-5:
+                raise AssertionError(f"{name} ({k}) on the card: {tuple(got[k].shape)}, max|d| {rel:.3g} of range")
+            worst = max(worst, rel)
+        times[name] = cuda_median_ms(lambda t=t: t(card_batch), TRANSFORM_RUNS)
+    tiles = T.TiledSpatialCropSamplesd(keys=["source", "target"], roi_size=(1, 128, 128), num_samples=4)
+    parts = T.Decollated(keys=["source", "target"])
+    for t, name in ((tiles, "TiledSpatialCropSamplesd"), (parts, "Decollated")):
+        want, got = t(dict(cpu)), t(dict(card_batch))
+        if len(want) != len(got) or any(not torch.equal(a[k].cpu(), b[k]) for a, b in zip(got, want)
+                                        for k in ("source", "target")):
+            raise AssertionError(f"{name} on the card differs from the CPU")
+        times[name] = cuda_median_ms(lambda t=t: t(card_batch), TRANSFORM_RUNS)
+    log(f"[transforms] (c) at the 2-D fit's batch ({FIT2D_BATCH}, 1+2, 1, {FIT2D_YX}, {FIT2D_YX}) f32, card "
+        f"against CPU max|d| / range {worst:.2g} (bound 1e-5; tiles, stacking and splitting exact); medians: "
+        + "; ".join(f"{k} {v:.3f} ms" for k, v in times.items()) + f" ({card})")
+    return worst
+
+
+def phase_transforms(card: str, tmp: Path, plate: Path) -> dict:
+    """Phase 21: the remaining transforms (see the module docstring)."""
+    from viscy_tpu_torch.training.compose import load_composed_config
+
+    checks = transform_checks(card)
+    per_fwd = len(kernel_shapes(FLAGSHIP, TRANSFORM_SHAPE[-1]))
+    crop448 = _fused_launches(FLAGSHIP, 448, TRAIN_BATCH)
+    cfg2d = shipped_model_config("vscyto2d_finetune.yml")
+    worst: dict = {}
+    for cfg, yx, batch in ((FLAGSHIP, 448, TRAIN_BATCH), (cfg2d, FIT2D_YX, FIT2D_BATCH)):
+        shapes = kernel_shapes(cfg, yx)
+        for k, (s, c, m) in enumerate(sorted(set(shapes), key=shapes.index)):
+            check_forward(batch, s, c, m, 2110 + yx + k, (False,), worst)
+    log_worst(f"leg (a)'s validation (B={TRAIN_BATCH}, 448^2) and leg (c) (B={FIT2D_BATCH}, {FIT2D_YX}^2)", worst)
+
+    def leg_a(cfg):
+        if cfg is None:
+            crops = [kw.get("spatial_size", kw.get("roi_size")) for _, kw in MONAI_AUGS[:4]]
+            return "vscyto3d_fit.yml", (f"with its augmentations under their twelve MONAI names on the host "
+                                        f"(weighted crop of 4 x {crops[0]}, crop to {crops[1]}, affine, center "
+                                        f"crop to {crops[3]}, flip, contrast, scale, noise, smooth, "
+                                        f"percentiles, z-score, ToDeviced)")
+        cfg["data"]["init_args"]["augmentations"] = _aug_nodes(MONAI_AUGS)
+        return cfg
+
+    shipped = load_composed_config(ROOT / "configs/vscyto3d_fit.yml")["data"]["init_args"]["augmentations"]
+
+    def leg_b(cfg):
+        if cfg is None:
+            return "vscyto3d_fit.yml", ("with its host weighted crop and the batched device list (flip, affine "
+                                        "(warp kernel), elastic, Z shift, histogram shift, sharpen, pixel "
+                                        "shuffling, inversion, percentiles, contrast, noise)")
+        cfg["data"]["init_args"]["augmentations"] = shipped[:1] + _aug_nodes(DEVICE_AUGS)
+        return cfg
+
+    per_fwd2d = len(kernel_shapes(cfg2d, FIT2D_YX))
+    z_reduce = {"class_path": "viscy_transforms.BatchedChannelWiseZReductiond",
+                "init_args": {"keys": ["source"], "default_strategy": "mip"}}
+    shipped2d = load_composed_config(ROOT / "configs/vscyto2d_finetune.yml")["data"]["init_args"]
+
+    def leg_c(cfg):
+        if cfg is None:
+            return "vscyto2d_finetune.yml", (f"(FcmaeUNet, 2-D stem, no checkpoint) on {FIT2D_DEPTH}-slice "
+                                             f"windows: host weighted crop of 4 x ({FIT2D_DEPTH}, 288, 288), "
+                                             f"affine (warp kernel) fused with a random {FIT2D_YX}^2 crop, "
+                                             f"Z reduction (MIP) of the source, contrast, noise")
+        init = cfg["data"]["init_args"]
+        init.update(target_channel=["Nucleus", "Membrane"], z_window_size=FIT2D_DEPTH)
+        init["normalizations"][0]["init_args"]["keys"] = HOST_KEYS
+        augs = shipped2d["augmentations"]
+        crop = {"class_path": "viscy_tpu.data.host_transforms.HostRandWeightedCropd",
+                "init_args": {"keys": HOST_KEYS + ["weight"], "w_key": "weight",
+                              "spatial_size": [FIT2D_DEPTH, 288, 288], "num_samples": 4}}
+        init["augmentations"] = [crop, augs[1], _train_crop(FIT2D_YX), z_reduce, augs[2], augs[3]]
+        init["val_augmentations"] = [z_reduce, {"class_path": "viscy_transforms.BatchedCenterSpatialCropd",
+                                                "init_args": {"keys": ["source", "target"],
+                                                              "roi_size": [-1, FIT2D_YX, FIT2D_YX]}}]
+        return cfg
+
+    want_a = dict(fwd=2 * per_fwd * TRANSFORM_STEPS + crop448 * TRANSFORM_VAL, bwd=2 * per_fwd * TRANSFORM_STEPS,
+                  masked_fwd=0, masked_bwd=0, warp=0)
+    want_b = dict(fwd=2 * per_fwd * (TRANSFORM_STEPS + TRANSFORM_VAL), bwd=2 * per_fwd * TRANSFORM_STEPS,
+                  masked_fwd=0, masked_bwd=0, warp=TRANSFORM_STEPS)
+    fwd2d = _fused_launches(cfg2d, FIT2D_YX, FIT2D_BATCH)
+    want_c = dict(fwd=fwd2d * (TRANSFORM_STEPS + TRANSFORM_VAL), bwd=2 * per_fwd2d * TRANSFORM_STEPS,
+                  masked_fwd=0, masked_bwd=0, warp=TRANSFORM_STEPS)
+    legs = {name: transform_fit(card, tmp, plate, name, edit, want)
+            for name, edit, want in (("a", leg_a, want_a), ("b", leg_b, want_b), ("c", leg_c, want_c))}
+    err2d = fit2d_batch_members(card)
+    fwd = sum(leg["counts"]["fwd"] for leg in legs.values())
+    bwd = sum(leg["counts"]["bwd"] for leg in legs.values())
+    warp = sum(leg["counts"]["warp"] for leg in legs.values())
+    return dict(launches=dict(fwd=fwd, bwd=bwd, warp=warp), max_rel_err=max(checks["max_rel_err"], err2d),
+                times=checks["times"], legs=legs, fwd_err=worst[torch.bfloat16][0])
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is False")
@@ -5606,6 +5935,9 @@ def main() -> None:
         tta = phase_tta(card)
         seg = phase_seg(card, Path(tmp))
         twenty_s += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        p21 = phase_transforms(card, Path(tmp), cli["fit_plate"])
+        log(f"[phase 21] the remaining transforms in {time.perf_counter() - t0:.1f} s")
     dynaclr = phase_dynaclr(card)
     with tempfile.TemporaryDirectory(prefix="viscy-dynaclr-") as tmp:
         dynaclr_cli = phase_dynaclr_cli(card, Path(tmp))
@@ -5628,11 +5960,11 @@ def main() -> None:
             replaces="viscy_tpu/ops/pallas/fused_block.py:164,183",
             launches=sl["launches"] + pre["launches"]["fwd"] + unext2["launches"]["fwd"] + gan["launches"]["fwd"]
             + vae["launches"]["fwd"] + ddp["launches"]["fwd"] + tta["launches"]["fwd"]
-            + callbacks["launches"]["fwd"],
+            + callbacks["launches"]["fwd"] + p21["launches"]["fwd"],
             **{k: kern[k] for k in keys if k != "max_abs_err"},
             max_abs_err=max(kern["max_abs_err"], pre["kernels"]["fwd_err"], pre["fwd_err"],
                             unext2["kernels"]["fwd_err"], gan["kernels"]["fwd_err"], vae["kernels"]["fwd_err"],
-                            tta["max_abs_err"]),
+                            tta["max_abs_err"], p21["fwd_err"]),
             library_ms=None,
         ),
         dict(
@@ -5641,7 +5973,7 @@ def main() -> None:
             source="viscy_tpu_torch/csrc/fused_mlp_grn.cu",
             replaces="viscy_tpu/ops/pallas/fused_block.py:233,307",
             launches=tr["bwd_launches"] + pre["launches"]["bwd"] + unext2["launches"]["bwd"] + gan["launches"]["bwd"]
-            + vae["launches"]["bwd"] + ddp["launches"]["bwd"],
+            + vae["launches"]["bwd"] + ddp["launches"]["bwd"] + p21["launches"]["bwd"],
             **{k: bwd[k] for k in keys if k != "max_abs_err"},
             max_abs_err=max(bwd["max_abs_err"], pre["kernels"]["bwd_err"], unext2["kernels"]["bwd_err"],
                             gan["kernels"]["bwd_err"], vae["kernels"]["bwd_err"]),
@@ -5654,7 +5986,7 @@ def main() -> None:
             replaces="viscy_tpu/ops/pallas/warp3d.py:226,352",
             launches=tr["warp_launches"] + pre["launches"]["warp"] + unext2["launches"]["warp"]
             + dynaclr["warp_launches"] + dynaclr_cli["warp_launches"] + legacy["warp_launches"]
-            + gan["launches"]["warp"] + ddp["launches"]["warp"],
+            + gan["launches"]["warp"] + ddp["launches"]["warp"] + p21["launches"]["warp"],
             **{k: warp[k] for k in keys if k != "max_abs_err"},
             max_abs_err=max(warp["max_abs_err"], fit["warp_max_abs_err"], pre["warp_err"], dynaclr["warp_err"],
                             dynaclr_cli["warp_err"], legacy["warp_err"], gan["warp_err"]),

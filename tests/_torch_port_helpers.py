@@ -6,9 +6,26 @@ card-only tests can use it where JAX is not installed."""
 from __future__ import annotations
 
 import math
+import os
 from collections.abc import Mapping
 
 import numpy as np
+import torch
+
+
+def _share_the_cores() -> None:
+    """Under pytest-xdist every worker process would otherwise start one
+    torch intra-op thread per core: six workers on eight cores run 48
+    spinning OpenMP threads, and the port's CPU tests slow down several
+    times over. Each worker takes its share of the cores instead. (Every
+    worker collects every test file, so this runs in all of them.)"""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT") or 0)
+    if workers > 1:
+        cores = len(os.sched_getaffinity(0)) if hasattr(os, "sched_getaffinity") else os.cpu_count() or 1
+        torch.set_num_threads(max(1, cores // workers))
+
+
+_share_the_cores()
 
 # narrow stand-in for the flagship FCMAE-UNeXt2: same structure (4 stages,
 # 15-deep stem folding c*3+d, 1->2 channels, two decoder blocks per stage)
@@ -48,8 +65,6 @@ def block_args(b=2, s=96, c=16, m=48, seed=0) -> dict:
 def torch_block_args(a: dict, dtype, device="cpu") -> tuple:
     """``block_args`` as the port's ``fused_mlp_grn`` takes them: activations
     in ``dtype``, float32 parameters, weights in torch layout (out, in)."""
-    import torch
-
     act = lambda v: torch.from_numpy(v).to(device=device, dtype=dtype)
     par = lambda v: torch.from_numpy(np.ascontiguousarray(v)).to(device)
     return (

@@ -19,6 +19,8 @@ import torch
 from viscy_tpu import transforms as J
 from viscy_tpu_torch import transforms as T
 
+from _torch_port_draws import jax_draws, run_jax_compose
+
 STACK = (8, 48, 48)
 PATCH = (5, 32, 32)
 
@@ -41,64 +43,6 @@ def production(ns, keys=("source", "target")):
             ),
         ]
     )
-
-
-def _np(v):
-    return None if v is None else np.array(v)
-
-
-def jax_draws(member, data: dict, key) -> dict:
-    """The draws ``member`` makes from ``key`` on ``data`` (JAX side)."""
-    name = type(member).__name__
-    first = data[member.first_key(data)]
-    b = first.shape[0]
-    if name == "BatchedRandAffined":
-        k_mask, k_params = jax.random.split(key)
-        rot, scale, shear, trans = member._sample_params(k_params, b, first.shape[-3:])
-        d = dict(mask=member._apply_mask(k_mask, b), rotation=rot, scale=scale, shear=shear,
-                 translate=trans)
-    elif name == "BatchedRandGaussianNoised":
-        k_mask, k_std, k_noise = jax.random.split(key, 3)
-        d = dict(
-            mask=member._apply_mask(k_mask, b),
-            std=jax.random.uniform(k_std, (b,), minval=0.0, maxval=member.std),
-            noise=[jax.random.normal(jax.random.fold_in(k_noise, i), data[k].shape, data[k].dtype)
-                   for i, k in enumerate(member.key_iterator(data))],
-        )
-    else:
-        k_mask, k_p = jax.random.split(key)
-        d = dict(mask=member._apply_mask(k_mask, b))
-        if name == "BatchedRandAdjustContrastd":
-            d["gamma"] = jax.random.uniform(k_p, (b,), minval=member.gamma_range[0],
-                                            maxval=member.gamma_range[1])
-        elif name == "BatchedRandScaleIntensityd":
-            d["factor"] = jax.random.uniform(k_p, (b,), minval=member.factors[0], maxval=member.factors[1])
-        elif name == "BatchedRandGaussianSmoothd":
-            lo = jnp.array([s[0] for s in member.sigma_ranges])
-            hi = jnp.array([s[1] for s in member.sigma_ranges])
-            d["sigmas"] = jax.random.uniform(k_p, (b, 3)) * (hi - lo) + lo
-        else:
-            raise KeyError(name)
-    out = {}
-    for k, v in d.items():
-        out[k] = [torch.from_numpy(_np(x)) for x in v] if isinstance(v, list) else (
-            None if v is None else torch.from_numpy(_np(v)))
-    return out
-
-
-def run_jax_compose(compose, data: dict, key):
-    """Apply the JAX Compose member by member; return its output and the
-    draws of each random member, in order."""
-    subkeys = jax.random.split(key, len([t for t in compose if t.is_random]))
-    draws, ki = [], 0
-    for t in compose:
-        if t.is_random:
-            draws.append(jax_draws(t, data, subkeys[ki]))
-            data = t(data, subkeys[ki])
-            ki += 1
-        else:
-            data = t(data)
-    return data, draws
 
 
 def _batch(seed, c_source=1, c_target=2):

@@ -96,14 +96,35 @@ def test_bridge_rejects_unknown_leaves(narrow_flax):
 
 def test_port_imports_no_jax_flax_or_viscy_tpu():
     """Import every viscy_tpu_torch module and chip_smoke.py in a fresh
-    interpreter; whatever the environment pre-imports, they must add none
-    of these, nor the packages the card's machine lacks: the zarr stacks
-    (tensorstore, zarr, numcodecs), PIL, tensorboardX, tensorboard (and
-    TensorFlow), pandas, sklearn, anndata and wandb. (yaml, click and scipy
-    are on that machine.)"""
-    code = """
+    interpreter, and resolve every name of ``viscy_tpu.transforms.__all__``
+    through ``resolve_class`` under both reference spellings
+    (``viscy_transforms.X`` and ``viscy.transforms.X``, the MONAI names
+    lazily), the JAX host transforms and the normalize helpers; whatever the
+    environment pre-imports, they must add none of these, nor the packages
+    the card's machine lacks: the zarr stacks (tensorstore, zarr,
+    numcodecs), PIL, tensorboardX, tensorboard (and TensorFlow), pandas,
+    sklearn, anndata and wandb. (yaml, click and scipy are on that
+    machine.)"""
+    from viscy_tpu import transforms as jax_transforms
+    from viscy_tpu.data import host_transforms as jax_host
+    from viscy_tpu.preprocess import normalize as jax_pre
+    from viscy_tpu.training import normalize as jax_train
+
+    names = {
+        "transforms": [f"{p}.{n}" for n in jax_transforms.__all__ for p in ("viscy_transforms", "viscy.transforms")],
+        "host": [f"viscy_tpu.data.host_transforms.{n}" for n in ("HostNormalizeIntensityd",
+                 "HostScaleIntensityRangePercentilesd", *jax_host.__all__)],
+        "functions": [f"viscy_tpu.preprocess.normalize.{n}" for n in (*jax_pre.__all__, "hist_adapteq_2D")]
+        + [f"viscy_tpu.training.normalize.{n}" for n in jax_train.__all__],
+    }
+    assert len(names["transforms"]) == 2 * 57 and len(names["host"]) == 12
+    code = f"""
 import importlib, pkgutil, sys
 before = set(sys.modules)
+from viscy_tpu_torch.training.instantiate import resolve_class
+names = {names!r}
+resolved = [resolve_class(n) for group in names.values() for n in group]
+print("RESOLVED", len(resolved), sum(r.__module__.startswith("viscy_tpu_torch.") for r in resolved))
 import viscy_tpu_torch
 for m in pkgutil.walk_packages(viscy_tpu_torch.__path__, "viscy_tpu_torch."):
     importlib.import_module(m.name)
@@ -125,7 +146,9 @@ print("CELLDIFF", sorted(n for n in added if n.startswith(("viscy_tpu_torch.mode
                          cwd=REPO, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     lines = dict(line.split(" ", 1) for line in out.stdout.splitlines()
-                 if line.startswith(("MODULES", "BAD", "CELLDIFF")))
+                 if line.startswith(("MODULES", "BAD", "CELLDIFF", "RESOLVED")))
+    n = sum(len(group) for group in names.values())
+    assert lines["RESOLVED"] == f"{n} {n}"
     assert int(lines["MODULES"]) >= 86
     assert lines["BAD"] == "[]"
     assert lines["CELLDIFF"] == str([

@@ -24,7 +24,7 @@ from viscy_tpu import transforms as J
 from viscy_tpu.transforms.crop import batched_crop_at as j_crop_at
 from viscy_tpu_torch import transforms as T
 
-from test_torch_port_augment import jax_draws as base_draws
+from _torch_port_draws import jax_draws, run_jax_compose
 from test_torch_port_augment import production
 
 STACK = (8, 48, 48)
@@ -49,55 +49,6 @@ def _j(batch):
     return {k: jnp.asarray(v) for k, v in batch.items()}
 
 
-def _draws(member, data, key) -> dict:
-    """The draws ``member`` (JAX, possibly fused) makes from ``key`` (a
-    stacked key for a fused member), as the port's draws dict."""
-    name = type(member).__name__
-    first = data[member.first_key(data)]
-    b, spatial = first.shape[0], first.shape[-3:]
-    if name == "BatchedRandFlipd":
-        return dict(flips=torch.from_numpy(np.array(
-            jax.random.uniform(key, (b, len(member.spatial_axes))) < member.prob)))
-    if name == "BatchedRandSpatialCropd":
-        roi = tuple(s if r < 0 else min(r, s) for r, s in zip(member.roi_size, spatial))
-        if member.random_center:
-            maxs = jnp.array([s - r for s, r in zip(spatial, roi)])
-            starts = jnp.minimum((jax.random.uniform(key, (b, 3)) * (maxs[None] + 1)).astype(jnp.int32),
-                                 maxs[None])
-        else:
-            starts = jnp.broadcast_to(jnp.array([(s - r) // 2 for s, r in zip(spatial, roi)]), (b, 3))
-        return dict(starts=torch.from_numpy(np.array(starts)))
-    if name != "BatchedRandAffined" or member.n_random_keys == 1:
-        return base_draws(member, data, key)
-    d = base_draws(member, data, key[0])
-    idx = 1
-    if member._rand_crop_size is not None:
-        crop = J.BatchedRandSpatialCropd(member.keys, member._rand_crop_size)
-        d.update(_draws(crop, data, key[idx]))
-        idx += 1
-    if member._flip_axes is not None:
-        flip = J.BatchedRandFlipd(member.keys, spatial_axes=member._flip_axes, prob=member._flip_prob)
-        d.update(_draws(flip, data, key[idx]))
-    return d
-
-
-def run_jax_compose(compose, data, key):
-    """The JAX Compose's output and the port draws of each of its random
-    members, split from ``key`` as ``Compose`` splits it."""
-    counts = [getattr(t, "n_random_keys", 1) if t.is_random else 0 for t in compose]
-    subkeys = jax.random.split(key, sum(counts))
-    draws, ki = [], 0
-    for t, c in zip(compose, counts):
-        if c == 0:
-            data = t(data)
-            continue
-        k = subkeys[ki] if c == 1 else subkeys[ki:ki + c]
-        draws.append(_draws(t, data, k))
-        data = t(data, k)
-        ki += c
-    return data, draws
-
-
 def _assert_same(got: dict, want: dict, atol=0.0):
     for k, w in want.items():
         w = np.asarray(w)
@@ -115,7 +66,7 @@ def test_flip_with_jax_draws_is_bit_exact(axes):
     jt = J.BatchedRandFlipd(keys=["source", "target", "fg_mask"], spatial_axes=axes, prob=0.5)
     tt = T.BatchedRandFlipd(keys=["source", "target", "fg_mask"], spatial_axes=axes, prob=0.5)
     key = jax.random.PRNGKey(3)
-    draws = _draws(jt, _j(batch), key)
+    draws = jax_draws(jt, _j(batch), key)
     assert draws["flips"].any() and not draws["flips"].all()
     _assert_same(tt(_t(batch), draws=draws), jt(_j(batch), key))
     gen_draws = tt.draw(_t(batch), torch.Generator().manual_seed(0))
@@ -132,7 +83,7 @@ def test_random_crop_with_jax_draws_is_bit_exact(roi, random_center):
     jt = J.BatchedRandSpatialCropd(keys=["source", "target"], roi_size=roi, random_center=random_center)
     tt = T.BatchedRandSpatialCropd(keys=["source", "target"], roi_size=roi, random_center=random_center)
     key = jax.random.PRNGKey(4)
-    draws = _draws(jt, _j(batch), key)
+    draws = jax_draws(jt, _j(batch), key)
     _assert_same(tt(_t(batch), draws=draws), jt(_j(batch), key))
     starts = tt.draw(_t(batch), torch.Generator().manual_seed(1))["starts"]
     out_roi = [s if r < 0 else min(r, s) for r, s in zip(tt.roi_size, STACK)]

@@ -28,7 +28,7 @@ from viscy_tpu_torch.data.host_transforms import HostRandWeightedCropd as TCrop
 from viscy_tpu_torch.zarr_io.store import open_ome_zarr
 from viscy_tpu_torch.zarr_io.synthetic import build_hcs_plate
 
-from test_torch_port_flip_crop import run_jax_compose
+from _torch_port_draws import run_jax_compose
 
 CHANNELS = ["Phase3D", "Nucleus", "Membrane"]
 KEYS = CHANNELS + ["weight"]

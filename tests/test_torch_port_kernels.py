@@ -610,3 +610,65 @@ def test_kernels_at_the_unext2_shapes_on_card(s, c, m, dtype, rel):
         assert a.shape == w.shape, name
         assert_rel_close(a.float().cpu().numpy(), w.float().cpu().numpy(), rel,
                          0.999 if dtype == torch.bfloat16 else None)
+
+
+# -- the device transforms without a kernel of their own: card against CPU ------------------------
+
+
+def _new_members():
+    from viscy_tpu_torch import transforms as T
+
+    both, src = dict(keys=["source", "target"]), dict(keys=["source"])
+    return {
+        "elastic": T.BatchedRand3DElasticd(**both, sigma_range=(2.0, 3.0), magnitude_range=(2.0, 4.0), prob=0.7),
+        "elastic-zeros": T.BatchedRand3DElasticd(**both, sigma_range=(4.0, 5.0), magnitude_range=(5.0, 9.0),
+                                                 prob=1.0, padding_mode="zeros"),
+        "z-shift": T.BatchedRandZStackShiftd(**both, max_shift=3, prob=0.8, cval=-1.0),
+        "histogram-shift": T.BatchedRandHistogramShiftd(**src, prob=0.8),
+        "sharpen": T.BatchedRandSharpend(**src, prob=0.8),
+        "pixel-shuffle": T.BatchedRandLocalPixelShufflingd(**both, prob=0.8),
+        "invert": T.BatchedRandInvertIntensityd(**src, prob=0.5),
+        "invert-per-call": T.RandInvertIntensityd(**src, prob=1.0),
+        "noise-per-call": T.RandGaussianNoiseTensord(**both, prob=1.0, std=0.3),
+        "percentiles": T.BatchedScaleIntensityRangePercentilesd(**both, lower=1, upper=99, b_min=0, b_max=1),
+        "weighted-crop": T.BatchedRandWeightedCropd(**both, w_key="target", spatial_size=(8, 64, 64)),
+        "z-reduction": T.BatchedChannelWiseZReductiond(**both),
+        "zoom-linear-aa": T.BatchedZoomd(**both, scale_factor=(1.0, 0.5, 0.5), mode="linear", antialias=True),
+        "zoom-cubic": T.BatchedZoomd(**both, scale_factor=(0.5, 1.5, 0.7), mode="bicubic"),
+        "zoom-nearest": T.BatchedZoomd(**both, scale_factor=(1.0, 0.75, 1.25), mode="nearest"),
+    }
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(_new_members()))
+def test_new_device_member_on_card_matches_cpu(name):
+    """Each device transform that has no kernel of its own (plain PyTorch on
+    the batch's device), its draws taken once on the CPU and handed to both
+    runs: max|d| <= 1e-5 of the output's range in float32, TF32 off."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    t = _new_members()[name]
+    g = torch.Generator().manual_seed(3)
+    batch = {"source": torch.rand((4, 1, 15, 96, 96), generator=g),
+             "target": torch.rand((4, 2, 15, 96, 96), generator=g)}
+    draws = t.draw(batch, torch.Generator().manual_seed(4)) if t.is_random else None
+    call = (lambda d, dr: t(d, draws=dr)) if t.is_random else (lambda d, dr: t(d))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = call(dict(batch), draws)
+        got = call(_to(batch, "cuda"), _to(draws, "cuda"))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for k, w in want.items():
+        assert got[k].is_cuda and got[k].shape == w.shape, k
+        span = float(w.max() - w.min()) or 1.0
+        assert float((got[k].cpu() - w).abs().max()) <= 1e-5 * span, k

@@ -29,7 +29,7 @@ from viscy_tpu_torch.zarr_io.store import open_ome_zarr
 from viscy_tpu_torch.zarr_io.synthetic import build_hcs_plate
 
 from _torch_port_helpers import rel_err
-from test_torch_port_flip_crop import run_jax_compose
+from _torch_port_draws import run_jax_compose
 
 CHANNELS = ["Phase3D", "GFP", "RFP"]
 SOURCE = ["RFP", "Phase3D"]  # not the plate's order

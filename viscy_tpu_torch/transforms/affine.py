@@ -1,5 +1,6 @@
-"""Batched random 3D affine (counterpart of
-``viscy_tpu/transforms/affine.py``, ``BatchedRandAffined``).
+"""Batched random 3D affine and elastic deformation (counterpart of
+``viscy_tpu/transforms/affine.py``: ``BatchedRandAffined``,
+``BatchedRand3DElasticd``).
 
 Per-sample rotate / shear / translate / scale draws shared across keys, MONAI
 (Z, Y, X) parameter order, the safe-crop scale clamp, the downstream crops
@@ -14,13 +15,14 @@ from __future__ import annotations
 from typing import Iterable, Sequence
 
 import torch
+import torch.nn.functional as F
 
-from viscy_tpu_torch.ops.warp import compose_affine_3d
+from viscy_tpu_torch.ops.warp import batched_trilinear_sample, compose_affine_3d
 from viscy_tpu_torch.ops.warp3d import affine_warp_3d_keys
 from viscy_tpu_torch.transforms.base import RandTransform
 from viscy_tpu_torch.transforms.crop import draw_crop_starts, rand_crop_roi
 
-__all__ = ["BatchedRandAffined"]
+__all__ = ["BatchedRand3DElasticd", "BatchedRandAffined"]
 
 
 def _as_range3(value, default=0.0) -> list[tuple[float, float]]:
@@ -254,4 +256,73 @@ class BatchedRandAffined(RandTransform):
                                    apply_mask=None if fold else mask)
         for k, out in zip(keys, outs):
             data[k] = out
+        return data
+
+
+class BatchedRand3DElasticd(RandTransform):
+    """Random elastic deformation: a standard normal displacement field
+    (B, 3, Z, Y, X) times a per-sample magnitude, smoothed by a box blur of
+    radius ``max(1, int(3 sigma_max) | 1) // 2`` run three times along each
+    axis (zero padding), added to the identity grid and sampled
+    trilinearly (``mode`` is ignored, as in JAX). Draws: ``mask`` (B,),
+    ``magnitude`` (B,), ``noise`` (B, 3, Z, Y, X)."""
+
+    is_spatial = True
+
+    def __init__(
+        self,
+        keys: str | Iterable[str],
+        sigma_range: tuple[float, float],
+        magnitude_range: tuple[float, float],
+        prob: float = 0.1,
+        mode: str = "bilinear",
+        padding_mode: str = "reflection",
+        allow_missing_keys: bool = False,
+    ) -> None:
+        super().__init__(keys, prob, allow_missing_keys)
+        self.sigma_range = tuple(sigma_range)
+        self.magnitude_range = tuple(magnitude_range)
+        self.padding_mode = padding_mode
+        self._radius = max(1, int(self.sigma_range[1] * 3) | 1) // 2
+
+    def smooth(self, field: torch.Tensor) -> torch.Tensor:
+        """Three passes of the zero-padded box mean along Z, Y and X: the
+        mean over ``2r + 1`` taps of the zero-padded field is JAX's grouped
+        convolution with taps ``1 / (2r + 1)`` (no TF32 on the card, and a
+        radius may exceed the extent)."""
+        r = self._radius
+        k = 2 * r + 1
+        b, c = field.shape[:2]
+        y = field.reshape(b * c, 1, *field.shape[2:])
+        for _ in range(3):
+            for axis in range(3):
+                kernel, pad = [1, 1, 1], [0, 0, 0, 0, 0, 0]
+                kernel[axis] = k
+                pad[4 - 2 * axis] = pad[5 - 2 * axis] = r
+                y = F.avg_pool3d(F.pad(y, pad), kernel, stride=1)
+        return y.reshape(field.shape)
+
+    def draw(self, data: dict, generator: torch.Generator) -> dict:
+        first = data[self.first_key(data)]
+        b, dev = first.shape[0], first.device
+        lo, hi = self.magnitude_range
+        return dict(
+            mask=self._apply_mask(generator, b, dev),
+            magnitude=torch.rand((b,), generator=generator, device=dev) * (hi - lo) + lo,
+            noise=torch.randn((b, 3, *first.shape[-3:]), generator=generator, device=dev),
+        )
+
+    def apply(self, data: dict, draws: dict) -> dict:
+        first = data[self.first_key(data)]
+        dev = first.device
+        z, y, x = first.shape[-3:]
+        noise = draws["noise"].to(dev)
+        field = self.smooth(noise * draws["magnitude"].to(dev).reshape(-1, 1, 1, 1, 1))
+        base = torch.stack(torch.meshgrid(
+            *(torch.arange(n, dtype=torch.float32, device=dev) for n in (z, y, x)), indexing="ij"))
+        grids = base[None] + field
+        for k in self.key_iterator(data):
+            v = data[k]
+            new = batched_trilinear_sample(v, grids, self.padding_mode)
+            data[k] = self._where(draws["mask"].to(dev), new, v)
         return data
