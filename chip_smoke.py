@@ -252,7 +252,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
            epoch of 3 updates and 1 validation batch overridden: patches/s
            over the train loop, the loader-wait share, the later steps'
            seconds, peak memory. (c) ``predict`` from ``last`` through the
-           CLI with ``HCSPredictionWriter``: the config's 50 Euler steps over
+           CLI with ``HCSPredictionWriter``: 10 Euler steps (the config's
+           50, cut to keep the whole script inside its time limit) over
            the two windows (one batch): windows/s and forwards/s disk to
            store; the store's shape, finiteness and agreement with
            ``predict_step`` on the same windows, blended (<= 1e-6 of range).
@@ -389,9 +390,39 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
            ``BatchedStackChannelsd`` and ``Decollated`` at that batch, card
            against CPU, with their medians.
 
+22. celldiff-sampler, celldiff-tiles, foundation, datamodules  the slice
+           of CELLDiff's ``Sampler``, ``CELLDiff3DVS``, the foundation
+           extractors and the new datamodules, in f32 with TF32 off. (a) The
+           ``Sampler`` at ``configs/celldiff_fit.yml``'s ``net_config``
+           (seeded weights, adaLN perturbed; the SDE's sample eps 1e-3) on
+           one (1, 1, 8, 512, 512) window, 2 steps each: RK4, Heun reversed,
+           SDE Euler with the ``Mean`` last step, SDE Heun with
+           ``Tweedie``, the likelihood (one VJP a step); each method's
+           seconds, net evaluations and peak memory, and each against the
+           CPU on a (1, 1, 8, 32, 32) window with the same weights and draws
+           (<= 2e-3 of range, r > 0.9999). (b) ``generate_sliding_window``
+           at the config's (8, 512, 512) patch on a 1024^2 FOV (4 tiles) and
+           a 1000^2 FOV (the last tiles snapped, overlapping), 1 Euler step,
+           against ``generate`` on each tile's crop and noise (<= 1e-6 of
+           range); ``generate_trajectory``'s shape and last entry. (c)
+           ``viscy-torch predict`` of ``configs/dynaclr_predict.yml`` with
+           ``FoundationModule(DINOv3Model())`` (ViT-S/16) on phase 14's
+           plate: cells/s into the store, its rows against the CPU;
+           ``CellDinoModel`` and ``OpenPhenomModel`` in process, card
+           against CPU. (d) ``viscy-torch fit -c configs/vscyto3d_fit.yml``
+           over ``ConcatDataModule`` and then ``CombinedDataModule``
+           (``max_size_cycle``) of phase 9's plate and a hard-linked copy:
+           launch counts of the warp and the fused forward and backward,
+           patches/s, the loader-wait share; ``configs/dynaclr_fit.yml`` over
+           ``CellDivisionTripletDataModule`` on 40 seeded ``.npy`` tracks of
+           (4, 2, 15, 224, 224): pairs/s and the wait share; batches/s out of
+           the ``CTMCv1DataModule`` and ``ClassificationDataModule`` train
+           loaders.
+
 Phase 20 (a) runs after phase 10, on phase 9's plate of 4 FOVs; phases 16,
-17, 19, 20 (b)-(c) and 21 after phase 12, on that plate grown by phase 11;
-phases 20 (d) and 18 after phase 14, in that order, on its plate and tracks. The last two lines are a JSON
+17, 19, 20 (b)-(c), 21 and 22 (d) after phase 12, on that plate grown by
+phase 11; phases 20 (d), 22 (c) and 18 after phase 14, in that order, on its
+plate and tracks; 22 (a)-(b) last. The last two lines are a JSON
 ``kernels`` record and the JSON result line.
 Needs ``torch.cuda.is_available()`` and the repo's ``viscy_tpu_torch``
 beside this file. Imports nothing of JAX or ``viscy_tpu``.
@@ -509,6 +540,7 @@ CELLDIFF_FOVS = ("0", "1", "2", "3")
 CELLDIFF_COLS = ("1", "2")
 CELLDIFF_ZYX = (16, 512, 512)
 CELLDIFF_PREDICT_Z = 9
+CELLDIFF_PREDICT_STEPS = 10  # the config samples 50; cut to keep the whole script inside its limit
 CELLDIFF_STEPS = 3  # optimizer updates, each of the config's batch of 4
 CELLDIFF_VAL = 1
 CELLDIFF_BATCH = 4
@@ -4006,9 +4038,11 @@ def celldiff_fit(tmp: Path, plate: Path, batch: int, card: str) -> Path:
 
 def celldiff_predict(tmp: Path, plate: Path, ckpt: Path, card: str) -> None:
     """Phase 15 (c): ``predict`` through the CLI with ``HCSPredictionWriter``
-    from ``last``: the config's 50 Euler steps over the predict plate's two
-    windows (one batch); the store's shape, finiteness and agreement with
-    ``predict_step`` on the same windows, blended (<= 1e-6 of range)."""
+    from ``last``: ``CELLDIFF_PREDICT_STEPS`` Euler steps (cut from the
+    config's 50 to keep the script inside its time limit; the rate is given
+    per forward too) over the predict plate's two windows (one batch); the
+    store's shape, finiteness and agreement with ``predict_step`` on the
+    same windows, blended (<= 1e-6 of range)."""
     from viscy_tpu_torch.training import cli
     from viscy_tpu_torch.training.callbacks.prediction_writer import blend_in
     from viscy_tpu_torch.training.compose import load_composed_config
@@ -4018,6 +4052,7 @@ def celldiff_predict(tmp: Path, plate: Path, ckpt: Path, card: str) -> None:
 
     store = tmp / "celldiff_pred.zarr"
     cfg_path = _cli_config(tmp / "celldiff_predict.yml", {
+        "model": {"init_args": {"num_generate_steps": CELLDIFF_PREDICT_STEPS}},
         "data": {"init_args": {"data_path": str(plate), "num_workers": 2}},
         "trainer": {"default_root_dir": str(tmp / "celldiff_predict"), "callbacks": [
             {"class_path": "viscy_utils.callbacks.HCSPredictionWriter", "init_args": {"output_store": str(store)}}]},
@@ -4032,7 +4067,7 @@ def celldiff_predict(tmp: Path, plate: Path, ckpt: Path, card: str) -> None:
     counts = _counts()
     windows = CELLDIFF_PREDICT_Z - 8 + 1
     cfg = load_composed_config(Path(cfg_path))
-    steps = cfg["model"]["init_args"].get("num_sampling_steps", 50)
+    steps = cfg["model"]["init_args"]["num_generate_steps"]
     got = open_ome_zarr(store)["B/1/0"]["0"][0]
     log(f"[celldiff] predict ({steps} Euler steps, {windows} windows of (8, {CELLDIFF_ZYX[1]}, {CELLDIFF_ZYX[2]}) "
         f"in one batch): "
@@ -5901,6 +5936,454 @@ def phase_transforms(card: str, tmp: Path, plate: Path) -> dict:
                 times=checks["times"], legs=legs, fwd_err=worst[torch.bfloat16][0])
 
 
+# -- phase 22: CELLDiff's Sampler and tiled generation, the foundation extractors, the new datamodules --------
+
+
+SAMPLER_STEPS = 2
+SAMPLER_WINDOW = (1, 1, 8, 512, 512)
+SAMPLER_XCHECK = (1, 1, 8, 32, 32)
+TILE_FOVS = ((1, 1, 8, 1024, 1024), (1, 1, 8, 1000, 1000))
+TILE_STEPS = 1
+VIT_S16 = dict(embed_dim=384, depth=12, num_heads=6, resize_to=224)
+FOUNDATION_XCHECK = 4  # windows of the predict batch held against the CPU
+DIVISION_TRACKS = 40
+DIVISION_T = 4
+DIVISION_WINDOW = (2, 15, 224, 224)  # configs/dynaclr_fit.yml: 2 channels, z_range 15 deep, final 224^2
+P22_STEPS = 3
+P22_VAL = 1
+CTMC_T = 6
+CTMC_ZYX = (1, 1024, 1024)
+CLS_CELLS = 64
+
+
+def _timed(fn):
+    """``fn()`` synchronized: (result, seconds, peak GiB since the call)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+
+
+def celldiff_wrappers(seed: int):
+    """``CELLDiff3DVS`` with ``configs/celldiff_fit.yml``'s ``net_config`` on
+    the card and on the CPU, the same weights (adaLN perturbed), the SDE's
+    sample eps 1e-3 (the velocity model's default 0 puts the SBDM diffusion
+    at 1 / 1e-7 at t = 0)."""
+    from viscy_tpu_torch.apps.dynacell import CELLDiff3DVS
+
+    on_cpu = CELLDiff3DVS(net=load_net_config(), sample_eps=1e-3, device="cpu").eval()
+    perturb_adaln(on_cpu, seed)
+    on_card = CELLDiff3DVS(net=load_net_config(), sample_eps=1e-3, device="cuda").eval()
+    on_card.net.load_state_dict(on_cpu.net.state_dict())
+    return on_card, on_cpu
+
+
+def sampler_methods(wrapper, phase: torch.Tensor, x0: torch.Tensor, noise: torch.Tensor, probes: torch.Tensor,
+                    steps: int) -> dict:
+    """Each ``Sampler`` method of leg (a) on ``wrapper``'s net conditioned on
+    ``phase``: name -> (output, net evaluations, seconds, peak GiB)."""
+    from viscy_tpu_torch.models.celldiff import Sampler
+
+    sampler = Sampler(wrapper.transport)
+    evals = [0]
+
+    def fn(x, t):
+        evals[0] += 1
+        return wrapper.net(x, phase, t)
+
+    runs = {
+        "ode rk4": lambda: sampler.sample_ode(sampling_method="rk4", num_steps=steps)(x0, fn),
+        "ode heun reversed": lambda: sampler.sample_ode(sampling_method="heun", num_steps=steps, reverse=True)(x0, fn),
+        "sde euler mean": lambda: sampler.sample_sde(sampling_method="Euler", last_step="Mean",
+                                                     num_steps=steps)(x0, fn, noise=noise),
+        "sde heun tweedie": lambda: sampler.sample_sde(sampling_method="Heun", last_step="Tweedie",
+                                                       num_steps=steps)(x0, fn, noise=noise),
+        "likelihood": lambda: sampler.sample_ode_likelihood(num_steps=steps)(x0, fn, probes=probes),
+    }
+    out = {}
+    for name, run in runs.items():
+        evals[0] = 0
+        if name == "likelihood":
+            res, s, peak = _timed(run)
+        else:
+            with torch.no_grad():
+                res, s, peak = _timed(run)
+        out[name] = (res, evals[0], s, peak)
+    return out
+
+
+def _sampler_draws(shape, steps: int, seed: int, device: str):
+    g = torch.Generator().manual_seed(seed)
+    x0 = torch.randn(shape, generator=g)
+    phase = torch.randn(shape, generator=g)
+    noise = torch.randn((steps, *shape), generator=g)
+    probes = torch.randint(0, 2, (steps, *shape), generator=g).float() * 2 - 1
+    return [t.to(device) for t in (phase, x0, noise, probes)]
+
+
+def sampler_leg(card: str, on_card, on_cpu) -> dict:
+    """Phase 22 (a): every ``Sampler`` method at the config's width on one
+    (1, 1, 8, 512, 512) window (seconds, net evaluations, peak memory), and
+    each against the CPU on a (1, 1, 8, 32, 32) window with the same
+    weights and draws: max|d| <= 2e-3 of range and r > 0.9999 (``logp``:
+    within 2e-3 of itself)."""
+    phase, x0, noise, probes = _sampler_draws(SAMPLER_WINDOW, SAMPLER_STEPS, 220, "cuda")
+    full = sampler_methods(on_card, phase, x0, noise, probes, SAMPLER_STEPS)
+    report = {}
+    for name, (res, evals, s, peak) in full.items():
+        out = res[1] if name == "likelihood" else res
+        if not bool(torch.isfinite(out).all()) or tuple(out.shape) != SAMPLER_WINDOW:
+            raise AssertionError(f"phase 22 (a) {name}: output {tuple(out.shape)} not finite or of the window's shape")
+        report[name] = dict(seconds=s, evals=evals, peak_gib=peak)
+        log(f"[celldiff-sampler] {name}: {SAMPLER_STEPS} steps on {SAMPLER_WINDOW} in {s:.3f} s, {evals} net "
+            f"evaluations ({s / evals:.3f} s each), peak {peak:.2f} GiB ({card})")
+    del full
+    torch.cuda.empty_cache()
+    worst = 0.0
+    small = _sampler_draws(SAMPLER_XCHECK, SAMPLER_STEPS, 221, "cpu")
+    t0 = time.perf_counter()
+    on_cpu_runs = sampler_methods(on_cpu, *small, SAMPLER_STEPS)
+    cpu_s = time.perf_counter() - t0
+    on_card_runs = sampler_methods(on_card, *[t.cuda() for t in small], SAMPLER_STEPS)
+    for name, (want, *_rest) in on_cpu_runs.items():
+        got = on_card_runs[name][0]
+        pairs = [(got[1], want[1])] if name == "likelihood" else [(got, want)]
+        for g, w in pairs:
+            _, rel, r = compare(g.detach().cpu(), w.detach())
+            if not (rel <= 2e-3 and r > 0.9999):
+                raise AssertionError(f"phase 22 (a) {name}: card against CPU {rel:.2e} of range, r {r:.8f}")
+            worst = max(worst, rel)
+        if name == "likelihood":
+            lg, lw = got[0].cpu().double(), want[0].double()
+            lrel = float(((lg - lw).abs() / lw.abs()).max())
+            if not lrel <= 2e-3:
+                raise AssertionError(f"phase 22 (a) likelihood: logp {lg.tolist()} on the card, {lw.tolist()} on the CPU")
+            log(f"[celldiff-sampler] likelihood logp card {lg.tolist()} vs CPU {lw.tolist()} (rel {lrel:.2e})")
+    log(f"[celldiff-sampler] card against CPU at {SAMPLER_XCHECK} (same weights and draws, f32, TF32 off): every "
+        f"method within {worst:.2e} of range (bound 2e-3, r > 0.9999); CPU {cpu_s:.1f} s")
+    return dict(methods=report, xcheck=worst)
+
+
+def tiling_leg(card: str, wrapper) -> dict:
+    """Phase 22 (b): ``generate_sliding_window`` at the config's (8, 512,
+    512) patch on a 1024^2 FOV (4 tiles) and a 1000^2 FOV (edge snap,
+    overlap), each against ``generate`` on every tile's crop from its noise,
+    later tiles overwriting earlier ones (<= 1e-6 of range); then
+    ``generate_trajectory``: its shape and its last entry against
+    ``generate``."""
+    import itertools
+
+    from viscy_tpu_torch.apps.dynacell.celldiff_wrapper import tile_origins
+
+    patch = wrapper.net.input_spatial_size
+    out = {}
+    for shape in TILE_FOVS:
+        g = torch.Generator(device="cuda").manual_seed(222)
+        phase = torch.randn(shape, generator=g, device="cuda")
+        grids = [tile_origins(s, p) for s, p in zip(shape[2:], patch)]
+        tiles = list(itertools.product(*grids))
+        x0s = [torch.randn((1, 1, *patch), generator=g, device="cuda") for _ in tiles]
+        with torch.no_grad():
+            got, s, peak = _timed(lambda: wrapper.generate_sliding_window(phase, TILE_STEPS, x0s=x0s))
+            want = torch.zeros_like(got)
+            for starts, x0 in zip(tiles, x0s):
+                sl = (slice(None), slice(None)) + tuple(slice(a, a + p) for a, p in zip(starts, patch))
+                want[sl] = wrapper.generate(phase[sl], TILE_STEPS, x0=x0)
+        err, rel, _ = compare(got, want)
+        log(f"[celldiff-tiles] generate_sliding_window {shape}: {len(tiles)} tiles at origins {grids[1:]} of "
+            f"{patch}, {TILE_STEPS} Euler step each, {s:.3f} s ({s / len(tiles):.3f} s a tile), peak {peak:.2f} GiB; "
+            f"against generate on each tile's crop and noise: max|d| {err:.3e} ({rel:.2e} of range, bound 1e-6) "
+            f"({card})")
+        if not (rel <= 1e-6 and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"phase 22 (b): tiled generation of {shape} disagrees with its tiles")
+        out[shape[-1]] = dict(seconds=s, tiles=len(tiles))
+    g = torch.Generator(device="cuda").manual_seed(223)
+    phase = torch.randn(SAMPLER_WINDOW, generator=g, device="cuda")
+    x0 = torch.randn(SAMPLER_WINDOW, generator=g, device="cuda")
+    with torch.no_grad():
+        traj, s, peak = _timed(lambda: wrapper.generate_trajectory(phase, SAMPLER_STEPS, x0=x0))
+        last = wrapper.generate(phase, SAMPLER_STEPS, x0=x0)
+    _, rel, _ = compare(traj[-1], last)
+    log(f"[celldiff-tiles] generate_trajectory: {tuple(traj.shape)} in {s:.3f} s, peak {peak:.2f} GiB; first entry "
+        f"the noise, last against generate {rel:.2e} of range ({card})")
+    if tuple(traj.shape) != (SAMPLER_STEPS + 1, *SAMPLER_WINDOW) or not torch.equal(traj[0], x0) or not rel <= 1e-6:
+        raise AssertionError("phase 22 (b): generate_trajectory's shape, first or last entry is off")
+    return out
+
+
+def foundation_leg(card: str, tmp: Path, plate: Path, tracks: Path) -> dict:
+    """Phase 22 (c): ``viscy-torch predict`` of ``configs/dynaclr_predict.yml``
+    with its model replaced by ``FoundationModule(DINOv3Model())`` (ViT-S/16:
+    384 wide, 12 blocks, 6 heads, 224^2) and ``predict_cells: false`` on
+    phase 14's plate: cells/s into the AnnData store; the store's first
+    rows against the same model on the CPU (f32, same weights, <= 2e-3 of
+    range, r > 0.9999); then ``CellDinoModel`` (patch 14) and
+    ``OpenPhenomModel`` (each channel alone) in process on one batch, card
+    against CPU."""
+    from viscy_tpu_torch.evaluation.anndata_lite import read_anndata_zarr
+    from viscy_tpu_torch.models.foundation import CellDinoModel, DINOv3Model, OpenPhenomModel
+    from viscy_tpu_torch.training import cli
+    from viscy_tpu_torch.training.trainer import BatchPrefetcher
+
+    store = tmp / "foundation.zarr"
+
+    def edit(cfg):
+        cfg["data"]["init_args"].update(data_path=str(plate), tracks_path=str(tracks), predict_cells=False)
+        writer = cfg["trainer"]["callbacks"][0]
+        writer["init_args"] = dict(writer["init_args"], output_path=str(store))
+        cfg["trainer"]["default_root_dir"] = str(tmp / "foundation_predict")
+        cfg.pop("ckpt_path", None)
+
+    model = {"class_path": "dynaclr.FoundationModule",
+             "init_args": {"model": {"class_path": "viscy_models.DINOv3Model", "init_args": {}},
+                           "example_input_array_shape": [1, 2, 15, 224, 224]}}
+    path = _composed(tmp, "dynaclr_predict.yml", "foundation_predict.yml", model, edit)
+    _zero_counts()
+    trainer, s, peak = _timed(lambda: cli.main(["predict", "-c", path]))
+    counts = _counts()
+    got = read_anndata_zarr(store)
+    n = got.n_obs
+    want_n = len(DYNACLR_CLI_FOVS) * DYNACLR_CLI_T * DYNACLR_CLI_CELLS
+    log(f"[foundation] viscy-torch predict (configs/dynaclr_predict.yml, FoundationModule(DINOv3Model()) at ViT-S/16, "
+        f"batch 64 of (2, 15, 224, 224) -> center slice, RGB, 224^2): {n} cells in {s:.2f} s = {n / s:.2f} cells/s "
+        f"disk to store (model build included); store X {got.X.shape}; peak {peak:.2f} GiB; launches {counts} ({card})")
+    if n != want_n or got.X.shape[1] != 384 or any(counts.values()) or not np.isfinite(got.X).all():
+        raise AssertionError(f"foundation store: {n} cells (expected {want_n}), X {got.X.shape}, launches {counts}")
+    dm = trainer._active_datamodule
+    batch = next(iter(BatchPrefetcher(dm.predict_dataloader(), torch.device("cuda"))))
+    if dm.predict_device_transform:
+        batch = dm.device_transform(batch, None, "predict")
+    x = batch["anchor"][:FOUNDATION_XCHECK]
+    cpu_model = DINOv3Model().eval()
+    with torch.no_grad():
+        want = cpu_model(x.cpu())[0]
+    _, rel, r = compare(torch.from_numpy(got.X[:FOUNDATION_XCHECK]), want)
+    log(f"[foundation] store rows against DINOv3Model on the CPU (same seeded weights and windows): {rel:.2e} of "
+        f"range, r {r:.8f} (bound 2e-3, r > 0.9999)")
+    if not (rel <= 2e-3 and r > 0.9999):
+        raise AssertionError("phase 22 (c): the foundation store disagrees with the CPU")
+    worst = rel
+    for name, cls in (("CellDinoModel", CellDinoModel), ("OpenPhenomModel", OpenPhenomModel)):
+        m_cpu = cls(**VIT_S16).eval()
+        m_card = cls(**VIT_S16).cuda().eval()
+        m_card.load_state_dict(m_cpu.state_dict())
+        with torch.no_grad():
+            (f_card, _), t_s, peak = _timed(lambda: m_card(batch["anchor"]))
+            f_cpu, _ = m_cpu(x.cpu())
+        _, rel, r = compare(f_card[:FOUNDATION_XCHECK].cpu(), f_cpu)
+        worst = max(worst, rel)
+        log(f"[foundation] {name} (patch {m_card.patch_size}) on the predict batch {tuple(batch['anchor'].shape)}: "
+            f"{t_s:.3f} s ({batch['anchor'].shape[0] / t_s:.1f} cells/s), peak {peak:.2f} GiB; card against CPU on "
+            f"{FOUNDATION_XCHECK} windows {rel:.2e} of range, r {r:.8f} ({card})")
+        if not (rel <= 2e-3 and r > 0.9999):
+            raise AssertionError(f"phase 22 (c): {name} card against CPU {rel:.2e} of range")
+    shutil.rmtree(store)
+    del trainer
+    torch.cuda.empty_cache()
+    return dict(cells_per_s=n / s, xcheck=worst)
+
+
+def classification_leg(card: str, tmp: Path, plate: Path) -> float:
+    """Phase 22 (d), classification: ``ClassificationDataModule`` over phase
+    14's plate with a CSV of ``CLS_CELLS`` annotated cells (a few on the
+    border, dropped), 128^2 x 15 patches of both channels; batches/s out of
+    the train loader (``label`` int32; no JAX engine consumes it)."""
+    from viscy_tpu_torch.data import ClassificationDataModule
+
+    rng = np.random.default_rng(224)
+    ann = tmp / "classes.csv"
+    with open(ann, "w") as f:
+        f.write("fov_name,t,y,x,label\n")
+        for i in range(CLS_CELLS):
+            fov = DYNACLR_CLI_FOVS[i % len(DYNACLR_CLI_FOVS)]
+            side = DYNACLR_CLI_ZYX[1]
+            y, x = (rng.uniform(10, side - 10, 2) if i % 16 == 0 else rng.uniform(64, side - 64, 2))
+            f.write(f"A/1/{fov},{i % DYNACLR_CLI_T},{y:.2f},{x:.2f},{int(rng.integers(0, 4))}\n")
+    dm = ClassificationDataModule(plate, ann, list(DYNACLR_CHANNELS), z_window_size=15, yx_patch_size=(128, 128),
+                                  batch_size=16, num_workers=8)
+    dm.setup("fit")
+    t0 = time.perf_counter()
+    batches = list(dm.train_dataloader())
+    s = time.perf_counter() - t0
+    b = batches[0]
+    if b["label"].dtype != np.int32 or b["source"].shape != (16, 2, 15, 128, 128):
+        raise AssertionError(f"classification batch {b['source'].shape} {b['label'].dtype}")
+    kept = len(dm.train_dataset) + len(dm.val_dataset)
+    log(f"[datamodules] ClassificationDataModule: {kept} of {CLS_CELLS} cells inside the border; {len(batches)} "
+        f"train batches of 16 x (2, 15, 128, 128) in {s:.3f} s = {len(batches) / s:.2f} batches/s from the plate "
+        f"({card})")
+    return len(batches) / s
+
+
+def ctmc_leg(card: str, tmp: Path) -> float:
+    """Phase 22 (d), CTMC-v1: two seeded plates of (``CTMC_T``, 1,
+    ``CTMC_ZYX``) DIC time lapses (2 FOVs to train, 1 to validate); batches/s
+    of (t, t + 1) pairs out of the train loader."""
+    from viscy_tpu_torch.data import CTMCv1DataModule
+    from viscy_tpu_torch.zarr_io.synthetic import build_hcs_plate
+
+    paths = [build_hcs_plate(tmp / f"ctmc_{n}.zarr", ["DIC"], zyx_shape=CTMC_ZYX, num_timepoints=CTMC_T, rows=("A",),
+                             cols=("1",), fovs=fovs, seed=seed) for n, fovs, seed in (("train", ("0", "1"), 225),
+                                                                                          ("val", ("0",), 226))]
+    dm = CTMCv1DataModule(*paths, channel="DIC", batch_size=4, num_workers=8)
+    dm.setup("fit")
+    t0 = time.perf_counter()
+    batches = list(dm.train_dataloader())
+    s = time.perf_counter() - t0
+    if batches[0]["source"].shape != (4, 1, *CTMC_ZYX) or len(batches) != 2 * (CTMC_T - 1) // 4:
+        raise AssertionError(f"CTMC-v1: {len(batches)} batches of {batches[0]['source'].shape}")
+    log(f"[datamodules] CTMCv1DataModule: {len(batches)} train batches of 4 (t, t + 1) pairs of (1, {CTMC_ZYX}) in "
+        f"{s:.3f} s = {len(batches) / s:.2f} batches/s ({card})")
+    for p in paths:
+        shutil.rmtree(p)
+    return len(batches) / s
+
+
+def concat_fits(card: str, tmp: Path, plate: Path) -> dict:
+    """Phase 22 (d): ``viscy-torch fit -c configs/vscyto3d_fit.yml`` with its
+    datamodule replaced by ``ConcatDataModule`` over phase 9's plate and a
+    copy of it, then by ``CombinedDataModule`` in ``max_size_cycle``: one
+    epoch of ``P22_STEPS`` steps and ``P22_VAL`` validation batch each, the
+    launch counts of the warp and the fused forward and backward against the
+    recipe's, patches/s and the loader-wait share."""
+    from viscy_tpu_torch.training import cli
+    from viscy_tpu_torch.training.compose import load_composed_config
+
+    import os
+
+    copy = tmp / "fit_copy.zarr"
+    t0 = time.perf_counter()
+    shutil.copytree(plate, copy, copy_function=os.link)  # a second plate of the same files, hard-linked
+    log(f"[datamodules] fit plate linked into a second plate in {time.perf_counter() - t0:.1f} s")
+    shipped = load_composed_config(ROOT / "configs/vscyto3d_fit.yml")
+    shipped["model"]["init_args"].pop("ckpt_path", None)
+    child = shipped["data"]
+    per_fwd = len(kernel_shapes(FLAGSHIP, TRAIN_PATCH[-1]))
+    want = dict(fwd=2 * per_fwd * (P22_STEPS + P22_VAL), bwd=2 * per_fwd * P22_STEPS, masked_fwd=0, masked_bwd=0,
+                warp=P22_STEPS)
+    out = {}
+    for name, node in (
+        ("ConcatDataModule", lambda kids: {"class_path": "viscy_data.ConcatDataModule",
+                                           "init_args": {"data_modules": kids}}),
+        ("CombinedDataModule", lambda kids: {"class_path": "viscy_data.CombinedDataModule",
+                                             "init_args": {"data_modules": kids, "train_mode": "max_size_cycle"}}),
+    ):
+        root = tmp / f"fit_{name}"
+        kids = [dict(child, init_args=dict(child["init_args"], data_path=str(p), num_workers=8)) for p in (plate, copy)]
+
+        def edit(cfg, kids=kids, node=node, root=root):
+            cfg["data"] = node(kids)
+            cfg["trainer"].update(default_root_dir=str(root), max_epochs=1, limit_train_batches=P22_STEPS,
+                                  limit_val_batches=P22_VAL, log_every_n_steps=1)
+
+        path = _composed(tmp, "vscyto3d_fit.yml", f"fit_{name}.yml", shipped["model"], edit)
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        t0 = time.perf_counter()
+        trainer = cli.main(["fit", "-c", path])
+        counts = _counts()
+        fit_s = time.perf_counter() - t0
+        feed = trainer.feed_stats
+        loss, val = trainer.logged_metrics.get("loss/train"), trainer.logged_metrics.get("loss/validate")
+        batch = child["init_args"]["batch_size"]
+        rate = P22_STEPS * batch / feed["seconds"]
+        log(f"[datamodules] viscy-torch fit of configs/vscyto3d_fit.yml over {name} (the fit plate and its copy): "
+            f"{fit_s:.1f} s in all; train loop {feed['seconds']:.2f} s for {P22_STEPS} steps of {batch} = {rate:.2f} "
+            f"patches/s (first step included); waited {feed['wait_s']:.2f} s = {feed['wait_s'] / feed['seconds']:.1%} "
+            f"of the loop; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; loss/train {loss}, loss/validate "
+            f"{val}; launches {counts} (expected {want}) ({card})")
+        if (counts != want or feed["steps"] != P22_STEPS or not all(v is not None and math.isfinite(v)
+                                                                     for v in (loss, val))):
+            raise AssertionError(f"phase 22 (d) {name}: launches {counts} (expected {want}), {feed['steps']} steps, "
+                                 f"losses {loss} / {val}")
+        out[name] = dict(counts=counts, rate=rate, wait=feed["wait_s"] / feed["seconds"])
+        shutil.rmtree(root, ignore_errors=True)
+        del trainer
+        torch.cuda.empty_cache()
+    shutil.rmtree(copy)
+    return out
+
+
+def division_fit(card: str, tmp: Path) -> dict:
+    """Phase 22 (d): ``viscy-torch fit -c configs/dynaclr_fit.yml`` (the
+    DynaCLR-width ``ContrastiveModule``, NT-Xent) with its datamodule
+    replaced by ``CellDivisionTripletDataModule`` over ``DIVISION_TRACKS``
+    seeded ``.npy`` tracks of (``DIVISION_T``, 2, 15, 224, 224): one epoch
+    of ``P22_STEPS`` steps of 32 and ``P22_VAL`` validation batch; pairs/s
+    and the loader-wait share. It launches what the shipped DynaCLR fit
+    launches: no kernel."""
+    from viscy_tpu_torch.training import cli
+    from viscy_tpu_torch.training.compose import load_composed_config
+
+    tracks = tmp / "division_tracks"
+    tracks.mkdir()
+    rng = np.random.default_rng(227)
+    t0 = time.perf_counter()
+    for i in range(DIVISION_TRACKS):
+        np.save(tracks / f"track_{i:03d}.npy", rng.random((DIVISION_T, *DIVISION_WINDOW), dtype=np.float32))
+    write_s = time.perf_counter() - t0
+    batch = load_composed_config(ROOT / "configs/dynaclr_fit.yml")["data"]["init_args"]["batch_size"]
+    root = tmp / "division_fit"
+
+    def edit(cfg):
+        cfg["data"] = {"class_path": "viscy_data.CellDivisionTripletDataModule",
+                       "init_args": {"data_path": str(tracks), "batch_size": batch, "num_workers": 8}}
+        cfg["trainer"].update(default_root_dir=str(root), max_epochs=1, limit_train_batches=P22_STEPS,
+                              limit_val_batches=P22_VAL, log_every_n_steps=1)
+
+    model = load_composed_config(ROOT / "configs/dynaclr_fit.yml")["model"]
+    model["init_args"].pop("ckpt_path", None)
+    path = _composed(tmp, "dynaclr_fit.yml", "division_fit.yml", model, edit)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    trainer = cli.main(["fit", "-c", path])
+    counts = _counts()
+    fit_s = time.perf_counter() - t0
+    feed = trainer.feed_stats
+    loss, val = trainer.logged_metrics.get("loss/train"), trainer.logged_metrics.get("loss/validate")
+    rate = P22_STEPS * batch / feed["seconds"]
+    log(f"[datamodules] viscy-torch fit of configs/dynaclr_fit.yml over CellDivisionTripletDataModule "
+        f"({DIVISION_TRACKS} .npy tracks of {(DIVISION_T, *DIVISION_WINDOW)}, written in {write_s:.1f} s): "
+        f"{fit_s:.1f} s in all; train loop {feed['seconds']:.2f} s for {P22_STEPS} steps of {batch} = {rate:.2f} "
+        f"cell pairs/s (first step included); waited {feed['wait_s']:.2f} s = {feed['wait_s'] / feed['seconds']:.1%} "
+        f"of the loop; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; loss/train {loss}, loss/validate "
+        f"{val}; launches {counts} ({card})")
+    if any(counts.values()) or feed["steps"] != P22_STEPS or not all(v is not None and math.isfinite(v)
+                                                                      for v in (loss, val)):
+        raise AssertionError(f"phase 22 (d) division fit: launches {counts}, {feed['steps']} steps, losses {loss} / "
+                             f"{val}")
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.rmtree(tracks)
+    del trainer
+    torch.cuda.empty_cache()
+    return dict(rate=rate, wait=feed["wait_s"] / feed["seconds"])
+
+
+def phase_celldiff_sampling(card: str) -> dict:
+    """Phase 22 (a) and (b): the Sampler and CELLDiff3DVS's generation at
+    ``configs/celldiff_fit.yml``'s width."""
+    torch.cuda.empty_cache()
+    on_card, on_cpu = celldiff_wrappers(228)
+    a = sampler_leg(card, on_card, on_cpu)
+    b = tiling_leg(card, on_card)
+    del on_card, on_cpu
+    torch.cuda.empty_cache()
+    return dict(sampler=a, tiles=b)
+
+
+def phase_datamodules(card: str, tmp: Path, plate: Path) -> dict:
+    """Phase 22 (d) on phase 9's plate: the two VSCyto3D fits, the
+    cell-division fit and the CTMC-v1 loader."""
+    fits = concat_fits(card, tmp, plate)
+    division = division_fit(card, tmp)
+    ctmc = ctmc_leg(card, tmp)
+    launches = {k: sum(f["counts"][k] for f in fits.values()) for k in ("fwd", "bwd", "warp")}
+    return dict(fits=fits, division=division, ctmc=ctmc, launches=launches)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is False")
@@ -5938,17 +6421,32 @@ def main() -> None:
         t0 = time.perf_counter()
         p21 = phase_transforms(card, Path(tmp), cli["fit_plate"])
         log(f"[phase 21] the remaining transforms in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        p22 = phase_datamodules(card, Path(tmp), cli["fit_plate"])
+        p22_s = time.perf_counter() - t0
     dynaclr = phase_dynaclr(card)
     with tempfile.TemporaryDirectory(prefix="viscy-dynaclr-") as tmp:
         dynaclr_cli = phase_dynaclr_cli(card, Path(tmp))
         t0 = time.perf_counter()
         callbacks = phase_callbacks(card, Path(tmp), dynaclr_cli["plate"], dynaclr_cli["tracks"])
         twenty_s += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        foundation = foundation_leg(card, Path(tmp), dynaclr_cli["plate"], dynaclr_cli["tracks"])
+        classes = classification_leg(card, Path(tmp), dynaclr_cli["plate"])
+        p22_s += time.perf_counter() - t0
         vae = phase_vae(card, Path(tmp), dynaclr_cli["plate"], dynaclr_cli["tracks"])  # removes the plate
     log(f"[phase 20] qc, tta, seg and callbacks in {twenty_s:.1f} s (QC {qc['per_fov_s']:.3f} s a FOV, TTA "
         f"{tta['fov_s']:.3f} s a FOV, segmentation {seg['slice_s']:.3f} s a slice)")
     with tempfile.TemporaryDirectory(prefix="viscy-celldiff-") as tmp:
         phase_celldiff(card, Path(tmp))
+    t0 = time.perf_counter()
+    sampling = phase_celldiff_sampling(card)
+    p22_s += time.perf_counter() - t0
+    log(f"[phase 22] the sampler, tiled generation, the foundation extractors and the new datamodules in "
+        f"{p22_s:.1f} s (likelihood peak {sampling['sampler']['methods']['likelihood']['peak_gib']:.2f} GiB; "
+        f"foundation predict {foundation['cells_per_s']:.2f} cells/s; classification loader {classes:.2f} "
+        f"batches/s; launches A + B {p22['launches']['fwd']}, C + D {p22['launches']['bwd']}, warp "
+        f"{p22['launches']['warp']})")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
@@ -5960,7 +6458,7 @@ def main() -> None:
             replaces="viscy_tpu/ops/pallas/fused_block.py:164,183",
             launches=sl["launches"] + pre["launches"]["fwd"] + unext2["launches"]["fwd"] + gan["launches"]["fwd"]
             + vae["launches"]["fwd"] + ddp["launches"]["fwd"] + tta["launches"]["fwd"]
-            + callbacks["launches"]["fwd"] + p21["launches"]["fwd"],
+            + callbacks["launches"]["fwd"] + p21["launches"]["fwd"] + p22["launches"]["fwd"],
             **{k: kern[k] for k in keys if k != "max_abs_err"},
             max_abs_err=max(kern["max_abs_err"], pre["kernels"]["fwd_err"], pre["fwd_err"],
                             unext2["kernels"]["fwd_err"], gan["kernels"]["fwd_err"], vae["kernels"]["fwd_err"],
@@ -5973,7 +6471,7 @@ def main() -> None:
             source="viscy_tpu_torch/csrc/fused_mlp_grn.cu",
             replaces="viscy_tpu/ops/pallas/fused_block.py:233,307",
             launches=tr["bwd_launches"] + pre["launches"]["bwd"] + unext2["launches"]["bwd"] + gan["launches"]["bwd"]
-            + vae["launches"]["bwd"] + ddp["launches"]["bwd"] + p21["launches"]["bwd"],
+            + vae["launches"]["bwd"] + ddp["launches"]["bwd"] + p21["launches"]["bwd"] + p22["launches"]["bwd"],
             **{k: bwd[k] for k in keys if k != "max_abs_err"},
             max_abs_err=max(bwd["max_abs_err"], pre["kernels"]["bwd_err"], unext2["kernels"]["bwd_err"],
                             gan["kernels"]["bwd_err"], vae["kernels"]["bwd_err"]),
@@ -5986,7 +6484,7 @@ def main() -> None:
             replaces="viscy_tpu/ops/pallas/warp3d.py:226,352",
             launches=tr["warp_launches"] + pre["launches"]["warp"] + unext2["launches"]["warp"]
             + dynaclr["warp_launches"] + dynaclr_cli["warp_launches"] + legacy["warp_launches"]
-            + gan["launches"]["warp"] + ddp["launches"]["warp"] + p21["launches"]["warp"],
+            + gan["launches"]["warp"] + ddp["launches"]["warp"] + p21["launches"]["warp"] + p22["launches"]["warp"],
             **{k: warp[k] for k in keys if k != "max_abs_err"},
             max_abs_err=max(warp["max_abs_err"], fit["warp_max_abs_err"], pre["warp_err"], dynaclr["warp_err"],
                             dynaclr_cli["warp_err"], legacy["warp_err"], gan["warp_err"]),

@@ -99,12 +99,15 @@ def test_port_imports_no_jax_flax_or_viscy_tpu():
     interpreter, and resolve every name of ``viscy_tpu.transforms.__all__``
     through ``resolve_class`` under both reference spellings
     (``viscy_transforms.X`` and ``viscy.transforms.X``, the MONAI names
-    lazily), the JAX host transforms and the normalize helpers; whatever the
-    environment pre-imports, they must add none of these, nor the packages
-    the card's machine lacks: the zarr stacks (tensorstore, zarr,
-    numcodecs), PIL, tensorboardX, tensorboard (and TensorFlow), pandas,
-    sklearn, anndata and wandb. (yaml, click and scipy are on that
-    machine.)"""
+    lazily), the JAX host transforms and the normalize helpers, and the JAX
+    class paths of the sampler, ``CELLDiff3DVS``, the foundation models and
+    engine and the concatenated, combined, CTMC-v1, classification and
+    cell-division datamodules (module paths and the packages' exports);
+    whatever the environment pre-imports, they must add none of these, nor
+    the packages the card's machine lacks: the zarr stacks (tensorstore,
+    zarr, numcodecs), PIL, tifffile, tensorboardX, tensorboard (and
+    TensorFlow), pandas, sklearn, anndata, wandb, transformers and
+    safetensors. (yaml, click and scipy are on that machine.)"""
     from viscy_tpu import transforms as jax_transforms
     from viscy_tpu.data import host_transforms as jax_host
     from viscy_tpu.preprocess import normalize as jax_pre
@@ -116,6 +119,28 @@ def test_port_imports_no_jax_flax_or_viscy_tpu():
                  "HostScaleIntensityRangePercentilesd", *jax_host.__all__)],
         "functions": [f"viscy_tpu.preprocess.normalize.{n}" for n in (*jax_pre.__all__, "hist_adapteq_2D")]
         + [f"viscy_tpu.training.normalize.{n}" for n in jax_train.__all__],
+        "slice18": [
+            "viscy_tpu.models.celldiff.transport.Sampler", "viscy_tpu.models.celldiff.Sampler",
+            "viscy_tpu.apps.dynacell.celldiff_wrapper.CELLDiff3DVS", "dynacell.CELLDiff3DVS",
+            "viscy_tpu.apps.dynacell.celldiff_wrapper.trajectory_sampler",
+            "viscy_tpu.models.foundation.vit.DinoViT", "viscy_tpu.models.foundation.vit.ViTBlock",
+            "viscy_tpu.models.foundation.convert.convert_dinov2_state_dict",
+            "viscy_tpu.models.foundation.convert.load_dinov2_checkpoint",
+            *(f"viscy_tpu.models.foundation.wrappers.{n}" for n in ("DINOv3Model", "CellDinoModel",
+                                                                     "OpenPhenomModel")),
+            "viscy_tpu.models.foundation.DinoViT", "viscy_models.DINOv3Model", "viscy_models.OpenPhenomModel",
+            "viscy_tpu.apps.dynaclr.foundation_engine.FoundationModule", "dynaclr.FoundationModule",
+            "viscy_tpu.data.channel_utils.ChannelMetadata", "viscy_tpu.data.channel_utils.parse_channel_name",
+            *(f"viscy_data.{n}" for n in ("ChannelDropout", "CombineMode", "CombinedDataModule", "ConcatDataModule",
+                                          "BatchedConcatDataModule", "BatchedConcatDataset",
+                                          "CachedConcatDataModule", "CTMCv1DataModule",
+                                          "CellDivisionTripletDataModule", "CellDivisionTripletDataset",
+                                          "ClassificationDataModule", "ClassificationDataset")),
+            "viscy_tpu.data.ctmc_v1.CTMCv1Dataset", "viscy_tpu.data.combined.ConcatDataModule",
+            "viscy_tpu.data.channel_dropout.ChannelDropout",
+            "viscy_tpu.data.cell_classification.ClassificationDataModule",
+            "viscy_tpu.data.cell_division_triplet.CellDivisionTripletDataModule",
+        ],
     }
     assert len(names["transforms"]) == 2 * 57 and len(names["host"]) == 12
     code = f"""
@@ -131,9 +156,9 @@ for m in pkgutil.walk_packages(viscy_tpu_torch.__path__, "viscy_tpu_torch."):
 import chip_smoke
 added = set(sys.modules) - before
 bad = sorted(n for n in added if n.split(".")[0] in ("jax", "jaxlib", "flax", "viscy_tpu", "tensorstore",
-                                                    "zarr", "numcodecs", "PIL", "tensorboardX",
+                                                    "zarr", "numcodecs", "PIL", "tifffile", "tensorboardX",
                                                     "tensorboard", "tensorflow", "pandas", "wandb", "sklearn",
-                                                    "anndata"))
+                                                    "anndata", "transformers", "safetensors"))
 print("MODULES", len([n for n in added if n.startswith("viscy_tpu_torch")]))
 print("BAD", bad)
 print("CELLDIFF", sorted(n for n in added if n.startswith(("viscy_tpu_torch.models.celldiff.",
@@ -149,7 +174,7 @@ print("CELLDIFF", sorted(n for n in added if n.startswith(("viscy_tpu_torch.mode
                  if line.startswith(("MODULES", "BAD", "CELLDIFF", "RESOLVED")))
     n = sum(len(group) for group in names.values())
     assert lines["RESOLVED"] == f"{n} {n}"
-    assert int(lines["MODULES"]) >= 86
+    assert int(lines["MODULES"]) >= 98
     assert lines["BAD"] == "[]"
     assert lines["CELLDIFF"] == str([
         "viscy_tpu_torch.apps.dynacell.engine", "viscy_tpu_torch.models.celldiff.celldiff_net",

@@ -79,6 +79,34 @@ def test_written_store_equals_the_numpy_assembly(tmp_path, device_blend, batch):
                 np.testing.assert_array_equal(img[t], want[(fov, t)])
 
 
+
+def test_positions_keep_the_arrival_order_when_flushes_finish_out_of_order(tmp_path, monkeypatch):
+    """The device blend writes each finished FOV on a pool of flush threads;
+    a slow first FOV must not let a later one become the store's first
+    position."""
+    import time
+
+    windows = _windows(2)
+    writer = HCSPredictionWriter(tmp_path / "pred.zarr", flush_workers=4)
+    write = writer._write_device_slab
+
+    def slow_first_fov(key, slab, ranges):
+        if key[0].strip("/").startswith(FOVS[0]):
+            time.sleep(0.5)
+        write(key, slab, ranges)
+
+    monkeypatch.setattr(writer, "_write_device_slab", slow_first_fov)
+    writer.on_predict_start(_Trainer(), None)
+    for i, (idx, pred) in enumerate(windows):
+        writer.write_on_batch_end(_Trainer(), None, torch.from_numpy(pred[None]), {"index": [idx]}, i)
+    writer.on_predict_end(_Trainer(), None)
+    plate = open_ome_zarr(tmp_path / "pred.zarr")
+    assert [n for n, _ in plate.positions()] == FOVS
+    want = _numpy_assembly(windows)
+    for fov in FOVS:
+        for t in range(2):
+            np.testing.assert_array_equal(plate[fov]["0"][t], want[(fov, t)])
+
 def test_uint16_output_records_its_scaling(tmp_path):
     windows = _windows(1)[: Z - WIN + 1]  # one (fov, t)
     writer = HCSPredictionWriter(tmp_path / "pred.zarr", output_dtype="uint16")

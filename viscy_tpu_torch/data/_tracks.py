@@ -1,5 +1,6 @@
-"""Track tables without pandas, for the triplet datamodule
-(:mod:`viscy_tpu_torch.data.triplet`).
+"""Track and annotation tables without pandas, for the triplet and
+classification datamodules (:mod:`viscy_tpu_torch.data.triplet`,
+:mod:`viscy_tpu_torch.data.cell_classification`).
 
 The JAX datamodule holds each FOV's tracking CSV as a pandas DataFrame
 (``viscy_tpu/data/triplet.py``); the card's machine has no pandas, so the
@@ -12,7 +13,12 @@ pandas operations it relies on, row order included:
 - ``groupby("global_track_id")`` walks the groups in sorted key order
   (string order: ``"A/1/0_10"`` before ``"A/1/0_2"``), each group's rows in
   their original order;
-- an inner ``merge`` keeps the order of the left rows.
+- an inner ``merge`` keeps the order of the left rows;
+- ``pd.read_csv(path)`` of an annotation table (:func:`read_csv`) types
+  each column as pandas infers it: int64, else float64 (a missing value
+  becomes NaN), else strings. Floats are parsed correctly rounded; pandas'
+  default parser can differ from that in the last bit, which moves no
+  comparison with an integer and no truncation of a value written from one.
 """
 
 from __future__ import annotations
@@ -47,10 +53,10 @@ def _int64_column(name: str, cells: list[str], where: Path) -> np.ndarray:
     return values.astype(np.int64)  # truncation toward zero
 
 
-def read_tracks_csv(path: str | Path) -> Frame:
-    """A tracking CSV with every column as int64 (``pd.read_csv(path)
-    .astype(int)``); an unnamed header cell becomes ``"Unnamed: <i>"``."""
-    path = Path(path)
+def _csv_columns(path: Path) -> tuple[list[str], list[list[str]], int]:
+    """``(header, cells of each column, rows)`` of a CSV file; an unnamed
+    header cell becomes ``"Unnamed: <i>"``, a short row is padded with
+    empty cells, a long one raises."""
     with open(path, newline="") as f:
         rows = list(csv.reader(f))
     if not rows:
@@ -60,7 +66,14 @@ def read_tracks_csv(path: str | Path) -> Frame:
     for i, r in enumerate(body):
         if len(r) > len(header):
             raise ValueError(f"{path}: row {i + 1} has {len(r)} fields for {len(header)} columns")
-    cells = [[r[j] if j < len(r) else "" for r in body] for j in range(len(header))]
+    return header, [[r[j] if j < len(r) else "" for r in body] for j in range(len(header))], len(body)
+
+
+def read_tracks_csv(path: str | Path) -> Frame:
+    """A tracking CSV with every column as int64 (``pd.read_csv(path)
+    .astype(int)``)."""
+    path = Path(path)
+    header, cells, _ = _csv_columns(path)
     return Frame({h: _int64_column(h, c, path) for h, c in zip(header, cells)})
 
 
@@ -90,3 +103,27 @@ def merge_inner(left_keys: Iterable[tuple], right: Frame, right_keys: Iterable[t
         where.setdefault(k, []).append(i)
     rows = [i for k in left_keys for i in where.get(k, ())]
     return right.take(np.asarray(rows, dtype=np.int64))
+
+
+def _infer_csv_column(cells: list[str]) -> np.ndarray:
+    """One CSV column as ``pd.read_csv`` types it: int64 when every cell is
+    an integer, float64 when every cell is a number or empty (NaN), else
+    strings (an empty cell of a string column stays empty)."""
+    raw = np.asarray(cells, dtype=str)
+    stripped = np.char.strip(raw)
+    if len(raw) and not (stripped == "").any():
+        try:
+            return raw.astype(np.int64)
+        except ValueError:
+            pass
+    try:
+        return np.where(stripped == "", "nan", raw).astype(np.float64)
+    except ValueError:
+        return np.asarray(cells, dtype=object)
+
+
+def read_csv(path: str | Path) -> Frame:
+    """A CSV table with its columns typed as ``pd.read_csv(path)`` types
+    them (see :func:`_infer_csv_column`)."""
+    header, cells, n = _csv_columns(Path(path))
+    return Frame({h: _infer_csv_column(c) for h, c in zip(header, cells)}, n_rows=n)

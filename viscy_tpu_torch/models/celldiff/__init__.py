@@ -4,6 +4,7 @@
 from viscy_tpu_torch.models.celldiff.celldiff_net import CELLDiffNet, UNetViT3D
 from viscy_tpu_torch.models.celldiff.paths import GVPCPlan, ICPlan, VPCPlan
 from viscy_tpu_torch.models.celldiff.transport import (
+    Sampler,
     Transport,
     create_transport,
     euler_sampler,
@@ -17,6 +18,7 @@ __all__ = [
     "CELLDiffNet",
     "UNetViT3D",
     "Transport",
+    "Sampler",
     "create_transport",
     "ICPlan",
     "GVPCPlan",

@@ -9,9 +9,15 @@ interval handling; ``euler_sampler`` / ``heun_sampler`` / ``sde_sampler``
 integrate a velocity field from noise (t = 0) to data (t = 1) in fixed
 steps. Random draws come from an explicit ``torch.Generator``, or are
 passed in as tensors (``t`` and ``x0`` of a training step, the SDE's
-noise), so a test can hand in the JAX package's draws. The JAX package's
-``Sampler`` class (ODE methods, SDE, likelihood) is not ported: no entry
-point uses it.
+noise), so a test can hand in the JAX package's draws.
+
+:class:`Sampler` integrates any :class:`Transport`'s drift: the ODE in
+Euler, Heun or RK4 steps (``"dopri5"`` runs RK4, as in the JAX package,
+whose adaptive stepping XLA cannot compile), the SDE in Euler or Heun steps
+with the reference's last steps, and the ODE log-likelihood with the
+Hutchinson divergence estimator. Every grid of times is computed in the
+input's dtype, as JAX computes ``t0 + s * dt`` over ``jnp.arange(num_steps,
+dtype=init.dtype)``.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ VelocityFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
 _PATHS = {"linear": ICPlan, "gvp": GVPCPlan, "vp": VPCPlan}
 
-__all__ = ["Transport", "create_transport", "euler_sampler", "heun_sampler", "sde_sampler"]
+__all__ = ["Transport", "Sampler", "create_transport", "euler_sampler", "heun_sampler", "sde_sampler"]
 
 
 def _mean_flat(x: torch.Tensor) -> torch.Tensor:
@@ -202,6 +208,197 @@ class Transport:
             return ps.get_score_from_denoised(model_fn(x, t), x, t)
 
         return {"noise": _noise, "score": _score, "velocity": _velocity, "denoised": _denoised}[self.prediction]
+
+
+
+def _time(x: torch.Tensor, t0: float, s: float, dt: float) -> torch.Tensor:
+    """The (B,) time ``t0 + s * dt``, each operation rounded to ``x``'s dtype
+    as JAX rounds it."""
+    c = lambda v: torch.tensor(v, dtype=x.dtype)
+    return torch.full((x.shape[0],), float(c(t0) + c(s) * c(dt)), dtype=x.dtype, device=x.device)
+
+
+def _step_draw(draws: torch.Tensor | None, i: int, shape, generator, device, dtype, kind: str) -> torch.Tensor:
+    """Step ``i``'s draw: ``draws[i]`` when given, else a standard normal
+    (``kind="normal"``) or Rademacher (``"rademacher"``) draw from
+    ``generator``."""
+    if draws is not None:
+        return draws[i].to(device=device, dtype=dtype)
+    if kind == "normal":
+        return torch.randn(shape, generator=generator, device=device, dtype=dtype)
+    return (torch.randint(0, 2, shape, generator=generator, device=device) * 2 - 1).to(dtype)
+
+
+class Sampler:
+    """ODE / SDE sampling and the ODE likelihood of a :class:`Transport`.
+
+    Each method returns a sampler function, as the JAX package's does. The
+    SDE's noise and the likelihood's Rademacher probes are tensors of shape
+    ``(num_steps, *x.shape)`` when given (the JAX draws, in a test), else
+    drawn from a ``torch.Generator`` one step at a time.
+
+    Network evaluations a step: ``drift`` and ``score`` each evaluate the
+    network once, so the SDE's drift (``drift + w * score``) evaluates it
+    twice: two a step for Euler, four for Heun, plus two for the ``"Mean"``
+    last step and one for ``"Tweedie"`` or ``"Euler"``; the ODE takes one
+    (Euler), two (Heun) or four (RK4) a step; the likelihood one forward and
+    one vector-Jacobian product a step."""
+
+    def __init__(self, transport: Transport) -> None:
+        self.transport = transport
+        self.drift = transport.get_drift()
+        self.score = transport.get_score()
+
+    # -- ODE -------------------------------------------------------------------------------------------
+    def sample_ode(self, *, sampling_method: str = "euler", num_steps: int = 50, reverse: bool = False) -> Callable:
+        """Fixed-step ODE sampler ``f(init, model_fn) -> x``: ``"euler"``,
+        ``"heun"`` or ``"rk4"`` (``"dopri5"`` maps to RK4); ``reverse``
+        integrates the drift at ``1 - t``."""
+        method = {"dopri5": "rk4"}.get(sampling_method, sampling_method)
+        if method not in ("euler", "heun", "rk4"):
+            raise ValueError(f"unknown ODE sampling method {sampling_method!r}")
+        base_drift = self.drift
+        if reverse:
+            def drift(x, t, model_fn):
+                return base_drift(x, torch.ones_like(t) * (1 - t), model_fn)
+        else:
+            drift = base_drift
+        t0, t1 = self.transport.check_interval(self.transport.train_eps, self.transport.sample_eps, sde=False,
+                                               is_eval=True, reverse=reverse, last_step_size=0.0)
+        dt = (t1 - t0) / num_steps
+
+        def _sample(init: torch.Tensor, model_fn: VelocityFn) -> torch.Tensor:
+            tv = lambda s: _time(init, t0, s, dt)
+            x = init
+            for i in range(num_steps):
+                if method == "euler":
+                    x = x + dt * drift(x, tv(i), model_fn)
+                elif method == "heun":
+                    v1 = drift(x, tv(i), model_fn)
+                    v2 = drift(x + dt * v1, tv(i + 1), model_fn)
+                    x = x + dt * 0.5 * (v1 + v2)
+                else:
+                    k1 = drift(x, tv(i), model_fn)
+                    k2 = drift(x + 0.5 * dt * k1, tv(i + 0.5), model_fn)
+                    k3 = drift(x + 0.5 * dt * k2, tv(i + 0.5), model_fn)
+                    k4 = drift(x + dt * k3, tv(i + 1), model_fn)
+                    x = x + dt / 6.0 * (k1 + 2 * k2 + 2 * k3 + k4)
+            return x
+
+        return _sample
+
+    # -- SDE -------------------------------------------------------------------------------------------
+    def _sde_drift_diffusion(self, diffusion_form: str, diffusion_norm: float):
+        def diffusion_fn(x, t):
+            return self.transport.path_sampler.compute_diffusion(x, t, form=diffusion_form, norm=diffusion_norm)
+
+        def sde_drift(x, t, model_fn):
+            return self.drift(x, t, model_fn) + diffusion_fn(x, t) * self.score(x, t, model_fn)
+
+        return sde_drift, diffusion_fn
+
+    def _last_step_fn(self, sde_drift, last_step: str | None, last_step_size: float):
+        """The SDE's final step at ``t1``: none, ``"Mean"`` (an SDE-drift
+        step without noise), ``"Tweedie"`` (the denoised estimate) or
+        ``"Euler"`` (an ODE-drift step)."""
+        if last_step is None:
+            return lambda x, t, model_fn: x
+        if last_step == "Mean":
+            return lambda x, t, model_fn: x + sde_drift(x, t, model_fn) * last_step_size
+        if last_step == "Tweedie":
+            ps = self.transport.path_sampler
+
+            def _tweedie(x, t, model_fn):
+                alpha_t = expand_t_like_x(ps.compute_alpha_t(t)[0], x)
+                sigma_t = expand_t_like_x(ps.compute_sigma_t(t)[0], x)
+                return x / alpha_t + (sigma_t**2) / alpha_t * self.score(x, t, model_fn)
+
+            return _tweedie
+        if last_step == "Euler":
+            return lambda x, t, model_fn: x + self.drift(x, t, model_fn) * last_step_size
+        raise NotImplementedError(f"Last step type {last_step!r} not implemented")
+
+    def sample_sde(
+        self,
+        *,
+        sampling_method: str = "Euler",
+        diffusion_form: str = "SBDM",
+        diffusion_norm: float = 1.0,
+        last_step: str | None = "Mean",
+        last_step_size: float = 0.04,
+        num_steps: int = 250,
+    ) -> Callable:
+        """SDE sampler ``f(init, model_fn, generator=None, noise=None) -> x``
+        (Euler-Maruyama or stochastic Heun); step ``i`` adds
+        ``sqrt(2 max(w, 0) dt) * noise[i]``."""
+        if sampling_method not in ("Euler", "Heun"):
+            raise ValueError(f"unknown SDE sampling method {sampling_method!r}")
+        if last_step is None:
+            last_step_size = 0.0
+        sde_drift, sde_diffusion = self._sde_drift_diffusion(diffusion_form, diffusion_norm)
+        t0, t1 = self.transport.check_interval(self.transport.train_eps, self.transport.sample_eps,
+                                               diffusion_form=diffusion_form, sde=True, is_eval=True, reverse=False,
+                                               last_step_size=last_step_size)
+        dt = (t1 - t0) / num_steps
+        last_step_fn = self._last_step_fn(sde_drift, last_step, last_step_size)
+
+        def _sample(init: torch.Tensor, model_fn: VelocityFn, generator: torch.Generator | None = None,
+                    noise: torch.Tensor | None = None) -> torch.Tensor:
+            if noise is None and generator is None:
+                raise ValueError("sample_sde needs a torch.Generator or its noise")
+            x = init
+            for i in range(num_steps):
+                t = _time(init, t0, i, dt)
+                w = torch.as_tensor(sde_diffusion(x, t))
+                eps = _step_draw(noise, i, x.shape, generator, x.device, x.dtype, "normal")
+                if sampling_method == "Euler":
+                    x = x + sde_drift(x, t, model_fn) * dt + torch.sqrt(2 * torch.clamp_min(w, 0.0) * dt) * eps
+                else:
+                    xhat = x + torch.sqrt(2 * torch.clamp_min(w, 0.0) * dt) * eps
+                    k1 = sde_drift(xhat, t, model_fn)
+                    k2 = sde_drift(xhat + dt * k1, _time(init, t0, i + 1, dt), model_fn)
+                    x = xhat + 0.5 * dt * (k1 + k2)
+            return last_step_fn(x, torch.full((init.shape[0],), t1, dtype=init.dtype, device=init.device), model_fn)
+
+        return _sample
+
+    # -- likelihood ------------------------------------------------------------------------------------
+    def sample_ode_likelihood(self, *, sampling_method: str = "euler", num_steps: int = 50) -> Callable:
+        """Log-likelihood ``f(x, model_fn, generator=None, probes=None) ->
+        (logp, z)``: Euler steps of the probability-flow ODE from data to
+        noise, each adding ``dt * eps^T J eps`` (``J`` the drift's Jacobian
+        at ``1 - t``, ``eps`` the step's Rademacher probe) to the change of
+        log density, accumulated in float32. ``eps^T J eps`` is taken as one
+        vector-Jacobian product (``torch.autograd.grad``), the scalar JAX's
+        forward-mode ``jvp`` gives up to rounding; ``logp`` is
+        ``prior_logp(z) - delta_logp``. The JAX method takes no other
+        ``sampling_method`` either: its argument is accepted and unused."""
+        base_drift = self.drift
+        t0, t1 = self.transport.check_interval(self.transport.train_eps, self.transport.sample_eps, sde=False,
+                                               is_eval=True, reverse=False, last_step_size=0.0)
+        dt = (t1 - t0) / num_steps
+
+        def _sample(x: torch.Tensor, model_fn: VelocityFn, generator: torch.Generator | None = None,
+                    probes: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+            if probes is None and generator is None:
+                raise ValueError("sample_ode_likelihood needs a torch.Generator or its probes")
+            z = x.detach()
+            logp = torch.zeros((x.shape[0],), dtype=torch.float32, device=x.device)
+            axes = tuple(range(1, x.ndim))
+            for i in range(num_steps):
+                eps = _step_draw(probes, i, z.shape, generator, z.device, z.dtype, "rademacher")
+                t = _time(z, t0, i, dt)
+                t_rev = torch.ones_like(t) * (1 - t)
+                with torch.enable_grad():
+                    zz = z.detach().requires_grad_(True)
+                    drift_val = base_drift(zz, t_rev, model_fn)
+                    (vjp,) = torch.autograd.grad(drift_val, zz, eps)
+                div_est = (vjp * eps).sum(dim=axes)
+                z = (z + dt * (-drift_val)).detach()
+                logp = logp + dt * div_est
+            return self.transport.prior_logp(z) - logp, z
+
+        return _sample
 
 
 def create_transport(

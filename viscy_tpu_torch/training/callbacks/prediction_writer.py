@@ -254,6 +254,8 @@ class HCSPredictionWriter(Callback):
         pred_idx = tuple(range(self._channel_offset, self._channel_offset + int(prediction.shape[1])))
         for i, idx in enumerate(indices):
             img_name, t, z = str(idx[0]), int(idx[1]), int(idx[2])
+            # the store's positions in the order the FOVs arrive, not in the flush threads' order
+            self._get_position(img_name)
             key = (img_name, t, pred_idx)
             for other in [k for k in asm.keys() if k != key]:
                 self._submit_device_flush(other)

@@ -1,7 +1,9 @@
 """flax parameter trees -> reference VisCy torch ``state_dict``s (the inverse
 of ``viscy_tpu/training/convert.py``'s ``_FCMAE_RULES``, ``_UNEXT2_RULES``,
-``_CONTRASTIVE_RULES`` and its 3-D U-Net and ViT-bottleneck rules, and a
-bridge for the JAX ``ResNet3dEncoder``).
+``_CONTRASTIVE_RULES`` and its 3-D U-Net and ViT-bottleneck rules, a
+bridge for the JAX ``ResNet3dEncoder``, and the inverse of
+``viscy_tpu/models/foundation/convert.py``'s DINOv2 rules for ``DinoViT``
+and the foundation wrappers).
 
 The port's models carry the reference torch names and layouts, so weights
 cross between the two packages through these bridges one way and
@@ -21,6 +23,10 @@ Layout transposes (flax -> torch):
 - LayerNorm / BatchNorm scale/bias -> weight/bias; BatchNorm
   ``batch_stats`` mean/var -> ``running_mean``/``running_var``
 - GRN gamma/beta                 -> ``mlp.grn.weight``/``bias``
+- ``DinoViT`` attention: q / k / v ``(E, heads, head_dim)`` -> Linear
+  ``(E, E)`` (reshape, then transpose), the output ``(heads, head_dim, E)``
+  -> ``(E, E)`` the same way; the patch conv ``(p, p, 3, E)`` -> ``(E, 3,
+  p, p)``
 - ConvNeXt-v1 ``ls_gamma``, the head's PReLU ``conv0_prelu`` -> ``gamma``,
   ``adn.A.weight`` (bare leaves)
 """
@@ -510,6 +516,58 @@ def vae_state_dict_from_flax(model: nn.Module, params: dict[str, Any]) -> dict[s
     raise TypeError(f"no flax -> torch VAE bridge for a {type(model).__name__}")
 
 
+
+def _heads_in(w: np.ndarray) -> np.ndarray:
+    """flax attention q / k / v kernel ``(E, heads, head_dim)`` -> Linear ``(E, E)``."""
+    return np.transpose(w.reshape(w.shape[0], -1), (1, 0))
+
+
+def _heads_out(w: np.ndarray) -> np.ndarray:
+    """flax attention output kernel ``(heads, head_dim, E)`` -> Linear ``(E, E)``."""
+    return np.transpose(w.reshape(-1, w.shape[-1]), (1, 0))
+
+
+def _dinovit_rules(prefix: str) -> tuple[list[Rule], list[tuple[str, str]]]:
+    b, t = r"block(\d+)", prefix + "encoder.layer.{0}"
+    rules: list[Rule] = [
+        (r"patch_embed", prefix + "embeddings.patch_embeddings.projection", _conv2d),
+        (r"norm", prefix + "layernorm", None),
+        (rf"{b}/norm1", f"{t}.norm1", None),
+        (rf"{b}/norm2", f"{t}.norm2", None),
+        (rf"{b}/attn/(query|key|value)", t + ".attention.attention.{1}", _heads_in),
+        (rf"{b}/attn/out", f"{t}.attention.output.dense", _heads_out),
+        (rf"{b}/fc1", f"{t}.mlp.fc1", _linear),
+        (rf"{b}/fc2", f"{t}.mlp.fc2", _linear),
+    ]
+    bare = [(rf"{b}/ls1", t + ".layer_scale1.lambda1"), (rf"{b}/ls2", t + ".layer_scale2.lambda1")]
+    return rules, bare
+
+
+def dinovit_state_dict_from_flax(params: dict[str, Any], prefix: str = "") -> dict[str, torch.Tensor]:
+    """Map a flax ``DinoViT`` ``params`` tree to the port's ``DinoViT``
+    state dict (HF ``Dinov2Model`` names), each key under ``prefix``."""
+    params = dict(params)
+    out = {prefix + "embeddings.cls_token": torch.from_numpy(np.array(params.pop("cls_token"), np.float32)),
+           prefix + "embeddings.position_embeddings": torch.from_numpy(np.array(params.pop("pos_embed"),
+                                                                               np.float32))}
+    out.update(_bridge(params, *_dinovit_rules(prefix), "DinoViT"))
+    return out
+
+
+def foundation_state_dict_from_flax(params: dict[str, Any]) -> dict[str, torch.Tensor]:
+    """Map the flax ``params`` of a foundation wrapper (``DINOv3Model``,
+    ``CellDinoModel``, ``OpenPhenomModel``: the ``backbone`` subtree, and a
+    Dense ``projection`` when it has one) to the port wrapper's state dict."""
+    params = dict(params)
+    out = dinovit_state_dict_from_flax(params.pop("backbone"), "backbone.")
+    if "projection" in params:
+        out.update(_bridge({"projection": params.pop("projection")},
+                           [(r"projection", "projection", _linear)], [], "projection"))
+    if params:
+        raise KeyError(f"no foundation-wrapper rule for flax parameters {sorted(params)}")
+    return out
+
+
 def state_dict_from_flax(
     model: nn.Module, params: dict[str, Any], batch_stats: dict[str, Any] | None = None
 ) -> dict[str, torch.Tensor]:
@@ -518,6 +576,8 @@ def state_dict_from_flax(
     from viscy_tpu_torch.models.celldiff.vit_bottleneck import ViTBottleneck3D
     from viscy_tpu_torch.models.contrastive.encoder import ContrastiveEncoder
     from viscy_tpu_torch.models.contrastive.resnet3d import ResNet3dEncoder
+    from viscy_tpu_torch.models.foundation.vit import DinoViT
+    from viscy_tpu_torch.models.foundation.wrappers import _FrozenViTWrapper
     from viscy_tpu_torch.models.unet.fcmae import FullyConvolutionalMAE
     from viscy_tpu_torch.models.unet.unet2d import Unet2d
     from viscy_tpu_torch.models.unet.unet25d import Unet25d
@@ -545,6 +605,10 @@ def state_dict_from_flax(
         return celldiff_state_dict_from_flax(params, model.bottleneck.patch_size)
     if isinstance(model, UNeXt2):
         return unext2_state_dict_from_flax(params)
+    if isinstance(model, DinoViT):
+        return dinovit_state_dict_from_flax(params)
+    if isinstance(model, _FrozenViTWrapper):
+        return foundation_state_dict_from_flax(params)
     if isinstance(model, FullyConvolutionalMAE):
         return fcmae_state_dict_from_flax(params)
     raise TypeError(f"no flax -> torch bridge for a {type(model).__name__}")
