@@ -418,11 +418,33 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
            (4, 2, 15, 224, 224): pairs/s and the wait share; batches/s out of
            the ``CTMCv1DataModule`` and ``ClassificationDataModule`` train
            loaders.
+23. dynaclr-eval  DynaCLR's embedding evaluation on the card. (a)
+           ``viscy-torch predict`` of ``configs/dynaclr_predict.yml`` from
+           phase 14's affine fit (whose warp launches feed it) with
+           ``umap_kwargs`` and ``phate_kwargs`` on the writer, then every
+           ported subcommand of ``python -m viscy_tpu_torch.apps.dynaclr.cli``
+           on that store (labels and conditions from a seeded CSV through
+           ``append-obs``): seconds, peak memory, finite results, the
+           store's new ``obsm`` and ``obs`` entries; no kernel launch on
+           this path. (b) A seeded store of 50,000 cells (10 FOVs x 250
+           tracks x 20 frames, 4 classes, 4 conditions, 768 features, 128
+           projections): ``reduce-dimensionality`` pca / umap (200 epochs) /
+           phate (2000 landmarks), ``cross-validate``, ``train-mlp-embedder``
+           and ``apply-mlp-embedder``, ``compute-mmd`` (groups of 12,500,
+           1000 permutations), ``smoothness``, ``evaluate-tracking-accuracy
+           --embeddings``: seconds and peak memory each, the busy share of
+           the UMAP layout and of the first MMD test (one profiled call
+           each). (c) The same functions on the first 2000 cells on the
+           card and on the CPU with the same draws, each difference against
+           its bound; two card calls of the UMAP layout identical; the
+           sorted ``index_put_(accumulate=True)`` timed against the atomic
+           ``index_add_``.
 
 Phase 20 (a) runs after phase 10, on phase 9's plate of 4 FOVs; phases 16,
 17, 19, 20 (b)-(c), 21 and 22 (d) after phase 12, on that plate grown by
-phase 11; phases 20 (d), 22 (c) and 18 after phase 14, in that order, on its
-plate and tracks; 22 (a)-(b) last. The last two lines are a JSON
+phase 11; phases 20 (d), 22 (c), 23 and 18 after phase 14, in that order,
+on its plate and tracks (23 also on its affine fit's checkpoint); 22 (a)-(b)
+last. The last two lines are a JSON
 ``kernels`` record and the JSON result line.
 Needs ``torch.cuda.is_available()`` and the repo's ``viscy_tpu_torch``
 beside this file. Imports nothing of JAX or ``viscy_tpu``.
@@ -3698,7 +3720,8 @@ def phase_dynaclr_cli(card: str, tmp: Path) -> dict:
     torch.cuda.empty_cache()
     store = dynaclr_predict(tmp, plate, tracks, root / "checkpoints/last", card)
     shutil.rmtree(store)
-    return dict(warp_launches=counts["warp"], warp_err=err, plate=plate, tracks=tracks)
+    return dict(warp_launches=counts["warp"], warp_err=err, plate=plate, tracks=tracks,
+                affine_ckpt=tmp / "dynaclr_fit_affine" / "checkpoints/last")
 
 
 def celldiff_module(device: str):
@@ -6384,6 +6407,436 @@ def phase_datamodules(card: str, tmp: Path, plate: Path) -> dict:
     return dict(fits=fits, division=division, ctmc=ctmc, launches=launches)
 
 
+# -- phase 23: DynaCLR's embedding evaluation ------------------------------------------------------------------
+
+EVAL_FOVS, EVAL_TRACKS, EVAL_T = 10, 250, 20  # (b): 50,000 cells
+EVAL_DIM, EVAL_PROJ = 768, 128  # configs/dynaclr_predict.yml:13-14
+EVAL_CLASSES = EVAL_CONDITIONS = 4
+EVAL_XCHECK = 2000  # (c): the first cells of (b), on the card and on the CPU
+EVAL_MLP_EPOCHS = 30
+
+
+def eval_cli(args: list[str]) -> tuple[str, float, float]:
+    """``python -m viscy_tpu_torch.apps.dynaclr.cli --device cuda <args>`` in
+    process: (its output, seconds, peak GiB)."""
+    import contextlib
+    import io
+
+    from viscy_tpu_torch.apps.dynaclr import cli as dcli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        _, s, peak = _timed(lambda: dcli.main(["--device", "cuda", *map(str, args)], standalone_mode=False))
+    return buf.getvalue(), s, peak
+
+
+def _json_out(out: str):
+    return json.loads(out[min(i for i in (out.find("{"), out.find("[")) if i >= 0):])
+
+
+def _finite(tree) -> bool:
+    if isinstance(tree, dict):
+        return all(_finite(v) for v in tree.values())
+    if isinstance(tree, list):
+        return all(_finite(v) for v in tree)
+    return not isinstance(tree, float) or math.isfinite(tree)
+
+
+def eval_predict(card: str, tmp: Path, plate: Path, tracks: Path, ckpt: Path) -> Path:
+    """Phase 23 (a), first half: ``viscy-torch predict`` of
+    ``configs/dynaclr_predict.yml`` from phase 14's affine fit, the writer
+    with ``umap_kwargs`` and ``phate_kwargs``: the store's reductions."""
+    from viscy_tpu_torch.evaluation.anndata_lite import read_anndata_zarr
+    from viscy_tpu_torch.training import cli
+    from viscy_tpu_torch.training.compose import load_composed_config
+
+    store = tmp / "eval_embeddings.zarr"
+    writer = dict(load_composed_config(ROOT / "configs/dynaclr_predict.yml")["trainer"]["callbacks"][0])
+    writer["init_args"] = dict(writer["init_args"], output_path=str(store), umap_kwargs={"n_neighbors": 15},
+                               phate_kwargs={"knn": 5})
+    cfg_path = _cli_config(tmp / "dynaclr_eval_predict.yml", {
+        "data": {"init_args": {"data_path": str(plate), "tracks_path": str(tracks), "predict_cells": False}},
+        "trainer": {"default_root_dir": str(tmp / "dynaclr_eval_predict"), "callbacks": [writer]},
+        "ckpt_path": str(ckpt),
+    }, ROOT / "configs/dynaclr_predict.yml")
+    _, s, peak = _timed(lambda: cli.main(["predict", "-c", cfg_path]))
+    got = read_anndata_zarr(store)
+    n = got.n_obs
+    log(f"[dynaclr-eval] (a) viscy-torch predict from phase 14's affine fit with UMAP and PHATE in the writer: {n} "
+        f"cells in {s:.2f} s, peak {peak:.2f} GiB; obsm { {k: v.shape for k, v in got.obsm.items()} } ({card})")
+    for key in ("X_umap", "X_phate"):
+        if got.obsm[key].shape != (n, 2) or not np.isfinite(got.obsm[key]).all():
+            raise AssertionError(f"phase 23 (a): {key} {got.obsm[key].shape}")
+    return store
+
+
+def eval_tables(tmp: Path, store: Path) -> tuple[Path, Path]:
+    """Seeded label and annotation CSVs for the store's cells."""
+    import csv
+
+    from viscy_tpu_torch.evaluation.anndata_lite import read_anndata_zarr
+
+    obs = read_anndata_zarr(store).obs
+    rng = np.random.default_rng(2323)
+    labels, ann = tmp / "eval_labels.csv", tmp / "eval_annotations.csv"
+    with open(labels, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["id", "state", "condition", "score"])
+        for cid, tid in zip(obs["id"].tolist(), obs["track_id"].tolist()):
+            w.writerow([cid, f"state{tid % EVAL_CLASSES}", f"cond{(tid // 7) % 2}", f"{rng.random():.4f}"])
+    with open(ann, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["fov_name", "t", "track_id", "y", "x", "division"])
+        for row in zip(*(obs[c].tolist() for c in ("fov_name", "t", "track_id", "y", "x"))):
+            w.writerow([f"/{row[0]}", *row[1:], "yes" if rng.random() < 0.2 else "no"])
+    return labels, ann
+
+
+def eval_subcommands(card: str, tmp: Path, store: Path) -> dict:
+    """Phase 23 (a), second half: every ported subcommand on the store, on
+    the card, through the CLI."""
+    from viscy_tpu_torch.evaluation.anndata_lite import read_anndata_zarr
+
+    labels, ann = eval_tables(tmp, store)
+    split = tmp / "eval_split"
+    steps = [
+        ["info", "--embeddings", store],
+        ["append-obs", "--embeddings", store, "--csv", labels],
+        ["append-annotations", "--embeddings", store, "--csv", ann],
+        ["reduce-dimensionality", "--embeddings", store, "--method", "pca", "--components", "8"],
+        ["reduce-dimensionality", "--embeddings", store, "--method", "umap", "--components", "2"],
+        ["reduce-dimensionality", "--embeddings", store, "--method", "phate", "--components", "2"],
+        ["dimred", "--embeddings", store, "--components", "8", "--output", tmp / "eval_dimred.npy"],
+        ["split-embeddings", "--embeddings", store, "--column", "fov_name", "--output-dir", split],
+        ["combined-dim-reduction", "--embeddings", split / "A/1/0", "--embeddings", split / "A/1/1", "--components", "4"],
+        ["train-classifier", "--embeddings", store, "--label-column", "state", "--output", tmp / "eval_probe.npz"],
+        ["cross-validate", "--embeddings", store, "--label-column", "state", "--splits", "3"],
+        ["probe-classifiers", "--embeddings", store, "--label-columns", "state,condition", "--splits", "3"],
+        ["append-predictions", "--embeddings", store, "--classifier", tmp / "eval_probe.npz", "--task", "state"],
+        ["smoothness", "--embeddings", store],
+        ["mmd", "--embeddings", store, "--group-column", "condition", "--group-a", "cond0", "--group-b", "cond1",
+         "--permutations", "200"],
+        ["compute-mmd", "--embeddings", store, "--group-column", "state", "--permutations", "200", "--output",
+         tmp / "eval_mmd.csv"],
+        ["train-mlp-embedder", "--embeddings", store, "--label-column", "state", "--output", tmp / "eval_mlp",
+         "--epochs", "5"],
+        ["apply-mlp-embedder", "--embeddings", store, "--model", tmp / "eval_mlp"],
+        ["evaluate-tracking-accuracy", "--embeddings", store, "--spatial-gate", "50"],
+    ]
+    seconds = {}
+    for args in steps:
+        out, s, peak = eval_cli(args)
+        name = args[0] + ("" if args[0] != "reduce-dimensionality" else f" {args[4]}")
+        seconds[name] = s
+        said = out.strip().splitlines()[-1]
+        if "{" in out or "[" in out:
+            res = _json_out(out)
+            if not _finite(res):
+                raise AssertionError(f"phase 23 (a): {name} printed a non-finite number: {out}")
+            said = json.dumps(res)
+        log(f"[dynaclr-eval] (a) {name}: {s:.2f} s, peak {peak:.3f} GiB; {said[:140]}")
+    got = read_anndata_zarr(store)
+    want = {"PCA", "UMAP", "PHATE", "MLP", "X_pca", "X_umap", "X_phate", "X_projections"}
+    have_obs = {"state", "condition", "score", "division", "predicted_state"}
+    if not want <= set(got.obsm) or not have_obs <= set(got.obs.names) or not all(
+            np.isfinite(v).all() for v in got.obsm.values()):
+        raise AssertionError(f"phase 23 (a): store obsm {sorted(got.obsm)}, obs {got.obs.names}")
+    if np.load(tmp / "eval_dimred.npy").shape != (got.n_obs, 8) or not (tmp / "eval_mmd.csv").exists():
+        raise AssertionError("phase 23 (a): dimred or compute-mmd wrote nothing")
+    return seconds
+
+
+def eval_full_store(tmp: Path, card: str) -> Path:
+    """Phase 23 (b)'s seeded store: EVAL_FOVS x EVAL_TRACKS tracks of EVAL_T
+    frames, each drifting (a random walk plus observation noise) around its
+    class centre and its condition's offset; 768 features, 128 projections."""
+    from viscy_tpu_torch.evaluation.anndata_lite import Frame
+    from viscy_tpu_torch.training.callbacks.embedding_writer import write_embedding_dataset
+
+    rng = np.random.default_rng(23)
+    shape = (EVAL_FOVS, EVAL_TRACKS)
+    centres = rng.normal(size=(EVAL_CLASSES, EVAL_DIM)) * 0.05
+    offsets = rng.normal(size=(EVAL_CONDITIONS, EVAL_DIM)) * 0.02
+    cls = rng.integers(0, EVAL_CLASSES, size=shape)
+    cond = (np.arange(EVAL_TRACKS)[None, :] + np.arange(EVAL_FOVS)[:, None]) % EVAL_CONDITIONS
+    base = centres[cls] + offsets[cond] + rng.normal(size=(*shape, EVAL_DIM)) * 0.1
+    walk = np.cumsum(rng.normal(size=(*shape, EVAL_T, EVAL_DIM)) * 0.06, axis=2)
+    feats = (base[:, :, None] + walk + rng.normal(size=(*shape, EVAL_T, EVAL_DIM)) * 0.15).astype(np.float32)
+    feats = feats.reshape(-1, EVAL_DIM)
+    proj = feats @ (rng.normal(size=(EVAL_DIM, EVAL_PROJ)) / np.sqrt(EVAL_DIM)).astype(np.float32)
+    yx0 = rng.uniform(100, 1900, size=(*shape, 1, 2))
+    yx = (yx0 + np.cumsum(rng.normal(size=(*shape, EVAL_T, 2)) * 3.0, axis=2)).reshape(-1, 2)
+    f, tr, t = (a.ravel() for a in np.meshgrid(np.arange(EVAL_FOVS), np.arange(EVAL_TRACKS), np.arange(EVAL_T),
+                                               indexing="ij"))
+    frame = Frame({"fov_name": np.asarray([f"A/1/{i}" for i in f], dtype=object), "track_id": tr, "t": t,
+                   "id": np.arange(len(t)), "y": np.round(yx[:, 0], 2), "x": np.round(yx[:, 1], 2),
+                   "state": np.asarray([f"state{c}" for c in cls[f, tr]], dtype=object),
+                   "condition": np.asarray([f"cond{c}" for c in cond[f, tr]], dtype=object)})
+    store = tmp / "eval_full.zarr"
+    t0 = time.perf_counter()
+    write_embedding_dataset(store, feats, frame, projections=proj)
+    log(f"[dynaclr-eval] (b) seeded store: {len(t)} cells ({EVAL_FOVS} FOVs x {EVAL_TRACKS} tracks x {EVAL_T} "
+        f"frames, {EVAL_CLASSES} classes, {EVAL_CONDITIONS} conditions), X {feats.shape}, projections {proj.shape}, "
+        f"written in {time.perf_counter() - t0:.1f} s ({card})")
+    return store
+
+
+def _capture_first(module, name: str, calls: dict):
+    """Wrap ``module.name`` so that the arguments of its first call are kept
+    in ``calls[name]``; returns the original (restore with ``setattr``)."""
+    orig = getattr(module, name)
+
+    def wrapper(*a, **k):
+        calls.setdefault(name, (a, k))
+        return orig(*a, **k)
+
+    setattr(module, name, wrapper)
+    return orig
+
+
+def _profiled(fn) -> tuple[float, float | None]:
+    """Wall ms and device-busy ms (torch.profiler) of one call of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return wall, (sum(e.self_device_time_total for e in events) / 1e3 if events else None)
+
+
+def _timed_parts(module, names: tuple[str, ...], record: dict) -> dict:
+    """Wrap each ``module.<name>`` to add its synchronized wall seconds to
+    ``record[name]``; returns the originals (restore with ``setattr``)."""
+    origs = {name: getattr(module, name) for name in names}
+
+    def wrap(name, fn):
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            record[name] = record.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return timed
+
+    for name, fn in origs.items():
+        setattr(module, name, wrap(name, fn))
+    return origs
+
+
+def eval_full(card: str, tmp: Path) -> dict:
+    """Phase 23 (b): the subcommands at 50,000 cells through the CLI on the
+    card: seconds, peak memory, and the busy share of the UMAP layout and of
+    the first MMD test (one profiled call each)."""
+    from viscy_tpu_torch.evaluation import mmd as tmmd
+    from viscy_tpu_torch.evaluation import phate_native as tphate
+    from viscy_tpu_torch.evaluation import umap_native as tumap
+    from viscy_tpu_torch.evaluation.anndata_lite import read_anndata_zarr
+
+    store = eval_full_store(tmp, card)
+    steps = [
+        ["reduce-dimensionality", "--embeddings", store, "--method", "pca", "--components", "8"],
+        ["reduce-dimensionality", "--embeddings", store, "--method", "umap", "--components", "2"],
+        ["reduce-dimensionality", "--embeddings", store, "--method", "phate", "--components", "2"],
+        ["cross-validate", "--embeddings", store, "--label-column", "state", "--splits", "5"],
+        ["train-mlp-embedder", "--embeddings", store, "--label-column", "state", "--output", tmp / "eval_full_mlp",
+         "--epochs", str(EVAL_MLP_EPOCHS)],
+        ["apply-mlp-embedder", "--embeddings", store, "--model", tmp / "eval_full_mlp"],
+        ["compute-mmd", "--embeddings", store, "--group-column", "condition", "--permutations", "1000"],
+        ["smoothness", "--embeddings", store],
+        ["evaluate-tracking-accuracy", "--embeddings", store, "--spatial-gate", "50"],
+    ]
+    record, results, busy, parts = {}, {}, {}, {}
+    umap_parts = ("exact_knn", "smooth_knn_dist", "fuzzy_simplicial_set", "_spectral_init", "find_ab_params",
+                  "epoch_schedule", "draw_negatives")
+    phate_parts = ("pca_fit", "_alpha_decay", "minibatch_kmeans", "metric_mds")
+    restore = [(tumap, _timed_parts(tumap, umap_parts, parts.setdefault("umap", {}))),
+               (tphate, _timed_parts(tphate, phate_parts, parts.setdefault("phate", {})))]
+    calls: dict = {}
+    layout = _capture_first(tumap, "optimize_layout", calls)
+    test = _capture_first(tmmd, "mmd_permutation_test", calls)
+    try:
+        for args in steps:
+            out, s, peak = eval_cli(args)
+            name = args[0] + ("" if args[0] != "reduce-dimensionality" else f" {args[4]}")
+            record[name] = (s, peak)
+            said = out.strip().splitlines()[-1]
+            if "{" in out or "[" in out:
+                results[name] = _json_out(out)
+                if not _finite(results[name]):
+                    raise AssertionError(f"phase 23 (b): {name} printed a non-finite number")
+                said = json.dumps(results[name])
+            log(f"[dynaclr-eval] (b) {name}: {s:.2f} s, peak {peak:.2f} GiB; {said[:140]} ({card})")
+    finally:
+        tumap.optimize_layout, tmmd.mmd_permutation_test = layout, test
+        for module, origs in restore:
+            for name, fn in origs.items():
+                setattr(module, name, fn)
+    for method, nest in (("umap", "fuzzy_simplicial_set holds exact_knn and smooth_knn_dist; the rest is the "
+                                  "layout, which holds epoch_schedule and draw_negatives, and the store's read and "
+                                  "write"),
+                         ("phate", "the rest: the diffusion operator, its spectrum and power, on the device, and "
+                                   "the store's read and write")):
+        total = record[f"reduce-dimensionality {method}"][0]
+        log(f"[dynaclr-eval] (b) {method} parts: "
+            + ", ".join(f"{k} {v:.2f} s" for k, v in parts[method].items())
+            + f" of {total:.2f} s ({nest}) ({card})")
+    # one more call of each, profiled, with the arguments the subcommand gave it (the times above are unprofiled)
+    for tag, name, fn in (("umap layout", "optimize_layout", layout), ("mmd test", "mmd_permutation_test", test)):
+        a, k = calls[name]
+        busy[tag] = _profiled(lambda: fn(*a, **k))
+    for tag, (wall, dev_ms) in busy.items():
+        share = "not measured (no device time recorded)" if dev_ms is None else f"{dev_ms / wall:.1%}"
+        log(f"[dynaclr-eval] (b) {tag} (one more call, profiled): wall {wall:.1f} ms, device busy "
+            f"{'not measured' if dev_ms is None else f'{dev_ms:.1f} ms'}, busy share {share} ({card})")
+    got = read_anndata_zarr(store)
+    n = EVAL_FOVS * EVAL_TRACKS * EVAL_T
+    shapes = {k: got.obsm[k].shape for k in ("PCA", "UMAP", "PHATE", "MLP")}
+    if shapes != {"PCA": (n, 8), "UMAP": (n, 2), "PHATE": (n, 2), "MLP": (n, 128)} or not all(
+            np.isfinite(got.obsm[k]).all() for k in shapes):
+        raise AssertionError(f"phase 23 (b): obsm {shapes}")
+    cv = results["cross-validate"]
+    mmd_rows = results["compute-mmd"]
+    link = results["evaluate-tracking-accuracy"]
+    log(f"[dynaclr-eval] (b) probe accuracy {cv['accuracy_mean']:.4f} +- {cv['accuracy_std']:.4f}; MMD^2 "
+        f"{[round(r['mmd2'], 6) for r in mmd_rows]}, p {[r['p_value'] for r in mmd_rows]}; smoothness score "
+        f"{results['smoothness']['smoothness_score']:.4f}; link accuracy {link['link_accuracy']:.4f} of "
+        f"{link['n_links']} links")
+    if len(mmd_rows) != EVAL_CONDITIONS * (EVAL_CONDITIONS - 1) // 2 or link["n_links"] == 0:
+        raise AssertionError("phase 23 (b): compute-mmd or tracking produced too little")
+    shutil.rmtree(store)
+    return dict(seconds=record, busy=busy, parts=parts)
+
+
+def _xcheck(tag: str, err: float, bound: float, worst: dict, unit: str = "of range") -> None:
+    log(f"[dynaclr-eval] (c) {tag}: card against CPU {err:.3e} {unit} (bound {bound:g})")
+    worst[tag] = err
+    if not err <= bound:
+        raise AssertionError(f"phase 23 (c): {tag} card against CPU {err:.3e} > {bound:g}")
+
+
+def _range_err(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.ptp(b), 1e-30))
+
+
+def knn_preservation(X: np.ndarray, emb: np.ndarray, k: int = 10) -> float:
+    """The mean share of each row's k nearest rows in ``X`` among its k
+    nearest in ``emb`` (float64 on the card)."""
+    from viscy_tpu_torch.evaluation._ops import exact_knn
+
+    def nearest(a):
+        t = torch.as_tensor(np.asarray(a, np.float64), device="cuda")
+        return exact_knn(t, t, k + 1)[1][:, 1:].cpu().numpy()
+
+    a, b = nearest(X), nearest(emb)
+    return float(np.mean([len(set(r) & set(s)) / k for r, s in zip(a, b)]))
+
+
+def eval_xcheck(card: str) -> dict:
+    """Phase 23 (c): each function on the first EVAL_XCHECK cells of (b)'s
+    data on the card and on the CPU with the same draws."""
+    from viscy_tpu_torch.apps.dynaclr import mlp_embedder as tmlp
+    from viscy_tpu_torch.apps.dynaclr.tracking import link_by_embedding
+    from viscy_tpu_torch.evaluation import clustering as tclu
+    from viscy_tpu_torch.evaluation import dimensionality_reduction as tdr
+    from viscy_tpu_torch.evaluation import linear_classifier as tlin
+    from viscy_tpu_torch.evaluation import mmd as tmmd
+    from viscy_tpu_torch.evaluation import phate_native as tphate
+    from viscy_tpu_torch.evaluation import smoothness as tsmooth
+    from viscy_tpu_torch.evaluation import umap_native as tumap
+    from viscy_tpu_torch.evaluation.anndata_lite import read_anndata_zarr
+
+    with tempfile.TemporaryDirectory(prefix="viscy-eval-x-") as d:
+        ds = read_anndata_zarr(eval_full_store(Path(d), card))
+    X, obs = ds.X[:EVAL_XCHECK], ds.obs.take(np.arange(EVAL_XCHECK))
+    state, cond = np.asarray(obs["state"]), np.asarray(obs["condition"])
+    worst: dict = {}
+    both = lambda fn: (fn("cuda"), fn("cpu"))  # noqa: E731
+
+    a, b = both(lambda dev: tdr.compute_pca(X, 8, device=dev)[0])
+    _xcheck("PCA scores", _range_err(a, b), 1e-6, worst)
+    um = tumap.NativeUMAP(device="cuda")
+    pc, pp = um.prepare(X), tumap.NativeUMAP(device="cpu").prepare(X)
+    same = np.array_equal(pc["head"], pp["head"]) and np.array_equal(pc["tail"], pp["tail"])
+    _xcheck("UMAP graph weights", _range_err(pc["weights"], pp["weights"]) if same else np.inf, 1e-12, worst)
+    _xcheck("UMAP spectral start", _range_err(pc["init"], pp["init"]), 1e-6, worst)
+    args = (pc["init"], pc["head"], pc["tail"], pc["weights"])
+    kw = dict(a=pc["a"], b=pc["b"], lr=1.0, negative_sample_rate=5, random_state=42)
+    short = [tumap.optimize_layout(*args, n_epochs=5, device=dev, **kw) for dev in ("cuda", "cpu")]
+    _xcheck("UMAP layout, 5 epochs", _range_err(*short), 1e-9, worst)
+    exact = [tumap.optimize_layout(*args, n_epochs=pc["n_epochs"], device=dev, **dict(kw, b=1.0))
+             for dev in ("cuda", "cpu")]
+    log(f"[dynaclr-eval] (c) UMAP layout at b = 1 (no pow rounding), {pc['n_epochs']} epochs: card against CPU "
+        f"{_range_err(*exact):.3e} of range (information: bit for bit only if CUDA's pow(x, 1) is x)")
+    (one, t_det, _), (two, _, _) = [_timed(lambda: tumap.optimize_layout(*args, n_epochs=pc["n_epochs"],
+                                                                         device="cuda", **kw)) for _ in range(2)]
+    orig = tumap._add_rows
+    tumap._add_rows = lambda x, rows, values: x.index_add_(0, rows, values)  # CUDA's atomic adds
+    try:
+        _, t_free, _ = _timed(lambda: tumap.optimize_layout(*args, n_epochs=pc["n_epochs"], device="cuda", **kw))
+    finally:
+        tumap._add_rows = orig
+    cpu_layout = tumap.optimize_layout(*args, n_epochs=pc["n_epochs"], device="cpu", **kw)
+    kc, kp = knn_preservation(X, one), knn_preservation(X, cpu_layout)
+    log(f"[dynaclr-eval] (c) UMAP layout ({pc['n_epochs']} epochs, {len(pc['head'])} edges): two card calls "
+        f"{'identical' if np.array_equal(one, two) else 'DIFFERENT'}; sorted index_put_ {t_det:.2f} s, "
+        f"atomic index_add_ {t_free:.2f} s; 10-NN preservation card {kc:.4f}, CPU {kp:.4f} ({card})")
+    if not np.array_equal(one, two):
+        raise AssertionError("phase 23 (c): two card calls of the UMAP layout differ")
+    _xcheck("UMAP 10-NN preservation at the fitted b", abs(kc - kp), 0.05, worst, "absolute")
+    a, b = both(lambda dev: tphate.NativePHATE(device=dev).fit_transform(X))
+    _xcheck("PHATE embedding (up to sign)", _range_err(a * np.sign((a * b).sum(0)), b), 1e-4, worst)
+    xp = tdr.compute_pca(X, 100, device="cuda")[0]
+    (la, ia), (lb, ib) = both(lambda dev: tphate.minibatch_kmeans(xp, 200, device=dev))
+    # a near-tie's argmin flips with the product's rounding, and the mini-batch path then departs
+    _xcheck("k-means inertia", abs(ia - ib) / ib, 0.02, worst, "relative")
+    a, b = both(lambda dev: tmmd.mmd_permutation_test(X[cond == "cond0"], X[cond == "cond1"], 1000, device=dev))
+    # the float32 exp differs by an ulp between CUDA and the CPU's vector library
+    _xcheck("MMD^2, null mean and std", max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+                                            for k in ("mmd2", "null_mean", "null_std")), 1e-4, worst, "relative")
+    _xcheck("MMD p-value", abs(a["p_value"] - b["p_value"]), 0.005, worst, "absolute")
+    a, b = both(lambda dev: tsmooth.compute_embeddings_smoothness(X, obs, device=dev))
+    _xcheck("smoothness statistics", max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12) for k in b), 1e-9, worst,
+            "relative")
+    a, b = both(lambda dev: tlin.cross_validate_classifier(X, state, 5, device=dev))
+    _xcheck("probe cross-validation metrics", max(abs(a[k] - b[k]) for k in b), 0.01, worst, "absolute")
+    init = tmlp._build(EVAL_DIM, (256, 128), EVAL_CLASSES, seed=7).state_dict()
+    a, b = both(lambda dev: tmlp.train_mlp_embedder(X, state, epochs=5, init_state=init, device=dev)[1])
+    _xcheck("MLP embedder validation loss per epoch", max(abs(p["val_loss"] - q["val_loss"]) / q["val_loss"]
+                                                         for p, q in zip(a["history"], b["history"])), 1e-3, worst,
+            "relative")
+    a, b = both(lambda dev: link_by_embedding(X, obs, device=dev)["linked_prev_row"])
+    _xcheck("tracking links differing", float((a != b).sum()), 2.0, worst, "links")
+    a, b = both(lambda dev: tclu.knn_accuracy(X, state, device=dev))
+    _xcheck("kNN accuracy", abs(a - b), 1e-3, worst, "absolute")
+    return worst
+
+
+def phase_dynaclr_eval(card: str, tmp: Path, plate: Path, tracks: Path, ckpt: Path) -> dict:
+    """Phase 23: DynaCLR's embedding evaluation on the card (see the module
+    docstring)."""
+    t0 = time.perf_counter()
+    _zero_counts()
+    store = eval_predict(card, tmp, plate, tracks, ckpt)
+    a = eval_subcommands(card, tmp, store)
+    counts = _counts()
+    if any(counts.values()):
+        raise AssertionError(f"phase 23 (a) launched {counts}; no kernel expected on this path")
+    log(f"[dynaclr-eval] (a) the path from phase 14's checkpoint launched {counts} (the warp's launches that made "
+        f"the checkpoint are phase 14's); (a) in {time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(store)
+    b = eval_full(card, tmp)
+    c = eval_xcheck(card)
+    total = time.perf_counter() - t0
+    log(f"[phase 23] DynaCLR's embedding evaluation in {total:.1f} s ({card})")
+    return dict(seconds=total, a=a, b=b, c=c, launches=counts)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is False")
@@ -6434,6 +6887,8 @@ def main() -> None:
         foundation = foundation_leg(card, Path(tmp), dynaclr_cli["plate"], dynaclr_cli["tracks"])
         classes = classification_leg(card, Path(tmp), dynaclr_cli["plate"])
         p22_s += time.perf_counter() - t0
+        p23 = phase_dynaclr_eval(card, Path(tmp), dynaclr_cli["plate"], dynaclr_cli["tracks"],
+                                 dynaclr_cli["affine_ckpt"])
         vae = phase_vae(card, Path(tmp), dynaclr_cli["plate"], dynaclr_cli["tracks"])  # removes the plate
     log(f"[phase 20] qc, tta, seg and callbacks in {twenty_s:.1f} s (QC {qc['per_fov_s']:.3f} s a FOV, TTA "
         f"{tta['fov_s']:.3f} s a FOV, segmentation {seg['slice_s']:.3f} s a slice)")
@@ -6447,6 +6902,7 @@ def main() -> None:
         f"foundation predict {foundation['cells_per_s']:.2f} cells/s; classification loader {classes:.2f} "
         f"batches/s; launches A + B {p22['launches']['fwd']}, C + D {p22['launches']['bwd']}, warp "
         f"{p22['launches']['warp']})")
+    log(f"[phase 23] DynaCLR's evaluation: {p23['seconds']:.1f} s; launches on its path {p23['launches']}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")

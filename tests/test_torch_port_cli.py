@@ -95,8 +95,17 @@ def test_the_port_resolves_configs_without_importing_viscy_tpu():
         "[resolve_class(c) for c in ('viscy_utils.callbacks.EmbeddingSnapshotCallback', "
         "'viscy_utils.callbacks.OnlineEvalCallback', 'cytoland.evaluation.SegmentationMetrics2D', "
         "'viscy_data.segmentation.SegmentationDataModule')]; "
+        # DynaCLR's evaluation: the evaluation library, the MLP embedder, tracking and the dynaclr CLI
+        "import viscy_tpu_torch.evaluation._ops, viscy_tpu_torch.evaluation.zarr_utils, "
+        "viscy_tpu_torch.evaluation.dimensionality_reduction, viscy_tpu_torch.evaluation.umap_native, "
+        "viscy_tpu_torch.evaluation.phate_native, viscy_tpu_torch.evaluation.distance, "
+        "viscy_tpu_torch.evaluation.embedding_map, viscy_tpu_torch.evaluation.smoothness, "
+        "viscy_tpu_torch.evaluation.mmd, viscy_tpu_torch.evaluation.linear_classifier, "
+        "viscy_tpu_torch.evaluation.lca, viscy_tpu_torch.evaluation.annotation, "
+        "viscy_tpu_torch.apps.dynaclr.mlp_embedder, viscy_tpu_torch.apps.dynaclr.tracking, "
+        "viscy_tpu_torch.apps.dynaclr.cli; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'viscy_tpu', 'tensorstore', "
-        "'pydantic', 'sklearn')); "
+        "'pydantic', 'sklearn', 'pandas')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)

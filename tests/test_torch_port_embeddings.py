@@ -74,7 +74,8 @@ def _same_obs(got: tad.Frame, want) -> None:
 def test_the_jax_reader_reads_the_port_store(tmp_path):
     feats, proj = _embeddings(40)
     tew.write_embedding_dataset(tmp_path / "e.zarr", feats, _index(40), projections=proj, compute_pca=True,
-                                pca_components=5, uns_metadata={"data_path": "/d/plate.zarr", "tracks_path": "/t"})
+                                pca_components=5, device="cpu",
+                                uns_metadata={"data_path": "/d/plate.zarr", "tracks_path": "/t"})
     meta = json.loads((tmp_path / "e.zarr/X/.zarray").read_text())
     assert meta["compressor"] is None and meta["shape"] == [40, 24]
     ad = jad.read_anndata_zarr(tmp_path / "e.zarr")
@@ -122,19 +123,40 @@ def test_pca_matches_the_jax_writer_at_sklearns_full_sizes(tmp_path, monkeypatch
         j = jew.write_embedding_dataset(tmp_path / f"j{n}.zarr", feats, jew.pd.DataFrame(_index(200)),
                                         compute_pca=True, pca_components=n)
         t = tew.write_embedding_dataset(tmp_path / f"t{n}.zarr", feats, _index(200), compute_pca=True,
-                                        pca_components=n)
+                                        pca_components=n, device="cpu")
         want, got = j.obsm["X_pca"], t.obsm["X_pca"]
         assert got.shape == want.shape == (200, min(n, 23))
         err, _ = rel_err(got, want)
         assert err <= 1e-5, err
-    with pytest.raises(NotImplementedError, match="umap_kwargs"):
-        tew.EmbeddingWriter(str(tmp_path / "u.zarr"), umap_kwargs={})
+
+
+def test_umap_and_phate_match_the_jax_writer(tmp_path, monkeypatch):
+    """``umap_kwargs`` / ``phate_kwargs`` write ``X_umap`` / ``X_phate`` as
+    the JAX writer does, on the same store: 80 rows of 8 features (sklearn's
+    exact kd-tree kNN; above 15 features its brute-force self-distance is a
+    rounding residue, see ``test_torch_port_reductions.py``), a 5-epoch
+    layout (the full layout's chaos turns pow's last bit into O(1): the
+    reductions tests hold the whole layout) and PHATE without PCA. Within
+    1e-5 of the range, PHATE up to one sign per component (the port signs
+    the classical-MDS start)."""
+    monkeypatch.setattr(jad, "_write_numeric_ts", jad._write_array)
+    feats = np.random.default_rng(5).normal(size=(80, 8)).astype(np.float32)
+    feats += np.linspace(0, 3, 80, dtype=np.float32)[:, None]
+    kw = dict(umap_kwargs={"n_epochs": 5, "n_neighbors": 10}, phate_kwargs={"knn": 5, "n_pca": None})
+    j = jew.write_embedding_dataset(tmp_path / "j.zarr", feats, jew.pd.DataFrame(_index(80)), **kw)
+    t = tew.write_embedding_dataset(tmp_path / "t.zarr", feats, _index(80), device="cpu", **kw)
+    for key in ("X_umap", "X_phate"):
+        want, got = j.obsm[key], tad.read_anndata_zarr(tmp_path / "t.zarr").obsm[key]
+        assert got.shape == want.shape == (80, 2) and got.dtype == np.float32
+        signs = np.sign((want * got).sum(axis=0)) if key == "X_phate" else 1.0
+        err, _ = rel_err(got * signs, want)
+        assert err <= 1e-5, (key, err)
 
 
 def test_convert_to_anndata_matches_jax(tmp_path):
     feats, proj = _embeddings(25, 9)
     tew.write_embedding_dataset(tmp_path / "e.zarr", feats, _index(25), projections=proj, compute_pca=True,
-                                uns_metadata={"data_path": "p"})
+                                device="cpu", uns_metadata={"data_path": "p"})
     j_convert(tmp_path / "e.zarr", tmp_path / "j.zarr")
     convert_to_anndata(tmp_path / "e.zarr", tmp_path / "t.zarr")
     want, got = jad.read_anndata_zarr(tmp_path / "j.zarr"), jad.read_anndata_zarr(tmp_path / "t.zarr")
@@ -218,7 +240,7 @@ def test_dynaclr_fit_predict_and_convert_through_the_cli(plate, tmp_path):
     assert got.obs["track_id"].tolist() == [int(r["track_id"]) for r in index]
     assert got.obs["fov_name"].tolist() == [r["fov_name"] for r in index]
     assert got.uns == {"data_path": str(plate_path), "tracks_path": str(root / "tracks")}
-    want_pca = tew.pca(got.X, 8)
+    want_pca = tew.pca(got.X, 8, device="cpu")
     assert_rel_close(got.obsm["X_pca"], want_pca, 1e-6)
 
     convert = {"convert": {"embeddings_path": str(store), "output_path": str(tmp_path / "ad.zarr")}}

@@ -346,7 +346,8 @@ def test_pairplot_components_are_sklearns_pca():
     from sklearn.decomposition import PCA
 
     feats = _dataset(30, (15, 15), 7)[0].astype(np.float64)
-    np.testing.assert_allclose(tew.pca(feats, 3), PCA(n_components=3).fit_transform(feats), rtol=0, atol=1e-9)
+    np.testing.assert_allclose(tew.pca(feats, 3, device="cpu"), PCA(n_components=3).fit_transform(feats),
+                               rtol=0, atol=1e-9)
     image = tlog.pca_pairplot(feats)
     assert image.dtype == np.uint8 and image.shape[2] == 3
 

@@ -171,6 +171,26 @@ class AnnDataLite:
             return False
         return True
 
+    def __iter__(self):
+        """The dataset's keys, as the JAX container lists them:
+        ``features``, ``index``, ``projections`` and ``PCA`` where present,
+        then the other ``obsm`` names."""
+        yield "features"
+        yield "index"
+        if "X_projections" in self.obsm:
+            yield "projections"
+        if "X_pca" in self.obsm:
+            yield "PCA"
+        for k in self.obsm:
+            if k not in ("X_projections", "X_pca"):
+                yield k
+
+    def get(self, key, default=None):
+        try:
+            return self[key]
+        except KeyError:
+            return default
+
     def write_zarr(self, path: str | Path, overwrite: bool = True) -> Path:
         return write_anndata_zarr(path, self, overwrite=overwrite)
 

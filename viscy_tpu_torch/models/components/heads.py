@@ -211,12 +211,16 @@ class MLP(nn.Module):
         else:
             self.head = Linear(dims[-1], num_classes, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, encode: bool = False) -> torch.Tensor:
+        """The projection, the class logits, or with ``encode`` (classifier
+        mode) the L2-normalized last hidden layer (JAX's ``encode=True``)."""
         for i in range(self.n_hidden):
             fc = getattr(self, f"fc{i}")
             x = torch.relu(getattr(self, f"norm{i}")(F.linear(x, fc.weight, fc.bias), x.dtype))
         if self.num_classes is None:
             return self.norm_out(F.linear(x, self.fc_out.weight, self.fc_out.bias), x.dtype)
+        if encode:
+            return x / (torch.linalg.vector_norm(x, dim=1, keepdim=True) + 1e-12)
         if isinstance(self.head, CosineClassifier):
             return self.head(x)
         return F.linear(x, self.head.weight, self.head.bias)

@@ -11,9 +11,13 @@ and the batches' tracking ``index`` and writes an AnnData zarr store
 
 PCA is an exact SVD in float64 with sklearn's sign rule, where the JAX
 writer calls ``sklearn.decomposition.PCA`` (the card's machine has no
-sklearn); a PCA that fails raises, where the JAX writer logs a warning.
-UMAP and PHATE (``umap_kwargs`` / ``phate_kwargs``) and the legacy
-``index.parquet`` layout are not ported and raise by name.
+sklearn). ``umap_kwargs`` / ``phate_kwargs`` (each may be ``{}``) write
+``obsm["X_umap"]`` / ``obsm["X_phate"]`` through the port's native UMAP
+and PHATE (:mod:`viscy_tpu_torch.evaluation.dimensionality_reduction`).
+All three run on ``device`` (the trainer's, in the callback). A reduction that fails
+raises, PCA included, where the JAX writer logs a warning and writes the
+store without it. The legacy ``index.parquet`` layout is not ported and
+raises by name.
 """
 
 from __future__ import annotations
@@ -32,22 +36,17 @@ _logger = logging.getLogger("viscy_tpu_torch")
 __all__ = ["EmbeddingWriter", "pca", "read_embedding_dataset", "write_embedding_dataset"]
 
 
-def pca(X: np.ndarray, n_components: int) -> np.ndarray:
+def pca(X: np.ndarray, n_components: int, device: str = "cuda") -> np.ndarray:
     """The first ``n_components`` principal-component scores of ``X``, in
-    float64: ``sklearn.decomposition.PCA(n_components).fit_transform(X)``
-    with the full solver (center, exact SVD, ``U[:, :n] * S[:n]``), each
-    component's sign chosen so its largest absolute loading is positive
-    (``svd_flip(u_based_decision=False)``)."""
-    X = np.asarray(X, np.float64)
-    U, S, Vt = np.linalg.svd(X - X.mean(axis=0), full_matrices=False)
-    signs = np.sign(Vt[np.arange(Vt.shape[0]), np.argmax(np.abs(Vt), axis=1)])
-    return U[:, :n_components] * signs[:n_components] * S[:n_components]
+    float64 on ``device``: ``sklearn.decomposition.PCA(n_components)
+    .fit_transform(X)`` with the full solver (center, exact SVD, ``U[:, :n]
+    * S[:n]``), each component's sign chosen so its largest absolute
+    loading is positive (``svd_flip(u_based_decision=False)``); see
+    :func:`viscy_tpu_torch.evaluation.dimensionality_reduction.pca_fit`."""
+    from viscy_tpu_torch.evaluation._ops import host, on, resolve_device
+    from viscy_tpu_torch.evaluation.dimensionality_reduction import pca_fit
 
-
-def _refuse_reductions(umap_kwargs, phate_kwargs) -> None:
-    for name, kw in (("umap_kwargs", umap_kwargs), ("phate_kwargs", phate_kwargs)):
-        if kw is not None:
-            raise NotImplementedError(f"{name}: UMAP and PHATE embeddings are not ported to viscy_tpu_torch")
+    return host(pca_fit(on(X, resolve_device(device)), n_components)[0])
 
 
 def write_embedding_dataset(
@@ -64,13 +63,16 @@ def write_embedding_dataset(
     provenance: dict | None = None,
     compute_pca: bool = False,
     pca_components: int = 8,
+    device: str = "cuda",
 ) -> AnnDataLite:
     """Write embeddings to an AnnData zarr store (reference
     ``write_embedding_dataset``, embedding_writer.py:105-215). ``index`` is
     a :class:`Frame` or a list of row dicts; with ``compute_pca`` (or
     ``pca_kwargs``) and more than two rows, ``obsm["X_pca"]`` holds
-    ``min(n_components, min(X.shape) - 1)`` components."""
-    _refuse_reductions(umap_kwargs, phate_kwargs)
+    ``min(n_components, min(X.shape) - 1)`` components. ``umap_kwargs`` /
+    ``phate_kwargs`` (``n_components`` default 2, the rest passed on) add
+    ``obsm["X_umap"]`` / ``obsm["X_phate"]``; all three are computed on
+    ``device``."""
     output_path = Path(output_path)
     if output_path.exists() and not overwrite:
         raise FileExistsError(f"Output path {output_path} already exists.")
@@ -93,7 +95,15 @@ def write_embedding_dataset(
         pca_kwargs = {"n_components": pca_components}
     if pca_kwargs and X.shape[0] > 2:
         n = min(int(pca_kwargs.get("n_components", 8)), min(X.shape) - 1)
-        obsm["X_pca"] = pca(X, n).astype(np.float32)
+        obsm["X_pca"] = pca(X, n, device).astype(np.float32)
+    for key, kwargs, name in (("X_umap", umap_kwargs, "compute_umap"), ("X_phate", phate_kwargs, "compute_phate")):
+        if kwargs is not None:
+            from viscy_tpu_torch.evaluation import dimensionality_reduction
+
+            kw = dict(kwargs)
+            n_comp = kw.pop("n_components", 2)
+            obsm[key] = getattr(dimensionality_reduction, name)(X, n_components=n_comp, device=device,
+                                                                **kw).astype(np.float32)
     uns = {str(k): v for k, v in {**(provenance or {}), **(uns_metadata or {})}.items()}
     adata = AnnDataLite(X=X, obs=obs, obsm=obsm, uns=uns)
     adata.write_zarr(output_path, overwrite=True)
@@ -127,10 +137,11 @@ class EmbeddingWriter(Callback):
         pca_components: int = 8,
         overwrite: bool = False,
     ) -> None:
-        _refuse_reductions(umap_kwargs, phate_kwargs)
         self.output_path = Path(output_path)
         self.write_projections = write_projections
         self.embedding_key = embedding_key
+        self.umap_kwargs = umap_kwargs
+        self.phate_kwargs = phate_kwargs
         self.pca_kwargs = pca_kwargs
         self.compute_pca = compute_pca
         self.pca_components = pca_components
@@ -163,8 +174,9 @@ class EmbeddingWriter(Callback):
         }
         write_embedding_dataset(
             self.output_path, features, index, projections=projections, embedding_key=self.embedding_key,
-            pca_kwargs=self.pca_kwargs, compute_pca=self.compute_pca, pca_components=self.pca_components,
-            overwrite=True, uns_metadata=uns,
+            umap_kwargs=self.umap_kwargs, phate_kwargs=self.phate_kwargs, pca_kwargs=self.pca_kwargs,
+            compute_pca=self.compute_pca, pca_components=self.pca_components, overwrite=True, uns_metadata=uns,
+            device=str(trainer.device),
         )
         _logger.info(f"Wrote {len(features)} embeddings to {self.output_path}")
 

@@ -110,11 +110,15 @@ def knn_predict(train_x: np.ndarray, train_y: np.ndarray, test_x: np.ndarray, k:
     return np.argmax(votes, axis=1)
 
 
-def stratified_kfold_test_folds(y: np.ndarray, n_splits: int) -> np.ndarray:
+def stratified_kfold_test_folds(y: np.ndarray, n_splits: int, shuffle_seed: int | None = None) -> np.ndarray:
     """Each row's test fold under ``StratifiedKFold(n_splits, shuffle=False)``
     (sklearn's ``_make_test_folds``): classes numbered by first appearance,
     each class's rows dealt to folds in blocks of the round-robin
-    allocation over the sorted labels."""
+    allocation over the sorted labels. With ``shuffle_seed``, as
+    ``StratifiedKFold(n_splits, shuffle=True, random_state=shuffle_seed)``:
+    each class's block of fold numbers shuffled in class order by
+    ``np.random.RandomState(shuffle_seed)``."""
+    rng = None if shuffle_seed is None else np.random.RandomState(shuffle_seed)
     _, y_idx, y_inv = np.unique(y, return_index=True, return_inverse=True)
     _, class_perm = np.unique(y_idx, return_inverse=True)
     y_encoded = class_perm[y_inv]
@@ -125,7 +129,10 @@ def stratified_kfold_test_folds(y: np.ndarray, n_splits: int) -> np.ndarray:
     allocation = np.asarray([np.bincount(y_order[i::n_splits], minlength=n_classes) for i in range(n_splits)])
     test_folds = np.empty(len(y), dtype="i")
     for k in range(n_classes):
-        test_folds[y_encoded == k] = np.arange(n_splits).repeat(allocation[:, k])
+        folds_for_class = np.arange(n_splits).repeat(allocation[:, k])
+        if rng is not None:
+            rng.shuffle(folds_for_class)
+        test_folds[y_encoded == k] = folds_for_class
     return test_folds
 
 

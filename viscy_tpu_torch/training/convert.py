@@ -568,12 +568,44 @@ def foundation_state_dict_from_flax(params: dict[str, Any]) -> dict[str, torch.T
     return out
 
 
+_MLP_RULES: list[Rule] = [
+    (r"(fc\d+|fc_out|head)", "{0}", _linear),
+    (r"(norm\d+|norm_out)", "{0}", None),
+]
+
+
+def mlp_state_dict_from_flax(params: dict[str, Any]) -> dict[str, torch.Tensor]:
+    """Map the flax ``MLP`` head's ``params`` (``norm="ln"``; dense
+    ``fc{i}`` / ``fc_out`` / ``head``, LayerNorm ``norm{i}`` / ``norm_out``)
+    to the port's :class:`~viscy_tpu_torch.models.components.heads.MLP`
+    state_dict (a linear head; a cosine head's names differ and raise)."""
+    return _bridge(params, _MLP_RULES, [], "MLP")
+
+
+def linear_pipeline_from_jax(pipeline, device: str = "cuda"):
+    """The port's :class:`~viscy_tpu_torch.evaluation.linear_classifier.
+    LinearClassifierPipeline` from a loaded JAX ``LinearClassifierPipeline``
+    (run where sklearn is installed, then ``save`` the result): the scaler's
+    ``mean_`` and ``scale_``, the classifier's ``coef_``, ``intercept_`` and
+    ``classes_``, and the optional PCA's ``components_`` and ``mean_``, all
+    read as numpy arrays."""
+    from viscy_tpu_torch.evaluation.linear_classifier import LinearClassifierPipeline
+
+    scaler, clf, pca = pipeline.scaler, pipeline.classifier, getattr(pipeline, "pca", None)
+    return LinearClassifierPipeline(
+        None if scaler is None else np.asarray(scaler.mean_), None if scaler is None else np.asarray(scaler.scale_),
+        np.asarray(clf.coef_), np.asarray(clf.intercept_), np.asarray(clf.classes_),
+        None if pca is None else np.asarray(pca.components_), None if pca is None else np.asarray(pca.mean_),
+        device=device)
+
+
 def state_dict_from_flax(
     model: nn.Module, params: dict[str, Any], batch_stats: dict[str, Any] | None = None
 ) -> dict[str, torch.Tensor]:
     """The bridge of ``model``'s type applied to a flax tree; ``TypeError``
     naming the type when no bridge maps it."""
     from viscy_tpu_torch.models.celldiff.vit_bottleneck import ViTBottleneck3D
+    from viscy_tpu_torch.models.components.heads import MLP
     from viscy_tpu_torch.models.contrastive.encoder import ContrastiveEncoder
     from viscy_tpu_torch.models.contrastive.resnet3d import ResNet3dEncoder
     from viscy_tpu_torch.models.foundation.vit import DinoViT
@@ -589,6 +621,8 @@ def state_dict_from_flax(
 
     if isinstance(model, (BetaVae25D, BetaVaeConv)) and not batch_stats:
         return vae_state_dict_from_flax(model, params)
+    if isinstance(model, MLP) and not batch_stats:
+        return mlp_state_dict_from_flax(params)
     if isinstance(model, Unet2d):
         return unet2d_state_dict_from_flax(params, batch_stats)
     if isinstance(model, Unet25d):

@@ -56,7 +56,8 @@ def log_image_grid(logger, tag: str, samples: list[list[np.ndarray]], step: int)
 def pca_pairplot(features: np.ndarray, labels=None, n_components: int = 4) -> np.ndarray:
     """A scatter matrix of the first principal components, rendered to an
     (H, W, 3) uint8 array. The components are the embedding writer's PCA
-    (a float64 SVD with sklearn's sign rule); the drawing needs matplotlib
+    (a float64 SVD with sklearn's sign rule, on the host, where the
+    snapshot's features are); the drawing needs matplotlib
     (an ``ImportError`` without it)."""
     import matplotlib
 
@@ -66,7 +67,7 @@ def pca_pairplot(features: np.ndarray, labels=None, n_components: int = 4) -> np
     from viscy_tpu_torch.training.callbacks.embedding_writer import pca
 
     n = min(n_components, min(features.shape) - 1)
-    pcs = pca(np.asarray(features, np.float64), n)
+    pcs = pca(np.asarray(features, np.float64), n, device="cpu")
     fig, axes = plt.subplots(n - 1, n - 1, figsize=(2 * n, 2 * n), squeeze=False)
     for i in range(n - 1):
         for j in range(n - 1):
