@@ -8,6 +8,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 1. env     torch/CUDA versions and ``nvidia-smi`` name and power limit.
 2. build   compile every ``viscy_tpu_torch/csrc/*.cu`` with nvcc (one process
            per source, started together); print seconds and ``-Xptxas -v``.
+           Phase 22 (a)-(b), which launch none of the port's kernels, run on
+           the card meanwhile.
 3. kernel  for every distinct (S, C, M) the flagship gives the fused
            ConvNeXt-v2 MLP+GRN forward (prep, pass A, glue, pass B) at tile
            320 and the slice's tile batch: kernels vs ``reference_mlp_grn``
@@ -439,12 +441,49 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
            its bound; two card calls of the UMAP layout identical; the
            sorted ``index_put_(accumulate=True)`` timed against the atomic
            ``index_add_``.
+24. dynacell-eval  the virtual-staining benchmark on the card, through
+           ``python -m viscy_tpu_torch.apps.dynacell`` in process: its
+           ``__main__.py`` and ``eval/`` modules ``runtime``, ``cache``,
+           ``segmentation`` with ``_ndimage``, ``spectral``, ``metrics``,
+           ``instance_metrics``, ``feature_select``, ``feature_metrics``,
+           ``linear_probe``, ``features``, ``pipeline`` and
+           ``cross_condition``, and ``evaluation/feature.py``'s GLCM. (a)
+           ``predict`` of ``configs/vscyto3d_predict.yml`` from the cli
+           phase's checkpoint on its predict plate (2 FOVs of (1, 1, 20,
+           2048, 2048)): the fused forward's launches (the cli phase's
+           count), one FOV against the cli phase's store (<= 1e-6 of
+           range). (b) A seeded GT plate (``Nucleus``, ``Membrane``: 300
+           ellipsoidal nuclei, membrane shells, noise) at both FOVs'
+           positions and a prediction plate of the first FOV's nuclei with
+           seeded noise: the flagship's plate is scored on two FOVs, the
+           noisy one on one. (c) ``precompute-gt``, then ``evaluate`` of both
+           plates (every tier: spectral PCC, FSC, multiband EV, per-cell PCC and
+           SSIM, instance AP, CP with GLCM, a DynaCLR encoder at
+           ``configs/dynaclr_fit.yml``'s width on 1-deep crops and a
+           ViT-S/16, seeded ``.pt`` checkpoints, patch 64; the two
+           evaluations at once), then
+           ``evaluate-grouped`` of the two as conditions
+           (their final-metrics caches hit; the probe CSV). Checks: no GT
+           artifact rewritten, finite pixel rows, PCC > 0.8 and Dice > 0.5
+           on the noisy GT, the flagship's FOV-grouped real-against-predicted
+           probes finite (CP, DINOv3, DynaCLR), the cross-condition probe's 8
+           rows; card against the CPU: the pixel row of the FOV's centre
+           (20, 256, 256) within 1e-8 (a whole FOV takes the CPU about 100
+           s), the flagship's DynaCLR similarity within 1e-8 (a spread
+           over subsets within 1e-8 of its metric) and its probe AUROC
+           within 1e-3 (also of the CSV's); the nucleus masks and
+           instances of both predictions, the GT's membrane mask and the CP
+           features on a FOV's centre (20, 320, 320), the card's filters
+           against scipy's, bit for bit; seconds per tier and FOV
+           (``timings.csv``), cells a FOV, peak memory, the busy share of
+           one profiled pixel tier.
 
 Phase 20 (a) runs after phase 10, on phase 9's plate of 4 FOVs; phases 16,
 17, 19, 20 (b)-(c), 21 and 22 (d) after phase 12, on that plate grown by
 phase 11; phases 20 (d), 22 (c), 23 and 18 after phase 14, in that order,
 on its plate and tracks (23 also on its affine fit's checkpoint); 22 (a)-(b)
-last. The last two lines are a JSON
+during the build; 24 right after phase 10, on the cli phase's predict plate and
+checkpoint. The last two lines are a JSON
 ``kernels`` record and the JSON result line.
 Needs ``torch.cuda.is_available()`` and the repo's ``viscy_tpu_torch``
 beside this file. Imports nothing of JAX or ``viscy_tpu``.
@@ -668,18 +707,49 @@ def phase_env() -> str:
     return card
 
 
-def phase_build() -> None:
+def phase_build(beside=None, what: str = ""):
+    """Compile every kernel source (one ``nvcc`` each, all started
+    together). ``beside`` (``what``), when given, runs on the card while
+    nvcc compiles on the host; it must launch none of the port's kernels
+    (checked). Returns its result."""
+    import threading
+
     from viscy_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    results = _build.build_all()
-    log(f"[build] {len(results)} source(s) in {time.perf_counter() - t0:.2f} s")
+    built: dict = {}
+
+    def build() -> None:
+        try:
+            built["results"] = _build.build_all()
+        except BaseException as e:  # re-raised below, in the main thread
+            built["error"] = e
+        built["seconds"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=build, name="nvcc")
+    thread.start()
+    out = None
+    try:
+        if beside is not None:
+            _zero_counts()
+            out = beside()
+            if any(_counts().values()):
+                raise AssertionError(f"the work beside the build launched {_counts()}")
+    finally:
+        thread.join()
+    if "error" in built:
+        raise built["error"]
+    results = built["results"]
+    log(f"[build] {len(results)} source(s) in {built['seconds']:.2f} s"
+        + (f" ({what} ran on the card meanwhile; {time.perf_counter() - t0:.1f} s to the end of both)"
+           if beside is not None else ""))
     for r in results:
         cached = " (library already built; ptxas lines from the build that made it)" if r.cached else ""
         log(f"[build] {r.name}: {r.seconds:.2f} s -> {r.path.name}{cached}")
         for line in r.log.splitlines():
             if "ptxas" in line or "spill" in line:
                 log(f"[build]   {line.strip()}")
+    return out
 
 
 def check_forward(batch, s, c, m, seed, masked_cases, worst, ref_batch=None) -> None:
@@ -2141,8 +2211,6 @@ def phase_cli(card: str, tmp: Path) -> dict:
         f"flushes {writer.flush_s:.2f} s on its pool, of which the loop waited {writer.flush_wait_s:.2f} s; "
         f"store {shape} x {len(names)}, channels {out.channel_names} ({card})")
     recompute_fov(store, ckpt, Path(pred_cfg), names[0])
-    shutil.rmtree(store)
-    shutil.rmtree(pred_plate)
     del trainer, predictor
     torch.cuda.empty_cache()
     worst: dict = {}
@@ -2151,7 +2219,7 @@ def phase_cli(card: str, tmp: Path) -> dict:
         check_forward(2, s, c, m, 300 + k, (False,), worst)
     log_worst("the predict path's shapes (B=2, full frames)", worst)
     return dict(fit=fit_counts, predict=pred_counts, max_abs_err=worst[torch.float32][0], fit_plate=fit_plate,
-                fit_root=root, ckpt=ckpt, feed=dict(feed))
+                fit_root=root, ckpt=ckpt, feed=dict(feed), predict_plate=pred_plate, predict_store=store)
 
 
 TEST_REGRESSION = ("loss", "metrics/mae", "metrics/mse", "metrics/pearson", "metrics/cosine", "metrics/ssim")
@@ -6837,6 +6905,442 @@ def phase_dynaclr_eval(card: str, tmp: Path, plate: Path, tracks: Path, ckpt: Pa
     return dict(seconds=total, a=a, b=b, c=c, launches=counts)
 
 
+# phase 24: the virtual-staining benchmark's `dynacell evaluate` on the cli phase's predict plate
+DCE_NUCLEI = 300  # nucleus-like ellipsoids a FOV of the seeded GT plate
+DCE_SPACING = [0.29, 0.1, 0.1]  # z, y, x (um): a 63x / 1.3 NA confocal's sampling
+DCE_PATCH = 64  # feature_metrics.patch_size, JAX's default
+DCE_WORKERS = 2  # FOV threads: host segmentation overlaps; the card's calls take the device lock
+# the GT plate has both FOVs of the predict plate, so the flagship's plate is scored on two FOVs (its
+# real-against-predicted probe needs two FOV groups); the noisy-GT plate has the first only (the first
+# of the allowed cuts: the whole script took 1156.6 s on a slower host with two FOVs a plate)
+DCE_GT_FOVS = CLI_PREDICT_FOVS
+DCE_NOISY_FOVS = CLI_PREDICT_FOVS[:1]
+# configs/dynaclr_fit.yml's encoder (convnext_tiny, 768, 128) on one 2-D crop: 1 channel, depth 1
+DCE_ENCODER = dict(backbone="convnext_tiny", in_channels=1, in_stack_depth=1, stem_kernel_size=[1, 4, 4],
+                    stem_stride=[1, 4, 4], embedding_dim=768, projection_dim=128)
+DCE_VIT = dict(img_size=224, patch_size=16, embed_dim=384, depth=12, num_heads=6)  # ViT-S/16, as phase 22's
+# the card-against-CPU pixel row runs on a FOV's centre square: a whole (20, 2048,
+# 2048) FOV takes the card's host CPU 98.7 s (0.49 s on the card)
+DCE_XCHECK_YX = 256
+# segmentation, instances and CP features with the card's filters against scipy's on the host, bit for
+# bit, on a FOV's centre (20, DCE_SEG_YX, DCE_SEG_YX) (scipy's distance transform of a whole FOV: 61 s)
+DCE_SEG_YX = 320
+DCE_PIXEL_KEYS = ("PCC", "SSIM", "NRMSE", "PSNR", "Spectral_PCC", "FSC_FSC_Resolution", "XY_FSC_Resolution",
+                   "Z_FSC_Resolution", "Multiband_EV_NC")
+
+
+def dynacell_cli(args: list) -> tuple[str, float]:
+    """``python -m viscy_tpu_torch.apps.dynacell <args>`` in process: (its
+    output, synchronized seconds)."""
+    import contextlib
+    import io
+
+    from viscy_tpu_torch.apps.dynacell.__main__ import main as dynacell
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        dynacell.main([str(a) for a in args], standalone_mode=False)
+    torch.cuda.synchronize()
+    return buf.getvalue(), time.perf_counter() - t0
+
+
+def _blur(v: torch.Tensor, sigmas) -> torch.Tensor:
+    """Separable Gaussian blur of a (Z, Y, X) volume on its device."""
+    for axis, s in enumerate(sigmas):
+        r = int(3 * s + 0.5)
+        k = torch.exp(-0.5 * (torch.arange(-r, r + 1, device=v.device, dtype=v.dtype) / s) ** 2)
+        k = (k / k.sum()).reshape(1, 1, -1)
+        x = v.movedim(axis, -1)
+        shape = x.shape
+        x = torch.nn.functional.conv1d(torch.nn.functional.pad(x.reshape(-1, 1, shape[-1]), (r, r), mode="replicate"), k)
+        v = x.reshape(shape).movedim(-1, axis)
+    return v
+
+
+def dce_gt_volume(seed: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """A seeded (Nucleus, Membrane) pair of (20, 2048, 2048) float32 volumes
+    on the card: ``DCE_NUCLEI`` ellipsoids (radii 2.5-4.5 in Z, 14-26 px in
+    YX, intensity 0.6-1.0), a membrane shell at 1.3-1.45 times each radius,
+    blurred, with seeded noise."""
+    zyx = np.asarray(CLI_PREDICT_ZYX)
+    rng = np.random.default_rng(seed)
+    nuc = torch.zeros(tuple(zyx), device="cuda")
+    mem = torch.zeros_like(nuc)
+    for _ in range(DCE_NUCLEI):
+        c = rng.uniform((4, 40, 40), zyx - (4, 40, 40))
+        r = rng.uniform((2.5, 14, 14), (4.5, 26, 26))
+        amp = float(rng.uniform(0.6, 1.0))
+        lo = np.maximum(np.floor(c - 1.5 * r), 0).astype(int)
+        hi = np.minimum(np.ceil(c + 1.5 * r) + 1, zyx).astype(int)
+        ax = [(torch.arange(lo[i], hi[i], device="cuda", dtype=torch.float32) - c[i]) / r[i] for i in range(3)]
+        d2 = ax[0][:, None, None] ** 2 + ax[1][None, :, None] ** 2 + ax[2][None, None, :] ** 2
+        sl = tuple(slice(lo[i], hi[i]) for i in range(3))
+        nuc[sl] = torch.maximum(nuc[sl], amp * (d2 <= 1.0))
+        mem[sl] = torch.maximum(mem[sl], 0.7 * ((d2 > 1.69) & (d2 <= 2.1)))
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    nuc = _blur(nuc, (0.7, 1.5, 1.5)) + 0.03 * torch.randn(nuc.shape, device="cuda", generator=g)
+    mem = _blur(mem, (0.7, 1.5, 1.5)) + 0.03 * torch.randn(mem.shape, device="cuda", generator=g)
+    return nuc, mem
+
+
+def dce_plates(tmp: Path, card: str) -> tuple[Path, Path]:
+    """The seeded GT plate (``Nucleus``, ``Membrane``) at the predict plate's
+    positions, and a prediction plate of its nuclei with seeded noise (as
+    the JAX package's pipeline test builds its prediction)."""
+    from viscy_tpu_torch.zarr_io.store import open_ome_zarr
+
+    t0 = time.perf_counter()
+    gt = open_ome_zarr(tmp / "eval_gt.zarr", layout="hcs", mode="w-", channel_names=["Nucleus", "Membrane"])
+    noisy = open_ome_zarr(tmp / "eval_noisy.zarr", layout="hcs", mode="w-", channel_names=["Nucleus"])
+    for i, fov in enumerate(DCE_GT_FOVS):
+        nuc, mem = dce_gt_volume(40 + i)
+        gt.create_position("B", "2", fov).create_image("0", torch.stack([nuc, mem])[None].cpu().numpy())
+        if fov in DCE_NOISY_FOVS:
+            g = torch.Generator(device="cuda").manual_seed(50 + i)
+            pred = nuc + 0.05 * torch.randn(nuc.shape, device="cuda", generator=g)
+            noisy.create_position("B", "2", fov).create_image("0", pred[None, None].cpu().numpy())
+            del pred
+        del nuc, mem
+    torch.cuda.empty_cache()
+    log(f"[dynacell-eval] (b) GT plate of {len(DCE_GT_FOVS)} FOVs of (1, 2, {', '.join(map(str, CLI_PREDICT_ZYX))})"
+        f" float32 ({DCE_NUCLEI} nuclei and their membranes a FOV) and the noisy-GT prediction plate of "
+        f"{len(DCE_NOISY_FOVS)} written in {time.perf_counter() - t0:.1f} s ({card})")
+    return tmp / "eval_gt.zarr", tmp / "eval_noisy.zarr"
+
+
+def dce_checkpoints(tmp: Path) -> dict[str, Path]:
+    """Seeded full-width extractor weights as a user names them: a ``.pt``
+    state dict of the DynaCLR encoder and of the ViT-S/16."""
+    from viscy_tpu_torch.models.contrastive.encoder import ContrastiveEncoder
+    from viscy_tpu_torch.models.foundation.vit import DinoViT
+
+    enc = ContrastiveEncoder(**{k: tuple(v) if isinstance(v, list) else v for k, v in DCE_ENCODER.items()},
+                             generator=torch.Generator().manual_seed(24))
+    vit = DinoViT(**DCE_VIT, generator=torch.Generator().manual_seed(25))
+    out = {"dynaclr": tmp / "dynaclr_encoder.pt", "dinov3": tmp / "dinov3_vits16.pt"}
+    torch.save(enc.state_dict(), out["dynaclr"])
+    torch.save(vit.state_dict(), out["dinov3"])
+    return out
+
+
+def dce_config(tmp: Path, gt: Path, pred: Path, name: str, ckpts: dict) -> dict:
+    """The leaf config of one evaluation (every tier); its outputs under
+    ``tmp/eval/eval_<name>``, so that the grouped run finds them."""
+    return {
+        "io": {"pred_path": str(pred), "gt_path": str(gt), "pred_channel_name": "Nucleus",
+               "gt_channel_name": "Nucleus", "gt_cache_dir": str(tmp / "eval_cache_gt"),
+               "pred_cache_dir": str(tmp / f"eval_cache_{name}")},
+        "target_name": "nucleus",
+        "spacing": DCE_SPACING,
+        "compute_feature_metrics": True,
+        "compute_instance_ap": True,
+        "cell_similarity": {"metrics": ["pcc", "ssim"], "reduce": ["mean", "median"]},
+        "pixel_metrics": {"spectral_pcc": {}, "fsc": {}, "multiband_ev": True},
+        "feature_metrics": {
+            "patch_size": DCE_PATCH,
+            "cp": {"glcm": {"enabled": True}},
+            "dynaclr": {"type": "contrastive", "checkpoint": str(ckpts["dynaclr"]), "model_config": DCE_ENCODER},
+            "dinov3": {"type": "dino", "checkpoint": str(ckpts["dinov3"]), "model_config": DCE_VIT},
+        },
+        "save": {"save_dir": str(tmp / "eval" / f"eval_{name}")},
+        "runtime": {"executor": "thread", "workers": DCE_WORKERS},
+        "build": {"masks": True, "instances": True, "cp_features": True, "deep_features": True},
+    }
+
+
+def _num(cell: str) -> float:
+    """A CSV cell as a float (an empty cell is NaN)."""
+    return float(cell) if cell != "" else float("nan")
+
+
+def _csv_rows(path: Path) -> list[dict]:
+    import csv
+
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def dce_timings(save_dir: Path) -> str:
+    """Seconds per tier and FOV from an evaluation's ``timings.csv``."""
+    per: dict = {}
+    for r in _csv_rows(save_dir / "timings.csv"):
+        per.setdefault(r["region"], {}).setdefault(r["position"], 0.0)
+        per[r["region"]][r["position"]] += float(r["seconds"])
+    return "; ".join(f"{region} " + ", ".join(f"{pos or '-'} {s:.2f}" for pos, s in fovs.items())
+                     for region, fovs in per.items())
+
+
+def dce_predict(card: str, tmp: Path, cli_info: dict) -> tuple[Path, int]:
+    """(a) The flagship's prediction plate through ``python -m
+    viscy_tpu_torch.apps.dynacell predict`` with ``configs/vscyto3d_predict.yml``
+    and the cli phase's checkpoint; one FOV against the cli phase's store."""
+    from viscy_tpu_torch.ops import fused_block as fb
+    from viscy_tpu_torch.zarr_io.store import open_ome_zarr
+
+    store = tmp / "eval_flagship.zarr"
+    cfg = _cli_config(tmp / "dce_predict.yml", {
+        "data": {"init_args": {"data_path": str(cli_info["predict_plate"]), "num_workers": 8}},
+        "trainer": {"callbacks": [{"class_path": "viscy_utils.callbacks.HCSPredictionWriter",
+                                   "init_args": {"output_store": str(store), "overwrite": False}}]},
+    }, ROOT / "configs/vscyto3d_predict.yml")
+    _zero_counts()
+    _, s = dynacell_cli(["predict", "-c", cfg, "--ckpt_path", cli_info["ckpt"]])
+    launches = fb.launches
+    if launches != cli_info["predict"]["fwd"] or fb.bwd_launches or fb.masked_launches:
+        raise AssertionError(f"dynacell predict launched {_counts()}, expected {cli_info['predict']['fwd']} A + B")
+    fov = f"B/2/{CLI_PREDICT_FOVS[0]}"
+    got = open_ome_zarr(store)[fov]["0"][:]
+    want = open_ome_zarr(cli_info["predict_store"])[fov]["0"][:]
+    err, rng = float(np.abs(got - want).max()), float(want.max() - want.min())
+    log(f"[dynacell-eval] (a) dynacell predict (configs/vscyto3d_predict.yml, the cli phase's checkpoint): "
+        f"{s:.2f} s for {len(CLI_PREDICT_FOVS)} FOVs of (1, 1, {', '.join(map(str, CLI_PREDICT_ZYX))}); fused "
+        f"forward A + B {launches}; {fov} against the cli phase's store max|d| {err:.3e} ({err / rng:.2e} of "
+        f"range, bound 1e-6) ({card})")
+    if not err <= 1e-6 * rng:
+        raise AssertionError("dynacell predict disagrees with viscy-torch predict")
+    shutil.rmtree(cli_info["predict_store"])
+    return store, launches
+
+
+def dce_pixel_checks(card: str, gt: Path, pred: Path, fov: str) -> float:
+    """One FOV's pixel tier: its busy share on the card (one profiled call),
+    and its row on the card against the CPU (the port's plain path) on the
+    FOV's centre ``DCE_XCHECK_YX`` square at full depth."""
+    from viscy_tpu_torch.apps.dynacell.eval.metrics import compute_pixel_metrics
+    from viscy_tpu_torch.zarr_io.store import open_ome_zarr
+
+    p = open_ome_zarr(pred)[fov]["0"][0, 0]
+    t = open_ome_zarr(gt)[fov]["0"][0, 0]
+    kw = dict(spacing=DCE_SPACING, fsc_kwargs={}, spectral_pcc_kwargs={}, multiband_ev=True)
+    wall, busy = _profiled(lambda: compute_pixel_metrics(p, t, device="cuda", **kw))
+    share = "not measured (no device time recorded)" if busy is None else f"{busy / wall:.1%}"
+    log(f"[dynacell-eval] pixel tier of {fov} (one profiled call): wall {wall:.1f} ms, device busy "
+        f"{'n/a' if busy is None else f'{busy:.1f}'} ms, busy share {share} ({card})")
+    y0 = (p.shape[-1] - DCE_XCHECK_YX) // 2
+    crop = (slice(None), slice(y0, y0 + DCE_XCHECK_YX), slice(y0, y0 + DCE_XCHECK_YX))
+    on_card = compute_pixel_metrics(p[crop], t[crop], device="cuda", **kw)
+    t0 = time.perf_counter()
+    cpu = compute_pixel_metrics(p[crop], t[crop], device="cpu", **kw)
+    cpu_s = time.perf_counter() - t0
+    worst = 0.0
+    for k in DCE_PIXEL_KEYS:
+        a, b = on_card[k], cpu[k]
+        rel = abs(a - b) / max(abs(b), 1e-300)
+        worst = max(worst, rel)
+        if not rel <= 1e-8:
+            raise AssertionError(f"pixel row {fov} {k}: card {a!r} against CPU {b!r} ({rel:.2e} relative, bound 1e-8)")
+    log(f"[dynacell-eval] pixel row of {fov}'s centre (20, {DCE_XCHECK_YX}, {DCE_XCHECK_YX}), card against the "
+        f"CPU ({cpu_s:.1f} s there): worst {worst:.2e} relative over {len(DCE_PIXEL_KEYS)} metrics (bound 1e-8)")
+    return worst
+
+
+def dce_segmentation_checks(card: str, gt: Path, noisy: Path, flagship: Path) -> dict:
+    """The mask tier's host stages with the card's filters (``device="cuda"``)
+    against scipy's (``device=None``), bit for bit, on the centre (20,
+    ``DCE_SEG_YX``, ``DCE_SEG_YX``) of the first FOV: the nucleus mask and
+    instances of the noisy GT and of the flagship's prediction, the GT's
+    membrane mask, and the CP features (GLCM on) of both predictions at the
+    noisy GT's instances, as the pipeline takes them at the GT's."""
+    from viscy_tpu_torch.apps.dynacell.eval.metrics import cp_regionprops
+    from viscy_tpu_torch.apps.dynacell.eval.segmentation import segment, segment_nucleus_instances
+    from viscy_tpu_torch.zarr_io.store import open_ome_zarr
+
+    fov = f"B/2/{DCE_NOISY_FOVS[0]}"
+    y0 = (CLI_PREDICT_ZYX[-1] - DCE_SEG_YX) // 2
+    crop = (slice(None), slice(y0, y0 + DCE_SEG_YX), slice(y0, y0 + DCE_SEG_YX))
+
+    def channel(plate: Path, name: str) -> np.ndarray:
+        pos = open_ome_zarr(plate)[fov]
+        return np.asarray(pos["0"][0, pos.get_channel_index(name)][crop], np.float32)
+
+    seconds = {"card": 0.0, "host": 0.0}
+
+    def both(fn, *args, **kwargs) -> list:
+        out = []
+        for where, dev in (("card", "cuda"), ("host", None)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out.append(fn(*args, device=dev, **kwargs))
+            torch.cuda.synchronize()
+            seconds[where] += time.perf_counter() - t0
+        return out
+
+    def same(what: str, a: np.ndarray, b: np.ndarray) -> None:
+        if a.shape != b.shape or a.dtype != b.dtype or not np.array_equal(a, b, equal_nan=a.dtype.kind == "f"):
+            raise AssertionError(f"[dynacell-eval] {what}: the card's filters disagree with scipy's")
+
+    imgs = {"noisy GT": channel(noisy, "Nucleus"), "flagship": channel(flagship, "Nucleus")}
+    cells, inst = {}, None
+    for name, img in imgs.items():
+        same(f"{name} nucleus mask", *both(segment, img, "nucleus"))
+        card_i, host_i = both(segment_nucleus_instances, img, DCE_SPACING)
+        same(f"{name} nucleus instances", card_i, host_i)
+        cells[name] = len(np.unique(host_i)) - 1
+        inst = host_i if inst is None else inst
+    same("GT membrane mask", *both(segment, channel(gt, "Membrane"), "membrane"))
+    for name, img in imgs.items():
+        card_cp, host_cp = both(cp_regionprops, img, inst, DCE_SPACING, glcm_cfg={"enabled": True})
+        same(f"{name} CP features", card_cp, host_cp)
+    log(f"[dynacell-eval] (c) {fov}'s centre ({CLI_PREDICT_ZYX[0]}, {DCE_SEG_YX}, {DCE_SEG_YX}), the card's filters against "
+        f"scipy's: nucleus masks and instances ({', '.join(f'{k} {v} cells' for k, v in cells.items())}), the "
+        f"GT's membrane mask and both predictions' CP features ({card_cp.shape[1]} with GLCM, at the noisy GT's "
+        f"{cells['noisy GT']} cells) bit for bit; card {seconds['card']:.1f} s, host {seconds['host']:.1f} s ({card})")
+    return cells
+
+
+def dce_feature_checks(card: str, save_dir: Path, feature_row: dict) -> dict:
+    """On an evaluation's saved DynaCLR cohorts (``embeddings/*.npz``, every
+    FOV), the card against the CPU: the dataset-level similarity (FID of
+    fewer cells than features, KID, precision / recall / F1, MIND, cosine)
+    within 1e-8 relative each, a standard deviation over subsets within
+    1e-8 of its metric (when every subset holds every cell, as here, the
+    KID's subsets are one set and its spread is rounding alone); the
+    FOV-grouped real-against-predicted probe (MAD scaling, a balanced
+    L-BFGS logistic regression, group k-fold over the FOVs, AUROC), finite,
+    within 1e-3, and within 1e-3 of the CSV's value."""
+    from viscy_tpu_torch.apps.dynacell.eval.feature_metrics import compute_feature_similarity
+    from viscy_tpu_torch.apps.dynacell.eval.linear_probe import paired_auroc
+
+    def load(side: str) -> tuple[np.ndarray, np.ndarray]:
+        with np.load(save_dir / "embeddings" / f"{side}_dynaclr_single_cell_embeddings.npz") as z:
+            return np.asarray(z["embeddings"], np.float64), np.asarray(z["fov"])
+
+    seconds = {"cuda": 0.0, "cpu": 0.0}
+
+    def on_both(fn, *args) -> dict:
+        out = {}
+        for dev in seconds:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[dev] = fn(*args, device=dev)
+            torch.cuda.synchronize()
+            seconds[dev] += time.perf_counter() - t0
+        return out
+
+    (pred, pred_fov), (gt, gt_fov) = load("pred"), load("gt")
+    sims = on_both(compute_feature_similarity, pred, gt, "DynaCLR")
+    worst = 0.0
+    for k, b in sims["cpu"].items():
+        a = sims["cuda"][k]
+        if math.isnan(a) and math.isnan(b):
+            continue
+        scale = abs(sims["cpu"][k[:-4]]) if k.endswith("_std") else abs(b)
+        rel = abs(a - b) / max(scale, 1e-300)
+        worst = max(worst, rel)
+        if not rel <= 1e-8:
+            raise AssertionError(f"[dynacell-eval] {k}: card {a!r} against CPU {b!r} ({rel:.2e} of "
+                                 f"{'its metric' if k.endswith('_std') else 'itself'}, bound 1e-8)")
+    probes = on_both(paired_auroc, gt, pred, gt_fov, pred_fov)
+    a, b = probes["cuda"]["auroc_mean"], probes["cpu"]["auroc_mean"]
+    in_csv = _num(feature_row["Dataset_DynaCLR_RealVsPred_AUROC"])
+    if not (math.isfinite(a) and abs(a - b) <= 1e-3 and abs(a - in_csv) <= 1e-3):
+        raise AssertionError(f"[dynacell-eval] DynaCLR real-against-predicted probe: card {a!r}, CPU {b!r}, "
+                             f"the evaluation's CSV {in_csv!r} (finite, within 1e-3)")
+    log(f"[dynacell-eval] (c) {save_dir.name}'s DynaCLR cohorts ({len(gt)} GT and {len(pred)} predicted cells, "
+        f"{pred.shape[1]} features, {len(np.unique(gt_fov))} FOVs), card against CPU: similarity worst {worst:.2e} "
+        f"over {len(sims['cpu'])} metrics (bound 1e-8; FID {sims['cuda']['DynaCLR_FID']:.10g} against "
+        f"{sims['cpu']['DynaCLR_FID']:.10g}); FOV-grouped probe AUROC card {a:.6f}, CPU {b:.6f} ({abs(a - b):.1e}), "
+        f"the CSV {in_csv:.6f} (bound 1e-3), {probes['cuda']['n_folds']} folds; card {seconds['cuda']:.1f} s, CPU "
+        f"{seconds['cpu']:.1f} s ({card})")
+    return dict(similarity_worst=worst, auroc=a, auroc_cpu=b)
+
+
+def phase_dynacell_eval(card: str, tmp: Path, cli_info: dict) -> dict:
+    """Phase 24 (see the module docstring)."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    flagship, launches = dce_predict(card, tmp, cli_info)
+    shutil.rmtree(cli_info["predict_plate"])
+    gt, noisy = dce_plates(tmp, card)
+    ckpts = dce_checkpoints(tmp)
+    cfgs = {"mock": dce_config(tmp, gt, flagship, "mock", ckpts), "denv": dce_config(tmp, gt, noisy, "denv", ckpts)}
+    paths = {name: _cli_config(tmp / f"eval_{name}.yml", cfg) for name, cfg in cfgs.items()}
+
+    out, s = dynacell_cli(["precompute-gt", "-c", paths["mock"]])
+    counts = _json_out(out)
+    log(f"[dynacell-eval] (c) precompute-gt: {s:.1f} s, {counts} ({card})")
+    want = len(DCE_GT_FOVS)
+    if counts != {"masks": want, "instances": want, "cp_features": want, "deep_features": 2 * want}:
+        raise AssertionError(f"precompute-gt built {counts}")
+    gt_cache = tmp / "eval_cache_gt"
+    mtimes = {p: p.stat().st_mtime_ns for p in gt_cache.rglob("*.np*")}
+
+    # the two evaluations run at once, as a lab scores two models on one machine: each one's FOV
+    # threads keep the host busy, the card's calls take the runtime's device lock
+    from concurrent.futures import ThreadPoolExecutor
+
+    from viscy_tpu_torch.apps.dynacell.__main__ import main as dynacell
+
+    def evaluate(name: str) -> float:
+        t0 = time.perf_counter()
+        dynacell.main(["evaluate", "-c", paths[name]], standalone_mode=False)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        seconds = dict(zip(cfgs, pool.map(evaluate, cfgs)))
+    both_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[dynacell-eval] (c) evaluate of both plates at once: {both_s:.1f} s, peak {peak:.2f} GiB ({card})")
+    rows = {}
+    for name, label in (("mock", "the flagship's prediction"), ("denv", "the noisy GT")):
+        s = seconds[name]
+        save = Path(cfgs[name]["save"]["save_dir"])
+        pixel, mask = _csv_rows(save / "pixel_metrics.csv"), _csv_rows(save / "mask_metrics.csv")
+        feature = _csv_rows(save / "feature_metrics.csv")
+        rows[name] = (pixel, mask, feature)
+        if [p.stat().st_mtime_ns for p in mtimes] != list(mtimes.values()):
+            raise AssertionError(f"evaluate of {label} rewrote a GT artifact")
+        for r in pixel:
+            if not all(math.isfinite(_num(r[k])) for k in DCE_PIXEL_KEYS):
+                raise AssertionError(f"non-finite pixel metrics of {label}: {r}")
+        cells = ", ".join(f"{r['FOV']} {r['n_gt']} GT / {r['n_pred']} predicted" for r in mask)
+        log(f"[dynacell-eval] (c) evaluate {label}: {s:.1f} s; cells a FOV {cells}; seconds: {dce_timings(save)} "
+            f"({card})")
+        log(f"[dynacell-eval] (c) {label}: " + "; ".join(
+            f"{r['FOV']} PCC {_num(r['PCC']):.4f} SSIM {_num(r['SSIM']):.4f} spectral PCC "
+            f"{_num(r['Spectral_PCC']):.4f} FSC {_num(r['FSC_FSC_Resolution']):.4f} multiband "
+            f"{_num(r['Multiband_EV_NC']):.4f} per-cell PCC {_num(r['PerCell_PCC_mean']):.4f}" for r in pixel)
+            + "; " + "; ".join(f"{r['FOV']} Dice {_num(r['Dice']):.4f} mAP {_num(r['mAP']):.4f}" for r in mask)
+            + "; dataset " + ", ".join(f"{k[8:]} {_num(feature[0][k]):.4g}" for k in (
+                "Dataset_CP_FID", "Dataset_DINOv3_FID", "Dataset_DynaCLR_FID", "Dataset_DynaCLR_KID",
+                "Dataset_DynaCLR_Precision", "Dataset_DynaCLR_MIND", "Dataset_CP_RealVsPred_AUROC",
+                "Dataset_DINOv3_RealVsPred_AUROC", "Dataset_DynaCLR_RealVsPred_AUROC")))
+    pixel, mask, _ = rows["denv"]
+    if not all(_num(r["PCC"]) > 0.8 for r in pixel) or not all(_num(r["Dice"]) > 0.5 for r in mask):
+        raise AssertionError("the noisy-GT plate scores PCC <= 0.8 or Dice <= 0.5")
+    # the flagship's plate has two FOV groups: its probes score (the noisy plate's one FOV admits no fold)
+    probe_keys = [f"Dataset_{k}_RealVsPred_AUROC" for k in ("CP", "DINOv3", "DynaCLR")]
+    flagship_row = rows["mock"][2][0]
+    if not all(math.isfinite(_num(flagship_row[k])) for k in probe_keys):
+        raise AssertionError(f"the flagship's FOV-grouped probes: {[flagship_row[k] for k in probe_keys]}")
+    seg_cells = dce_segmentation_checks(card, gt, noisy, flagship)
+    feat = dce_feature_checks(card, Path(cfgs["mock"]["save"]["save_dir"]), flagship_row)
+
+    grouped = {**cfgs["mock"], "save": {"save_dir": str(tmp / "eval")},
+               "conditions": {name: {"io": {k: cfg["io"][k] for k in ("pred_path", "pred_cache_dir")}}
+                              for name, cfg in cfgs.items()}}
+    out, s = dynacell_cli(["evaluate-grouped", "-c", _cli_config(tmp / "eval_grouped.yml", grouped)])
+    probe = _csv_rows(tmp / "eval" / "eval_denv" / "cross_condition_probe.csv")
+    done = [r for r in probe if not r["skipped_reason"]]
+    # each condition's FOVs fall in folds of their own, so no validation fold holds both conditions
+    # and every row's AUROC is NaN, as in JAX: this probe is not exercised at these FOV counts
+    log(f"[dynacell-eval] (c) evaluate-grouped (the final-metrics caches hit): {s:.1f} s; {out.strip()}; "
+        f"cross-condition probe rows {len(probe)}, run {len(done)} (FOV groups {', '.join(r['n_fovs'] for r in done)}, "
+        f"AUROC {', '.join(r['auroc_mean'] or 'NaN' for r in done)}: no validation fold holds both conditions)")
+    if len(probe) != 8 or {r["feature_type"] for r in done} != {"cp", "dinov3", "dynaclr"}:
+        raise AssertionError(f"cross-condition probe rows {probe}")
+    worst = dce_pixel_checks(card, gt, noisy, f"B/2/{DCE_NOISY_FOVS[0]}")
+    seconds = time.perf_counter() - t_phase
+    log(f"[phase 24] dynacell evaluate in {seconds:.1f} s; fused forward A + B {launches} ({card})")
+    return dict(launches=launches, seconds=seconds, pixel_worst=worst, seg_cells=seg_cells, **feat)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is False")
@@ -6849,7 +7353,13 @@ def main() -> None:
 
     t_start = time.perf_counter()
     card = phase_env()
-    phase_build()
+    # phase 22 (a)-(b) launch none of the port's kernels: they run on the card while nvcc compiles them
+
+    def sampling_beside() -> tuple[dict, float]:
+        t = time.perf_counter()
+        return phase_celldiff_sampling(card), time.perf_counter() - t
+
+    sampling, sampling_s = phase_build(sampling_beside, "phase 22 (a)-(b)")
     kern = phase_kernel()
     bwd = phase_kernel_bwd()
     warp = phase_warp()
@@ -6859,6 +7369,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="viscy-cli-") as tmp:
         cli = phase_cli(card, Path(tmp))
         stages = phase_stages(card, Path(tmp), cli)
+        p24 = phase_dynacell_eval(card, Path(tmp), cli)
         t0 = time.perf_counter()
         qc = phase_qc(card, Path(tmp), cli["fit_plate"])
         twenty_s = time.perf_counter() - t0
@@ -6894,15 +7405,17 @@ def main() -> None:
         f"{tta['fov_s']:.3f} s a FOV, segmentation {seg['slice_s']:.3f} s a slice)")
     with tempfile.TemporaryDirectory(prefix="viscy-celldiff-") as tmp:
         phase_celldiff(card, Path(tmp))
-    t0 = time.perf_counter()
-    sampling = phase_celldiff_sampling(card)
-    p22_s += time.perf_counter() - t0
+    p22_s += sampling_s  # phase 22 (a)-(b), beside the build
     log(f"[phase 22] the sampler, tiled generation, the foundation extractors and the new datamodules in "
         f"{p22_s:.1f} s (likelihood peak {sampling['sampler']['methods']['likelihood']['peak_gib']:.2f} GiB; "
         f"foundation predict {foundation['cells_per_s']:.2f} cells/s; classification loader {classes:.2f} "
         f"batches/s; launches A + B {p22['launches']['fwd']}, C + D {p22['launches']['bwd']}, warp "
         f"{p22['launches']['warp']})")
     log(f"[phase 23] DynaCLR's evaluation: {p23['seconds']:.1f} s; launches on its path {p23['launches']}")
+    log(f"[phase 24] dynacell evaluate: {p24['seconds']:.1f} s; fused forward A + B {p24['launches']}; card against "
+        f"CPU: pixel row {p24['pixel_worst']:.2e} relative, DynaCLR similarity {p24['similarity_worst']:.2e} "
+        f"relative, "
+        f"probe AUROC {abs(p24['auroc'] - p24['auroc_cpu']):.1e}; segmentation and CP features bit for bit")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
@@ -6914,7 +7427,7 @@ def main() -> None:
             replaces="viscy_tpu/ops/pallas/fused_block.py:164,183",
             launches=sl["launches"] + pre["launches"]["fwd"] + unext2["launches"]["fwd"] + gan["launches"]["fwd"]
             + vae["launches"]["fwd"] + ddp["launches"]["fwd"] + tta["launches"]["fwd"]
-            + callbacks["launches"]["fwd"] + p21["launches"]["fwd"] + p22["launches"]["fwd"],
+            + callbacks["launches"]["fwd"] + p21["launches"]["fwd"] + p22["launches"]["fwd"] + p24["launches"],
             **{k: kern[k] for k in keys if k != "max_abs_err"},
             max_abs_err=max(kern["max_abs_err"], pre["kernels"]["fwd_err"], pre["fwd_err"],
                             unext2["kernels"]["fwd_err"], gan["kernels"]["fwd_err"], vae["kernels"]["fwd_err"],

@@ -5,8 +5,10 @@ card-only tests can use it where JAX is not installed."""
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
+import types
 from collections.abc import Mapping
 
 import numpy as np
@@ -129,3 +131,30 @@ def assert_rel_close(got, want, rel: float, r_min: float | None = None) -> None:
     assert err <= rel, f"max|d| = {err:.3e} of range > {rel}"
     if r_min is not None:
         assert r > r_min, f"Pearson r = {r:.8f} <= {r_min}"
+
+
+class _Numpy64(types.ModuleType):
+    """numpy with ``float32`` read as ``float64``: a module that computes in
+    float32 where numpy keeps it (casts, ``np.zeros(..., np.float32)``,
+    ``complex64`` FFTs of float32 data) runs its own algorithm in float64."""
+
+    float32 = np.float64
+
+    def __getattr__(self, name):
+        return getattr(np, name)
+
+
+@contextlib.contextmanager
+def numpy_float64(*modules):
+    """Within the block each of ``modules`` sees :class:`_Numpy64` as its
+    ``np``: the reference a float64 port is held to at float64's tolerance.
+    Pass float64 inputs so the modules' means of the inputs are float64 too."""
+    saved = [m.np for m in modules]
+    shim = _Numpy64("numpy_float64")
+    try:
+        for m in modules:
+            m.np = shim
+        yield
+    finally:
+        for m, s in zip(modules, saved):
+            m.np = s

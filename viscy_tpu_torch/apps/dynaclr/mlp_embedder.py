@@ -66,13 +66,13 @@ def train_mlp_embedder(features, labels, hidden_dims=(256, 128), epochs: int = 3
     x_val, y_val = x_all[torch.as_tensor(val_idx, device=dev)], y_all[torch.as_tensor(val_idx, device=dev)]
     history = []
     for epoch in range(epochs):
-        order = rng.permutation(train_idx)
+        # the epoch's order goes to the device once: a host index a batch would wait for the card each step
+        order = torch.as_tensor(rng.permutation(train_idx), device=dev)
         model.train()
         for i in range(0, len(order), batch_size):
             sel = order[i: i + batch_size]
             if len(sel) < 2:
                 continue
-            sel = torch.as_tensor(sel, device=dev)
             loss = F.cross_entropy(model(x_all[sel]), y_all[sel])
             opt.zero_grad(set_to_none=True)
             loss.backward()

@@ -146,8 +146,16 @@ def fit_logistic_regression(x: torch.Tensor, codes: np.ndarray, n_classes: int, 
     """``(coef, intercept)`` of sklearn's L2 logistic regression on the
     float64 rows ``x`` (on their device) and integer labels ``codes`` in
     ``[0, n_classes)``: ``(K, d)`` and ``(K,)`` for K >= 3 classes, ``(1,
-    d)`` and ``(1,)`` (the logit of class 1) for two."""
+    d)`` and ``(1,)`` (the logit of class 1) for two.
+
+    L-BFGS runs on the columns divided by their largest magnitude (the
+    penalty carried over, so the optimum is the same): a column some orders
+    of magnitude above the others (a MAD scaler's ``1e-12`` floor under a
+    MAD of 0 makes one of 1e11) would otherwise stall it at the start."""
     dev, N, d = x.device, x.shape[0], x.shape[1]
+    col = x.abs().amax(dim=0)
+    col = torch.where(col > 0, col, torch.ones_like(col))
+    x = x / col
     y = torch.as_tensor(codes, device=dev)
     sw = torch.ones(N, dtype=x.dtype, device=dev)
     if class_weight == "balanced":
@@ -170,13 +178,13 @@ def fit_logistic_regression(x: torch.Tensor, codes: np.ndarray, n_classes: int, 
             loss = torch.nn.functional.softplus(z[:, 0]) - target * z[:, 0]
         else:
             loss = torch.logsumexp(z, dim=1) - z.gather(1, y[:, None])[:, 0]
-        f = (sw * loss).sum() / sw_sum + 0.5 / (C * sw_sum) * (w[:, :d] ** 2).sum()
+        f = (sw * loss).sum() / sw_sum + 0.5 / (C * sw_sum) * ((w[:, :d] / col) ** 2).sum()
         f.backward()
         return f
 
     opt.step(objective)
-    coef = host(w.detach())
-    return coef[:, :d], coef[:, d]
+    coef = w.detach()
+    return host(coef[:, :d] / col), host(coef[:, d])
 
 
 def train_linear_classifier(features, labels, val_features=None, val_labels=None, max_iter: int = 1000,

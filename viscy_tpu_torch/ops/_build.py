@@ -7,7 +7,9 @@ that carries a hash of the source, so an edited source rebuilds and a
 stale library is never loaded; nvcc's output is kept beside it as
 ``<library>.log``. Nothing here runs at import time: the first
 call to :func:`load` builds, and :func:`build_all` builds every source at
-once, one ``nvcc`` process per source, all started together.
+once, one ``nvcc`` process per source, all started together. Builds hold a
+lock: a :func:`load` in one thread while another builds waits, then finds
+the library on disk.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -29,6 +32,7 @@ NVCC_FLAGS = (
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_building = threading.Lock()
 
 
 @dataclass(frozen=True)
@@ -68,6 +72,11 @@ def build_all(names: list[str] | None = None) -> list[BuildResult]:
 
     Raises ``RuntimeError`` with nvcc's output if any build fails.
     """
+    with _building:
+        return _build_all(names)
+
+
+def _build_all(names: list[str] | None) -> list[BuildResult]:
     names = names or sorted(p.stem for p in CSRC.glob("*.cu"))
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
