@@ -476,11 +476,41 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
            features on a FOV's centre (20, 320, 320), the card's filters
            against scipy's, bit for bit; seconds per tier and FOV
            (``timings.csv``), cells a FOV, peak memory, the busy share of
-           one profiled pixel tier.
+           one profiled pixel tier. (d) ``spectral-eval --mode compute``
+           (``eval/decorr.py``, ``eval/spectral_eval.py``) of the
+           flagship's prediction of the first FOV against the GT, the whole
+           (20, 2048, 2048) FOV on the card: seconds, peak memory, finite
+           row; then its centre (20, 256, 256) on the card and with
+           ``--device cpu``: every float column within 1e-8 relative (one
+           within 1e-12 of 0 on both sides is 0 but for rounding), the
+           resolution columns equal; ``segment_whole_cell`` (membrane and
+           nucleus channels, nucleus instances as seeds) of the GT's centre
+           (20, 320, 320), the card's closing, Gaussian and distance
+           transform against scipy's, bit for bit.
+25. joint  cross-modal ``JointEncoderModule`` (``apps/dynaclr/multi_modal.py``):
+           two single-channel ``convnextv2_tiny`` encoders at
+           ``configs/dynaclr_fit.yml``'s width (depth 15, (5, 4, 4) stem,
+           embedding 768, projection 128), every block through the fused
+           kernels. (a) The forward and backward kernels at the encoders'
+           largest and smallest rows (B = 32, 224^2) against their plain
+           versions, then f32 CUDA-event medians per train step of both
+           encoders beside the plain versions and the bounds. (b) One f32
+           step at 4 pairs of (1, 15, 224, 224), card against CPU: both
+           embeddings and projections, the loss, every gradient, both
+           BatchNorms' running statistics, and its launches. (c)
+           ``viscy-torch fit`` of a ``JointEncoderModule`` config written
+           from ``configs/dynaclr_fit.yml``'s recipe with ``HCSDataModule``
+           (Phase3D to RFP, phase 14's plate, a host weighted crop of 8
+           patches a window to 224^2, batch 32): 3 steps and 1 validation
+           batch, then ``viscy-torch predict`` from its ``last`` on a
+           plate of two (2, 15, 512, 512) FOVs: the fused launches of both
+           encoders per step, finite losses, pairs/s and the wait share,
+           the predictions' shapes. (d)
+           The busy share and top kernels of one profiled step at batch 32.
 
 Phase 20 (a) runs after phase 10, on phase 9's plate of 4 FOVs; phases 16,
 17, 19, 20 (b)-(c), 21 and 22 (d) after phase 12, on that plate grown by
-phase 11; phases 20 (d), 22 (c), 23 and 18 after phase 14, in that order,
+phase 11; phases 20 (d), 22 (c), 23, 25 and 18 after phase 14, in that order,
 on its plate and tracks (23 also on its affine fit's checkpoint); 22 (a)-(b)
 during the build; 24 right after phase 10, on the cli phase's predict plate and
 checkpoint. The last two lines are a JSON
@@ -7247,6 +7277,121 @@ def dce_feature_checks(card: str, save_dir: Path, feature_row: dict) -> dict:
     return dict(similarity_worst=worst, auroc=a, auroc_cpu=b)
 
 
+# spectral-eval of one flagship FOV: the optics the GT plate's sampling stands for (a 1.3 NA objective, GFP
+# emission), the module's default batteries
+DCE_SPECTRAL = {"fsc": {}, "dcr": {}, "spectral_pcc": {}, "bandlimited": {},
+                "optics": {"numerical_aperture": 1.3, "wavelength_emission": 0.52}}
+DCE_RESOLUTION_KEYS = ("FSC_", "DCR_")  # prefixes of the resolution columns: equal card and CPU (not DCR_A0, DCR_w)
+# a float64 metric this close to 0 on the card and the CPU is 0 but for rounding (sums over a million voxels of
+# magnitude 1 round at about 1e-13; the flagship's multiband EV of its crop is 5e-15 and -3e-17): no relative bound
+DCE_ZERO = 1e-12
+
+
+def _crop_plate(src: Path, dst: Path, fov: str, channel: str, crop: tuple) -> Path:
+    """One FOV's ``channel`` cropped to ``crop`` (Z, Y, X slices) as a plate
+    of its own, the source's scale kept."""
+    from viscy_tpu_torch.zarr_io.store import TransformationMeta, open_ome_zarr
+
+    pos = open_ome_zarr(src)[fov]
+    data = pos["0"][:, pos.get_channel_index(channel)][(slice(None), *crop)][:, None]
+    plate = open_ome_zarr(dst, layout="hcs", mode="w-", channel_names=[channel])
+    row, col, name = fov.split("/")
+    plate.create_position(row, col, name).create_image("0", np.ascontiguousarray(data),
+                                                       transform=[TransformationMeta(scale=list(pos.scale))])
+    return dst
+
+
+def dce_spectral_eval(card: str, tmp: Path, gt: Path, flagship: Path) -> dict:
+    """(d) ``dynacell spectral-eval --mode compute`` of the flagship's
+    prediction of one whole (20, 2048, 2048) FOV against phase 24's GT
+    (seconds, peak memory, finite rows); then on the FOV's centre (20,
+    ``DCE_XCHECK_YX``, ``DCE_XCHECK_YX``) crop on the card and with
+    ``--device cpu``: every float column within 1e-8 relative (or within
+    ``DCE_ZERO`` of 0 on both), the resolution columns equal."""
+    fov = f"B/2/{DCE_NOISY_FOVS[0]}"
+    cfg = dict(DCE_SPECTRAL, input_zarr=str(gt), pred_zarr=str(flagship), gt_channel="Nucleus",
+               pred_channel="Nucleus", positions=[fov], spacing=DCE_SPACING)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out, s = dynacell_cli(["spectral-eval", "-c", _cli_config(tmp / "spectral_full.yml",
+                                                              dict(cfg, output_dir=str(tmp / "spectral_full")))])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rows = _csv_rows(tmp / "spectral_full" / fov / "metrics.csv")
+    bad = [k for k, v in rows[0].items() if not math.isfinite(_num(v)) and k not in ("DCR_XY", "DCR_Z", "DCR_2D")]
+    log(f"[dynacell-eval] (d) spectral-eval of {fov} (1, 1, {', '.join(map(str, CLI_PREDICT_ZYX))}): {s:.1f} s, "
+        f"peak {peak:.2f} GiB, {len(rows)} row of {len(rows[0])} columns; PCC {_num(rows[0]['PCC']):.4f}, FSC XY "
+        f"{_num(rows[0]['FSC_XY']):.4f} um, DCR XY {_num(rows[0]['DCR_XY']):.4f} um, spectral PCC "
+        f"{_num(rows[0]['Spectral_PCC']):.4f}, BL PCC at the OTF {_num(rows[0].get('BL_PCC_OTF', '')):.4f}, "
+        f"multiband {_num(rows[0]['Multiband_EV_NC']):.4f} ({card})")
+    if len(rows) != 1 or bad:
+        raise AssertionError(f"spectral-eval of {fov}: {len(rows)} rows, non-finite {bad}")
+
+    y0 = (CLI_PREDICT_ZYX[-1] - DCE_XCHECK_YX) // 2
+    crop = (slice(None), slice(y0, y0 + DCE_XCHECK_YX), slice(y0, y0 + DCE_XCHECK_YX))
+    crop_cfg = dict(cfg, input_zarr=str(_crop_plate(gt, tmp / "spectral_gt.zarr", fov, "Nucleus", crop)),
+                    pred_zarr=str(_crop_plate(flagship, tmp / "spectral_pred.zarr", fov, "Nucleus", crop)))
+    secs, rows = [], []
+    for dev in ("cuda", "cpu"):
+        out_dir = tmp / f"spectral_{dev}"
+        path = _cli_config(tmp / f"spectral_{dev}.yml", dict(crop_cfg, output_dir=str(out_dir)))
+        secs.append(dynacell_cli(["--device", dev, "spectral-eval", "-c", path])[1])
+        rows.append(_csv_rows(out_dir / fov / "metrics.csv"))
+    card_rows, cpu_rows = rows
+    worst, checked, zeros = 0.0, 0, []
+    for a_row, b_row in zip(card_rows, cpu_rows):
+        if list(a_row) != list(b_row):
+            raise AssertionError("spectral-eval: the card's columns differ from the CPU's")
+        for k, b in b_row.items():
+            a, b = _num(a_row[k]), _num(b)
+            if k == "timepoint" or (k.startswith(DCE_RESOLUTION_KEYS) and k not in ("DCR_A0", "DCR_w")):
+                if not (a == b or (math.isnan(a) and math.isnan(b))):
+                    raise AssertionError(f"spectral-eval {k}: card {a!r}, CPU {b!r} (equal expected)")
+                continue
+            if max(abs(a), abs(b)) <= DCE_ZERO:  # a metric that is 0 but for rounding on both sides
+                zeros.append(k)
+                continue
+            rel = abs(a - b) / max(abs(b), 1e-300) if math.isfinite(b) else (0.0 if a == b else math.inf)
+            worst, checked = max(worst, rel), checked + 1
+            if not rel <= 1e-8:
+                raise AssertionError(f"spectral-eval {k}: card {a!r} against CPU {b!r} ({rel:.2e} relative)")
+    log(f"[dynacell-eval] (d) spectral-eval of {fov}'s centre (20, {DCE_XCHECK_YX}, {DCE_XCHECK_YX}), card "
+        f"({secs[0]:.1f} s) against --device cpu ({secs[1]:.1f} s): {checked} float columns worst "
+        f"{worst:.2e} relative (bound 1e-8), {zeros or 'none'} within {DCE_ZERO:g} of 0 on both, the resolution "
+        f"columns equal")
+    return dict(seconds=s, peak_gib=peak, worst=worst)
+
+
+def dce_whole_cell(card: str, gt: Path) -> int:
+    """(d) ``segment_whole_cell`` on the GT's centre (20, ``DCE_SEG_YX``,
+    ``DCE_SEG_YX``) from its membrane and nucleus channels and its nucleus
+    instances: the card's closing, Gaussian and distance transform against
+    scipy's on the host, bit for bit. Returns the cells."""
+    from viscy_tpu_torch.apps.dynacell.eval.segmentation import segment_nucleus_instances
+    from viscy_tpu_torch.apps.dynacell.eval.segmentation_whole_cell import segment_whole_cell
+    from viscy_tpu_torch.zarr_io.store import open_ome_zarr
+
+    pos = open_ome_zarr(gt)[f"B/2/{DCE_NOISY_FOVS[0]}"]
+    y0 = (CLI_PREDICT_ZYX[-1] - DCE_SEG_YX) // 2
+    crop = (slice(None), slice(y0, y0 + DCE_SEG_YX), slice(y0, y0 + DCE_SEG_YX))
+    nuc, mem = (np.asarray(pos["0"][0, pos.get_channel_index(c)][crop], np.float32) for c in ("Nucleus", "Membrane"))
+    seeds = segment_nucleus_instances(nuc, DCE_SPACING, device="cuda")
+    out, seconds = {}, {}
+    for where, dev in (("card", "cuda"), ("host", None)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[where] = segment_whole_cell(mem, nuc, seeds, DCE_SPACING, device=dev)
+        torch.cuda.synchronize()
+        seconds[where] = time.perf_counter() - t0
+    cells = len(np.unique(out["host"])) - 1
+    log(f"[dynacell-eval] (d) segment_whole_cell of the GT's centre ({CLI_PREDICT_ZYX[0]}, {DCE_SEG_YX}, "
+        f"{DCE_SEG_YX}) from {int(seeds.max())} nuclei: {cells} cells; the card's filters against scipy's "
+        f"{'bit for bit' if np.array_equal(out['card'], out['host']) else 'DIFFERENT'}; card {seconds['card']:.2f} s, "
+        f"host {seconds['host']:.2f} s ({card})")
+    if out["card"].dtype != out["host"].dtype or not np.array_equal(out["card"], out["host"]) or cells < 1:
+        raise AssertionError("segment_whole_cell: the card's filters disagree with scipy's (or no cell)")
+    return cells
+
+
 def phase_dynacell_eval(card: str, tmp: Path, cli_info: dict) -> dict:
     """Phase 24 (see the module docstring)."""
     t_phase = time.perf_counter()
@@ -7336,9 +7481,286 @@ def phase_dynacell_eval(card: str, tmp: Path, cli_info: dict) -> dict:
     if len(probe) != 8 or {r["feature_type"] for r in done} != {"cp", "dinov3", "dynaclr"}:
         raise AssertionError(f"cross-condition probe rows {probe}")
     worst = dce_pixel_checks(card, gt, noisy, f"B/2/{DCE_NOISY_FOVS[0]}")
+    t_tail = time.perf_counter()
+    spectral = dce_spectral_eval(card, tmp, gt, flagship)
+    whole_cells = dce_whole_cell(card, gt)
+    tail_s = time.perf_counter() - t_tail
     seconds = time.perf_counter() - t_phase
-    log(f"[phase 24] dynacell evaluate in {seconds:.1f} s; fused forward A + B {launches} ({card})")
-    return dict(launches=launches, seconds=seconds, pixel_worst=worst, seg_cells=seg_cells, **feat)
+    log(f"[phase 24] dynacell evaluate in {seconds:.1f} s (spectral-eval and whole-cell legs {tail_s:.1f} s); fused "
+        f"forward A + B {launches} ({card})")
+    return dict(launches=launches, seconds=seconds, pixel_worst=worst, seg_cells=seg_cells, spectral=spectral,
+                whole_cells=whole_cells, tail_s=tail_s, **feat)
+
+
+# -- phase 25: cross-modal JointEncoderModule training from a plate -----------------------------------
+
+
+# configs/dynaclr_fit.yml's encoder width (in_stack_depth 15, stem (5, 4, 4), embedding 768, projection 128)
+# with one channel each and the v2 backbone, so that the fused kernels carry every block
+JOINT_ENCODER = dict(backbone="convnextv2_tiny", in_channels=1, in_stack_depth=15, stem_kernel_size=[5, 4, 4],
+                     stem_stride=[5, 4, 4], embedding_dim=768, projection_dim=128)
+JOINT_BATCH = 32  # configs/dynaclr_fit.yml's batch
+JOINT_YX = 224  # its final patch
+JOINT_STEPS = 3
+JOINT_VAL = 1
+JOINT_XCHECK = 4  # the f32 step held card against CPU, at the fit's width
+JOINT_PREDICT_ZYX = (15, 512, 512)  # one window a FOV
+
+
+def joint_shapes(yx: int) -> list[tuple[int, int, int]]:
+    """(S, C, M) of every fused block call of one encoder's forward at
+    ``yx``^2 (the (5, 4, 4) stem: a quarter of the YX)."""
+    from viscy_tpu_torch.models.components.blocks import convnext_arch
+
+    depths, dims, v2 = convnext_arch(JOINT_ENCODER["backbone"])
+    assert v2
+    side = yx // JOINT_ENCODER["stem_stride"][-1]
+    return [((side >> i) ** 2, d, 4 * d) for i, (n, d) in enumerate(zip(depths, dims)) for _ in range(n)]
+
+
+def _joint_launches(yx: int, batch: int) -> int:
+    """Forward (or backward) launches of one step of both encoders: two per
+    launch of at most ``samples_per_launch`` samples, every fused call."""
+    from viscy_tpu_torch.ops import fused_block as fb
+
+    return 2 * sum(2 * -(-batch // fb.samples_per_launch(s, m)) for s, _, m in joint_shapes(yx))
+
+
+def joint_module(device: str, seed: int = 25):
+    from viscy_tpu_torch.apps.dynaclr.multi_modal import JointEncoderModule
+
+    return JointEncoderModule(source_encoder=dict(JOINT_ENCODER), target_encoder=dict(JOINT_ENCODER),
+                              temperature=0.07, lr=1e-3, seed=seed, device=device)
+
+
+def joint_kernels(card: str) -> dict:
+    """Phase 25 (a): the fused forward and backward kernels at the encoders'
+    largest and smallest row counts (B = 32) against their plain versions,
+    then f32 CUDA-event medians per train step of both encoders beside the
+    plain versions and the bounds."""
+    from viscy_tpu_torch.ops import fused_block as fb
+
+    shapes = joint_shapes(JOINT_YX)
+    distinct = sorted(set(shapes), key=shapes.index)
+    worst: dict = {}
+    bwd_worst = 0.0
+    for k, (s, c, m) in enumerate((distinct[0], distinct[-1])):
+        check_forward(JOINT_BATCH, s, c, m, 2500 + k, (False,), worst)
+        bwd_worst = max(bwd_worst, check_backward(JOINT_BATCH, s, c, m, 2510 + k, False))
+    log_worst(f"the joint encoders' largest and smallest rows (B={JOINT_BATCH}, {JOINT_YX}^2)", worst)
+    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bwd_ms=0.0, bwd_plain_ms=0.0, bwd_bound_ms=0.0)
+    for k, (s, c, m) in enumerate(distinct):
+        args, _ = block_inputs(JOINT_BATCH, s, c, m, torch.float32, seed=2520 + k)
+        x, sc, *params = args
+        g = torch.randn(x.shape, generator=torch.Generator(device="cuda").manual_seed(2530 + k), device="cuda")
+        ss = fb._reference_ss(x, *params[:4], None, 1e-6)
+        n = 2 * shapes.count((s, c, m))  # both encoders
+        times = dict(
+            ms=cuda_median_ms(lambda: fb.fused_mlp_grn(*args)),
+            plain_ms=cuda_median_ms(lambda: fb.reference_mlp_grn(*args), runs=5),
+            bound_ms=block_bound_ms(JOINT_BATCH, s, c, m, torch.float32)[0],
+            bwd_ms=cuda_median_ms(lambda: fb._fused_bwd_cuda(x, g, params, None, ss, 1e-6, 1e-6)),
+            bwd_plain_ms=cuda_median_ms(lambda: fb.reference_mlp_grn_bwd(x, g, *params, ss), runs=5),
+            bwd_bound_ms=8.0 * JOINT_BATCH * s * c * m / PEAK_FLOPS[torch.float32] * 1e3,
+        )
+        for key, val in times.items():
+            total[key] += val * n
+        log(f"[joint] time S={s} C={c} M={m} B={JOINT_BATCH} f32 x{n}/step: forward {times['ms']:.3f} ms (plain "
+            f"{times['plain_ms']:.3f}, bound {times['bound_ms']:.4f}), backward {times['bwd_ms']:.3f} ms (plain "
+            f"{times['bwd_plain_ms']:.3f}, bound {times['bwd_bound_ms']:.4f})")
+        del args, x, sc, params, g, ss
+        torch.cuda.empty_cache()
+    log(f"[joint] fused kernels per train step of both encoders ({2 * len(shapes)} calls, B={JOINT_BATCH}, f32): "
+        f"A + B {total['ms']:.3f} ms (plain {total['plain_ms']:.3f}, bound {total['bound_ms']:.3f}), C + D "
+        f"{total['bwd_ms']:.3f} ms (plain {total['bwd_plain_ms']:.3f}, bound {total['bwd_bound_ms']:.3f}); "
+        f"CUDA-event medians ({card})")
+    return dict(total, fwd_err=worst[torch.bfloat16][0], bwd_err=bwd_worst)
+
+
+def joint_cross_check() -> None:
+    """Phase 25 (b): one f32 step (TF32 off), card against CPU on the same
+    weights (GRN gamma / beta non-zero) and batch (``JOINT_XCHECK`` pairs of
+    (1, 15, 224, 224), each pair's windows at a brightness and contrast of
+    their own): both embeddings and projections, the NT-Xent loss,
+    every gradient (the shifts a train-mode BatchNorm removes 0 up to
+    rounding on both) and both BatchNorms' running statistics after it;
+    the step's launches on the card."""
+    import copy
+
+    on_cpu = joint_module("cpu")
+    randomize_grn(on_cpu, 2540)
+    on_card = copy.deepcopy(on_cpu).to("cuda")
+    g = torch.Generator().manual_seed(2541)
+    depth = JOINT_ENCODER["in_stack_depth"]
+    shape = (JOINT_XCHECK, 1, depth, JOINT_YX, JOINT_YX)
+    # each pair at a brightness and contrast of its own, as distinct cells are: i.i.d. uniform windows pool to
+    # four nearly equal embeddings, and the projection's BatchNorm over them then divides f32 rounding by a
+    # batch deviation near 0 (on an H100 one gradient landed 2.77e-3 of range apart)
+    batch = {k: torch.rand(shape, generator=g) * (0.5 + 1.5 * torch.rand((JOINT_XCHECK, 1, 1, 1, 1), generator=g))
+             + torch.randn((JOINT_XCHECK, 1, 1, 1, 1), generator=g) for k in ("source", "target")}
+    outs, losses = [], []
+    _zero_counts()
+    for module, dev in ((on_card, "cuda"), (on_cpu, "cpu")):
+        seen: dict = {}
+        hooks = [getattr(module.model, n).register_forward_hook(lambda m, i, o, n=n: seen.__setitem__(n, o))
+                 for n in ("source_encoder", "target_encoder")]
+        module.train()
+        t0 = time.perf_counter()
+        loss = module.training_loss({k: v.to(dev) for k, v in batch.items()})
+        loss.backward()
+        losses.append((float(loss.detach()), time.perf_counter() - t0))
+        for h in hooks:
+            h.remove()
+        outs.append({f"{n}.{what}": t.detach().cpu() for n, (emb, proj) in seen.items()
+                     for what, t in (("embedding", emb), ("projection", proj))})
+        if dev == "cuda":
+            counts = _counts()
+    checks = {k: compare(outs[0][k], w) for k, w in outs[1].items()}
+    state_g, state_c = on_card.model.state_dict(), on_cpu.model.state_dict()
+    stats = [k for k in state_c if k.endswith(("running_mean", "running_var"))]
+    checks.update({k: compare(state_g[k].cpu(), state_c[k]) for k in stats})
+    (l_card, _), (l_cpu, cpu_s) = losses
+    l_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    bad = {k: v for k, v in checks.items() if not (v[1] <= 2e-3 and v[2] > 0.9999)}
+    want = _joint_launches(JOINT_YX, JOINT_XCHECK)
+    log(f"[joint] f32 step ({JOINT_XCHECK} pairs of (1, {depth}, {JOINT_YX}, {JOINT_YX})), card vs CPU: "
+        + ", ".join(f"{k} {v[1]:.2e}" for k, v in checks.items() if "running" not in k)
+        + f" of range; NT-Xent {l_card:.7f} vs {l_cpu:.7f} (rel {l_rel:.2e}); {len(stats)} running statistics "
+        f"after it worst {max(checks[k][1] for k in stats):.2e} of range; launches {counts} (expected {want} "
+        f"forward and backward) (CPU {cpu_s:.1f} s)")
+    if bad or l_rel > 2e-3 or len(stats) != 8 or counts["fwd"] != want or counts["bwd"] != want:
+        raise AssertionError(f"JointEncoderModule f32 step on the card disagrees with the CPU: {bad}, loss rel "
+                             f"{l_rel:.2e}, launches {counts}")
+    zero = {f"model.{e}.{n}": f"model.{e}.{n.replace('bias', 'weight')}" for e in ("source_encoder", "target_encoder")
+            for n in ("encoder.head.norm.bias", "projection.0.bias", "projection.3.bias")}
+    n_grads, worst = _compare_grads(on_card, on_cpu, zero, "JointEncoderModule f32 step")
+    log(f"[joint] f32 step: {n_grads} parameter gradients within 2e-3 of range and r > 0.9999, worst {worst[1]} "
+        f"{worst[0]:.2e}; the six shifts a train-mode BatchNorm removes 0 up to rounding on both")
+    del on_card, on_cpu
+    torch.cuda.empty_cache()
+
+
+def joint_cli(card: str, tmp: Path, plate: Path) -> dict:
+    """Phase 25 (c): ``viscy-torch fit`` of a ``JointEncoderModule`` config
+    (``configs/dynaclr_fit.yml``'s recipe with the model and data replaced:
+    ``HCSDataModule`` from Phase3D to RFP on phase 14's plate, windows 15
+    deep, a host weighted crop of 8 patches a window to 224^2, a flip),
+    3 steps and 1 validation batch, then ``viscy-torch predict`` from its
+    ``last`` on a plate of two (2, 15, 512, 512) FOVs; launch counts per
+    step of both encoders, finite losses, the predictions' shapes. (No
+    resume here: with one, the whole script took 1186.8 s of its 1200 s on
+    a slow host; the CPU test resumes this fit through the CLI.)"""
+    from viscy_tpu_torch.apps.dynaclr.multi_modal import JointEncoderModule
+    from viscy_tpu_torch.models.components.blocks import convnext_arch
+    from viscy_tpu_torch.training import cli
+    from viscy_tpu_torch.zarr_io.synthetic import build_hcs_plate
+
+    channels = list(DYNACLR_CHANNELS)
+    depth = JOINT_ENCODER["in_stack_depth"]
+    model = {"class_path": "dynaclr.multi_modal.JointEncoderModule",
+             "init_args": {"source_encoder": dict(JOINT_ENCODER), "target_encoder": dict(JOINT_ENCODER),
+                           "temperature": 0.07, "lr": 1e-3}}
+    norm = {"class_path": "viscy_transforms.NormalizeSampled",
+            "init_args": {"keys": channels, "level": "fov_statistics"}}
+    crop = {"class_path": "viscy_tpu.data.host_transforms.HostRandWeightedCropd",
+            "init_args": {"keys": [*channels, "weight"], "w_key": "weight",
+                          "spatial_size": [depth, JOINT_YX, JOINT_YX], "num_samples": 8}}
+    flip = {"class_path": "viscy_transforms.BatchedRandFlipd", "init_args": {"keys": ["source", "target"], "prob": 0.5}}
+    data = {"class_path": "viscy_data.HCSDataModule", "init_args": {
+        "data_path": str(plate), "source_channel": "Phase3D", "target_channel": "RFP", "z_window_size": depth,
+        "split_ratio": 0.8, "batch_size": JOINT_BATCH, "num_workers": 8, "yx_patch_size": [JOINT_YX, JOINT_YX],
+        "normalizations": [norm], "augmentations": [crop, flip]}}
+    root = tmp / "joint_fit"
+
+    def edit(cfg):
+        cfg["data"] = data
+        cfg["trainer"].update(default_root_dir=str(root), max_epochs=1, limit_train_batches=JOINT_STEPS,
+                              limit_val_batches=JOINT_VAL, log_every_n_steps=1)
+
+    fit_cfg = _composed(tmp, "dynaclr_fit.yml", "joint_fit.yml", model, edit)
+    per = _joint_launches(JOINT_YX, JOINT_BATCH)
+    want_fit = dict(fwd=per * (JOINT_STEPS + JOINT_VAL), bwd=per * JOINT_STEPS, masked_fwd=0, masked_bwd=0, warp=0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    trainer = cli.main(["fit", "-c", fit_cfg])
+    seconds = time.perf_counter() - t0
+    fit_counts = _counts()
+    feed, metrics = trainer.feed_stats, trainer.logged_metrics
+    loss, val = metrics.get("loss/train"), metrics.get("loss/validate")
+    if fit_counts != want_fit or feed["steps"] != JOINT_STEPS or trainer.global_step != JOINT_STEPS \
+            or not all(v is not None and math.isfinite(v) for v in (loss, val)):
+        raise AssertionError(f"JointEncoderModule fit: launches {fit_counts} (expected {want_fit}), steps "
+                             f"{feed['steps']}, global step {trainer.global_step}, losses {loss} / {val}")
+    log(f"[joint] viscy-torch fit (JointEncoderModule, 2 x {JOINT_ENCODER['backbone']}, batch {JOINT_BATCH} of "
+        f"(1, {depth}, {JOINT_YX}, {JOINT_YX}) pairs from phase 14's plate): {seconds:.1f} s in all, train loop "
+        f"{feed['seconds']:.2f} s for {JOINT_STEPS} steps = {JOINT_STEPS * JOINT_BATCH / feed['seconds']:.3f} "
+        f"pairs/s (first step included), waited {feed['wait_s'] / feed['seconds']:.1%} of the loop; loss/train "
+        f"{loss:.5f}, loss/validate {val:.5f}; launches {fit_counts}: per step {per} forward and {per} backward of "
+        f"both encoders; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
+    del trainer
+
+    pred_plate = build_hcs_plate(tmp / "joint_predict.zarr", channels, zyx_shape=JOINT_PREDICT_ZYX, num_timepoints=1,
+                                 rows=("A",), cols=("1",), fovs=("0", "1"), seed=2550, norm_meta=True)
+    pred_data = {k: v for k, v in data["init_args"].items()
+                 if k not in ("augmentations", "split_ratio", "yx_patch_size")}
+    pred_cfg = _cli_config(tmp / "joint_predict.yml", {
+        "model": model, "data": {"class_path": "viscy_data.HCSDataModule",
+                                 "init_args": dict(pred_data, data_path=str(pred_plate), batch_size=2)},
+        "trainer": {"default_root_dir": str(tmp / "joint_predict")}, "ckpt_path": str(root / "checkpoints/last")})
+    preds: list = []
+    restore = _spy(JointEncoderModule, "predict_step", lambda self, p: preds.append(p))
+    _zero_counts()
+    t0 = time.perf_counter()
+    try:
+        cli.main(["predict", "-c", pred_cfg])
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    pred_s = time.perf_counter() - t0
+    counts = _counts()
+    want_pred = dict(fwd=_joint_launches(JOINT_PREDICT_ZYX[-1], 2), bwd=0, masked_fwd=0, masked_bwd=0, warp=0)
+    shapes = {k: tuple(v.shape) for k, v in preds[0].items()} if preds else {}
+    emb, proj = convnext_arch(JOINT_ENCODER["backbone"])[1][-1], JOINT_ENCODER["projection_dim"]
+    want_shapes = {"features": (2, emb), "projections": (2, proj), "target_features": (2, emb),
+                   "target_projections": (2, proj)}
+    if len(preds) != 1 or counts != want_pred or shapes != want_shapes \
+            or not all(torch.isfinite(v).all() for v in preds[0].values()):
+        raise AssertionError(f"JointEncoderModule predict: {len(preds)} batches, {shapes}, launches {counts} "
+                             f"(expected {want_pred})")
+    log(f"[joint] viscy-torch predict from the fit's last (two (2, {depth}, {JOINT_PREDICT_ZYX[-1]}, "
+        f"{JOINT_PREDICT_ZYX[-1]}) FOVs, source and target): {pred_s:.2f} s, {shapes}, finite; launches {counts} "
+        f"({card})")
+    shutil.rmtree(pred_plate)
+    return {k: fit_counts[k] + counts[k] for k in counts}
+
+
+def joint_busy(card: str) -> None:
+    """Phase 25 (d): the busy share and top kernels of one profiled
+    optimizer step at batch 32 of (1, 15, 224, 224) pairs (windows on the
+    card: the step alone, without the plate's reads)."""
+    module = joint_module("cuda").train()
+    g = torch.Generator(device="cuda").manual_seed(2560)
+    shape = (JOINT_BATCH, 1, JOINT_ENCODER["in_stack_depth"], JOINT_YX, JOINT_YX)
+    batch = {k: torch.rand(shape, generator=g, device="cuda") for k in ("source", "target")}
+    busy_share("joint", f"one JointEncoderModule step at batch {JOINT_BATCH} of {shape[1:]} pairs, f32",
+               _engine_step(module, batch, g))
+    del module, batch
+    torch.cuda.empty_cache()
+
+
+def phase_joint(card: str, tmp: Path, plate: Path) -> dict:
+    """Phase 25: cross-modal JointEncoderModule training (see the module
+    docstring)."""
+    t0 = time.perf_counter()
+    kernels = joint_kernels(card)
+    joint_cross_check()
+    launches = joint_cli(card, tmp, plate)
+    joint_busy(card)
+    seconds = time.perf_counter() - t0
+    log(f"[phase 25] JointEncoderModule in {seconds:.1f} s; launches {launches} ({card})")
+    return dict(kernels=kernels, launches=launches, seconds=seconds)
 
 
 def main() -> None:
@@ -7400,6 +7822,7 @@ def main() -> None:
         p22_s += time.perf_counter() - t0
         p23 = phase_dynaclr_eval(card, Path(tmp), dynaclr_cli["plate"], dynaclr_cli["tracks"],
                                  dynaclr_cli["affine_ckpt"])
+        p25 = phase_joint(card, Path(tmp), dynaclr_cli["plate"])
         vae = phase_vae(card, Path(tmp), dynaclr_cli["plate"], dynaclr_cli["tracks"])  # removes the plate
     log(f"[phase 20] qc, tta, seg and callbacks in {twenty_s:.1f} s (QC {qc['per_fov_s']:.3f} s a FOV, TTA "
         f"{tta['fov_s']:.3f} s a FOV, segmentation {seg['slice_s']:.3f} s a slice)")
@@ -7415,7 +7838,14 @@ def main() -> None:
     log(f"[phase 24] dynacell evaluate: {p24['seconds']:.1f} s; fused forward A + B {p24['launches']}; card against "
         f"CPU: pixel row {p24['pixel_worst']:.2e} relative, DynaCLR similarity {p24['similarity_worst']:.2e} "
         f"relative, "
-        f"probe AUROC {abs(p24['auroc'] - p24['auroc_cpu']):.1e}; segmentation and CP features bit for bit")
+        f"probe AUROC {abs(p24['auroc'] - p24['auroc_cpu']):.1e}; segmentation and CP features bit for bit; "
+        f"spectral-eval of a whole FOV {p24['spectral']['seconds']:.1f} s, peak {p24['spectral']['peak_gib']:.2f} GiB, "
+        f"its crop card against CPU {p24['spectral']['worst']:.2e} relative; whole-cell labels bit for bit "
+        f"({p24['whole_cells']} cells); those legs {p24['tail_s']:.1f} s")
+    log(f"[phase 25] JointEncoderModule: {p25['seconds']:.1f} s; launches A + B {p25['launches']['fwd']}, C + D "
+        f"{p25['launches']['bwd']}; per step of both encoders A + B {p25['kernels']['ms']:.3f} ms (bound "
+        f"{p25['kernels']['bound_ms']:.3f}), C + D {p25['kernels']['bwd_ms']:.3f} ms (bound "
+        f"{p25['kernels']['bwd_bound_ms']:.3f})")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
@@ -7427,11 +7857,12 @@ def main() -> None:
             replaces="viscy_tpu/ops/pallas/fused_block.py:164,183",
             launches=sl["launches"] + pre["launches"]["fwd"] + unext2["launches"]["fwd"] + gan["launches"]["fwd"]
             + vae["launches"]["fwd"] + ddp["launches"]["fwd"] + tta["launches"]["fwd"]
-            + callbacks["launches"]["fwd"] + p21["launches"]["fwd"] + p22["launches"]["fwd"] + p24["launches"],
+            + callbacks["launches"]["fwd"] + p21["launches"]["fwd"] + p22["launches"]["fwd"] + p24["launches"]
+            + p25["launches"]["fwd"],
             **{k: kern[k] for k in keys if k != "max_abs_err"},
             max_abs_err=max(kern["max_abs_err"], pre["kernels"]["fwd_err"], pre["fwd_err"],
                             unext2["kernels"]["fwd_err"], gan["kernels"]["fwd_err"], vae["kernels"]["fwd_err"],
-                            tta["max_abs_err"], p21["fwd_err"]),
+                            tta["max_abs_err"], p21["fwd_err"], p25["kernels"]["fwd_err"]),
             library_ms=None,
         ),
         dict(
@@ -7440,10 +7871,11 @@ def main() -> None:
             source="viscy_tpu_torch/csrc/fused_mlp_grn.cu",
             replaces="viscy_tpu/ops/pallas/fused_block.py:233,307",
             launches=tr["bwd_launches"] + pre["launches"]["bwd"] + unext2["launches"]["bwd"] + gan["launches"]["bwd"]
-            + vae["launches"]["bwd"] + ddp["launches"]["bwd"] + p21["launches"]["bwd"] + p22["launches"]["bwd"],
+            + vae["launches"]["bwd"] + ddp["launches"]["bwd"] + p21["launches"]["bwd"] + p22["launches"]["bwd"]
+            + p25["launches"]["bwd"],
             **{k: bwd[k] for k in keys if k != "max_abs_err"},
             max_abs_err=max(bwd["max_abs_err"], pre["kernels"]["bwd_err"], unext2["kernels"]["bwd_err"],
-                            gan["kernels"]["bwd_err"], vae["kernels"]["bwd_err"]),
+                            gan["kernels"]["bwd_err"], vae["kernels"]["bwd_err"], p25["kernels"]["bwd_err"]),
             library_ms=None,
         ),
         dict(

@@ -282,12 +282,19 @@ def test_evaluate_grouped_and_the_cross_condition_probe(plates, tmp_path, jax_or
 
 def test_cli_routes_and_refuses(tmp_path):
     out = _run_cli("--help")
-    for sub in ("evaluate", "evaluate-grouped", "precompute-gt", "cross-condition-probe", "fit", "predict", "report"):
+    for sub in ("evaluate", "evaluate-grouped", "precompute-gt", "cross-condition-probe", "fit", "predict", "report",
+                "spectral-eval"):
         assert sub in out
-    for sub in ("report", "spectral-eval", "simulate-beads", "spectral-diagnostic", "spectral-plot-combined",
-                "shading-analysis"):
+    for sub in ("simulate-beads", "spectral-diagnostic", "spectral-plot-combined", "shading-analysis"):
         r = CliRunner().invoke(dynacell, [sub, "-c", "x.yml"])
         assert isinstance(r.exception, NotImplementedError) and sub in str(r.exception), sub
+    # spectral-eval's figures need matplotlib: refused by name before any work starts
+    spectral = _write({"input_zarr": str(tmp_path / "missing.zarr"), "channel": "Nucleus",
+                       "output_dir": str(tmp_path / "spectral")}, tmp_path / "spectral.yml")
+    for mode in ("plot", "all"):
+        r = CliRunner().invoke(dynacell, ["--device", "cpu", "spectral-eval", "-c", spectral, "--mode", mode])
+        assert isinstance(r.exception, NotImplementedError) and "matplotlib" in str(r.exception), mode
+    assert not (tmp_path / "spectral").exists()
     r = CliRunner().invoke(dynacell, ["fit", "-c", "missing.yml"])  # viscy-torch fit checks its config
     assert r.exit_code != 0 and "missing.yml" in str(r.exception) + r.output
     cfg = _write({"save": {"save_dir": str(tmp_path / "out")}}, tmp_path / "c.yml")

@@ -615,6 +615,51 @@ def test_kernels_at_the_unext2_shapes_on_card(s, c, m, dtype, rel):
 # -- the device transforms without a kernel of their own: card against CPU ------------------------
 
 
+# the cross-modal joint encoders (convnextv2_tiny at 224^2 under a (5, 4, 4)
+# stem, batch 32): their largest (S = 56^2, C = 96) and smallest (S = 7^2,
+# C = 768) row counts
+JOINT_SHAPES = [(3136, 96, 384), (49, 768, 3072)]
+JOINT_BATCH = 32
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "dtype,rel", [(torch.float32, 1e-4), (torch.bfloat16, 1.5e-2)], ids=["f32", "bf16"]
+)
+@pytest.mark.parametrize("s,c,m", JOINT_SHAPES)
+def test_kernels_at_the_joint_encoder_shapes_on_card(s, c, m, dtype, rel):
+    """The forward and backward kernels against their plain versions at
+    the joint encoders' largest and smallest row counts at batch 32, two
+    backward runs bit-identical, the launches as the batch split gives
+    them. Tolerances as the tests above."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        args, _, g = _grads_case(s, c, m, dtype, False, b=JOINT_BATCH, seed=c + 1)
+        before = (tfb.launches, tfb.bwd_launches)
+        got = tfb.fused_mlp_grn(*args)
+        want = tfb.reference_mlp_grn(*args)
+        x, _, *params = args
+        ss = tfb._reference_ss(x, *params[:4], None, 1e-6)
+        grads = tfb._fused_bwd_cuda(x, g, params, None, ss, 1e-6, 1e-6)
+        again = tfb._fused_bwd_cuda(x, g, params, None, ss, 1e-6, 1e-6)
+        want_grads = tfb.reference_mlp_grn_bwd(x, g, *params, ss)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    calls = -(-JOINT_BATCH // tfb.samples_per_launch(s, m))
+    assert (tfb.launches, tfb.bwd_launches) == (before[0] + 2 * calls, before[1] + 4 * calls)
+    r_min = 0.9999 if dtype == torch.bfloat16 else None
+    assert_rel_close(got.float().cpu().numpy(), want.float().cpu().numpy(), rel, r_min)
+    for name, a, b2, w in zip(GRAD_NAMES, grads, again, want_grads):
+        assert torch.equal(a, b2), f"{name} differs between two runs"
+        assert a.shape == w.shape, name
+        assert_rel_close(a.float().cpu().numpy(), w.float().cpu().numpy(), rel,
+                         0.999 if dtype == torch.bfloat16 else None)
+
+
 def _new_members():
     from viscy_tpu_torch import transforms as T
 

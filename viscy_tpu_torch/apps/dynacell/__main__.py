@@ -8,12 +8,18 @@
     python -m viscy_tpu_torch.apps.dynacell evaluate -c eval.yml
     python -m viscy_tpu_torch.apps.dynacell evaluate-grouped -c grouped.yml
     python -m viscy_tpu_torch.apps.dynacell cross-condition-probe -d eval_mock -d eval_denv -o probe.csv
+    python -m viscy_tpu_torch.apps.dynacell spectral-eval -c spectral.yml
+    python -m viscy_tpu_torch.apps.dynacell report -c report.yml
 
 ``fit``, ``predict``, ``test`` and ``validate`` run ``viscy-torch``'s
 subcommand. The evaluation subcommands read JAX's plain YAML configs
-(:mod:`viscy_tpu_torch.apps.dynacell.eval.pipeline`) and compute on
-``--device``: the card unless ``cpu``; without a card ``cuda`` raises. The
-subcommands of later slices raise with their name and what they wait for.
+(:mod:`viscy_tpu_torch.apps.dynacell.eval.pipeline`,
+:mod:`viscy_tpu_torch.apps.dynacell.eval.spectral_eval`) and compute on
+``--device``: the card unless ``cpu``; without a card ``cuda`` raises.
+``report`` writes its tables and raises at the barplot; ``spectral-eval``
+runs ``--mode compute`` (its default here) and refuses ``plot`` and
+``all``: the figures need matplotlib. The subcommands of later slices raise
+with their name and what they wait for.
 """
 
 from __future__ import annotations
@@ -84,11 +90,56 @@ def cross_condition_probe(eval_dirs, out, n_splits, rng_seed) -> None:
     click.echo(f"wrote {path}")
 
 
+@main.command()
+@click.option("--config", "-c", required=True, type=click.Path(exists=True))
+def report(config: str) -> None:
+    """Model-comparison tables from finished eval dirs.
+
+    Config: ``{results_dirs: {name: path}, metrics: [...], out_dir: ...}``.
+    Writes ``comparison.{md,tex,csv}``, then raises at the barplot, which
+    needs matplotlib (absent on the card's machine; ROADMAP.md Queue 1
+    item 9)."""
+    from viscy_tpu_torch.apps.dynacell.eval.tables import (
+        comparison_table,
+        metric_comparison_barplot,
+        to_latex,
+        to_markdown,
+    )
+
+    cfg = _config(config)
+    model_results = {k: Path(v) for k, v in cfg["results_dirs"].items()}
+    table = comparison_table(model_results, metrics=cfg.get("metrics"))
+    out_dir = Path(cfg.get("out_dir", "dynacell_report"))
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "comparison.md").write_text(to_markdown(table))
+    (out_dir / "comparison.tex").write_text(to_latex(table))
+    table.to_csv(out_dir / "comparison.csv")
+    click.echo(to_markdown(table))
+    click.echo(f"wrote {out_dir}/comparison.{{md,tex,csv}}")
+    fig_fmt = cfg.get("figure_format", "pdf")
+    metric_comparison_barplot(model_results, metrics=cfg.get("metrics"),
+                              save_path=out_dir / f"comparison_barplot.{fig_fmt}")
+
+
+@main.command("spectral-eval")
+@click.option("--config", "-c", required=True, type=click.Path(exists=True))
+@click.option("--mode", default="compute", show_default=True, type=click.Choice(["compute", "plot", "all"]))
+def spectral_eval(config: str, mode: str) -> None:
+    """Per-position time series of spectral metrics. ``--mode compute`` (the
+    default here; JAX's is ``all``) writes each position's ``metrics.csv``
+    and ``slices.npz``; ``plot`` and ``all`` need matplotlib and are
+    refused before any work starts."""
+    from viscy_tpu_torch.apps.dynacell.eval.spectral_eval import main as spectral_main
+
+    cfg = _config(config)
+    cfg["mode"] = mode
+    spectral_main(cfg, device=_device())
+    click.echo(f"spectral-eval done -> {cfg['output_dir']}")
+
+
 WAITING = {
-    "report": "tables.py (model-comparison tables) and a plotting library (matplotlib, absent on the card's machine)",
-    "spectral-eval": "spectral_eval.py and decorr.py (the per-position spectral time series)",
     "simulate-beads": "simulate_beads.py (its figures need matplotlib, absent on the card's machine)",
-    "spectral-diagnostic": "diagnostics.py and decorr.py (matplotlib, absent on the card's machine)",
+    "spectral-diagnostic": "diagnostics.py (matplotlib, absent on the card's machine)",
     "spectral-plot-combined": "diagnostics.py (matplotlib, absent on the card's machine)",
     "shading-analysis": "diagnostics.py (matplotlib, absent on the card's machine)",
 }

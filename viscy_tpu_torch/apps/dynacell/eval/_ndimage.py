@@ -14,6 +14,7 @@ against it.
   the card.
 - :func:`maximum_filter`, :func:`minimum_filter`, :func:`white_tophat`:
   extrema over a box (per axis, ``reflect``): order does not change them.
+  A flat grey closing of odd size is the maximum filter, then the minimum.
 - :func:`sobel`, :func:`laplace`: scipy's 3-tap ``correlate1d`` passes
   (the antisymmetric ``[-1, 0, 1]``, the symmetric ``[1, 2, 1]`` and ``[1,
   -2, 1]``) in the same order and precision.
@@ -97,8 +98,8 @@ def laplace(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _box(x: torch.Tensor, size: int, op) -> torch.Tensor:
-    for axis in range(x.ndim):
+def _box(x: torch.Tensor, size: int, op, axes=None) -> torch.Tensor:
+    for axis in range(x.ndim) if axes is None else axes:
         n = x.shape[axis]
         xp = x.index_select(axis, reflect_index(n, size // 2, size - 1 - size // 2, x.device))
         out = xp.narrow(axis, 0, n).clone()
@@ -108,15 +109,17 @@ def _box(x: torch.Tensor, size: int, op) -> torch.Tensor:
     return x
 
 
-def maximum_filter(x: torch.Tensor, size: int) -> torch.Tensor:
+def maximum_filter(x: torch.Tensor, size: int, axes=None) -> torch.Tensor:
     """``scipy.ndimage.maximum_filter(x, size)`` (``reflect``): the window of
-    each axis ``[i - size // 2, i + size - 1 - size // 2]``."""
-    return _box(x, size, torch.maximum)
+    each axis ``[i - size // 2, i + size - 1 - size // 2]``; over ``axes``
+    only when given (scipy's ``axes``)."""
+    return _box(x, size, torch.maximum, axes)
 
 
-def minimum_filter(x: torch.Tensor, size: int) -> torch.Tensor:
-    """``scipy.ndimage.minimum_filter(x, size)`` (``reflect``)."""
-    return _box(x, size, torch.minimum)
+def minimum_filter(x: torch.Tensor, size: int, axes=None) -> torch.Tensor:
+    """``scipy.ndimage.minimum_filter(x, size)`` (``reflect``), over ``axes``
+    only when given."""
+    return _box(x, size, torch.minimum, axes)
 
 
 def white_tophat(x: torch.Tensor, size: int) -> torch.Tensor:

@@ -346,6 +346,22 @@ def contrastive_state_dict_from_flax(
     return out
 
 
+def joint_encoder_state_dict_from_flax(
+    params: dict[str, Any], batch_stats: dict[str, Any] | None = None
+) -> dict[str, torch.Tensor]:
+    """Map a ``JointEncoders`` flax tree (``params`` and, when given,
+    ``batch_stats``: ``source_encoder`` and ``target_encoder`` subtrees) to the
+    port's names: :func:`contrastive_state_dict_from_flax` of each encoder
+    under ``source_encoder.`` / ``target_encoder.``, both projections'
+    BatchNorm running statistics included."""
+    out: dict[str, torch.Tensor] = {}
+    for name in ("source_encoder", "target_encoder"):
+        stats = (batch_stats or {}).get(name)
+        for key, value in contrastive_state_dict_from_flax(params.get(name, {}), stats).items():
+            out[f"{name}.{key}"] = value
+    return out
+
+
 def resnet3d_state_dict_from_flax(
     params: dict[str, Any], batch_stats: dict[str, Any] | None = None
 ) -> dict[str, torch.Tensor]:
@@ -604,6 +620,7 @@ def state_dict_from_flax(
 ) -> dict[str, torch.Tensor]:
     """The bridge of ``model``'s type applied to a flax tree; ``TypeError``
     naming the type when no bridge maps it."""
+    from viscy_tpu_torch.apps.dynaclr.multi_modal import JointEncoders
     from viscy_tpu_torch.models.celldiff.vit_bottleneck import ViTBottleneck3D
     from viscy_tpu_torch.models.components.heads import MLP
     from viscy_tpu_torch.models.contrastive.encoder import ContrastiveEncoder
@@ -629,6 +646,8 @@ def state_dict_from_flax(
         return unet25d_state_dict_from_flax(params, batch_stats)
     if isinstance(model, ContrastiveEncoder):
         return contrastive_state_dict_from_flax(params, batch_stats)
+    if isinstance(model, JointEncoders):
+        return joint_encoder_state_dict_from_flax(params, batch_stats)
     if isinstance(model, ResNet3dEncoder):
         return resnet3d_state_dict_from_flax(params, batch_stats)
     if isinstance(model, Unet3d):

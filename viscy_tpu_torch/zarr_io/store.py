@@ -823,6 +823,25 @@ class Position:
         except ValueError:
             raise ValueError(f"Channel {name!r} not found in {names}") from None
 
+    def get_axis_index(self, name: str) -> int:
+        ms = self.zattrs.get("multiscales", [{}])[0]
+        for i, ax in enumerate(ms.get("axes", _AXES_5D)):
+            if ax["name"].lower() == name.lower():
+                return i
+        raise ValueError(f"Axis {name!r} not found")
+
+    @property
+    def scale(self) -> list[float]:
+        """The scale of the first (full-resolution) dataset; 1.0 per axis
+        without one."""
+        ms = self.zattrs.get("multiscales", [{}])[0]
+        datasets = ms.get("datasets", [])
+        if datasets:
+            for tf in datasets[0].get("coordinateTransformations", []):
+                if tf.get("type") == "scale":
+                    return tf["scale"]
+        return [1.0] * 5
+
     def _meta_name(self) -> str:
         return "zarr.json" if self._version == "0.5" else ".zarray"
 
