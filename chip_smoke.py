@@ -508,12 +508,57 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
            the predictions' shapes. (d)
            The busy share and top kernels of one profiled step at batch 32.
 
-Phase 20 (a) runs after phase 10, on phase 9's plate of 4 FOVs; phases 16,
-17, 19, 20 (b)-(c), 21 and 22 (d) after phase 12, on that plate grown by
-phase 11; phases 20 (d), 22 (c), 23, 25 and 18 after phase 14, in that order,
-on its plate and tracks (23 also on its affine fit's checkpoint); 22 (a)-(b)
-during the build; 24 right after phase 10, on the cli phase's predict plate and
-checkpoint. The last two lines are a JSON
+26. ctc, suites  DynaCLR's CTC tracking benchmark and the config-driven
+           evaluation subcommands. (a) A seeded sequence ``01`` in the CTC
+           layout (``tracking_benchmark/synthetic.py``, the port's TIFF
+           writer): 40 frames of 1024^2 uint16 (Fluo-N2DH-GOWT1's frame; 92
+           frames cut to 40), 30 nuclei on a random walk, 3 divisions, the
+           error segmentation with 4 dropped and 3 merged detections;
+           ``python -m viscy_tpu_torch.apps.dynaclr.cli --device cuda
+           evaluate-tracking-accuracy -c`` in process on a config of three
+           models at JAX's defaults (160^2 crops, batch 128, distance 325, 10
+           neighbours, delta t 5): the IoU baseline and seeded
+           ``ContrastiveEncoder`` models (``convnext_tiny`` and
+           ``convnextv2_tiny``, 1 channel, depth 1, (1, 4, 4) stem, 768
+           features, GRN randomized) from ``.pt`` files. Checks: the v2
+           encoder's fused-forward launches (the v1 has none), JAX's columns
+           in ``results.csv`` and ``summary.csv``, every solution within the
+           flow constraints (the solver checks); the baseline on the GT's
+           own masks (on a host thread meanwhile) DET = TRA = 1; each
+           encoder's embeddings of the first frames' 128 crops card against
+           CPU (<= 2e-3 of range, r > 0.9999) and their ILP's objective
+           within 1e-6 relative; the forward kernels at the encoder's four
+           (S, C, M) at B = 128 against their plain version (f32 and bf16) and
+           f32 medians per call beside the plain version and the bound.
+           Prints the node and edge counts, the seconds of the crops (host),
+           the embedding (card) and the solve (host), the metrics. (b) On
+           phase 23 (b)'s 50,000-cell store, a copy with perturbed features
+           and the store split by FOV into two experiments:
+           ``evaluate-smoothness`` (grouped by condition), ``compare-models``
+           live and ``-c`` over the saved CSVs, ``mmd-analysis`` in its three
+           modes (the conditions as groups, 1000 cells a side, 200
+           permutations), ``prepare-eval-configs`` and ``check-evals``, each
+           on the card and with ``--device cpu``: every statistic and MMD
+           value within 1e-6 relative, the p-values and counts equal.
+
+Phase 20 (a) runs after phase 10, on phase 9's plate of 4 FOVs; phases 11,
+12, 16 and 19 after it, 12, 16 and 19 on that plate grown by phase 11; 24
+(on the cli phase's predict plate and checkpoint), then 21 and 22 (d) (on
+the grown plate) beside them; then phase 14, and on its plate and tracks
+13, 20 (b)-(d), 22 (c), 17, 25 and 18 beside 23 (also on its affine fit's
+checkpoint) and 26 (in 23's directory); 22 (a)-(b) during the build; 15
+last.
+
+Host-bound phases run beside card-bound ones, each leg in a process of its
+own on the same card (``Beside``): phases 24, 21 and 22 (d) beside 20 (a),
+11, 12, 16 and 19 (21 waits until 11 has grown the plate); phases 23 and 26
+beside 13, 20 (b)-(d), 22 (c), 17, 25 and 18 (18 waits until 23 has read
+the plate it removes). The device memory of each pair is
+watched and held under 70 GiB; every line printed by a phase that ran
+beside another ends with ``[beside phases ...]``. The phases behind the
+kernel table (3-7) run alone. After the ``[done]`` line: one JSON line
+``{"phase_seconds": {...}}`` (each phase's wall seconds, the legs' in their
+own processes, and each window's), the card's name and power limit, a JSON
 ``kernels`` record and the JSON result line.
 Needs ``torch.cuda.is_available()`` and the repo's ``viscy_tpu_torch``
 beside this file. Imports nothing of JAX or ``viscy_tpu``.
@@ -642,8 +687,25 @@ BENCH_AFFINE = {"class_path": "viscy_transforms.BatchedRandAffined",
                               "shear_range": [0.05, 0.05, 0.0, 0.05, 0.0, 0.05]}}
 
 
+# while set, every log line ends with it: the rates on that line were measured beside another phase
+BESIDE = {"note": ""}
+PHASE_SECONDS: dict[str, float] = {}  # wall seconds of each phase, printed as the phase_seconds line
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    print(msg + BESIDE["note"], flush=True)
+
+
+def timed_phase(name: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its wall seconds kept as ``PHASE_SECONDS[name]``.
+    Beside another phase, the cached device memory is released after it, so
+    that the pair holds only what each phase is using."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    if BESIDE["note"]:
+        torch.cuda.empty_cache()
+    PHASE_SECONDS[name] = round(PHASE_SECONDS.get(name, 0.0) + time.perf_counter() - t0, 1)
+    return out
 
 
 def card_line() -> str:
@@ -6514,9 +6576,9 @@ EVAL_XCHECK = 2000  # (c): the first cells of (b), on the card and on the CPU
 EVAL_MLP_EPOCHS = 30
 
 
-def eval_cli(args: list[str]) -> tuple[str, float, float]:
-    """``python -m viscy_tpu_torch.apps.dynaclr.cli --device cuda <args>`` in
-    process: (its output, seconds, peak GiB)."""
+def eval_cli(args: list[str], device: str = "cuda") -> tuple[str, float, float]:
+    """``python -m viscy_tpu_torch.apps.dynaclr.cli --device <device> <args>``
+    in process: (its output, seconds, peak GiB)."""
     import contextlib
     import io
 
@@ -6524,7 +6586,8 @@ def eval_cli(args: list[str]) -> tuple[str, float, float]:
 
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        _, s, peak = _timed(lambda: dcli.main(["--device", "cuda", *map(str, args)], standalone_mode=False))
+        _, s, peak = _timed(lambda: dcli.main(["--device", device, *map(str, args)], standalone_mode=False))
+    torch.cuda.empty_cache()  # a leg beside another phase holds only what its next command uses
     return buf.getvalue(), s, peak
 
 
@@ -6915,12 +6978,16 @@ def eval_xcheck(card: str) -> dict:
     return worst
 
 
-def phase_dynaclr_eval(card: str, tmp: Path, plate: Path, tracks: Path, ckpt: Path) -> dict:
+def phase_dynaclr_eval(card: str, tmp: Path, plate: Path, tracks: Path, ckpt: Path,
+                       plate_free: Path | None = None) -> dict:
     """Phase 23: DynaCLR's embedding evaluation on the card (see the module
-    docstring)."""
+    docstring). ``plate_free``, when given, is written once the plate has
+    been read."""
     t0 = time.perf_counter()
     _zero_counts()
     store = eval_predict(card, tmp, plate, tracks, ckpt)
+    if plate_free is not None:
+        plate_free.touch()
     a = eval_subcommands(card, tmp, store)
     counts = _counts()
     if any(counts.values()):
@@ -7763,6 +7830,493 @@ def phase_joint(card: str, tmp: Path, plate: Path) -> dict:
     return dict(kernels=kernels, launches=launches, seconds=seconds)
 
 
+# -- phase 26: DynaCLR's CTC tracking benchmark and the config-driven evaluation subcommands -------------
+
+CTC_FRAMES = 40  # Fluo-N2DH-GOWT1 has 92 frames a sequence; cut to keep the whole script inside its limit
+CTC_SIDE = 1024  # GOWT1's frame
+CTC_CELLS = 30
+CTC_RADIUS = 18.0  # pixels: nuclei about 36 px across
+CTC_ENCODER = dict(in_channels=1, in_stack_depth=1, stem_kernel_size=[1, 4, 4], stem_stride=[1, 4, 4],
+                   embedding_dim=768)
+CTC_BACKBONES = ("convnext_tiny", "convnextv2_tiny")
+CTC_SHAPE = (160, 160)  # the config's model_input_shape (JAX's default)
+CTC_BATCH = 128  # the config's batch_size (JAX's default)
+CTC_XCHECK = 128  # crops embedded on the card and on the CPU
+CTC_RESULTS = ["DET", "TRA", "LNK", "CT", "TF", "BC(0)", "CCA", "BIO(0)", "OP_CLB(0)", "CHOTA", "model", "dataset",
+               "sequence"]
+CTC_SUMMARY = ["model", "dataset", "LNK", "BIO(0)", "OP_CLB(0)", "CHOTA", "TRA", "DET"]
+SUITE_MMD = dict(n_permutations=200, max_cells=1000)  # each comparison: 1000 cells a side, 200 permutations
+
+
+def ctc_shapes() -> list[tuple[int, int, int]]:
+    """(S, C, M) of every fused block call of the ``convnextv2_tiny``
+    encoder's forward at ``CTC_SHAPE`` (a (1, 4, 4) stem)."""
+    from viscy_tpu_torch.models.components.blocks import convnext_arch
+
+    depths, dims, _ = convnext_arch("convnextv2_tiny")
+    side = CTC_SHAPE[0] // CTC_ENCODER["stem_stride"][-1]
+    return [((side >> i) ** 2, d, 4 * d) for i, (n, d) in enumerate(zip(depths, dims)) for _ in range(n)]
+
+
+def _ctc_launches(n_crops: int) -> int:
+    """Forward launches of embedding ``n_crops`` crops in batches of
+    ``CTC_BATCH`` with the v2 encoder (the v1 encoder has no GRN block)."""
+    from viscy_tpu_torch.ops import fused_block as fb
+
+    sizes = [min(CTC_BATCH, n_crops - s) for s in range(0, n_crops, CTC_BATCH)]
+    return sum(2 * -(-b // fb.samples_per_launch(s, m)) for b in sizes for s, _, m in ctc_shapes())
+
+
+def ctc_kernels(card: str) -> dict:
+    """Phase 26 (a): the forward kernels at every (S, C, M) of the v2
+    encoder at B = 128 crops of 160^2 (204,800 rows a call at stage 1)
+    against their plain version (f32 and bf16, as phase 3), then f32
+    CUDA-event medians per call and per forward beside the plain version
+    and the bound."""
+    from viscy_tpu_torch.ops import fused_block as fb
+
+    shapes = ctc_shapes()
+    worst: dict = {}
+    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    for k, (s, c, m) in enumerate(sorted(set(shapes), key=shapes.index)):
+        check_forward(CTC_BATCH, s, c, m, 2600 + k, (False,), worst, ref_batch=32)
+        args, _ = block_inputs(CTC_BATCH, s, c, m, torch.float32, seed=2610 + k)
+        times = dict(ms=cuda_median_ms(lambda: fb.fused_mlp_grn(*args), runs=5),
+                     plain_ms=cuda_median_ms(lambda: fb.reference_mlp_grn(*args), runs=3),
+                     bound_ms=block_bound_ms(CTC_BATCH, s, c, m, torch.float32)[0])
+        n = shapes.count((s, c, m))
+        for key, val in times.items():
+            total[key] += val * n
+        log(f"[ctc] time S={s} C={c} M={m} B={CTC_BATCH} f32 x{n}/forward: A + B {times['ms']:.3f} ms a call (plain "
+            f"{times['plain_ms']:.3f}, bound {times['bound_ms']:.4f}; {fb.samples_per_launch(s, m)} samples a launch)")
+        del args
+        torch.cuda.empty_cache()
+    log(f"[ctc] fused forward per encoder forward of {CTC_BATCH} crops ({len(shapes)} calls, f32): A + B "
+        f"{total['ms']:.3f} ms (plain {total['plain_ms']:.3f}, bound {total['bound_ms']:.3f}); CUDA-event medians "
+        f"({card})")
+    log_worst(f"the CTC crops (B={CTC_BATCH}, {CTC_SHAPE[0]}^2)", worst)
+    return dict(total, fwd_err=worst[torch.bfloat16][0])
+
+
+def _ctc_metric_row(masks, tracks, gt) -> dict:
+    from viscy_tpu_torch.apps.dynaclr.tracking_benchmark.metrics import TrackingAnnotation, evaluate_ctc_metrics
+
+    return evaluate_ctc_metrics(TrackingAnnotation(masks, tracks), TrackingAnnotation(gt["gt"], gt["table"]))
+
+
+def ctc_tracking(card: str, tmp: Path) -> dict:
+    """Phase 26 (a): ``evaluate-tracking-accuracy -c`` on a seeded CTC
+    sequence with the baseline and two encoders at full width (see the
+    module docstring)."""
+    import contextlib
+    import copy
+    import io
+
+    import yaml
+
+    from viscy_tpu_torch.apps.dynaclr.tracking_benchmark import ctc, embedding, evaluate
+    from viscy_tpu_torch.apps.dynaclr.tracking_benchmark.config import TrackingAccuracyConfig
+    from viscy_tpu_torch.apps.dynaclr.tracking_benchmark.graph import build_candidate_graph
+    from viscy_tpu_torch.apps.dynaclr.tracking_benchmark.solver import ilp_problem
+    from viscy_tpu_torch.apps.dynaclr.tracking_benchmark.synthetic import ctc_sequence
+    from viscy_tpu_torch.models.contrastive.encoder import ContrastiveEncoder
+
+    work = tmp / "ctc"
+    root = work / "GOWT1-like"
+    t0 = time.perf_counter()
+    data = ctc_sequence(root, frames=CTC_FRAMES, side=CTC_SIDE, cells=CTC_CELLS, radius=CTC_RADIUS, divisions=3,
+                        drops=4, merges=3, seed=26)
+    log(f"[ctc] (a) seeded sequence 01 in the CTC layout: {CTC_FRAMES} frames of {CTC_SIDE}^2 uint16, "
+        f"{len(data['tracks'])} tracks ({CTC_CELLS} nuclei, 3 divisions), the error segmentation with 4 dropped "
+        f"and 3 merged detections; written in {time.perf_counter() - t0:.1f} s ({card})")
+    encoders, models = {}, [{"path": None, "label": "baseline"}]
+    for k, backbone in enumerate(CTC_BACKBONES):
+        enc = ContrastiveEncoder(backbone=backbone, **CTC_ENCODER, generator=torch.Generator().manual_seed(2620 + k))
+        randomize_grn(enc, 2630 + k)
+        torch.save(enc.state_dict(), work / f"{backbone}.pt")
+        encoders[backbone] = enc.eval()
+        models.append({"path": str(work / f"{backbone}.pt"), "label": backbone,
+                       "model_class": "viscy_tpu.models.contrastive.encoder.ContrastiveEncoder",
+                       "model_init_args": dict(backbone=backbone, **CTC_ENCODER)})
+    raw_cfg = dict(models=models, datasets=[{"path": str(root), "sequences": ["01"]}],
+                   model_input_shape=list(CTC_SHAPE), batch_size=CTC_BATCH, output_dir=str(work / "results"))
+    (work / "tracking.yml").write_text(yaml.safe_dump(raw_cfg))
+    cfg = TrackingAccuracyConfig(**raw_cfg)
+    gt = dict(gt=data["gt"], table=ctc.track_table(data["tracks"]))
+
+    _zero_counts()
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        _, seconds, peak = eval_cli(["evaluate-tracking-accuracy", "-c", work / "tracking.yml"])
+    counts = _counts()
+    stats = [json.loads(line) for line in err.getvalue().splitlines() if line.startswith("{")]
+    want = _ctc_launches(stats[-1]["nodes"])
+    if counts["fwd"] != want or any(counts[k] for k in ("bwd", "masked_fwd", "masked_bwd", "warp")):
+        raise AssertionError(f"phase 26 (a) launched {counts}; expected {want} forward (the v2 encoder's)")
+    for st in stats:
+        log(f"[ctc] (a) {st['model']}: {st['nodes']} nodes, {st['edges']} candidate edges; "
+            + (f"crops {st['crops_s']:.2f} s (host), embedding {st['embedding_s']:.2f} s (card), "
+               if "crops_s" in st else "IoU weights (host), ")
+            + f"solve {st['solve_s']:.2f} s (host), objective {st['objective']:.6f}; every solution within the flow "
+            f"constraints (checked by the solver)")
+    rows = [r for r in csv_rows(work / "results" / "results.csv")]
+    summary_header = next(iter(csv_rows(work / "results" / "summary.csv", header=True)))
+    if list(rows[0]) != CTC_RESULTS or summary_header != CTC_SUMMARY or len(rows) != 3:
+        raise AssertionError(f"phase 26 (a): results.csv {list(rows[0])} / summary.csv {summary_header}")
+    for r in rows:
+        if not all(0.0 <= float(r[k]) <= 1.0 for k in ("DET", "TRA", "LNK", "CHOTA")):
+            raise AssertionError(f"phase 26 (a): metrics out of [0, 1]: {r}")
+        log(f"[ctc] (a) {r['model']}: " + ", ".join(f"{k} {float(r[k]):.4f}" if r[k] else f"{k} nan"
+                                                    for k in CTC_RESULTS[:10]))
+    log(f"[ctc] (a) evaluate-tracking-accuracy -c, 3 models: {seconds:.1f} s, peak {peak:.2f} GiB; results.csv and "
+        f"summary.csv with JAX's columns; the v2 encoder's fused forward {counts['fwd']} launches ({card})")
+    # the baseline on the GT's own masks
+    gt_check: dict = {}
+    g, sol = evaluate.track_arrays(data["raw"], data["gt"], cfg, stats=gt_check)
+    gm = _ctc_metric_row(*ctc.tracking_to_ctc(sol, g.node_pixels, g.frame_shape, CTC_FRAMES), gt)
+    log(f"[ctc] (a) the baseline on the GT's own masks ({gt_check['nodes']} nodes, {gt_check['edges']} edges, solve "
+        f"{gt_check['solve_s']:.2f} s): DET {gm['DET']}, TRA {gm['TRA']}, BC(0) {gm['BC(0)']}")
+    if gm["DET"] != 1.0 or gm["TRA"] != 1.0:
+        raise AssertionError(f"phase 26 (a): the baseline on the GT's masks gives DET {gm['DET']}, TRA {gm['TRA']}")
+
+    # card against CPU: the first frames' crops (at most CTC_XCHECK), each encoder, and their ILP
+    k = int(np.searchsorted(np.cumsum([len(np.unique(f)) - 1 for f in data["seg"]]), CTC_XCHECK, side="right"))
+    graph = build_candidate_graph(data["seg"][:k], cfg.distance_threshold, cfg.n_neighbors, cfg.delta_t)
+    batch = embedding.node_crops(graph, data["raw"][:k], CTC_SHAPE)[:, None, None]
+    xcheck = {}
+    for backbone, enc in encoders.items():
+        on_cpu = embedding.make_torch_embedder(copy.deepcopy(enc), "cpu")(batch)
+        on_card = embedding.make_torch_embedder(copy.deepcopy(enc), "cuda")(batch)
+        err_, share, r = compare(torch.from_numpy(on_card), torch.from_numpy(on_cpu))
+        sols = {}
+        for dev, feats in (("card", on_card), ("cpu", on_cpu)):
+            st: dict = {}
+            g, sol = evaluate.track_arrays(data["raw"][:k], data["seg"][:k], cfg, embed_fn=lambda b, f=feats: f,
+                                           stats=st)
+            c, A, lb, ub = ilp_problem(g, division_weight=cfg.division_weight, node_weight=cfg.node_weight)
+            ax = A @ st["x"]
+            if not (np.all(ax >= lb - 1e-9) and np.all(ax <= ub + 1e-9)):
+                raise AssertionError(f"phase 26 (a): the {dev} solution breaks the flow constraints")
+            masks, tracks = ctc.tracking_to_ctc(sol, g.node_pixels, g.frame_shape, k)
+            sols[dev] = (st["objective"], _ctc_metric_row(masks, tracks, dict(gt=data["gt"][:k],
+                                                                                 table=gt["table"])))
+        rel = abs(sols["card"][0] - sols["cpu"][0]) / abs(sols["cpu"][0])
+        dm = max(abs(sols["card"][1][m] - sols["cpu"][1][m]) for m in ("DET", "TRA"))
+        xcheck[backbone] = dict(share=share, r=r, objective_rel=rel)
+        log(f"[ctc] (a) {backbone}: embeddings of {len(batch)} crops (frames 0-{k - 1}), card against CPU max|d| "
+            f"{err_:.3e} ({share:.2e} of range, bound 2e-3) r={r:.8f}; their ILP's objective {sols['card'][0]:.9f} "
+            f"against {sols['cpu'][0]:.9f} ({rel:.2e} relative, bound 1e-6), DET / TRA {sols['card'][1]['DET']:.4f} / "
+            f"{sols['card'][1]['TRA']:.4f} against {sols['cpu'][1]['DET']:.4f} / {sols['cpu'][1]['TRA']:.4f}")
+        # the same optimum up to rounding; DET / TRA may move by a near-tie that rounding flips
+        if not (share <= 2e-3 and r > 0.9999 and rel <= 1e-6 and dm <= 0.02):
+            raise AssertionError(f"phase 26 (a): {backbone} card against CPU fails its bounds")
+    kern = ctc_kernels(card)
+    return dict(seconds=seconds, peak_gib=peak, launches=counts["fwd"], stats=stats, rows=rows, xcheck=xcheck,
+                gt=gm, kernels=kern, fwd_err=kern["fwd_err"])
+
+
+def csv_rows(path: Path, header: bool = False):
+    """The rows of a CSV file as dicts (or only its header)."""
+    import csv
+
+    with open(path, newline="") as f:
+        reader = csv.reader(f)
+        names = next(reader)
+        if header:
+            return [names]
+        return [dict(zip(names, line)) for line in reader]
+
+
+def _numeric_close(got: list[dict], want: list[dict], rel: float, tag: str) -> float:
+    """Rows of two CSVs: equal text but in float cells (a p-value column
+    equal), floats within ``rel`` relative; the worst relative difference."""
+    if len(got) != len(want) or any(list(a) != list(b) for a, b in zip(got, want)):
+        raise AssertionError(f"phase 26 (b) {tag}: the card's and the CPU's tables differ in shape")
+    worst = 0.0
+    for a, b in zip(got, want):
+        for k in b:
+            if a[k] == b[k]:
+                continue
+            try:
+                x, y = float(a[k]), float(b[k])
+            except ValueError:
+                raise AssertionError(f"phase 26 (b) {tag}: {k} {a[k]!r} against {b[k]!r}") from None
+            if k == "p_value" or "." not in b[k] + a[k] and "e" not in b[k] + a[k]:
+                raise AssertionError(f"phase 26 (b) {tag}: {k} {a[k]} against {b[k]} (must be equal)")
+            worst = max(worst, abs(x - y) / max(abs(y), 1e-300))
+    if worst > rel:
+        raise AssertionError(f"phase 26 (b) {tag}: card against CPU {worst:.3e} relative > {rel:g}")
+    return worst
+
+
+def suite_stores(tmp: Path, card: str) -> dict[str, Path]:
+    """Phase 23 (b)'s 50,000-cell store, a copy with perturbed features, and
+    the store split by FOV into two experiments (``experiment`` and
+    ``marker`` columns) for the combined and pooled MMD."""
+    from viscy_tpu_torch.evaluation.anndata_lite import Frame
+    from viscy_tpu_torch.training.callbacks.embedding_writer import read_embedding_dataset, write_embedding_dataset
+
+    store = eval_full_store(tmp, card)
+    ds = read_embedding_dataset(store)
+    feats, index = np.asarray(ds.X), ds.obs
+    rng = np.random.default_rng(2640)
+    perturbed = tmp / "eval_perturbed.zarr"
+    write_embedding_dataset(perturbed, (feats + rng.normal(size=feats.shape) * 0.05).astype(np.float32), index)
+    fov = np.asarray([int(str(v).rsplit("/", 1)[-1]) for v in index["fov_name"]])
+    out = dict(store=store, perturbed=perturbed)
+    for name, rows in (("exp_a", fov < EVAL_FOVS // 2), ("exp_b", fov >= EVAL_FOVS // 2)):
+        part = Frame({k: v[rows] for k, v in index.columns.items()}, n_rows=int(rows.sum()))
+        part["experiment"] = np.full(len(part), name, dtype=object)
+        part["marker"] = np.full(len(part), "Phase3D", dtype=object)
+        write_embedding_dataset(tmp / f"eval_{name}.zarr", feats[rows], part)
+        out[name] = tmp / f"eval_{name}.zarr"
+    return out
+
+
+def suite_configs(tmp: Path, stores: dict[str, Path], dev: str) -> dict[str, Path]:
+    """The YAMLs of phase 26 (b)'s subcommands, their outputs under
+    ``suites_<dev>``."""
+    import yaml
+
+    out = tmp / f"suites_{dev}"
+    out.mkdir(exist_ok=True)
+    comparisons = [{"cond_a": "cond0", "cond_b": f"cond{i}", "label": f"cond0_vs_cond{i}"} for i in (1, 2, 3)]
+    mmd = dict(group_by="condition", mmd=SUITE_MMD, output_dir=str(out / "mmd"))
+    cfgs = {
+        "smoothness": dict(models=[{"path": str(stores["store"]), "label": "full"},
+                                   {"path": str(stores["perturbed"]), "label": "perturbed"}],
+                           evaluation=dict(output_dir=str(out / "smoothness"), group_by="condition",
+                                           save_distributions=True)),
+        "compare": dict(result_files=[
+            {"path": str(out / "smoothness" / f"{label}_{Path(stores[key]).stem}_smoothness_stats.csv"),
+             "label": label} for label, key in (("full", "store"), ("perturbed", "perturbed"))],
+            comparison=dict(output_path=str(out / "comparison.md"))),
+        "per_experiment": dict(mmd, input_path=str(stores["store"]), comparisons=comparisons),
+        "combined": dict(mmd, input_paths=[str(stores["exp_a"]), str(stores["exp_b"])]),
+        "pooled": dict(mmd, input_paths=[str(stores["exp_a"]), str(stores["exp_b"])], comparisons=comparisons),
+        "eval": dict(training_config=str(ROOT / "configs" / "dynaclr_fit.yml"), output_dir=str(out / "pipeline"),
+                     label_columns=["state"], group_column="condition"),
+    }
+    paths = {}
+    for name, cfg in cfgs.items():
+        paths[name] = out / f"{name}.yml"
+        paths[name].write_text(yaml.safe_dump(cfg))
+    paths["out"] = out
+    return paths
+
+
+def ctc_suites(card: str, tmp: Path) -> dict:
+    """Phase 26 (b): the config-driven subcommands on phase 23 (b)'s store,
+    on the card and with ``--device cpu`` (see the module docstring)."""
+    stores = suite_stores(tmp, card)
+    results: dict = {}
+    for dev in ("cuda", "cpu"):
+        cfg = suite_configs(tmp, stores, dev)
+        runs = [("evaluate-smoothness", ["evaluate-smoothness", "-c", cfg["smoothness"]]),
+                ("compare-models", ["compare-models", "--embeddings", stores["store"], "--embeddings",
+                                    stores["perturbed"], "--output", cfg["out"] / "live.md"]),
+                ("compare-models -c", ["compare-models", "-c", cfg["compare"]])]
+        runs += [(f"mmd-analysis {mode}", ["mmd-analysis", "-c", cfg[mode], "--mode", mode])
+                 for mode in ("per_experiment", "combined", "pooled")]
+        runs += [("prepare-eval-configs", ["prepare-eval-configs", "-c", cfg["eval"]]),
+                 ("check-evals", ["check-evals", "--output-dir", cfg["out"] / "pipeline"])]
+        for name, args in runs:
+            out, s, peak = eval_cli(args, device=dev)
+            results.setdefault(name, {})[dev] = dict(out=out, seconds=s, peak=peak)
+            if dev == "cuda":
+                log(f"[suites] (b) {name}: {s:.2f} s, peak {peak:.2f} GiB; {' '.join(out.split())[-160:]} ({card})")
+    card_dir, cpu_dir = tmp / "suites_cuda", tmp / "suites_cpu"
+    worst = {}
+    for name in ("full_eval_full_smoothness_stats.csv", "perturbed_eval_perturbed_smoothness_stats.csv",
+                 "full_eval_full_per_condition_smoothness.csv", "combined_smoothness_stats.csv"):
+        worst[name] = _numeric_close(csv_rows(card_dir / "smoothness" / name), csv_rows(cpu_dir / "smoothness" / name),
+                                     1e-6, name)
+    for mode in ("per_experiment", "combined", "pooled"):
+        got, want = csv_rows(card_dir / "mmd" / f"mmd_{mode}.csv"), csv_rows(cpu_dir / "mmd" / f"mmd_{mode}.csv")
+        if not got or any(not math.isfinite(float(r["mmd2"])) for r in got):
+            raise AssertionError(f"phase 26 (b): mmd-analysis {mode} wrote {len(got)} rows, not all finite")
+        worst[f"mmd_{mode}"] = _numeric_close(got, want, 1e-6, f"mmd_{mode}")
+    for name in ("live.md", "comparison.md"):
+        if (card_dir / name).read_text() != (cpu_dir / name).read_text():
+            raise AssertionError(f"phase 26 (b): {name} differs card against CPU")
+    check = _json_out(results["check-evals"]["cuda"]["out"])
+    status = next(iter(check.values()))
+    if status != dict(manifest=True, embeddings=False, smoothness=False, mmd=False, linear_classifiers=False):
+        raise AssertionError(f"phase 26 (b): check-evals {status}")
+    manifest = _json_out(results["prepare-eval-configs"]["cuda"]["out"])
+    if manifest["steps"] != ["predict", "smoothness", "mmd", "linear_classifiers"] or not all(
+            Path(manifest[s]).exists() for s in manifest["steps"]):
+        raise AssertionError(f"phase 26 (b): prepare-eval-configs {manifest}")
+    log(f"[suites] (b) card against CPU: smoothness statistics worst {max(v for k, v in worst.items() if 'mmd' not in k):.2e}, "
+        f"MMD values worst {max(v for k, v in worst.items() if 'mmd' in k):.2e} relative (bound 1e-6), permutation "
+        f"p-values and counts equal, the comparison tables equal; check-evals {status} ({card})")
+    return dict(worst=worst, seconds={k: v["cuda"]["seconds"] for k, v in results.items()})
+
+
+def phase_ctc(card: str, tmp: Path) -> dict:
+    """Phase 26: DynaCLR's CTC tracking benchmark and the config-driven
+    evaluation subcommands (see the module docstring)."""
+    t0 = time.perf_counter()
+    a = ctc_tracking(card, tmp)
+    b = ctc_suites(card, tmp)
+    total = time.perf_counter() - t0
+    log(f"[phase 26] CTC tracking and the config-driven subcommands in {total:.1f} s; fused forward A + B "
+        f"{a['launches']} ({card})")
+    return dict(seconds=total, launches=a["launches"], fwd_err=a["fwd_err"], kernels=a["kernels"], tracking=a,
+                suites=b)
+
+
+# -- legs beside the card-bound phases: host-bound phases in a process of their own on the same card ----------
+
+BESIDE_LIMIT_GIB = 70.0  # the pair's device memory, both processes together
+BESIDE_TIMEOUT_S = 900
+
+
+class _MemoryWatch:
+    """The device's used memory (``cudaMemGetInfo``: every process on the
+    card) sampled every 0.2 s on a thread; ``peak`` in GiB."""
+
+    def __init__(self) -> None:
+        import threading
+
+        self.peak = 0.0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="memory-watch", daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            free, total = torch.cuda.mem_get_info()
+            self.peak = max(self.peak, (total - free) / 2**30)
+            self._stop.wait(0.2)
+
+    def stop(self) -> float:
+        self._stop.set()
+        self._thread.join()
+        return self.peak
+
+
+class Beside:
+    """Run the leg ``LEGS[leg]`` in a ``python3`` process of its own on the
+    same card while the main process runs card-bound phases; its output goes
+    to a log printed whole at :meth:`join`, every line marked ``note``. The
+    device memory of the pair is watched and held under
+    ``BESIDE_LIMIT_GIB``. On leaving the ``with`` block early the process is
+    killed."""
+
+    def __init__(self, leg: str, args: dict, out: Path, note: str, carriers: str) -> None:
+        self.leg, self.out, self.carriers = leg, out, carriers
+        out.mkdir(parents=True, exist_ok=True)
+        (out / "args.json").write_text(json.dumps(_jsonable(args)))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke as cs; "
+                f"cs.beside_main({leg!r}, {str(out)!r}, {note!r})")
+        self._fh = open(out / "leg.log", "w")
+        self.proc = subprocess.Popen([sys.executable, "-c", code], cwd=str(ROOT), stdout=self._fh,
+                                     stderr=subprocess.STDOUT)
+        self.t0 = time.perf_counter()
+        self.memory = _MemoryWatch()
+
+    def __enter__(self) -> "Beside":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.memory.stop()
+        self._fh.close()
+
+    def wait_for(self, marker: Path) -> None:
+        """Block until the leg writes ``marker`` (raises if it ends first)."""
+        while not marker.exists():
+            if self.proc.poll() is not None:
+                self.join()  # raises with its log when it failed
+                return
+            time.sleep(0.2)
+
+    def join(self) -> dict:
+        try:
+            rc = self.proc.wait(timeout=max(1.0, BESIDE_TIMEOUT_S - (time.perf_counter() - self.t0)))
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            rc = f"killed after {BESIDE_TIMEOUT_S} s"
+        window = time.perf_counter() - self.t0
+        peak = self.memory.stop()
+        self._fh.close()
+        for line in (self.out / "leg.log").read_text().splitlines():
+            print(line, flush=True)
+        if rc != 0:
+            raise AssertionError(f"[beside] the leg {self.leg} failed ({rc}); its log is above")
+        result = json.loads((self.out / "result.json").read_text())
+        PHASE_SECONDS.update(result["phase_seconds"])
+        PHASE_SECONDS[f"window: {self.leg} beside {self.carriers}"] = round(window, 1)
+        log(f"[beside] {self.leg} ({result['seconds']:.1f} s in its process) beside {self.carriers}: the window "
+            f"{window:.1f} s; the pair's device memory at most {peak:.2f} GiB (cudaMemGetInfo every 0.2 s; limit "
+            f"{BESIDE_LIMIT_GIB:g})")
+        if peak > BESIDE_LIMIT_GIB:
+            raise AssertionError(f"[beside] {self.leg}: the pair held {peak:.2f} GiB > {BESIDE_LIMIT_GIB:g} GiB")
+        return result
+
+
+def _jsonable(o):
+    """``o`` as JSON can hold it: dict keys as strings, arrays as lists,
+    numpy scalars as numbers, anything else unknown as its ``str``."""
+    if isinstance(o, dict):
+        return {str(k): _jsonable(v) for k, v in o.items()}
+    if isinstance(o, (list, tuple)):
+        return [_jsonable(v) for v in o]
+    if isinstance(o, np.ndarray):
+        return o.tolist()
+    if isinstance(o, (np.floating, np.integer, np.bool_)):
+        return o.item()
+    if o is None or isinstance(o, (bool, int, float, str)):
+        return o
+    return str(o)
+
+
+def beside_main(leg: str, out: str, note: str) -> None:
+    """The entry of a :class:`Beside` process: TF32 off (as :func:`main`
+    sets it), every log line marked ``note``; ``LEGS[leg]`` with the
+    arguments in ``out/args.json``, its result to ``out/result.json``."""
+    out = Path(out)
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    BESIDE["note"] = note
+    t0 = time.perf_counter()
+    result = LEGS[leg](card_line(), **json.loads((out / "args.json").read_text()))
+    result.update(seconds=time.perf_counter() - t0, phase_seconds=dict(PHASE_SECONDS))
+    (out / "result.json").write_text(json.dumps(_jsonable(result)))
+
+
+def leg_24_21_22d(card: str, tmp: str, cli_info: dict, plate: str, plate_grown: str) -> dict:
+    """Phase 24, then phases 21 and 22 (d) on phase 9's plate once phase 11
+    has grown it (``plate_grown`` written), beside phases 20 (a), 11, 12,
+    16 and 19."""
+    p24 = timed_phase("phase_dynacell_eval", phase_dynacell_eval, card, Path(tmp), cli_info)
+    while not Path(plate_grown).exists():
+        time.sleep(0.2)
+    t0 = time.perf_counter()
+    p21 = timed_phase("phase_transforms", phase_transforms, card, Path(tmp), Path(plate))
+    log(f"[phase 21] the remaining transforms in {time.perf_counter() - t0:.1f} s")
+    p22 = timed_phase("phase_datamodules", phase_datamodules, card, Path(tmp), Path(plate))
+    return dict(p24=p24, p21=p21, p22=p22)
+
+
+def leg_23_26(card: str, tmp: str, plate: str, tracks: str, ckpt: str, plate_free: str) -> dict:
+    """Phases 23 and 26, beside phases 17, 25 and 18: ``plate_free`` is
+    written once phase 23 no longer reads phase 14's plate (phase 18
+    removes it)."""
+    p23 = timed_phase("phase_dynaclr_eval", phase_dynaclr_eval, card, Path(tmp), Path(plate), Path(tracks),
+                      Path(ckpt), Path(plate_free))
+    return dict(p23=p23, p26=timed_phase("phase_ctc", phase_ctc, card, Path(tmp)))
+
+
+LEGS = {"leg_24_21_22d": leg_24_21_22d, "leg_23_26": leg_23_26}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is False")
@@ -7774,61 +8328,79 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     t_start = time.perf_counter()
-    card = phase_env()
+    card = timed_phase("phase_env", phase_env)
     # phase 22 (a)-(b) launch none of the port's kernels: they run on the card while nvcc compiles them
 
     def sampling_beside() -> tuple[dict, float]:
         t = time.perf_counter()
         return phase_celldiff_sampling(card), time.perf_counter() - t
 
-    sampling, sampling_s = phase_build(sampling_beside, "phase 22 (a)-(b)")
-    kern = phase_kernel()
-    bwd = phase_kernel_bwd()
-    warp = phase_warp()
-    sl = phase_slice(card)
-    tr = phase_train(card)
-    fit = phase_fit(card)
+    sampling, sampling_s = timed_phase("phase_build", phase_build, sampling_beside, "phase 22 (a)-(b)")
+    PHASE_SECONDS["phase_celldiff_sampling"] = round(sampling_s, 1)
+    # the phases behind the kernel table run alone
+    kern = timed_phase("phase_kernel", phase_kernel)
+    bwd = timed_phase("phase_kernel_bwd", phase_kernel_bwd)
+    warp = timed_phase("phase_warp", phase_warp)
+    sl = timed_phase("phase_slice", phase_slice, card)
+    tr = timed_phase("phase_train", phase_train, card)
+    fit = timed_phase("phase_fit", phase_fit, card)
     with tempfile.TemporaryDirectory(prefix="viscy-cli-") as tmp:
-        cli = phase_cli(card, Path(tmp))
-        stages = phase_stages(card, Path(tmp), cli)
-        p24 = phase_dynacell_eval(card, Path(tmp), cli)
-        t0 = time.perf_counter()
-        qc = phase_qc(card, Path(tmp), cli["fit_plate"])
-        twenty_s = time.perf_counter() - t0
-        pre = phase_pretrain(card, Path(tmp), cli["fit_plate"])
-        unext2 = phase_unext2(card, Path(tmp), cli["fit_plate"])
-        legacy = phase_legacy(card, Path(tmp), cli["fit_plate"])
-        gan = phase_gan(card, Path(tmp), cli["fit_plate"])
-        ddp = phase_ddp(card, Path(tmp), cli["fit_plate"])
-        t0 = time.perf_counter()
-        tta = phase_tta(card)
-        seg = phase_seg(card, Path(tmp))
-        twenty_s += time.perf_counter() - t0
-        t0 = time.perf_counter()
-        p21 = phase_transforms(card, Path(tmp), cli["fit_plate"])
-        log(f"[phase 21] the remaining transforms in {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        p22 = phase_datamodules(card, Path(tmp), cli["fit_plate"])
-        p22_s = time.perf_counter() - t0
-    dynaclr = phase_dynaclr(card)
-    with tempfile.TemporaryDirectory(prefix="viscy-dynaclr-") as tmp:
-        dynaclr_cli = phase_dynaclr_cli(card, Path(tmp))
-        t0 = time.perf_counter()
-        callbacks = phase_callbacks(card, Path(tmp), dynaclr_cli["plate"], dynaclr_cli["tracks"])
-        twenty_s += time.perf_counter() - t0
-        t0 = time.perf_counter()
-        foundation = foundation_leg(card, Path(tmp), dynaclr_cli["plate"], dynaclr_cli["tracks"])
-        classes = classification_leg(card, Path(tmp), dynaclr_cli["plate"])
-        p22_s += time.perf_counter() - t0
-        p23 = phase_dynaclr_eval(card, Path(tmp), dynaclr_cli["plate"], dynaclr_cli["tracks"],
-                                 dynaclr_cli["affine_ckpt"])
-        p25 = phase_joint(card, Path(tmp), dynaclr_cli["plate"])
-        vae = phase_vae(card, Path(tmp), dynaclr_cli["plate"], dynaclr_cli["tracks"])  # removes the plate
+        cli = timed_phase("phase_cli", phase_cli, card, Path(tmp))
+        stages = timed_phase("phase_stages", phase_stages, card, Path(tmp), cli)
+        # phase 24 (the host's watershed, labels and per-cell loops), then 21 and 22 (d) (host window reads and
+        # host transforms) once 11 has grown the plate, beside 20 (a) and the card-bound 11, 12, 16, 19
+        plate_grown = Path(tmp) / "plate_grown"
+        leg = dict(tmp=tmp, cli_info={k: cli[k] for k in ("predict_plate", "predict_store", "ckpt", "predict")},
+                   plate=cli["fit_plate"], plate_grown=plate_grown)
+        carriers = "phases 20 (a), 11, 12, 16, 19"
+        with Beside("leg_24_21_22d", leg, Path(tmp) / "beside_24", f" [beside {carriers}]", carriers) as side:
+            BESIDE["note"] = " [beside phases 24, 21, 22 (d)]"
+            qc = timed_phase("phase_qc", phase_qc, card, Path(tmp), cli["fit_plate"])
+            pre = timed_phase("phase_pretrain", phase_pretrain, card, Path(tmp), cli["fit_plate"])
+            plate_grown.touch()
+            unext2 = timed_phase("phase_unext2", phase_unext2, card, Path(tmp), cli["fit_plate"])
+            legacy = timed_phase("phase_legacy", phase_legacy, card, Path(tmp), cli["fit_plate"])
+            ddp = timed_phase("phase_ddp", phase_ddp, card, Path(tmp), cli["fit_plate"])
+            BESIDE["note"] = ""
+            res = side.join()
+        p24, p21, p22 = res["p24"], res["p21"], res["p22"]
+        p22_s = PHASE_SECONDS["phase_datamodules"]
+        with tempfile.TemporaryDirectory(prefix="viscy-dynaclr-") as tmp2:
+            dynaclr_cli = timed_phase("phase_dynaclr_cli", phase_dynaclr_cli, card, Path(tmp2))
+            # phases 23 (UMAP's eigsh and the cross-checks on the host) and 26 (crops, the ILP, the suites' host
+            # work) beside the card-bound 13, 20 (b)-(d), 22 (c), 17, 25 and 18; 18 removes phase 14's plate, so it
+            # waits until 23 has read it
+            plate_free = Path(tmp2) / "plate_free"
+            leg = dict(tmp=tmp2, plate=dynaclr_cli["plate"], tracks=dynaclr_cli["tracks"],
+                       ckpt=dynaclr_cli["affine_ckpt"], plate_free=plate_free)
+            carriers = "phases 13, 20 (b)-(d), 22 (c), 17, 25, 18"
+            with Beside("leg_23_26", leg, Path(tmp2) / "beside_23_26", f" [beside {carriers}]", carriers) as side:
+                BESIDE["note"] = " [beside phases 23, 26]"
+                dynaclr = timed_phase("phase_dynaclr", phase_dynaclr, card)
+                tta = timed_phase("phase_tta", phase_tta, card)
+                seg = timed_phase("phase_seg", phase_seg, card, Path(tmp))
+                callbacks = timed_phase("phase_callbacks", phase_callbacks, card, Path(tmp2), dynaclr_cli["plate"],
+                                        dynaclr_cli["tracks"])
+                t0 = time.perf_counter()
+                foundation = timed_phase("foundation_leg", foundation_leg, card, Path(tmp2), dynaclr_cli["plate"],
+                                         dynaclr_cli["tracks"])
+                classes = timed_phase("classification_leg", classification_leg, card, Path(tmp2),
+                                      dynaclr_cli["plate"])
+                p22_s += time.perf_counter() - t0
+                gan = timed_phase("phase_gan", phase_gan, card, Path(tmp), cli["fit_plate"])
+                p25 = timed_phase("phase_joint", phase_joint, card, Path(tmp2), dynaclr_cli["plate"])
+                side.wait_for(plate_free)
+                vae = timed_phase("phase_vae", phase_vae, card, Path(tmp2), dynaclr_cli["plate"],
+                                  dynaclr_cli["tracks"])  # removes the plate
+                BESIDE["note"] = ""
+                res = side.join()
+            p23, p26 = res["p23"], res["p26"]
+    twenty_s = sum(PHASE_SECONDS[k] for k in ("phase_qc", "phase_tta", "phase_seg", "phase_callbacks"))
+    with tempfile.TemporaryDirectory(prefix="viscy-celldiff-") as tmp:
+        timed_phase("phase_celldiff", phase_celldiff, card, Path(tmp))
+    p22_s += sampling_s  # phase 22 (a)-(b), beside the build
     log(f"[phase 20] qc, tta, seg and callbacks in {twenty_s:.1f} s (QC {qc['per_fov_s']:.3f} s a FOV, TTA "
         f"{tta['fov_s']:.3f} s a FOV, segmentation {seg['slice_s']:.3f} s a slice)")
-    with tempfile.TemporaryDirectory(prefix="viscy-celldiff-") as tmp:
-        phase_celldiff(card, Path(tmp))
-    p22_s += sampling_s  # phase 22 (a)-(b), beside the build
     log(f"[phase 22] the sampler, tiled generation, the foundation extractors and the new datamodules in "
         f"{p22_s:.1f} s (likelihood peak {sampling['sampler']['methods']['likelihood']['peak_gib']:.2f} GiB; "
         f"foundation predict {foundation['cells_per_s']:.2f} cells/s; classification loader {classes:.2f} "
@@ -7846,7 +8418,13 @@ def main() -> None:
         f"{p25['launches']['bwd']}; per step of both encoders A + B {p25['kernels']['ms']:.3f} ms (bound "
         f"{p25['kernels']['bound_ms']:.3f}), C + D {p25['kernels']['bwd_ms']:.3f} ms (bound "
         f"{p25['kernels']['bwd_bound_ms']:.3f})")
+    log(f"[phase 26] DynaCLR's CTC tracking benchmark and the config-driven subcommands: {p26['seconds']:.1f} s; "
+        f"fused forward A + B {p26['launches']} (v2 encoder, {CTC_BATCH} crops of {CTC_SHAPE[0]}^2 a batch: "
+        f"{p26['kernels']['ms']:.3f} ms a forward, bound {p26['kernels']['bound_ms']:.3f}, plain "
+        f"{p26['kernels']['plain_ms']:.3f})")
+    PHASE_SECONDS["total"] = round(time.perf_counter() - t_start, 1)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"phase_seconds": PHASE_SECONDS}))
     print(card)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     records = [
@@ -7858,11 +8436,11 @@ def main() -> None:
             launches=sl["launches"] + pre["launches"]["fwd"] + unext2["launches"]["fwd"] + gan["launches"]["fwd"]
             + vae["launches"]["fwd"] + ddp["launches"]["fwd"] + tta["launches"]["fwd"]
             + callbacks["launches"]["fwd"] + p21["launches"]["fwd"] + p22["launches"]["fwd"] + p24["launches"]
-            + p25["launches"]["fwd"],
+            + p25["launches"]["fwd"] + p26["launches"],
             **{k: kern[k] for k in keys if k != "max_abs_err"},
             max_abs_err=max(kern["max_abs_err"], pre["kernels"]["fwd_err"], pre["fwd_err"],
                             unext2["kernels"]["fwd_err"], gan["kernels"]["fwd_err"], vae["kernels"]["fwd_err"],
-                            tta["max_abs_err"], p21["fwd_err"], p25["kernels"]["fwd_err"]),
+                            tta["max_abs_err"], p21["fwd_err"], p25["kernels"]["fwd_err"], p26["fwd_err"]),
             library_ms=None,
         ),
         dict(

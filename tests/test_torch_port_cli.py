@@ -104,8 +104,17 @@ def test_the_port_resolves_configs_without_importing_viscy_tpu():
         "viscy_tpu_torch.evaluation.lca, viscy_tpu_torch.evaluation.annotation, "
         "viscy_tpu_torch.apps.dynaclr.mlp_embedder, viscy_tpu_torch.apps.dynaclr.tracking, "
         "viscy_tpu_torch.apps.dynaclr.cli; "
+        # the CTC tracking benchmark, the config-driven DynaCLR suites and the CLI helpers
+        "import viscy_tpu_torch.training.cli_utils, viscy_tpu_torch.data.tiff, "
+        "viscy_tpu_torch.apps.dynaclr.tracking_benchmark, viscy_tpu_torch.apps.dynaclr.tracking_benchmark.config, "
+        "viscy_tpu_torch.apps.dynaclr.tracking_benchmark.graph, viscy_tpu_torch.apps.dynaclr.tracking_benchmark.solver, "
+        "viscy_tpu_torch.apps.dynaclr.tracking_benchmark.ctc, viscy_tpu_torch.apps.dynaclr.tracking_benchmark.embedding, "
+        "viscy_tpu_torch.apps.dynaclr.tracking_benchmark.metrics, "
+        "viscy_tpu_torch.apps.dynaclr.tracking_benchmark.evaluate, "
+        "viscy_tpu_torch.apps.dynaclr.tracking_benchmark.synthetic, viscy_tpu_torch.apps.dynaclr.smoothness_benchmark, "
+        "viscy_tpu_torch.apps.dynaclr.mmd_suite, viscy_tpu_torch.apps.dynaclr.evaluate_pipeline; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'viscy_tpu', 'tensorstore', "
-        "'pydantic', 'sklearn', 'pandas')); "
+        "'pydantic', 'sklearn', 'pandas', 'imageio', 'PIL')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)

@@ -199,12 +199,15 @@ def test_annotations_and_the_waiting_subcommands(stores):
     assert _json(t) == _json(j)
     jo, to = jad.read_anndata_zarr(tmp / "j.zarr").obs, read_anndata_zarr(tmp / "t.zarr").obs
     assert [str(v) for v in to["division"]] == [str(v) for v in jo["division"].to_numpy()]
-    for name, args in (("apply-classifier", ["--embeddings", "x"]), ("mmd-analysis", ["-c", "x"]),
+    for name, args in (("apply-classifier", ["--embeddings", "x"]), ("run-linear-classifiers", ["-c", "x"]),
                        ("build-pseudotime-template", [])):
         with pytest.raises(NotImplementedError, match=name):
             runner.invoke(tcli.main, ["--device", "cpu", name, *args], catch_exceptions=False)
-    with pytest.raises(NotImplementedError, match="tracking_benchmark"):
-        runner.invoke(tcli.main, ["evaluate-tracking-accuracy", "-c", str(tmp / "ann.csv")], catch_exceptions=False)
+    # ported now: a config without the tracking benchmark's fields is refused by name
+    (tmp / "not_tracking.yml").write_text("output_dir: out\n")
+    with pytest.raises(ValueError, match="TrackingAccuracyConfig.models: Field required"):
+        runner.invoke(tcli.main, ["evaluate-tracking-accuracy", "-c", str(tmp / "not_tracking.yml")],
+                      catch_exceptions=False)
     res = runner.invoke(tcli.main, ["combined-dim-reduction", "--embeddings", str(tmp / "t.zarr"), "--method", "umap"])
     assert res.exit_code != 0 and "refused" in res.output
 

@@ -660,6 +660,42 @@ def test_kernels_at_the_joint_encoder_shapes_on_card(s, c, m, dtype, rel):
                          0.999 if dtype == torch.bfloat16 else None)
 
 
+# the CTC tracking benchmark's convnextv2_tiny encoder on 160^2 crops under a
+# (1, 4, 4) stem at batch 128: every (S, C, M) of its forward (204,800 rows a
+# call at stage 1)
+CTC_SHAPES = [(1600, 96, 384), (400, 192, 768), (100, 384, 1536), (25, 768, 3072)]
+CTC_BATCH = 128
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "dtype,rel", [(torch.float32, 1e-4), (torch.bfloat16, 1.5e-2)], ids=["f32", "bf16"]
+)
+@pytest.mark.parametrize("s,c,m", CTC_SHAPES)
+def test_forward_kernels_at_the_ctc_crop_shapes_on_card(s, c, m, dtype, rel):
+    """The forward kernels against their plain version at the tracking
+    benchmark's crop shapes (batch 128), two runs bit-identical, the
+    launches as the batch split gives them. Tolerances as the tests above."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        args, _ = _card_case(s, c, m, dtype, False, b=CTC_BATCH, seed=c + 7)
+        before = tfb.launches
+        got = tfb.fused_mlp_grn(*args)
+        again = tfb.fused_mlp_grn(*args)
+        want = torch.cat([tfb.reference_mlp_grn(args[0][i:i + 32], args[1][i:i + 32], *args[2:])
+                          for i in range(0, CTC_BATCH, 32)])
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert tfb.launches == before + 4 * -(-CTC_BATCH // tfb.samples_per_launch(s, m))
+    assert torch.equal(got, again)
+    r_min = 0.9999 if dtype == torch.bfloat16 else None
+    assert_rel_close(got.float().cpu().numpy(), want.float().cpu().numpy(), rel, r_min)
+
+
 def _new_members():
     from viscy_tpu_torch import transforms as T
 

@@ -67,6 +67,28 @@ def as_int(value: Any) -> int:
     raise ValueError(f"Input should be a valid integer, got {value!r}")
 
 
+def as_bool(value: Any) -> bool:
+    if isinstance(value, bool):
+        return value
+    raise ValueError(f"Input should be a valid boolean, got {value!r}")
+
+
+def any_dict(value: Any) -> dict:
+    if not isinstance(value, dict):
+        raise ValueError(f"Input should be a valid dictionary, got {value!r}")
+    return dict(value)
+
+
+def non_empty(check: Callable) -> Callable:
+    def run(value: Any) -> list:
+        out = check(value)
+        if not out:
+            raise ValueError("List should have at least 1 item after validation, not 0")
+        return out
+
+    return run
+
+
 def optional(check: Callable) -> Callable:
     return lambda value: None if value is None else check(value)
 
@@ -121,8 +143,8 @@ def _dump(value: Any) -> Any:
 
 class Model:
     """A validated record: ``fields`` holds ``(name, check, default)``,
-    ``default`` :data:`REQUIRED`, a value, or a zero-argument factory given
-    as ``list``; ``extra_allowed`` keeps unknown keys."""
+    ``default`` :data:`REQUIRED`, a value, or a zero-argument factory (a
+    callable such as ``list``); ``extra_allowed`` keeps unknown keys."""
 
     fields: tuple[tuple[str, Callable, Any], ...] = ()
     extra_allowed = False
@@ -138,7 +160,7 @@ class Model:
             elif default is REQUIRED:
                 raise ValueError(f"validation error for {type(self).__name__}.{name}: Field required")
             else:
-                value = default() if default is list else default
+                value = default() if callable(default) else default
             self._values[name] = value
         self._extra = dict(data) if self.extra_allowed else {}
 

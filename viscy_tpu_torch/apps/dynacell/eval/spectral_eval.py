@@ -67,6 +67,7 @@ from viscy_tpu_torch.apps.dynacell.eval.spectral import (
     spectral_pcc,
     spectral_weights,
 )
+from viscy_tpu_torch.training.cli_utils import rows_to_csv
 
 __all__ = [
     "corr_coef",
@@ -369,25 +370,6 @@ def evaluate_position(pos_name: str, pos_gt, pos_pred, gt_ch_idx: int, pred_ch_i
         columns.append("DCR_w")
     columns = ["timepoint"] + [c for c in columns if c != "timepoint"]
     return [{c: r.get(c, math.nan) for c in columns} for r in rows]
-
-
-def _cell(value) -> str:
-    """A value as ``DataFrame.to_csv`` writes it: an int as is, a float as
-    its shortest repr, NaN empty."""
-    if isinstance(value, (int, np.integer)):
-        return str(int(value))
-    value = float(value)
-    return "" if math.isnan(value) else repr(value)
-
-
-def rows_to_csv(rows: list[dict]) -> str:
-    """The text of ``pd.DataFrame(rows).to_csv(index=False)`` for rows that
-    share their keys' order (as :func:`evaluate_position` returns them)."""
-    if not rows:
-        return "\n"
-    columns = list(rows[0])
-    lines = [",".join(columns)] + [",".join(_cell(r[c]) for c in columns) for r in rows]
-    return "\n".join(lines) + "\n"
 
 
 def resolve_spacing(pos, cfg: dict) -> list[float]:

@@ -24,6 +24,8 @@ from pathlib import Path
 
 import numpy as np
 
+from viscy_tpu_torch.training.cli_utils import csv_quote
+
 __all__ = [
     "PIXEL_METRICS",
     "MASK_METRICS",
@@ -82,18 +84,13 @@ class Table:
     def to_csv(self, path: str | Path | None = None) -> str:
         """``DataFrame.to_csv`` of the table: the index first, its header
         empty; a missing cell empty."""
-        lines = [",".join(["", *map(_quote, self.columns)]) if self.columns else '""']
+        lines = [",".join(["", *map(csv_quote, self.columns)]) if self.columns else '""']
         for row in self.index:
-            lines.append(",".join([_quote(row), *(_quote(self.cell(row, c) or "") for c in self.columns)]))
+            lines.append(",".join([csv_quote(row), *(csv_quote(self.cell(row, c) or "") for c in self.columns)]))
         text = "\n".join(lines) + "\n"
         if path is not None:
             Path(path).write_text(text)
         return text
-
-
-def _quote(s: str) -> str:
-    """A CSV field as the csv module's minimal quoting writes it."""
-    return f'"{s.replace(chr(34), chr(34) * 2)}"' if any(ch in s for ch in ',"\n\r') else s
 
 
 def _float(cell: str) -> float:

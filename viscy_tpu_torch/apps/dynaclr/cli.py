@@ -15,6 +15,17 @@ Departures from the reference kept from JAX (``ROADMAP.md`` Queue 3):
 in a string column that went through a store reads back as the string
 ``"nan"`` and counts as a label. The subcommands of later slices raise
 with their name and what they wait for.
+
+The config-driven subcommands (``evaluate-smoothness``, ``compare-models
+-c``, ``mmd-analysis``, ``prepare-eval-configs``, ``evaluate-tracking-accuracy
+-c``) validate JAX's YAML without pydantic and write the CSV text pandas
+writes. Departures (``ROADMAP.md`` Queue 3): ``save_plots`` defaults to
+false and ``save_plots: true`` is refused by name before any work (no
+matplotlib on the card's machine); a sequence or model that fails raises
+where JAX logs it and leaves it out; ``evaluate-tracking-accuracy -c``
+prints its ``results.csv`` (JAX: the DataFrame's ``to_string``) and, on
+stderr, one JSON line a sequence with its node and edge counts and the
+seconds of the crops, the embedding and the solve.
 """
 
 from __future__ import annotations
@@ -156,17 +167,31 @@ def mmd(embeddings: str, group_column: str, group_a: str, group_b: str, permutat
 
 @main.command("evaluate-tracking-accuracy")
 @click.option("--config", "-c", "config_path", default=None, type=click.Path(exists=True),
-              help="CTC benchmark config YAML (full ILP tracking; not ported)")
+              help="CTC benchmark config YAML (full ILP tracking + CTC metrics)")
 @click.option("--embeddings", default=None, type=click.Path(exists=True),
               help="embedding store for the quick greedy-linking accuracy check")
 @click.option("--spatial-gate", default=50.0, type=float)
 def evaluate_tracking_accuracy(config_path: str | None, embeddings: str | None, spatial_gate: float) -> None:
-    """Greedy embedding-linking accuracy against the ground-truth track ids
-    (``--embeddings``); the CTC benchmark (``-c``) is not ported."""
+    """The CTC tracking-accuracy benchmark (``-c``: candidate graph, ILP,
+    DET / TRA / LNK / BIO / CHOTA), or the greedy embedding-linking accuracy
+    against the ground-truth track ids (``--embeddings``)."""
     if (config_path is None) == (embeddings is None):
         raise click.UsageError("pass exactly one of --config or --embeddings")
     if config_path is not None:
-        _refuse("evaluate-tracking-accuracy -c")
+        from viscy_tpu_torch.apps.dynaclr.tracking_benchmark import TrackingAccuracyConfig, run_tracking_accuracy
+        from viscy_tpu_torch.training.cli_utils import load_config, rows_to_csv
+
+        cfg = TrackingAccuracyConfig(**load_config(config_path))
+        stats: list[dict] = []
+        rows = run_tracking_accuracy(cfg, device=_device(), stats=stats)
+        for st in stats:
+            click.echo(json.dumps({k: v for k, v in st.items() if k != "x"}), err=True)
+        if not rows:
+            click.echo("No results produced.", err=True)
+        else:
+            click.echo(rows_to_csv(rows), nl=False)
+            click.echo(f"\nResults written to {Path(cfg.output_dir) / 'results.csv'}")
+        return
     from viscy_tpu_torch.apps.dynaclr.tracking import link_by_embedding, tracking_accuracy
 
     ds = _load(embeddings)
@@ -391,6 +416,136 @@ def append_predictions_cmd(embeddings, classifier, task, features_key):
     click.echo(f"Wrote predicted_{task} for {len(ds['index'])} cells")
 
 
+@main.command("evaluate-smoothness")
+@click.option("--config", "-c", "config_path", required=True, type=click.Path(exists=True))
+def evaluate_smoothness_cmd(config_path: str) -> None:
+    """Config-driven temporal smoothness across models: per-group CSVs and
+    the markdown comparison."""
+    from viscy_tpu_torch.apps.dynaclr.smoothness_benchmark import (
+        SmoothnessEvalConfig,
+        evaluate_smoothness,
+        format_comparison_summary,
+    )
+    from viscy_tpu_torch.training.cli_utils import format_markdown_table, load_config
+
+    raw = load_config(config_path)
+    cfg = SmoothnessEvalConfig(**raw.pop("evaluation", {}), models=raw.get("models", []))
+    results = evaluate_smoothness(cfg, device=_device())
+    if not results:
+        click.echo("No models were successfully processed.", err=True)
+        return
+    columns = ["smoothness_score", "dynamic_range", "adjacent_frame_mean", "adjacent_frame_peak",
+               "random_frame_mean", "random_frame_peak"]
+    rows = [{"model": label, **{c: metrics.get(c) for c in columns}} for label, metrics in results.items()]
+    click.echo(format_markdown_table(rows, title="Temporal smoothness evaluation"))
+    click.echo(format_comparison_summary(results, "smoothness_score", lower_is_better=True))
+    click.echo(format_comparison_summary(results, "dynamic_range", lower_is_better=False))
+    click.echo(f"Results saved to: {cfg.output_dir}")
+
+
+@main.command("compare-models")
+@click.option("--embeddings", "embedding_dirs", multiple=True, type=click.Path(exists=True))
+@click.option("--config", "-c", "config_path", default=None, type=click.Path(exists=True),
+              help="compare previously saved result CSVs")
+@click.option("--distance-metric", default="cosine")
+@click.option("--output", default=None, type=click.Path())
+def compare_models(embedding_dirs, config_path, distance_metric, output):
+    """Model comparison: live smoothness over embedding stores
+    (``--embeddings``) or saved result files (``-c``)."""
+    from viscy_tpu_torch.training.cli_utils import format_markdown_table, load_config
+
+    if config_path is not None:
+        from viscy_tpu_torch.apps.dynaclr.smoothness_benchmark import (
+            CompareModelsConfig,
+            compare_result_files,
+            pipe_table,
+        )
+
+        raw = load_config(config_path)
+        cfg = CompareModelsConfig(result_files=raw.get("result_files", []), **raw.get("comparison", {}))
+        labels, metrics, table = compare_result_files(cfg)
+        if not labels:
+            click.echo("No valid result files were loaded", err=True)
+            return
+        click.echo("Model comparison")
+        click.echo(pipe_table("model", labels, metrics, table))
+        if cfg.output_path:
+            click.echo(f"Results saved to: {cfg.output_path}")
+        return
+    if not embedding_dirs:
+        raise click.UsageError("pass --embeddings stores or a -c results config")
+    from viscy_tpu_torch.evaluation.smoothness import compute_embeddings_smoothness
+
+    rows = []
+    for d in embedding_dirs:
+        ds = _load(d)
+        res = compute_embeddings_smoothness(ds["features"], _index_with_fov_name(ds), distance_metric,
+                                            device=_device())
+        rows.append({"model": Path(d).name, **{k: v for k, v in res.items() if isinstance(v, (int, float))}})
+    table = format_markdown_table(rows, title="Model comparison")
+    if output:
+        Path(output).write_text(table)
+    click.echo(table)
+
+
+@main.command("inspect-batches")
+@click.option("--config", "-c", required=True, type=click.Path(exists=True))
+@click.option("--num-batches", default=2)
+def inspect_batches(config, num_batches):
+    """Instantiate the config's datamodule and print each batch's shapes
+    and dtypes."""
+    from viscy_tpu_torch.training.cli_utils import load_config, to_numpy
+    from viscy_tpu_torch.training.instantiate import instantiate
+
+    dm = instantiate(load_config(config)["data"])
+    dm.prepare_data()
+    dm.setup("fit")
+    for i, batch in enumerate(dm.train_dataloader()):
+        if i >= num_batches:
+            break
+        desc = {k: (list(np.shape(v)), str(to_numpy(v).dtype)) for k, v in batch.items() if hasattr(v, "shape")}
+        click.echo(json.dumps({"batch": i, **desc}, default=str))
+
+
+@main.command("prepare-eval-configs")
+@click.option("--config", "-c", required=True, type=click.Path(exists=True))
+def prepare_eval_configs(config):
+    """Per-step evaluation configs and a JSON manifest."""
+    from viscy_tpu_torch.apps.dynaclr.evaluate_pipeline import prepare_configs
+
+    click.echo(json.dumps(prepare_configs(config), indent=2))
+
+
+@main.command("check-evals")
+@click.option("--output-dir", "output_dirs", multiple=True, required=True, type=click.Path())
+def check_evals(output_dirs):
+    """Which per-step artifacts exist, per evaluation output directory."""
+    from viscy_tpu_torch.apps.dynaclr.evaluate_pipeline import check_evals as check
+
+    click.echo(json.dumps(check(output_dirs), indent=2))
+
+
+@main.command("mmd-analysis")
+@click.option("--config", "-c", required=True, type=click.Path(exists=True))
+@click.option("--mode", default="per_experiment", type=click.Choice(["per_experiment", "combined", "pooled"]))
+def mmd_analysis_cmd(config: str, mode: str) -> None:
+    """The MMD perturbation-effect suite: per-experiment comparisons,
+    cross-experiment batch effects, or the pooled analysis."""
+    import yaml
+
+    from viscy_tpu_torch.apps.dynaclr.mmd_suite import run_mode
+    from viscy_tpu_torch.training.cli_utils import rows_to_csv
+
+    with open(config) as f:
+        raw = yaml.safe_load(f)
+    cfg, rows = run_mode(raw, mode, device=_device())
+    out_dir = Path(cfg.output_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    csv_path = out_dir / f"mmd_{mode}.csv"
+    csv_path.write_text(rows_to_csv(rows))
+    click.echo(f"wrote {len(rows)} rows to {csv_path}")
+
+
 # subcommands of later slices: each raises with its name and what it waits for (ROADMAP.md Queue 1)
 WAITING = {
     "apply-classifier": "a parquet writer (it writes its predictions as parquet)",
@@ -401,18 +556,11 @@ WAITING = {
     "plot-embeddings": "plot_embeddings.py (a pydantic config; matplotlib, absent on the card's machine)",
     "visualize-embeddings": "evaluation/visualization.py (matplotlib, absent on the card's machine)",
     "plot-mmd-heatmap": "evaluation/visualization.py (matplotlib, absent on the card's machine)",
-    "evaluate-smoothness": "smoothness_benchmark.py (a pydantic config)",
-    "compare-models": "smoothness_benchmark.py (a pydantic config) and training/cli_utils.py",
-    "inspect-batches": "training/cli_utils.py",
-    "prepare-eval-configs": "evaluate_pipeline.py (a pydantic config)",
-    "check-evals": "evaluate_pipeline.py (a pydantic config)",
     "run-linear-classifiers": "linear_classifiers/* (and linear_classifier.py:104-233)",
     "cross-validate-datasets": "linear_classifiers/* (and linear_classifier.py:104-233)",
-    "mmd-analysis": "mmd_suite.py (a pydantic config)",
     "build-pseudotime-template": "pseudotime/* (with host kernel H2)",
     "align-pseudotime": "pseudotime/* (with host kernel H2)",
     "evaluate-pseudotime": "pseudotime/* (with host kernel H2)",
-    "evaluate-tracking-accuracy -c": "tracking_benchmark/* (the ILP tracker)",
 }
 
 
@@ -431,8 +579,7 @@ def _waiting(name: str):
 
 
 for _name in WAITING:
-    if " " not in _name:
-        _waiting(_name)
+    _waiting(_name)
 
 main.add_command(main.commands["train-classifier"], name="train-linear-classifier")
 
