@@ -540,26 +540,59 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
            permutations), ``prepare-eval-configs`` and ``check-evals``, each
            on the card and with ``--device cpu``: every statistic and MMD
            value within 1e-6 relative, the p-values and counts equal.
+27. lc, pseudotime  DynaCLR's dataset-level linear classifiers and DTW
+           pseudotime, through ``python -m viscy_tpu_torch.apps.dynaclr.cli``
+           in process, on phase 23 (b)'s seeded store split by FOV into 5
+           experiment stores of 10,000 cells (``experiment`` and a
+           two-marker ``marker`` column) with annotation CSVs (``treated``
+           from the condition, the 4-class ``state``). (a)
+           ``run-linear-classifiers -c`` at JAX's defaults (liblinear), the
+           split grouped by FOV, published: the binary task trains per
+           marker, the 4-class task is skipped (liblinear refuses it, as in
+           JAX), the figures are refused by name after everything is
+           written; on the card and with ``--device cpu``: the objective
+           within 1e-9 relative, the probabilities on every cell within
+           1e-6, accuracy and F1 equal (or the cells within 1e-6 of a tie
+           printed). (b) ``cross-validate-datasets -c`` over the 5 stores
+           (lbfgs, both tasks, one seed: 50 folds of 768 features) on the
+           card: seconds, peak memory, finite AUROCs, the impact labels;
+           then on a copy of each store's first 2000 cells through PCA 16,
+           on the card and with ``--device cpu``: the CSVs within 1e-6
+           relative, accuracy and F1 equal. (c) ``build-pseudotime-template``
+           (PCA 20, DBA at its defaults) from a copy of the store whose
+           infected frames are shifted and a seeded tracks CSV of the first
+           4 FOVs (lineages; three tracks in four turn ``infected`` at a
+           seeded onset), on the card and with ``--device cpu``: the
+           template within 1e-6 of its range; host kernel H2
+           (``csrc/dtw.cpp``) bit for bit against its plain version on every
+           DP of the CPU build's first DBA iteration, microseconds a call of
+           each; ``dtw_align_tracks`` of every track (warp paths equal card
+           against CPU) and ``evaluate_embedding``: AUC, AP, onset rho; H2's
+           launches on the card's path counted.
 
 Phase 20 (a) runs after phase 10, on phase 9's plate of 4 FOVs; phases 11,
 12, 16 and 19 after it, 12, 16 and 19 on that plate grown by phase 11; 24
 (on the cli phase's predict plate and checkpoint), then 21 and 22 (d) (on
 the grown plate) beside them; then phase 14, and on its plate and tracks
 13, 20 (b)-(d), 22 (c), 17, 25 and 18 beside 23 (also on its affine fit's
-checkpoint) and 26 (in 23's directory); 22 (a)-(b) during the build; 15
-last.
+checkpoint) and 26 (in 23's directory); 22 (a)-(b) during the build; 27
+beside 9 and 10; 15 last.
 
 Host-bound phases run beside card-bound ones, each leg in a process of its
 own on the same card (``Beside``): phases 24, 21 and 22 (d) beside 20 (a),
 11, 12, 16 and 19 (21 waits until 11 has grown the plate); phases 23 and 26
 beside 13, 20 (b)-(d), 22 (c), 17, 25 and 18 (18 waits until 23 has read
-the plate it removes). The device memory of each pair is
+the plate it removes); phase 27 (store reads, annotation joins and the DTW
+on the host; a few GiB on the card) beside 9 and 10 (beside 15, whose fit
+reserves most of the card, the pair held more than the limit). The device
+memory of each pair is
 watched and held under 70 GiB; every line printed by a phase that ran
 beside another ends with ``[beside phases ...]``. The phases behind the
 kernel table (3-7) run alone. After the ``[done]`` line: one JSON line
 ``{"phase_seconds": {...}}`` (each phase's wall seconds, the legs' in their
 own processes, and each window's), the card's name and power limit, a JSON
-``kernels`` record and the JSON result line.
+``kernels`` record (with ``host_kernels``: H2, the DTW DP, which stays on
+the host) and the JSON result line.
 Needs ``torch.cuda.is_available()`` and the repo's ``viscy_tpu_torch``
 beside this file. Imports nothing of JAX or ``viscy_tpu``.
 """
@@ -8166,6 +8199,353 @@ def phase_ctc(card: str, tmp: Path) -> dict:
                 suites=b)
 
 
+# -- phase 27: DynaCLR's dataset-level linear classifiers and DTW pseudotime ----------------------------------
+
+LC_EXPERIMENTS = 5  # phase 23 (b)'s store split by FOV: two FOVs (10,000 cells) an experiment
+LC_MARKERS = ("Phase3D", "RFP")  # by track parity
+LC_XCHECK_CELLS = 2000  # (b)'s card-against-CPU copy: each experiment's first cells
+LC_XCHECK_PCA = 16  # ... through PCA, so the CPU's multinomial Newton steps stay small
+PT_FOVS = 4  # (c): the tracks CSV covers the first FOVs (1000 tracks)
+PT_PCA = 20
+
+
+def lc_experiments(tmp: Path, card: str) -> dict:
+    """Phase 23 (b)'s seeded store split by FOV into ``LC_EXPERIMENTS``
+    stores (``experiment`` and ``marker`` columns), each also as
+    ``<exp>/Phase3D.zarr`` for the CV, and an annotation CSV each: ``treated``
+    (conditions 2 and 3) and the 4-class ``state``, one label in 50 left
+    empty and one ``unknown``."""
+    import csv
+
+    from viscy_tpu_torch.evaluation.anndata_lite import Frame
+    from viscy_tpu_torch.training.callbacks.embedding_writer import read_embedding_dataset, write_embedding_dataset
+
+    ds = read_embedding_dataset(eval_full_store(tmp, card))
+    feats, obs = np.asarray(ds.X), ds.obs
+    fov = np.asarray([int(str(v).rsplit("/", 1)[-1]) for v in obs["fov_name"]])
+    root = tmp / "lc"
+    out = dict(root=root, combined=root / "combined", experiments=[])
+    t0 = time.perf_counter()
+    for e in range(LC_EXPERIMENTS):
+        name = f"exp{e}"
+        rows = np.flatnonzero(fov // (EVAL_FOVS // LC_EXPERIMENTS) == e)
+        part = Frame({k: obs[k][rows] for k in ("fov_name", "track_id", "t", "id", "y", "x")})
+        part["experiment"] = np.full(len(rows), name, dtype=object)
+        part["marker"] = np.asarray([LC_MARKERS[int(t) % 2] for t in part["track_id"]], dtype=object)
+        write_embedding_dataset(out["combined"] / f"{name}.zarr", feats[rows], part)
+        (root / name).mkdir(parents=True)
+        (root / name / "Phase3D.zarr").symlink_to(out["combined"] / f"{name}.zarr")
+        with open(root / f"{name}.csv", "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["fov_name", "id", "t", "track_id", "treated", "state"])
+            for k, i in enumerate(rows.tolist()):
+                treated = "treated" if str(obs["condition"][i]) in ("cond2", "cond3") else "control"
+                w.writerow([obs["fov_name"][i], obs["id"][i], obs["t"][i], obs["track_id"][i],
+                            "" if k % 50 == 7 else "unknown" if k % 50 == 8 else treated, obs["state"][i]])
+        out["experiments"].append(name)
+    log(f"[lc] {LC_EXPERIMENTS} experiment stores of {len(feats) // LC_EXPERIMENTS} cells (two markers) and their "
+        f"annotation CSVs written in {time.perf_counter() - t0:.1f} s ({card})")
+    return out
+
+
+def _lc_config(exp: dict, dev: str) -> Path:
+    import yaml
+
+    root = exp["root"]
+    cfg = dict(embeddings_path=str(exp["combined"]), output_dir=str(root / f"lc_{dev}"),
+               annotations=[dict(experiment=e, path=str(root / f"{e}.csv")) for e in exp["experiments"]],
+               tasks=[dict(task="treated"), dict(task="state")], split_groups_by=["fov_name"],
+               publish_dir=str(root / f"registry_{dev}"))
+    path = root / f"lc_{dev}.yml"
+    path.write_text(yaml.safe_dump(cfg))
+    return path
+
+
+def _refused_figures(args: list, dev: str) -> float:
+    """``run-linear-classifiers`` through the CLI: it must write everything
+    and then raise at the figures; its seconds."""
+    t0 = time.perf_counter()
+    try:
+        eval_cli(args, device=dev)
+    except NotImplementedError as e:
+        if "summary_treated.pdf" not in str(e):
+            raise
+    else:
+        raise AssertionError("phase 27 (a): run-linear-classifiers did not refuse its figures")
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _predictions_agree(card_pipe, cpu_pipe, X: np.ndarray, tag: str) -> tuple[float, int]:
+    """Both pipelines' probabilities on the CPU on ``X``: their max|d| and
+    the count of differing predictions, which must all be within 1e-6 of a
+    tie in the card's decision (printed)."""
+    card_pipe.device = cpu_pipe.device = torch.device("cpu")
+    pa, pb = card_pipe.predict_proba(X), cpu_pipe.predict_proba(X)
+    err = float(np.abs(pa - pb).max())
+    if err > 1e-6:
+        raise AssertionError(f"phase 27 {tag}: probabilities card against CPU {err:.3e} > 1e-6")
+    differ = np.flatnonzero(card_pipe.predict(X) != cpu_pipe.predict(X))
+    if len(differ):
+        z = card_pipe.decision_function(X[differ]).numpy()
+        margin = np.abs(z[:, 0]) if z.shape[1] == 1 else np.abs(np.diff(np.sort(z, axis=1)[:, -2:], axis=1)[:, 0])
+        log(f"[lc] {tag}: {len(differ)} predictions differ card against CPU, decision margins {margin.tolist()}")
+        if margin.max() >= 1e-6:
+            raise AssertionError(f"phase 27 {tag}: a prediction differs at margin {margin.max():.3e} >= 1e-6")
+    return err, len(differ)
+
+
+def _cells_close(got: list[dict], want: list[dict], rel: float, tag: str, equal=("accuracy", "f1")) -> float:
+    """Two CSVs' rows: the same columns and text but in numbers, which agree
+    within ``rel`` relative (``temporal_metrics`` JSON parsed); accuracy and
+    F1 columns equal. The worst relative difference."""
+    if len(got) != len(want) or any(list(a) != list(b) for a, b in zip(got, want)):
+        raise AssertionError(f"phase 27 {tag}: the card's and the CPU's tables differ in shape")
+
+    def numbers(cell: str) -> list:
+        if cell.startswith("{"):
+            return [x for v in json.loads(cell).values() for x in v]
+        return [float(cell)]
+
+    worst = 0.0
+    for a, b in zip(got, want):
+        for k in b:
+            if a[k] == b[k]:
+                continue
+            try:
+                xs, ys = numbers(a[k]), numbers(b[k])
+            except ValueError:
+                raise AssertionError(f"phase 27 {tag}: {k} {a[k]!r} against {b[k]!r}") from None
+            if any(e in k for e in equal) or len(xs) != len(ys) or [x is None for x in xs] != [y is None for y in ys]:
+                raise AssertionError(f"phase 27 {tag}: {k} {a[k]} against {b[k]} (must be equal)")
+            for x, y in zip(xs, ys):
+                if x is not None:
+                    worst = max(worst, abs(x - y) / max(abs(y), 1e-300))
+    if worst > rel:
+        raise AssertionError(f"phase 27 {tag}: card against CPU {worst:.3e} relative > {rel:g}")
+    return worst
+
+
+def lc_orchestrated(card: str, exp: dict) -> dict:
+    """Phase 27 (a): ``run-linear-classifiers -c`` at JAX's defaults
+    (liblinear; the split grouped by FOV; published), on the card and with
+    ``--device cpu``."""
+    from viscy_tpu_torch.evaluation.linear_classifier import LinearClassifierPipeline
+    from viscy_tpu_torch.training.callbacks.embedding_writer import read_embedding_dataset
+
+    seconds = {dev: _refused_figures(["run-linear-classifiers", "-c", _lc_config(exp, dev)], dev)
+               for dev in ("cuda", "cpu")}
+    root = exp["root"]
+    rows = {dev: csv_rows(root / f"lc_{dev}" / "metrics_summary.csv") for dev in ("cuda", "cpu")}
+    if [(r["task"], r["marker_filter"]) for r in rows["cuda"]] != [("treated", m) for m in LC_MARKERS]:
+        raise AssertionError(f"phase 27 (a): trained {[(r['task'], r['marker_filter']) for r in rows['cuda']]}; "
+                             "the binary task per marker, the 4-class one skipped (liblinear), as in JAX")
+    latest = root / "registry_cuda" / "latest"
+    if not (latest / "manifest.json").exists():
+        raise AssertionError("phase 27 (a): no published bundle")
+    X = np.concatenate([np.asarray(read_embedding_dataset(exp["combined"] / f"{e}.zarr").X)
+                        for e in exp["experiments"]])
+    worst_obj = worst_p = 0.0
+    ties = 0
+    for m in LC_MARKERS:
+        a, b = (LinearClassifierPipeline.load(root / f"lc_{dev}" / "pipelines" / f"treated_{m}.npz", device="cpu")
+                for dev in ("cuda", "cpu"))
+        worst_obj = max(worst_obj, abs(a.objective - b.objective) / abs(b.objective))
+        err, differ = _predictions_agree(a, b, X, f"(a) treated/{m}")
+        worst_p, ties = max(worst_p, err), ties + differ
+    if worst_obj > 1e-9:
+        raise AssertionError(f"phase 27 (a): liblinear objective card against CPU {worst_obj:.3e} relative > 1e-9")
+    # accuracy and F1 equal, unless a prediction sits within 1e-6 of a tie (printed above)
+    worst_csv = _cells_close(rows["cuda"], rows["cpu"], 1e-6 if not ties else 1e-2, "(a) metrics_summary.csv",
+                             equal=("accuracy", "f1") if not ties else ())
+    r = rows["cuda"][0]
+    log(f"[lc] (a) run-linear-classifiers -c (liblinear, grouped by FOV, published): {seconds['cuda']:.1f} s on the "
+        f"card, {seconds['cpu']:.1f} s on the CPU; treated/{LC_MARKERS[0]} val accuracy {float(r['val_accuracy']):.4f}"
+        f", AUROC {float(r['val_auroc']):.4f}; the 4-class task skipped as in JAX; card against CPU: objective "
+        f"{worst_obj:.2e} relative (bound 1e-9), probabilities max|d| {worst_p:.2e} (bound 1e-6), the CSV's numbers "
+        f"{worst_csv:.2e} relative; the figures refused by name ({card})")
+    return dict(seconds=seconds, objective_rel=worst_obj, proba_err=worst_p)
+
+
+def _cv_config(root: Path, exp: dict, dev: str, name: str, **extra) -> Path:
+    import yaml
+
+    datasets = [dict(name=e, embeddings_dir=str(root / e), annotations=str(exp["root"] / f"{e}.csv"))
+                for e in exp["experiments"]]
+    cfg = dict(models={"seeded": dict(datasets=datasets)}, output_dir=str(root / f"{name}_{dev}"), channels=["Phase3D"],
+               solver="lbfgs", n_bootstrap=1, marker="Phase3D", **extra)
+    path = root / f"{name}_{dev}.yml"
+    path.write_text(yaml.safe_dump(cfg))
+    return path
+
+
+def lc_cross_validation(card: str, exp: dict) -> dict:
+    """Phase 27 (b): ``cross-validate-datasets -c`` over the five stores
+    (lbfgs, both tasks, one seed) on the card; then on a copy of each
+    store's first ``LC_XCHECK_CELLS`` cells through a PCA, on the card and
+    with ``--device cpu``."""
+    from viscy_tpu_torch.training.callbacks.embedding_writer import read_embedding_dataset, write_embedding_dataset
+
+    root = exp["root"]
+    out, s, peak = eval_cli(["cross-validate-datasets", "-c", _cv_config(root, exp, "cuda", "cv")], device="cuda")
+    res = csv_rows(root / "cv_cuda" / "cv_results.csv")
+    summary = csv_rows(root / "cv_cuda" / "cv_summary.csv")
+    if len(res) != 2 * LC_EXPERIMENTS * LC_EXPERIMENTS or any(r.get("error") for r in res) or not all(
+            math.isfinite(float(r["auroc"])) for r in res):
+        raise AssertionError(f"phase 27 (b): {len(res)} CV rows, errors or non-finite AUROCs")
+    small = root / "small"
+    for e in exp["experiments"]:
+        ds = read_embedding_dataset(exp["combined"] / f"{e}.zarr")
+        keep = np.arange(LC_XCHECK_CELLS)
+        write_embedding_dataset(small / e / "Phase3D.zarr", np.asarray(ds.X)[keep], ds.obs.take(keep))
+    t0 = {}
+    for dev in ("cuda", "cpu"):
+        t = time.perf_counter()
+        eval_cli(["cross-validate-datasets", "-c", _cv_config(small, exp, dev, "cv", n_pca_components=LC_XCHECK_PCA)],
+                 device=dev)
+        t0[dev] = time.perf_counter() - t
+    worst = {name: _cells_close(csv_rows(small / "cv_cuda" / name), csv_rows(small / "cv_cpu" / name), 1e-6,
+                                f"(b) {name}") for name in ("cv_results.csv", "cv_summary.csv")}
+    base = {(r["task"]): float(r["mean_auroc"]) for r in summary if r["excluded_dataset"] == "baseline"}
+    log(f"[lc] (b) cross-validate-datasets -c (lbfgs, {len(res)} folds over {LC_EXPERIMENTS} stores of "
+        f"{EVAL_T * EVAL_TRACKS * EVAL_FOVS // LC_EXPERIMENTS} cells, {EVAL_DIM} features): {s:.1f} s, peak {peak:.2f} GiB; "
+        f"baseline AUROC {base}; impacts {[r['impact'] for r in summary if r['excluded_dataset'] != 'baseline']}; "
+        f"the {LC_XCHECK_CELLS}-cell copy through PCA {LC_XCHECK_PCA}: {t0['cuda']:.1f} s on the card, "
+        f"{t0['cpu']:.1f} s on the CPU, card against CPU {max(worst.values()):.2e} relative (bound 1e-6), accuracy "
+        f"and F1 equal ({card})")
+    return dict(seconds=s, peak=peak, xcheck_seconds=t0, worst=worst)
+
+
+def pt_inputs(tmp: Path, exp: dict) -> tuple[Path, Path]:
+    """(c)'s store and tracks CSV: the 50,000 cells with the features of
+    infected frames shifted along one seeded direction; the tracks of the
+    first ``PT_FOVS`` FOVs, three in four turning ``infected`` at a seeded
+    onset (frames 5-14), every tenth a child of the track before it."""
+    import csv
+
+    from viscy_tpu_torch.training.callbacks.embedding_writer import read_embedding_dataset, write_embedding_dataset
+
+    ds = read_embedding_dataset(tmp / "eval_full.zarr")
+    X, obs = np.asarray(ds.X).copy(), ds.obs
+    rng = np.random.default_rng(27)
+    shift = (rng.normal(size=X.shape[1]) * 0.15).astype(np.float32)
+    onset = rng.integers(5, 15, size=(EVAL_FOVS, EVAL_TRACKS))
+    fov = np.asarray([int(str(v).rsplit("/", 1)[-1]) for v in obs["fov_name"]])
+    tr, t = np.asarray(obs["track_id"]), np.asarray(obs["t"])
+    infected = (fov < PT_FOVS) & (tr % 4 != 0) & (t >= onset[fov, tr])
+    X[infected] += shift
+    store = tmp / "pt.zarr"
+    write_embedding_dataset(store, X, obs)
+    tracks = tmp / "pt_tracks.csv"
+    with open(tracks, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["fov_name", "track_id", "t", "parent_track_id", "infection_state"])
+        for i in np.flatnonzero(fov < PT_FOVS).tolist():
+            w.writerow([obs["fov_name"][i], tr[i], t[i], tr[i] - 1 if tr[i] % 10 == 5 else -1,
+                        "infected" if infected[i] else "uninfected"])
+    return store, tracks
+
+
+def pt_template(card: str, tmp: Path, exp: dict) -> dict:
+    """Phase 27 (c): ``build-pseudotime-template`` on the card (its DTW in
+    host kernel H2, counted) and with ``--device cpu``; H2 against its plain
+    version on every DP of the CPU build's first DBA iteration; then
+    ``dtw_align_tracks`` of every track and ``evaluate_embedding``."""
+    from viscy_tpu_torch.apps.dynaclr.pseudotime import dtw_core
+    from viscy_tpu_torch.apps.dynaclr.pseudotime.dtw_alignment import (alignment_results_to_dataframe,
+                                                                       dtw_align_tracks)
+    from viscy_tpu_torch.apps.dynaclr.pseudotime.evaluation import evaluate_embedding
+    from viscy_tpu_torch.apps.dynaclr.pseudotime.io import load_template_flavor
+    from viscy_tpu_torch.data._tracks import read_csv
+    from viscy_tpu_torch.training.callbacks.embedding_writer import read_embedding_dataset
+
+    store, tracks = pt_inputs(tmp, exp)
+    args = ["build-pseudotime-template", "--embeddings", store, "--tracks-csv", tracks, "--pca-components", PT_PCA,
+            "--propagate-columns", "infection_state"]
+    dtw_core.launches["dtw_dp"] = 0
+    out, s_card, peak = eval_cli([*args, "--output", tmp / "pt_cuda.zarr"], device="cuda")
+    build_launches = dtw_core.launches["dtw_dp"]
+    card_tpl, _ = load_template_flavor(tmp / "pt_cuda.zarr")
+    n = card_tpl.n_input_tracks
+    first = (50 * (n - 1) if n > 50 else n * (n - 1), (50 * (n - 1) if n > 50 else n * (n - 1)) + n)
+    captured, calls, h2 = [], [0], dtw_core.dtw_accumulated_cost
+
+    def capture(cost, subsequence=False):
+        if first[0] <= calls[0] < first[1]:
+            captured.append((np.array(cost, np.float64), subsequence))
+        calls[0] += 1
+        return h2(cost, subsequence)
+
+    dtw_core.dtw_accumulated_cost = capture
+    try:
+        t0 = time.perf_counter()
+        eval_cli([*args, "--output", tmp / "pt_cpu.zarr"], device="cpu")
+        s_cpu = time.perf_counter() - t0
+    finally:
+        dtw_core.dtw_accumulated_cost = h2
+    cpu_tpl, _ = load_template_flavor(tmp / "pt_cpu.zarr")
+    span = float(cpu_tpl.template.max() - cpu_tpl.template.min())
+    tpl_err = float(np.abs(card_tpl.template - cpu_tpl.template).max()) / span
+    if card_tpl.template.shape != cpu_tpl.template.shape or tpl_err > 1e-6:
+        raise AssertionError(f"phase 27 (c): template card against CPU {tpl_err:.3e} of range > 1e-6")
+    # H2 against its plain version on the first DBA iteration's DPs, bit for bit; each one's time a call
+    t0 = time.perf_counter()
+    got = [h2(c, sub) for c, sub in captured]
+    h2_us = (time.perf_counter() - t0) / len(captured) * 1e6
+    t0 = time.perf_counter()
+    want = [dtw_core.dtw_accumulated_cost_plain(c, sub) for c, sub in captured]
+    plain_us = (time.perf_counter() - t0) / len(captured) * 1e6
+    if len(captured) != n or any(g.tobytes() != w.tobytes() for g, w in zip(got, want)):
+        raise AssertionError(f"phase 27 (c): H2 differs from its plain version on the first DBA iteration "
+                             f"({len(captured)} DPs for {n} tracks)")
+    adata, df = read_embedding_dataset(store), read_csv(tracks)
+    dtw_core.launches["dtw_dp"] = 0  # the CPU build's and the comparison's calls are not the path's
+    t0 = time.perf_counter()
+    results = dtw_align_tracks(adata, df, card_tpl, "ds", device="cuda")
+    s_align = time.perf_counter() - t0
+    launches = build_launches + dtw_core.launches["dtw_dp"]
+    cpu_results = dtw_align_tracks(adata, df, cpu_tpl, "ds", device="cpu")
+    if len(results) != len(cpu_results) or any(not np.array_equal(a.warping_path, b.warping_path)
+                                                for a, b in zip(results, cpu_results)):
+        raise AssertionError("phase 27 (c): the warp paths differ card against CPU")
+    table = alignment_results_to_dataframe(results)
+    state = {k: v for k, v in zip(zip(df["fov_name"].tolist(), df["track_id"].tolist(), df["t"].tolist()),
+                                  df["infection_state"].tolist())}
+    table["infection_state"] = np.asarray([state[k] for k in zip(table["fov_name"].tolist(),
+                                                                 table["track_id"].tolist(), table["t"].tolist())],
+                                          dtype=object)
+    scores = evaluate_embedding(table)
+    if not all(math.isfinite(v) for v in scores.values()) or scores["auc"] < 0.6:
+        raise AssertionError(f"phase 27 (c): evaluate_embedding {scores}")
+    log(f"[pseudotime] (c) build-pseudotime-template (PCA {PT_PCA}, DBA at its defaults) from {n} infected tracks: "
+        f"{s_card:.1f} s on the card (peak {peak:.2f} GiB), {s_cpu:.1f} s on the CPU; template {card_tpl.template.shape}"
+        f", card against CPU {tpl_err:.2e} of range (bound 1e-6); H2 bit for bit against its plain version on the "
+        f"{len(captured)} DPs of the first DBA iteration: {h2_us:.1f} us a call against {plain_us:.1f} us; "
+        f"dtw_align_tracks of {len(results)} tracks {s_align:.1f} s, warp paths equal card against CPU; H2 launched "
+        f"{launches} times on the path; evaluate_embedding: AUC {scores['auc']:.4f}, AP "
+        f"{scores['average_precision']:.4f}, onset rho {scores['onset_concordance_rho']:.4f} over "
+        f"{scores['onset_concordance_n_tracks']} tracks ({card})")
+    cost = captured[0][0]
+    T, N = cost.shape
+    bound_ms = 8 * (T * N + (T + 1) * (N + 1)) / HBM_BYTES_PER_S * 1e3
+    return dict(seconds=s_card, cpu_seconds=s_cpu, launches=launches, h2_ms=h2_us / 1e3, plain_ms=plain_us / 1e3,
+                bound_ms=bound_ms, template_err=tpl_err, scores=scores, tracks=len(results))
+
+
+def phase_lc_pseudotime(card: str, tmp: Path) -> dict:
+    """Phase 27: DynaCLR's dataset-level linear classifiers and DTW
+    pseudotime (see the module docstring)."""
+    t0 = time.perf_counter()
+    exp = lc_experiments(tmp, card)
+    a = lc_orchestrated(card, exp)
+    b = lc_cross_validation(card, exp)
+    c = pt_template(card, tmp, exp)
+    total = time.perf_counter() - t0
+    log(f"[phase 27] linear classifiers and pseudotime in {total:.1f} s; H2 launches {c['launches']} ({card})")
+    return dict(seconds=total, lc=a, cv=b, pseudotime=c)
+
+
+
 # -- legs beside the card-bound phases: host-bound phases in a process of their own on the same card ----------
 
 BESIDE_LIMIT_GIB = 70.0  # the pair's device memory, both processes together
@@ -8278,13 +8658,17 @@ def _jsonable(o):
 
 def beside_main(leg: str, out: str, note: str) -> None:
     """The entry of a :class:`Beside` process: TF32 off (as :func:`main`
-    sets it), every log line marked ``note``; ``LEGS[leg]`` with the
+    sets it), every log line (and log record) marked ``note``; ``LEGS[leg]`` with the
     arguments in ``out/args.json``, its result to ``out/result.json``."""
     out = Path(out)
     sys.path.insert(0, str(ROOT))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     BESIDE["note"] = note
+    # the library's log records and warnings carry the mark too
+    logging.basicConfig(level=logging.WARNING, format="%(levelname)s %(name)s: %(message)s" + note.replace("%", "%%"),
+                        force=True)
+    logging.captureWarnings(True)
     t0 = time.perf_counter()
     result = LEGS[leg](card_line(), **json.loads((out / "args.json").read_text()))
     result.update(seconds=time.perf_counter() - t0, phase_seconds=dict(PHASE_SECONDS))
@@ -8314,7 +8698,12 @@ def leg_23_26(card: str, tmp: str, plate: str, tracks: str, ckpt: str, plate_fre
     return dict(p23=p23, p26=timed_phase("phase_ctc", phase_ctc, card, Path(tmp)))
 
 
-LEGS = {"leg_24_21_22d": leg_24_21_22d, "leg_23_26": leg_23_26}
+def leg_27(card: str, tmp: str) -> dict:
+    """Phase 27, beside phases 9 and 10."""
+    return dict(p27=timed_phase("phase_lc_pseudotime", phase_lc_pseudotime, card, Path(tmp)))
+
+
+LEGS = {"leg_24_21_22d": leg_24_21_22d, "leg_23_26": leg_23_26, "leg_27": leg_27}
 
 
 def main() -> None:
@@ -8345,8 +8734,15 @@ def main() -> None:
     tr = timed_phase("phase_train", phase_train, card)
     fit = timed_phase("phase_fit", phase_fit, card)
     with tempfile.TemporaryDirectory(prefix="viscy-cli-") as tmp:
-        cli = timed_phase("phase_cli", phase_cli, card, Path(tmp))
-        stages = timed_phase("phase_stages", phase_stages, card, Path(tmp), cli)
+        # phase 27 (store reads, joins, splits and the DTW on the host; a few GiB on the card) beside 9 and 10;
+        # beside phase 15 the pair held 71.61 GiB of the card (phase 15's fit reserves most of it)
+        carriers = "phases 9, 10"
+        with Beside("leg_27", dict(tmp=tmp), Path(tmp) / "beside_27", f" [beside {carriers}]", carriers) as side:
+            BESIDE["note"] = " [beside phase 27]"
+            cli = timed_phase("phase_cli", phase_cli, card, Path(tmp))
+            stages = timed_phase("phase_stages", phase_stages, card, Path(tmp), cli)
+            BESIDE["note"] = ""
+            p27 = side.join()["p27"]
         # phase 24 (the host's watershed, labels and per-cell loops), then 21 and 22 (d) (host window reads and
         # host transforms) once 11 has grown the plate, beside 20 (a) and the card-bound 11, 12, 16, 19
         plate_grown = Path(tmp) / "plate_grown"
@@ -8422,6 +8818,9 @@ def main() -> None:
         f"fused forward A + B {p26['launches']} (v2 encoder, {CTC_BATCH} crops of {CTC_SHAPE[0]}^2 a batch: "
         f"{p26['kernels']['ms']:.3f} ms a forward, bound {p26['kernels']['bound_ms']:.3f}, plain "
         f"{p26['kernels']['plain_ms']:.3f})")
+    log(f"[phase 27] linear classifiers and pseudotime: {p27['seconds']:.1f} s; (a) liblinear objective card "
+        f"against CPU {p27['lc']['objective_rel']:.1e} relative; H2 {p27['pseudotime']['h2_ms'] * 1e3:.1f} us a call "
+        f"(plain {p27['pseudotime']['plain_ms'] * 1e3:.1f} us), {p27['pseudotime']['launches']} launches")
     PHASE_SECONDS["total"] = round(time.perf_counter() - t_start, 1)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"phase_seconds": PHASE_SECONDS}))
@@ -8470,7 +8869,11 @@ def main() -> None:
             library_ms=warp["library_ms"],
         ),
     ]
-    print(json.dumps({"kernels": records}))
+    pt = p27["pseudotime"]
+    host = [dict(name="dtw_dp", route="host", source="viscy_tpu_torch/csrc/dtw.cpp",
+                 replaces="viscy_tpu/native/dtw.cpp:19", launches=pt["launches"], max_abs_err=0.0, ms=pt["h2_ms"],
+                 plain_ms=pt["plain_ms"], bound_ms=pt["bound_ms"], bound_by="bytes", library_ms=None)]
+    print(json.dumps({"kernels": records, "host_kernels": host}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
 

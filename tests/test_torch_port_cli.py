@@ -113,6 +113,16 @@ def test_the_port_resolves_configs_without_importing_viscy_tpu():
         "viscy_tpu_torch.apps.dynaclr.tracking_benchmark.evaluate, "
         "viscy_tpu_torch.apps.dynaclr.tracking_benchmark.synthetic, viscy_tpu_torch.apps.dynaclr.smoothness_benchmark, "
         "viscy_tpu_torch.apps.dynaclr.mmd_suite, viscy_tpu_torch.apps.dynaclr.evaluate_pipeline; "
+        # the linear-classifier pipelines and the DTW pseudotime package
+        "import viscy_tpu_torch.apps.dynaclr.linear_classifiers, "
+        "viscy_tpu_torch.apps.dynaclr.linear_classifiers.utils, "
+        "viscy_tpu_torch.apps.dynaclr.linear_classifiers.orchestrated, "
+        "viscy_tpu_torch.apps.dynaclr.linear_classifiers.cross_validation, "
+        "viscy_tpu_torch.apps.dynaclr.pseudotime, viscy_tpu_torch.apps.dynaclr.pseudotime.dtw_core, "
+        "viscy_tpu_torch.apps.dynaclr.pseudotime.alignment, viscy_tpu_torch.apps.dynaclr.pseudotime.dtw_alignment, "
+        "viscy_tpu_torch.apps.dynaclr.pseudotime.io, viscy_tpu_torch.apps.dynaclr.pseudotime.signals, "
+        "viscy_tpu_torch.apps.dynaclr.pseudotime.metrics, viscy_tpu_torch.apps.dynaclr.pseudotime.evaluation, "
+        "viscy_tpu_torch.apps.dynaclr.pseudotime._legacy, viscy_tpu_torch.apps.dynaclr.pseudotime._tables; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'viscy_tpu', 'tensorstore', "
         "'pydantic', 'sklearn', 'pandas', 'imageio', 'PIL')); "
         "print(bad); sys.exit(1 if bad else 0)"

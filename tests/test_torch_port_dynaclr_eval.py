@@ -36,6 +36,12 @@ from viscy_tpu_torch.training.convert import mlp_state_dict_from_flax
 N_FOV, N_TRACKS, N_T, D = 2, 6, 5, 12
 
 
+def _template_rows(path):
+    from viscy_tpu_torch.apps.dynaclr.pseudotime.io import load_template_flavor
+
+    return load_template_flavor(path)[0].template
+
+
 def _cells(seed=0):
     """Tracks drifting around 3 class centres: features, projections, the
     index rows and a label CSV's rows."""
@@ -199,10 +205,28 @@ def test_annotations_and_the_waiting_subcommands(stores):
     assert _json(t) == _json(j)
     jo, to = jad.read_anndata_zarr(tmp / "j.zarr").obs, read_anndata_zarr(tmp / "t.zarr").obs
     assert [str(v) for v in to["division"]] == [str(v) for v in jo["division"].to_numpy()]
-    for name, args in (("apply-classifier", ["--embeddings", "x"]), ("run-linear-classifiers", ["-c", "x"]),
-                       ("build-pseudotime-template", [])):
+    for name, args in (("apply-classifier", ["--embeddings", "x"]), ("align-pseudotime", []),
+                       ("evaluate-pseudotime", [])):
         with pytest.raises(NotImplementedError, match=name):
             runner.invoke(tcli.main, ["--device", "cpu", name, *args], catch_exceptions=False)
+    # ported now: run-linear-classifiers needs the experiment and marker columns (JAX's error, word for word) ...
+    (tmp / "lc.yml").write_text(f"embeddings_path: {tmp / 't.zarr'}\noutput_dir: {tmp / 'lc'}\n")
+    with pytest.raises(ValueError) as want:
+        runner.invoke(jcli.main, ["run-linear-classifiers", "-c", str(tmp / "lc.yml")], catch_exceptions=False)
+    with pytest.raises(ValueError) as got:
+        runner.invoke(tcli.main, ["--device", "cpu", "run-linear-classifiers", "-c", str(tmp / "lc.yml")],
+                      catch_exceptions=False)
+    assert str(got.value) == str(want.value)
+    # ... and build-pseudotime-template builds JAX's template from the store and a tracks CSV
+    tracks = pd.DataFrame(_cells()[2])[["fov_name", "track_id", "t", "parent_track_id"]]
+    tracks["fov_name"] = tracks["fov_name"].str.strip("/")  # as the store keeps it
+    tracks["infection_state"] = np.where((tracks["track_id"] % 2 == 1) & (tracks["t"] >= 2), "infected", "uninfected")
+    tracks.to_csv(tmp / "tracks.csv", index=False)
+    j, t = _both(stores, ["build-pseudotime-template", "--embeddings", "{S}", "--tracks-csv", str(tmp / "tracks.csv"),
+                          "--pca-components", "4", "--output", "{D}"])
+    assert t.replace("t_out", "") == j.replace("j_out", "")
+    np.testing.assert_allclose(_template_rows(tmp / "t_out"), _template_rows(tmp / "j_out"),
+                               atol=1e-6)
     # ported now: a config without the tracking benchmark's fields is refused by name
     (tmp / "not_tracking.yml").write_text("output_dir: out\n")
     with pytest.raises(ValueError, match="TrackingAccuracyConfig.models: Field required"):

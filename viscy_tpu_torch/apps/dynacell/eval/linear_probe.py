@@ -73,27 +73,13 @@ def group_kfold(groups: np.ndarray, n_splits: int) -> list[tuple[np.ndarray, np.
 
 
 def roc_auc_score(y_true: np.ndarray, y_score: np.ndarray) -> float:
-    """Binary ``sklearn.metrics.roc_auc_score`` (the larger label positive):
-    scores sorted descending (stable), the cumulative true and false
-    positives at each distinct score, collinear points dropped, the
-    trapezoid from (0, 0)."""
+    """Binary ``sklearn.metrics.roc_auc_score`` (the larger label
+    positive), NaN unless ``y_true`` holds two labels
+    (:func:`viscy_tpu_torch.evaluation.linear_classifier.roc_auc`)."""
+    from viscy_tpu_torch.evaluation.linear_classifier import roc_auc
+
     y_true = np.asarray(y_true)
-    labels = np.unique(y_true)
-    if len(labels) != 2:
-        return float("nan")
-    pos = (y_true == labels[1]).astype(np.float64)
-    order = np.argsort(-np.asarray(y_score, np.float64), kind="stable")
-    score = np.asarray(y_score)[order]
-    pos = pos[order]
-    thresholds = np.concatenate([np.nonzero(np.diff(score))[0], [pos.size - 1]])
-    tps = np.cumsum(pos)[thresholds]
-    fps = 1 + thresholds.astype(np.float64) - tps
-    if fps.shape[0] > 2:
-        keep = np.concatenate([[True], np.logical_or(np.diff(fps, 2), np.diff(tps, 2)), [True]])
-        fps, tps = fps[keep], tps[keep]
-    fps = np.concatenate([[0.0], fps])
-    tps = np.concatenate([[0.0], tps])
-    return float(np.trapezoid(tps / tps[-1], fps / fps[-1]))
+    return roc_auc(y_true, np.asarray(y_score, np.float64)) if len(np.unique(y_true)) == 2 else float("nan")
 
 
 def fov_stratified_auroc(X: np.ndarray, y: np.ndarray, fov_id: np.ndarray, n_splits: int = 5, rng_seed: int = 2020,

@@ -26,6 +26,16 @@ where JAX logs it and leaves it out; ``evaluate-tracking-accuracy -c``
 prints its ``results.csv`` (JAX: the DataFrame's ``to_string``) and, on
 stderr, one JSON line a sequence with its node and edge counts and the
 seconds of the crops, the embedding and the solve.
+
+``run-linear-classifiers -c`` and ``cross-validate-datasets -c`` take JAX's
+YAML and train their probes on the device (``solver`` defaults to
+``liblinear``, binary only, as in JAX). ``run-linear-classifiers`` writes
+``metrics_summary.csv``, ``.npz`` pipelines (JAX: sklearn pickles) and the
+published bundle, then raises at JAX's per-task PDF figures (matplotlib);
+``cross-validate-datasets --report`` is refused before any work.
+``build-pseudotime-template`` runs (its DTW in host kernel H2);
+``align-pseudotime`` and ``evaluate-pseudotime`` write and read parquet and
+stay refused.
 """
 
 from __future__ import annotations
@@ -546,6 +556,72 @@ def mmd_analysis_cmd(config: str, mode: str) -> None:
     click.echo(f"wrote {len(rows)} rows to {csv_path}")
 
 
+@main.command("run-linear-classifiers")
+@click.option("--config", "-c", required=True, type=click.Path(exists=True))
+def run_linear_classifiers_cmd(config: str) -> None:
+    """Orchestrated per-(task, marker) probe training from a combined
+    embedding store: ``metrics_summary.csv``, ``.npz`` pipelines, the
+    published bundle; then raises at JAX's per-task figures (matplotlib)."""
+    import yaml
+
+    from viscy_tpu_torch.apps.dynaclr.linear_classifiers.orchestrated import run_linear_classifiers
+
+    with open(config) as f:
+        cfg = yaml.safe_load(f)
+    rows = run_linear_classifiers(Path(cfg["embeddings_path"]), cfg, Path(cfg.get("output_dir", "lc_out")),
+                                  device=_device())
+    if not rows:
+        click.echo("no classifiers trained")
+
+
+@main.command("cross-validate-datasets")
+@click.option("--config", "-c", required=True, type=click.Path(exists=True))
+@click.option("--task", default=None, help="override the task from the config")
+@click.option("--report", is_flag=True, default=False, help="refused: the PDF report needs matplotlib")
+def cross_validate_datasets_cmd(config: str, task: str | None, report: bool) -> None:
+    """Rotating leave-one-dataset-out CV with impact analysis; prints the
+    summary CSV."""
+    import yaml
+
+    from viscy_tpu_torch.apps.dynaclr.linear_classifiers.cross_validation import REPORT_REFUSAL, cross_validate
+    from viscy_tpu_torch.training.cli_utils import rows_to_csv
+
+    if report:
+        raise NotImplementedError(REPORT_REFUSAL)
+    with open(config) as f:
+        cfg = yaml.safe_load(f)
+    if task:
+        cfg["task"] = task
+    _, summary = cross_validate(cfg, device=_device())
+    click.echo(rows_to_csv(summary).rstrip("\n") if summary else "no cross-validation results")
+
+
+@main.command("build-pseudotime-template")
+@click.option("--embeddings", required=True, type=click.Path(exists=True))
+@click.option("--tracks-csv", required=True, type=click.Path(exists=True))
+@click.option("--output", required=True, type=click.Path())
+@click.option("--dataset-id", default="ds")
+@click.option("--frame-interval-minutes", default=30.0, type=float)
+@click.option("--pca-components", default=20, type=int)
+@click.option("--infection-col", default="infection_state")
+@click.option("--propagate-columns", default=None, help="comma-separated obs columns")
+def build_pseudotime_template_cmd(embeddings, tracks_csv, output, dataset_id, frame_interval_minutes, pca_components,
+                                  infection_col, propagate_columns) -> None:
+    """Build a DTW pseudotime template: anchor tracks on their lineage's
+    infection, DBA-average their trajectories, write the template zarr."""
+    from viscy_tpu_torch.apps.dynaclr.pseudotime.alignment import align_tracks
+    from viscy_tpu_torch.apps.dynaclr.pseudotime.dtw_alignment import build_template
+    from viscy_tpu_torch.apps.dynaclr.pseudotime.io import save_template_zarr
+    from viscy_tpu_torch.data._tracks import read_csv
+
+    aligned = align_tracks(read_csv(tracks_csv), frame_interval_minutes, infection_col=infection_col)
+    template = build_template({dataset_id: _load(embeddings)}, {dataset_id: aligned}, pca_n_components=pca_components,
+                              propagate_columns=propagate_columns.split(",") if propagate_columns else None,
+                              device=_device())
+    save_template_zarr(output, template)
+    click.echo(f"template: {template.template.shape} from {template.n_input_tracks} tracks -> {output}")
+
+
 # subcommands of later slices: each raises with its name and what it waits for (ROADMAP.md Queue 1)
 WAITING = {
     "apply-classifier": "a parquet writer (it writes its predictions as parquet)",
@@ -556,11 +632,10 @@ WAITING = {
     "plot-embeddings": "plot_embeddings.py (a pydantic config; matplotlib, absent on the card's machine)",
     "visualize-embeddings": "evaluation/visualization.py (matplotlib, absent on the card's machine)",
     "plot-mmd-heatmap": "evaluation/visualization.py (matplotlib, absent on the card's machine)",
-    "run-linear-classifiers": "linear_classifiers/* (and linear_classifier.py:104-233)",
-    "cross-validate-datasets": "linear_classifiers/* (and linear_classifier.py:104-233)",
-    "build-pseudotime-template": "pseudotime/* (with host kernel H2)",
-    "align-pseudotime": "pseudotime/* (with host kernel H2)",
-    "evaluate-pseudotime": "pseudotime/* (with host kernel H2)",
+    "align-pseudotime": "a parquet writer (Queue 1 item 10): it writes the alignment as parquet; "
+                        "pseudotime.dtw_align_tracks and alignment_results_to_dataframe are ported",
+    "evaluate-pseudotime": "a parquet reader (Queue 1 item 10): it reads the alignment parquet; "
+                           "pseudotime.evaluation.evaluate_embedding is ported",
 }
 
 

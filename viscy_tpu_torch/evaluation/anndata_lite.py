@@ -51,7 +51,7 @@ class Frame:
         if len(lengths) > 1:
             raise ValueError(f"columns and index of unequal length: {sorted(lengths)}")
         n = lengths.pop() if lengths else 0
-        self.index = np.asarray([str(i) for i in (range(n) if index is None else index)], dtype=object)
+        self.index = (np.arange(n) if index is None else np.asarray(index)).astype(str).astype(object)
 
     @classmethod
     def from_records(cls, records: list[dict]) -> "Frame":

@@ -85,9 +85,10 @@ def load_annotation(dataset, path: str | Path, name: str, categories: dict | Non
 def load_annotation_anndata(adata, path: str | Path, name: str, **kwargs):
     """Join the annotation column ``name`` onto ``adata.obs`` and return
     ``adata``; ``KeyError`` when the CSV lacks the column."""
-    from viscy_tpu_torch.data._tracks import _csv_columns
+    import csv
 
-    cols = _csv_columns(Path(path))[0]
+    with open(path, newline="") as f:
+        cols = [h if h else f"Unnamed: {i}" for i, h in enumerate(next(csv.reader(f), []))]
     if name not in cols:
         raise KeyError(f"task {name!r} not in annotation CSV columns {list(cols)}")
     load_annotation(adata.obs, path, name, **kwargs)

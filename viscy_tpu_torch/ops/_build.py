@@ -1,13 +1,14 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's kernels.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with a
 plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a build
-takes seconds). Libraries land in ``viscy_tpu_torch/build/`` under a name
+takes seconds); each ``csrc/<name>.cpp`` (a host kernel) compiles the same
+way with the host compiler (``g++ -O3 -shared -fPIC -std=c++17``). Libraries land in ``viscy_tpu_torch/build/`` under a name
 that carries a hash of the source, so an edited source rebuilds and a
-stale library is never loaded; nvcc's output is kept beside it as
-``<library>.log``. Nothing here runs at import time: the first
+stale library is never loaded; the compiler's output is kept beside it
+as ``<library>.log``. Nothing here runs at import time: the first
 call to :func:`load` builds, and :func:`build_all` builds every source at
-once, one ``nvcc`` process per source, all started together. Builds hold a
+once, one compiler process per source, all started together. Builds hold a
 lock: a :func:`load` in one thread while another builds waits, then finds
 the library on disk.
 """
@@ -30,6 +31,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _building = threading.Lock()
@@ -40,7 +42,7 @@ class BuildResult:
     name: str
     path: Path
     seconds: float  # 0.0 when an up-to-date library was already on disk
-    log: str  # nvcc's output, ``-Xptxas -v`` register/smem/spill lines included
+    log: str  # the compiler's output (nvcc's with its ``-Xptxas -v`` register/smem/spill lines)
     cached: bool = False  # the library and its log come from an earlier build
 
 
@@ -55,11 +57,28 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the CUDA toolkit is required")
 
 
+def _host_compiler() -> str:
+    name = os.environ.get("CXX", "g++")
+    found = shutil.which(name)
+    if found:
+        return found
+    raise RuntimeError(f"{name} (the host C++ compiler; CXX names another) not found on PATH; host kernels need one")
+
+
+def _source(name: str) -> Path:
+    for suffix in (".cu", ".cpp"):
+        if (CSRC / f"{name}{suffix}").exists():
+            return CSRC / f"{name}{suffix}"
+    raise FileNotFoundError(CSRC / f"{name}.cu")
+
+
+def _flags(src: Path) -> tuple[str, ...]:
+    return NVCC_FLAGS if src.suffix == ".cu" else HOST_FLAGS
+
+
 def _target(name: str) -> tuple[Path, Path]:
-    src = CSRC / f"{name}.cu"
-    if not src.exists():
-        raise FileNotFoundError(src)
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    src = _source(name)
+    digest = hashlib.sha1(src.read_bytes() + " ".join(_flags(src)).encode()).hexdigest()[:12]
     return src, BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -68,16 +87,17 @@ def _log_path(lib: Path) -> Path:
 
 
 def build_all(names: list[str] | None = None) -> list[BuildResult]:
-    """Compile the named sources (default: every ``csrc/*.cu``) in parallel.
+    """Compile the named sources (default: every ``csrc/*.cu`` and
+    ``csrc/*.cpp``) in parallel.
 
-    Raises ``RuntimeError`` with nvcc's output if any build fails.
+    Raises ``RuntimeError`` with the compiler's output if any build fails.
     """
     with _building:
         return _build_all(names)
 
 
 def _build_all(names: list[str] | None) -> list[BuildResult]:
-    names = names or sorted(p.stem for p in CSRC.glob("*.cu"))
+    names = names or sorted(p.stem for p in [*CSRC.glob("*.cu"), *CSRC.glob("*.cpp")])
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
     for name in names:
@@ -86,7 +106,8 @@ def _build_all(names: list[str] | None) -> list[BuildResult]:
             jobs.append((name, lib, None, None, 0.0))
             continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        compiler = _nvcc() if src.suffix == ".cu" else _host_compiler()
+        cmd = [compiler, *_flags(src), "-o", str(tmp), str(src)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         jobs.append((name, lib, tmp, proc, time.perf_counter()))
     results = []
@@ -101,7 +122,7 @@ def _build_all(names: list[str] | None) -> list[BuildResult]:
         seconds = time.perf_counter() - t0
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
-            failures.append(f"nvcc failed for {name} (exit {proc.returncode}):\n{log}")
+            failures.append(f"{Path(proc.args[0]).name} failed for {name} (exit {proc.returncode}):\n{log}")
             continue
         _log_path(lib).write_text(log)
         os.replace(tmp, lib)
@@ -112,7 +133,8 @@ def _build_all(names: list[str] | None) -> list[BuildResult]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, building it first if needed."""
+    """The loaded library for ``csrc/<name>.cu`` (or ``.cpp``), building it
+    first if needed."""
     lib = _loaded.get(name)
     if lib is None:
         (result,) = build_all([name])

@@ -604,15 +604,24 @@ def linear_pipeline_from_jax(pipeline, device: str = "cuda"):
     (run where sklearn is installed, then ``save`` the result): the scaler's
     ``mean_`` and ``scale_``, the classifier's ``coef_``, ``intercept_`` and
     ``classes_``, and the optional PCA's ``components_`` and ``mean_``, all
-    read as numpy arrays."""
+    read as numpy arrays, and the ``task`` the dataset-level probe sets. A
+    liblinear classifier's ``intercept_`` already carries its
+    ``intercept_scaling``, and a PCA's ``transform`` (``whiten=False``) is
+    ``(x - mean_) @ components_.T``, as the port applies it."""
     from viscy_tpu_torch.evaluation.linear_classifier import LinearClassifierPipeline
 
     scaler, clf, pca = pipeline.scaler, pipeline.classifier, getattr(pipeline, "pca", None)
-    return LinearClassifierPipeline(
+    if pca is not None and getattr(pca, "whiten", False):
+        raise NotImplementedError("a whitened PCA in a JAX pipeline is not carried across (the port's pipeline "
+                                  "projects without whitening)")
+    port = LinearClassifierPipeline(
         None if scaler is None else np.asarray(scaler.mean_), None if scaler is None else np.asarray(scaler.scale_),
         np.asarray(clf.coef_), np.asarray(clf.intercept_), np.asarray(clf.classes_),
         None if pca is None else np.asarray(pca.components_), None if pca is None else np.asarray(pca.mean_),
         device=device)
+    if hasattr(pipeline, "task"):
+        port.task = pipeline.task
+    return port
 
 
 def state_dict_from_flax(
