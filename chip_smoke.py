@@ -6,8 +6,10 @@
 Phases (each prints its own lines; any failure raises and exits non-zero):
 
 1. env     torch/CUDA versions and ``nvidia-smi`` name and power limit.
-2. build   compile every ``viscy_tpu_torch/csrc/*.cu`` with nvcc (one process
-           per source, started together); print seconds and ``-Xptxas -v``.
+2. build   compile every ``viscy_tpu_torch/csrc/*.cu`` with nvcc and every
+           ``*.cpp`` (host kernels H1 and H2) with the host compiler (one
+           process per source, started together); print seconds and
+           ``-Xptxas -v``.
            Phase 22 (a)-(b), which launch none of the port's kernels, run on
            the card meanwhile.
 3. kernel  for every distinct (S, C, M) the flagship gives the fused
@@ -122,7 +124,20 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
            seconds per labeled batch, export seconds and MiB, CUDA-event
            medians of the program and the eager forward, precompute seconds
            and MB/s, staging seconds, and the memory-mapped fit's patches/s
-           and loader-wait share beside phase 9's.
+           and loader-wait share beside phase 9's. Then the cached fit:
+           ``fit`` with phase 9's overrides and ``data.init_args.caching:
+           true`` (the FOVs preloaded, the weighted crop pushed down to the
+           preloaded views and cut by host kernel H1,
+           ``csrc/crop_norm.cpp``): launch counts of the five kernels and of
+           H1, patches/s and the loader-wait share beside phase 9's and the
+           memory-mapped fit's; one item's time split (the cached CDF, the
+           origin draws, the crop, the sample assembly); on one batch's
+           origins H1 against its plain version and the per-patch copies it
+           replaces, bit for bit, ms per batch of each, its host bound
+           (bytes read and written at one ``np.copyto``'s rate on one thread
+           and on all), and its thread count a call (one a hardware thread,
+           JAX's default, against ``max(1, cores // num_workers)``) with the
+           loader's 8 threads cropping at once.
 11. pretrain FCMAE masked pretraining and the encoder-only fine-tune at
            full width (``configs/fcmae_pretrain.yml``, then
            ``configs/vscyto2d_finetune.yml``). (a) The masked forward and
@@ -569,6 +584,25 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
            each; ``dtw_align_tracks`` of every track (warp paths equal card
            against CPU) and ``evaluate_embedding``: AUC, AP, onset rho; H2's
            launches on the card's path counted.
+28. features, parity  the engineered cell features and the
+           released-checkpoint parity harness. (a) ``python -m
+           viscy_tpu_torch.training.parity --output <tmp>/parity.json`` on
+           the card without artifacts: the four released architectures'
+           inventories load strictly into the port's models (``ok``). (b)
+           ``capture_activations`` of the harness's default model
+           (``VSCYTO3D_MODEL_CONFIG``: FCMAE, dims 96-768, depth 15, f32,
+           seeded, GRN perturbed) on one (1, 1, 15, 512, 512) input on the
+           card (the fused kernels) and on the CPU: every module within 2e-3
+           of its range, r > 0.9999. (c) ``run_checkpoint_parity`` on a
+           fixture written here: that model as a Lightning checkpoint, a
+           one-FOV plate with its ``fov_statistics`` and a reference store
+           of the CPU's sliding-window prediction; the contract passes on
+           the card (max|d| / range printed). (d) On the host:
+           ``CellFeatures.compute_all_features`` on 256 seeded cells of 128^2
+           with masks (ms a cell), ``DynamicFeatures`` over phase 23 (b)'s
+           50,000-cell tracks one FOV at a time (ms a track) and
+           ``annotation.convert`` of that set to an AnnData store, read back
+           equal. The leg's own device memory stays under 6 GiB.
 
 Phase 20 (a) runs after phase 10, on phase 9's plate of 4 FOVs; phases 11,
 12, 16 and 19 after it, 12, 16 and 19 on that plate grown by phase 11; 24
@@ -576,7 +610,7 @@ Phase 20 (a) runs after phase 10, on phase 9's plate of 4 FOVs; phases 11,
 the grown plate) beside them; then phase 14, and on its plate and tracks
 13, 20 (b)-(d), 22 (c), 17, 25 and 18 beside 23 (also on its affine fit's
 checkpoint) and 26 (in 23's directory); 22 (a)-(b) during the build; 27
-beside 9 and 10; 15 last.
+beside 9 and 10; 28 beside 14; 15 last.
 
 Host-bound phases run beside card-bound ones, each leg in a process of its
 own on the same card (``Beside``): phases 24, 21 and 22 (d) beside 20 (a),
@@ -584,15 +618,18 @@ own on the same card (``Beside``): phases 24, 21 and 22 (d) beside 20 (a),
 beside 13, 20 (b)-(d), 22 (c), 17, 25 and 18 (18 waits until 23 has read
 the plate it removes); phase 27 (store reads, annotation joins and the DTW
 on the host; a few GiB on the card) beside 9 and 10 (beside 15, whose fit
-reserves most of the card, the pair held more than the limit). The device
+reserves most of the card, the pair held more than the limit); phase 28
+(the features and the store conversion on the host, the parity harness's
+captures and checkpoint on the card: a few GiB) beside 14. The device
 memory of each pair is
 watched and held under 70 GiB; every line printed by a phase that ran
 beside another ends with ``[beside phases ...]``. The phases behind the
 kernel table (3-7) run alone. After the ``[done]`` line: one JSON line
 ``{"phase_seconds": {...}}`` (each phase's wall seconds, the legs' in their
 own processes, and each window's), the card's name and power limit, a JSON
-``kernels`` record (with ``host_kernels``: H2, the DTW DP, which stays on
-the host) and the JSON result line.
+``kernels`` record (with ``host_kernels``: H2, the DTW DP, and H1, the
+cached fit's batched crop, which stay on the host; H1's bound is its bytes
+at the host's copy rate on all threads) and the JSON result line.
 Needs ``torch.cuda.is_available()`` and the repo's ``viscy_tpu_torch``
 beside this file. Imports nothing of JAX or ``viscy_tpu``.
 """
@@ -602,6 +639,7 @@ from __future__ import annotations
 import json
 import logging
 import math
+import os
 import shutil
 import statistics
 import struct
@@ -2657,7 +2695,227 @@ def stage_mmap_fit(card: str, tmp: Path, plate: Path, plate_feed: dict) -> dict:
         f"{plate_feed['wait_s'] / plate_feed['seconds']:.1%}); launches A+B {counts['fwd']}, C+D {counts['bwd']}, "
         f"warp {counts['warp']} (expected {want['fwd']}/{want['bwd']}/{want['warp']}); loss/validate {val:.5f} "
         f"({card})")
-    return counts
+    return dict(counts=counts, feed=dict(feed))
+
+
+H1_TIMED = 5  # timed repeats of each crop route on one batch's origins
+
+
+def _copy_rate(nbytes: int, threads: int) -> float:
+    """Bytes a second (read plus written) of ``np.copyto`` of ``nbytes`` on
+    this host, on ``threads`` threads at once, each its own buffers (best of
+    three)."""
+    import threading
+
+    bufs = [(np.ones(nbytes // 4, np.float32), np.empty(nbytes // 4, np.float32)) for _ in range(threads)]
+    best = math.inf
+    for _ in range(3):
+        ths = [threading.Thread(target=np.copyto, args=(d, s)) for s, d in bufs]
+        t0 = time.perf_counter()
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join()
+        best = min(best, time.perf_counter() - t0)
+    return 2 * nbytes * threads / best
+
+
+def _draw_origins(ds, rng: np.random.Generator, cdf_vx: tuple, z: int) -> tuple[np.ndarray, tuple]:
+    """(the (4, 3) origins, the patch) of a pushdown crop at window ``z``,
+    drawn from ``rng`` as ``SlidingWindowDataset._get_item_pushdown`` draws
+    them after its CDF."""
+    from viscy_tpu_torch.data.sliding_window import _sample_origins_from_cdf
+
+    cz, cy, cx = ds.pushdown_crop.spatial_size
+    cz = min(cz, ds.z_window_size)
+    ys_xs = _sample_origins_from_cdf(*cdf_vx, ds.pushdown_crop.num_samples, rng)
+    z_full = cz >= ds.z_window_size
+    origins = np.array([(z + (0 if z_full else int(rng.integers(0, ds.z_window_size - cz + 1))), ys, xs)
+                        for ys, xs in ys_xs], np.int64)
+    return origins, (cz, cy, cx)
+
+
+def _item_crop(ds, i: int) -> tuple[np.ndarray, int, tuple, np.random.Generator, int]:
+    """(the preloaded (C, Z, Y, X) FOV, its window z, the CDF cache key,
+    the item's random stream, the weight channel) of train item ``i`` at
+    epoch 0."""
+    img, tz, _, arr_idx = ds._find_window(i)
+    t, z = ds._tz(img, tz)
+    return ds._preloaded[arr_idx][t], z, (arr_idx, t, z), np.random.default_rng((ds.seed, 0, i)), len(
+        ds.channels["source"])
+
+
+def _h1_batch(ds, items: list[int]) -> list[tuple[np.ndarray, np.ndarray, tuple]]:
+    """(preloaded FOV, (4, 3) origins, patch) of each item of one batch."""
+    from viscy_tpu_torch.data.sliding_window import _weighted_origin_cdf
+
+    out = []
+    for i in items:
+        full, z, _, rng, w = _item_crop(ds, i)
+        cdf_vx = _weighted_origin_cdf(full[w, z:z + ds.z_window_size], ds.pushdown_crop.spatial_size[1:])
+        out.append((full, *_draw_origins(ds, rng, cdf_vx, z)))
+    return out
+
+
+def h1_checks(card: str, ds, num_workers: int) -> dict:
+    """Host kernel H1 on one train batch's origins from the preloaded FOVs:
+    against its plain version and against the per-patch copies it replaces,
+    bit for bit; ms per batch of each; its host bound (bytes read plus
+    written at one ``np.copyto``'s rate, on one thread and on all); and the
+    thread count a call: one per hardware thread (JAX's default) against
+    ``max(1, cores // num_workers)``, with ``num_workers`` loader threads
+    cropping at once."""
+    import threading
+
+    from viscy_tpu_torch import native
+
+    batch = _h1_batch(ds, list(range(TRAIN_BATCH // ds.pushdown_crop.num_samples)))
+
+    def kernel(n_threads=ds.crop_threads):
+        return [native.batched_crop_normalize(f, o, p, n_threads=n_threads) for f, o, p in batch]
+
+    def plain():
+        return [native.batched_crop_normalize_plain(f, o, p) for f, o, p in batch]
+
+    def copies():
+        return [np.stack([np.ascontiguousarray(f[:, z0:z0 + p[0], y0:y0 + p[1], x0:x0 + p[2]], dtype=np.float32)
+                          for z0, y0, x0 in o]) for f, o, p in batch]
+
+    got, want, per_patch = kernel(), plain(), copies()
+    if not all(a.tobytes() == b.tobytes() == c.tobytes() for a, b, c in zip(got, want, per_patch)):
+        raise AssertionError("H1 differs from its plain version or from the per-patch copies")
+    times = {}
+    for name, fn in (("h1", kernel), ("h1_all", lambda: kernel(0)), ("plain", plain), ("copies", copies)):
+        runs = []
+        for _ in range(H1_TIMED):
+            t0 = time.perf_counter()
+            fn()
+            runs.append(time.perf_counter() - t0)
+        times[name] = statistics.median(runs) * 1e3
+    nbytes = 2 * sum(a.nbytes for a in got)  # each patch voxel read once and written once
+    cores = len(os.sched_getaffinity(0))
+    rate1, rate_all = _copy_rate(nbytes // 2, 1), _copy_rate(nbytes // (2 * cores), cores)
+    bound1, bound_all = nbytes / rate1 * 1e3, nbytes / rate_all * 1e3
+    # the loader's case: num_workers threads each cropping its own items
+    per_call = {}
+    for n_threads in (0, max(1, cores // num_workers)):
+        def crop(k):
+            for _ in range(H1_TIMED):
+                f, o, p = batch[k % len(batch)]
+                native.batched_crop_normalize(f, o, p, n_threads=n_threads)
+
+        ths = [threading.Thread(target=crop, args=(k,)) for k in range(num_workers)]
+        t0 = time.perf_counter()
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join()
+        per_call[n_threads] = (time.perf_counter() - t0) / (num_workers * H1_TIMED) * 1e3
+    calls = len(batch)
+    log(f"[stages] H1 on one batch's origins ({calls} calls of {batch[0][1].shape[0]} patches of "
+        f"(3, {', '.join(map(str, batch[0][2]))}) f32 from the preloaded FOVs): bit for bit against its plain version "
+        f"and the per-patch copies; ms per batch: H1 {times['h1']:.3f} ({ds.crop_threads or 'one a hardware'} "
+        f"thread(s) a call; {times['h1_all']:.3f} at one a hardware thread), plain {times['plain']:.3f}, "
+        f"per-patch copies {times['copies']:.3f}; host bound "
+        f"{nbytes / 2**20:.0f} MiB read + written: {bound1:.3f} ms at one np.copyto's {rate1 / 1e9:.2f} GB/s, "
+        f"{bound_all:.3f} ms at {cores} threads' {rate_all / 1e9:.2f} GB/s ({card})")
+    log(f"[stages] H1 with {num_workers} loader threads cropping at once: {per_call[0]:.3f} ms a call at one "
+        f"thread a hardware thread (JAX's default) against {per_call[max(1, cores // num_workers)]:.3f} ms at "
+        f"max(1, {cores} // {num_workers}) = {max(1, cores // num_workers)} thread(s) a call; the dataset runs "
+        f"{ds.crop_threads or 'one a hardware'} ({card})")
+    err = max(float(np.abs(a - b).max()) for a, b in zip(got, want))
+    return dict(ms=times["h1"] / calls, plain_ms=times["plain"] / calls, copies_ms=times["copies"] / calls,
+                batch_ms=times, bound_ms=bound_all / calls, bound1_ms=bound1 / calls, per_call=per_call,
+                max_abs_err=err)
+
+
+def cached_item_split(card: str, ds, items: int = 16) -> dict:
+    """The cached fit's item time, split: the origin CDF (cached, and once
+    uncached), the origin draws, the crop (H1) and the sample assembly (the
+    rest), medians over ``items`` items of epoch 0."""
+    from viscy_tpu_torch import native
+    from viscy_tpu_torch.data.sliding_window import _weighted_origin_cdf
+
+    items = min(items, len(ds))
+    parts = {k: [] for k in ("item", "cdf", "draws", "crop")}
+    uncached = None
+    for i in range(items):
+        t0 = time.perf_counter()
+        ds.get_item_with_epoch(i, 0)
+        parts["item"].append(time.perf_counter() - t0)
+        full, z, key, rng, w = _item_crop(ds, i)
+        t0 = time.perf_counter()
+        cdf_vx = ds._origin_cdf_cache[key]
+        parts["cdf"].append(time.perf_counter() - t0)
+        if uncached is None:
+            t0 = time.perf_counter()
+            _weighted_origin_cdf(full[w, z:z + ds.z_window_size], ds.pushdown_crop.spatial_size[1:])
+            uncached = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        origins, patch = _draw_origins(ds, rng, cdf_vx, z)
+        parts["draws"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        native.batched_crop_normalize(full, origins, patch, n_threads=ds.crop_threads)
+        parts["crop"].append(time.perf_counter() - t0)
+    ms = {k: statistics.median(v) * 1e3 for k, v in parts.items()}
+    ms["assembly"] = max(0.0, ms["item"] - ms["cdf"] - ms["draws"] - ms["crop"])
+    log(f"[stages] cached fit, one train item ({ds.pushdown_crop.num_samples} patches), median of {items}: "
+        f"{ms['item']:.3f} ms = CDF {ms['cdf']:.4f} (cached; {uncached * 1e3:.1f} uncached, once a window) + origin "
+        f"draws {ms['draws']:.3f} + crop (H1) {ms['crop']:.3f} + sample assembly {ms['assembly']:.3f} ({card})")
+    return dict(ms, cdf_uncached=uncached * 1e3)
+
+
+def stage_cached_fit(card: str, tmp: Path, plate: Path, plate_feed: dict, mmap_feed: dict) -> dict:
+    """``viscy-torch fit -c configs/vscyto3d_fit.yml`` with phase 9's
+    overrides and ``data.init_args.caching: true``: the FOVs preloaded, the
+    weighted crop pushed down to the preloaded views and cut by host kernel
+    H1; launch counts of the fused kernels, the warp and H1; patches/s and
+    the loader-wait share beside phase 9's and the memory-mapped fit's; the
+    item time split; H1 on one batch (:func:`h1_checks`)."""
+    from viscy_tpu_torch import native
+    from viscy_tpu_torch.ops import fused_block as fb
+    from viscy_tpu_torch.ops import warp3d
+    from viscy_tpu_torch.training import cli
+
+    root = tmp / "fit_cached"
+    cfg = _cli_config(tmp / "fit_cached.yml", {
+        "data": {"init_args": {"data_path": str(plate), "num_workers": 8, "caching": True}},
+        "trainer": {"default_root_dir": str(root), "max_epochs": 1, "limit_train_batches": FIT_STEPS,
+                    "limit_val_batches": FIT_VAL},
+    }, ROOT / "configs/vscyto3d_fit.yml")
+    torch.cuda.synchronize()
+    fb.launches = fb.bwd_launches = warp3d.launches = native.launches["crop_norm"] = 0
+    t0 = time.perf_counter()
+    trainer = cli.main(["fit", "-c", cfg])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = dict(fwd=fb.launches, bwd=fb.bwd_launches, warp=warp3d.launches, h1=native.launches["crop_norm"])
+    per_fwd = len(kernel_shapes(FLAGSHIP, TRAIN_PATCH[-1]))
+    want = dict(fwd=2 * per_fwd * (FIT_STEPS + FIT_VAL), bwd=2 * per_fwd * FIT_STEPS, warp=FIT_STEPS)
+    dm = trainer._active_datamodule
+    ds = dm.train_dataset
+    items = FIT_STEPS * TRAIN_BATCH // ds.pushdown_crop.num_samples  # H1 runs once an item the loop takes
+    if {k: counts[k] for k in want} != want or counts["h1"] < items:
+        raise AssertionError(f"cached fit launched {counts} (expected {want} and H1 at least {items})")
+    feed = trainer.feed_stats
+    val = trainer.logged_metrics.get("loss/validate")
+    if feed["steps"] != FIT_STEPS or val is None or not math.isfinite(val):
+        raise AssertionError(f"cached fit ran {feed['steps']} steps, loss/validate {val}")
+    nbytes = sum(v.nbytes for v in ds._preloaded) + sum(v.nbytes for v in dm.val_dataset._preloaded)
+    patches = FIT_STEPS * TRAIN_BATCH
+    log(f"[stages] cached fit (configs/vscyto3d_fit.yml, caching: true, {nbytes / 2**30:.2f} GiB preloaded, the "
+        f"weighted crop pushed down, H1 {ds.crop_threads or 'one thread a hardware thread'} a call): {fit_s:.1f} s in "
+        f"all; train loop {feed['seconds']:.2f} s for {FIT_STEPS} steps = {patches / feed['seconds']:.2f} patches/s, "
+        f"waited {feed['wait_s'] / feed['seconds']:.1%} of the loop (phase 9's plate fit: "
+        f"{patches / plate_feed['seconds']:.2f} patches/s, waited {plate_feed['wait_s'] / plate_feed['seconds']:.1%}; "
+        f"the memory-mapped fit: {patches / mmap_feed['seconds']:.2f} patches/s, waited "
+        f"{mmap_feed['wait_s'] / mmap_feed['seconds']:.1%}); launches A+B {counts['fwd']}, C+D {counts['bwd']}, warp "
+        f"{counts['warp']} (expected {want['fwd']}/{want['bwd']}/{want['warp']}), H1 {counts['h1']} (the loop's "
+        f"{items} items and the loader's read-ahead); loss/validate {val:.5f} ({card})")
+    split = cached_item_split(card, ds)
+    h1 = h1_checks(card, ds, dm.num_workers)
+    del trainer, dm, ds
+    return dict(counts=counts, feed=dict(feed), split=split, h1=h1)
 
 
 def check_event_file(card: str, root: Path) -> None:
@@ -2694,6 +2952,7 @@ def phase_stages(card: str, tmp: Path, cli_info: dict) -> dict:
     torch.cuda.empty_cache()
     stage_precompute(card, tmp, plate)
     mmap = stage_mmap_fit(card, tmp, plate, cli_info["feed"])
+    cached = stage_cached_fit(card, tmp, plate, cli_info["feed"], mmap["feed"])
     for root in (cli_info["fit_root"], tmp / "test"):
         check_event_file(card, root)
     worst: dict = {}
@@ -2701,7 +2960,8 @@ def phase_stages(card: str, tmp: Path, cli_info: dict) -> dict:
     for k, (s, c, m) in enumerate(sorted(set(shapes), key=shapes.index)):
         check_forward(1, s, c, m, 400 + k, (False,), worst)
     log_worst("the test path's shapes (B=1, full 1024^2 frames)", worst)
-    return dict(test=test["counts"], export=export["launches"], mmap=mmap, max_abs_err=worst[torch.float32][0])
+    return dict(test=test["counts"], export=export["launches"], mmap=mmap["counts"], cached=cached,
+                max_abs_err=worst[torch.float32][0])
 
 
 def shipped_model_config(name: str) -> dict:
@@ -8546,6 +8806,203 @@ def phase_lc_pseudotime(card: str, tmp: Path) -> dict:
 
 
 
+# -- phase 28: the engineered cell features and the released-checkpoint parity harness ----------------------------
+
+PARITY_INPUT = (1, 1, 15, 512, 512)  # one Z window of the harness's model at 512^2
+FEATURE_CELLS, FEATURE_YX = 256, 128
+LEG_28_PEAK_GIB = 6.0  # the leg's own device memory
+
+
+def parity_report(card: str, tmp: Path) -> dict:
+    """``python -m viscy_tpu_torch.training.parity --output <tmp>/parity.json``
+    (on the card, without artifacts): the four dry runs must be ``ok``."""
+    out = tmp / "parity.json"
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "viscy_tpu_torch.training.parity", "--output", str(out)], cwd=str(ROOT),
+                         capture_output=True, text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise AssertionError(f"the parity command failed ({run.returncode}):\n{run.stderr[-4000:]}")
+    report = json.loads(out.read_text())
+    dry = report["converter_dryruns"]
+    if report["status"] != "artifacts_unavailable" or any(v["status"] != "ok" for v in dry.values()):
+        raise AssertionError(f"parity report: {report['status']}, dry runs {dry}")
+    log(f"[features-parity] python -m viscy_tpu_torch.training.parity: {seconds:.1f} s (its interpreter included); "
+        f"dry runs " + ", ".join(f"{k} {v['status']} {v['converted_leaves']}/{v['torch_keys']}" for k, v in dry.items())
+        + f"; status {report['status']} ({card})")
+    return dict(seconds=seconds, dryruns=dry)
+
+
+def parity_capture(card: str) -> dict:
+    """The harness's default model (``VSCYTO3D_MODEL_CONFIG``: FCMAE, dims
+    96-768, depth 15, f32; seeded, GRN perturbed) captured on one seeded
+    input on the card (the fused kernels) and on the CPU (their plain
+    versions): every module's output within 2e-3 of its range, Pearson r >
+    0.9999."""
+    from viscy_tpu_torch.apps.cytoland.engine import FcmaeUNet
+    from viscy_tpu_torch.training import parity
+
+    torch.manual_seed(28)
+    module = FcmaeUNet(model_config=dict(parity.VSCYTO3D_MODEL_CONFIG), device="cuda")
+    randomize_grn(module.model, 28)
+    cpu = FcmaeUNet(model_config=dict(parity.VSCYTO3D_MODEL_CONFIG), device="cpu")
+    cpu.model.load_state_dict(module.model.state_dict())
+    x = np.random.default_rng(28).normal(size=PARITY_INPUT).astype(np.float32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acts = parity.capture_activations(module.model, x, with_arrays=True)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = parity.capture_activations(cpu.model, x, with_arrays=True)
+    cpu_s = time.perf_counter() - t0
+    if set(acts) != set(ref):
+        raise AssertionError(f"captured modules differ: card only {set(acts) - set(ref)}, CPU only {set(ref) - set(acts)}")
+    worst = (0.0, 1.0, "")
+    for name in acts:
+        a, b = acts[name]["array"], ref[name]["array"]
+        if a.shape != b.shape:
+            raise AssertionError(f"{name}: card {a.shape} against CPU {b.shape}")
+        err, r = _range_err(a, b), pearson(torch.from_numpy(a), torch.from_numpy(b))
+        if err > 2e-3 or r <= 0.9999:
+            raise AssertionError(f"{name}: card against CPU {err:.3e} of range, r {r:.8f}")
+        worst = max(worst, (err, r, name))
+    log(f"[features-parity] activation capture of the harness's model on {PARITY_INPUT}: {len(acts)} modules, card "
+        f"{card_s:.2f} s, CPU {cpu_s:.2f} s; every module card against CPU within 2e-3 of its "
+        f"range and r > 0.9999, the worst {worst[2]} {worst[0]:.2e} (r {worst[1]:.8f}) ({card})")
+    return dict(module=module, cpu=cpu, modules=len(acts), worst=worst[0], card_s=card_s, cpu_s=cpu_s)
+
+
+def parity_checkpoint(card: str, tmp: Path, module, cpu) -> dict:
+    """``run_checkpoint_parity`` on a fixture written here: the seeded model
+    as a Lightning checkpoint (``state_dict`` under ``model.``), a one-FOV
+    plate with its ``fov_statistics``, and a reference store of the
+    ``--device cpu`` prediction (the same sliding-window path on the CPU).
+    The contract must pass on the card."""
+    from viscy_tpu_torch.apps.cytoland.prediction import AugmentedPredictionVSUNet
+    from viscy_tpu_torch.data.utils import read_norm_meta
+    from viscy_tpu_torch.training import parity
+    from viscy_tpu_torch.zarr_io.store import open_ome_zarr
+
+    ckpt = tmp / "vscyto3d_seeded.ckpt"
+    torch.save({"state_dict": {f"model.{k}": v.cpu() for k, v in module.model.state_dict().items()}, "epoch": 0}, ckpt)
+    source = (np.random.default_rng(29).normal(size=PARITY_INPUT) * 40 + 300).astype(np.float32)
+    plate = open_ome_zarr(tmp / "parity_data.zarr", mode="w", channel_names=[parity.SOURCE_CHANNEL])
+    pos = plate.create_position("A", "1", "0")
+    pos.create_image("0", source)
+    pos.zattrs["normalization"] = {parity.SOURCE_CHANNEL: {"fov_statistics": {"mean": float(source.mean()),
+                                                                               "std": float(source.std())}}}
+    stats = read_norm_meta(pos)[parity.SOURCE_CHANNEL]["fov_statistics"]
+    x = ((source[0, 0] - stats["mean"]) / stats["std"])[None, None]
+    t0 = time.perf_counter()
+    pred = AugmentedPredictionVSUNet(model=cpu.model).predict_sliding_windows(torch.from_numpy(x), out_channel=2)[0]
+    cpu_s = time.perf_counter() - t0
+    ref = open_ome_zarr(tmp / "parity_reference.zarr", mode="w", channel_names=parity.TARGET_CHANNELS)
+    ref.create_position("A", "1", "0").create_image("0", pred[None])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = parity.run_checkpoint_parity(ckpt, tmp / "parity_data.zarr", tmp / "parity_reference.zarr")
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    span = float(pred.max() - pred.min())
+    worst = max(ch["max_abs_diff"] for ch in result["channels"].values()) / span
+    if not (result["pass"] and result["weight_audit"]["ok"]):
+        raise AssertionError(f"run_checkpoint_parity: {result}")
+    log(f"[features-parity] run_checkpoint_parity (seeded full-width checkpoint, one (15, 512, 512) FOV, the reference "
+        f"from the CPU): pass; per channel r " + ", ".join(f"{k} {v['pearson_r']:.8f}" for k, v in
+                                                          result["channels"].items())
+        + f"; max|d| / range {worst:.2e}; the weight audit ok ({result['weight_audit']['n_model_keys']} keys); card "
+        f"{card_s:.2f} s, the CPU's prediction {cpu_s:.2f} s ({card})")
+    return dict(worst=worst, card_s=card_s, cpu_s=cpu_s)
+
+
+def _feature_cell(rng: np.random.Generator) -> tuple[np.ndarray, np.ndarray]:
+    """One seeded 128^2 cell: a blurred nucleus with noise and its mask
+    (the nucleus and a neighbour's edge)."""
+    y, x = np.indices((FEATURE_YX, FEATURE_YX))
+    c = FEATURE_YX / 2 + rng.normal(0, 4, 2)
+    r2 = ((y - c[0]) / rng.uniform(18, 30)) ** 2 + ((x - c[1]) / rng.uniform(18, 30)) ** 2
+    img = (np.exp(-r2) * rng.uniform(200, 900) + rng.normal(100, 15, (FEATURE_YX, FEATURE_YX))).astype(np.float32)
+    mask = np.zeros((FEATURE_YX, FEATURE_YX), np.int32)
+    mask[r2 <= 1.0] = 1
+    mask[(((y - 12) / 6.0) ** 2 + ((x - 100) / 12.0) ** 2) <= 1.0] = 2
+    return img, mask
+
+
+def feature_checks(card: str, tmp: Path) -> dict:
+    """``CellFeatures.compute_all_features`` on FEATURE_CELLS seeded cells
+    with masks; ``DynamicFeatures`` over phase 23 (b)'s 50,000-cell tracks,
+    one FOV at a time; ``annotation.convert`` of that embedding set (a
+    dict) to an AnnData store, read back equal. All on the host."""
+    from viscy_tpu_torch.evaluation.anndata_lite import read_anndata_zarr
+    from viscy_tpu_torch.evaluation.annotation import convert
+    from viscy_tpu_torch.evaluation.feature import CellFeatures, DynamicFeatures
+
+    rng = np.random.default_rng(30)
+    cells = [_feature_cell(rng) for _ in range(FEATURE_CELLS)]
+    t0 = time.perf_counter()
+    rows = [CellFeatures(img, mask).compute_all_features() for img, mask in cells]
+    cell_ms = (time.perf_counter() - t0) / FEATURE_CELLS * 1e3
+    names = rows[0].names
+    if len(names) != 24 or not all(r.names == names and all(np.isfinite(r[k]).all() for k in names) for r in rows):
+        raise AssertionError(f"CellFeatures: columns {names}, or a value not finite")
+    store = eval_full_store(tmp, card)
+    ds = read_anndata_zarr(store)
+    obs = ds.obs
+    t0 = time.perf_counter()
+    tracks = 0
+    for fov in dict.fromkeys(obs["fov_name"].tolist()):
+        table = obs.take(obs["fov_name"] == fov)
+        dyn = DynamicFeatures({k: table[k] for k in ("track_id", "t", "y", "x")}).to_df()
+        if len(dyn) != EVAL_TRACKS or not all(np.isfinite(dyn[k]).all() for k in dyn.names if k != "track_id"):
+            raise AssertionError(f"DynamicFeatures of {fov}: {len(dyn)} tracks, or a value not finite")
+        tracks += len(dyn)
+    track_ms = (time.perf_counter() - t0) / tracks * 1e3
+    t0 = time.perf_counter()
+    back = convert({"features": ds.X, "index": obs, "projections": ds.obsm["X_projections"]}, tmp / "converted.zarr",
+                   return_anndata=True)
+    convert_s = time.perf_counter() - t0
+    same = (np.array_equal(back.X, ds.X) and back.obs.names == obs.names
+            and all(back.obs[k].tolist() == obs[k].tolist() for k in obs.names)
+            and np.array_equal(back.obsm["X_projections"], ds.obsm["X_projections"])
+            and not (tmp / "converted.tmp_embeddings").exists())
+    if not same:
+        raise AssertionError("annotation.convert: the store read back differs from its input")
+    log(f"[features-parity] CellFeatures.compute_all_features: {cell_ms:.2f} ms a cell ({FEATURE_CELLS} cells of "
+        f"{FEATURE_YX}^2 with masks, {len(names)} features, all finite); DynamicFeatures: {track_ms:.3f} ms a track "
+        f"({tracks} tracks of {EVAL_T} frames, {len(obs)} cells, one FOV at a time); annotation.convert of the "
+        f"{len(obs)}-cell set: {convert_s:.2f} s, read back equal ({card})")
+    shutil.rmtree(store)
+    shutil.rmtree(tmp / "converted.zarr")
+    return dict(cell_ms=cell_ms, track_ms=track_ms, convert_s=convert_s, cells=FEATURE_CELLS, tracks=tracks)
+
+
+def phase_features_parity(card: str, tmp: Path) -> dict:
+    """Phase 28: the parity harness's command, its activation capture and
+    ``run_checkpoint_parity`` on the card, then the engineered features and
+    ``annotation.convert`` on the host (see the module docstring)."""
+    from viscy_tpu_torch.ops import fused_block as fb
+
+    tmp.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    fb.launches = 0
+    report = parity_report(card, tmp)
+    cap = parity_capture(card)
+    ckpt = parity_checkpoint(card, tmp, cap.pop("module"), cap.pop("cpu"))
+    torch.cuda.empty_cache()
+    launches = fb.launches
+    feats = feature_checks(card, tmp)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if peak > LEG_28_PEAK_GIB:
+        raise AssertionError(f"phase 28 held {peak:.2f} GiB of the card > {LEG_28_PEAK_GIB:g}")
+    total = time.perf_counter() - t0
+    log(f"[phase 28] features and parity in {total:.1f} s; fused forward A + B {launches}; peak {peak:.2f} GiB "
+        f"({card})")
+    return dict(seconds=total, launches=launches, peak_gib=peak, report=report, capture=cap, checkpoint=ckpt,
+                features=feats)
+
+
 # -- legs beside the card-bound phases: host-bound phases in a process of their own on the same card ----------
 
 BESIDE_LIMIT_GIB = 70.0  # the pair's device memory, both processes together
@@ -8703,7 +9160,12 @@ def leg_27(card: str, tmp: str) -> dict:
     return dict(p27=timed_phase("phase_lc_pseudotime", phase_lc_pseudotime, card, Path(tmp)))
 
 
-LEGS = {"leg_24_21_22d": leg_24_21_22d, "leg_23_26": leg_23_26, "leg_27": leg_27}
+def leg_28(card: str, tmp: str) -> dict:
+    """Phase 28, beside phase 14."""
+    return dict(p28=timed_phase("phase_features_parity", phase_features_parity, card, Path(tmp)))
+
+
+LEGS = {"leg_24_21_22d": leg_24_21_22d, "leg_23_26": leg_23_26, "leg_27": leg_27, "leg_28": leg_28}
 
 
 def main() -> None:
@@ -8762,7 +9224,15 @@ def main() -> None:
         p24, p21, p22 = res["p24"], res["p21"], res["p22"]
         p22_s = PHASE_SECONDS["phase_datamodules"]
         with tempfile.TemporaryDirectory(prefix="viscy-dynaclr-") as tmp2:
-            dynaclr_cli = timed_phase("phase_dynaclr_cli", phase_dynaclr_cli, card, Path(tmp2))
+            # phase 28 (the parity harness's captures and checkpoint on the card, a few GiB; the features and the
+            # store conversion on the host) beside phase 14
+            carriers = "phase 14"
+            with Beside("leg_28", dict(tmp=str(Path(tmp2) / "features_parity")), Path(tmp2) / "beside_28",
+                        f" [beside {carriers}]", carriers) as side:
+                BESIDE["note"] = " [beside phase 28]"
+                dynaclr_cli = timed_phase("phase_dynaclr_cli", phase_dynaclr_cli, card, Path(tmp2))
+                BESIDE["note"] = ""
+                p28 = side.join()["p28"]
             # phases 23 (UMAP's eigsh and the cross-checks on the host) and 26 (crops, the ILP, the suites' host
             # work) beside the card-bound 13, 20 (b)-(d), 22 (c), 17, 25 and 18; 18 removes phase 14's plate, so it
             # waits until 23 has read it
@@ -8821,6 +9291,14 @@ def main() -> None:
     log(f"[phase 27] linear classifiers and pseudotime: {p27['seconds']:.1f} s; (a) liblinear objective card "
         f"against CPU {p27['lc']['objective_rel']:.1e} relative; H2 {p27['pseudotime']['h2_ms'] * 1e3:.1f} us a call "
         f"(plain {p27['pseudotime']['plain_ms'] * 1e3:.1f} us), {p27['pseudotime']['launches']} launches")
+    h1, cached = stages["cached"]["h1"], stages["cached"]
+    log(f"[phase 10] the cached fit: {PHASE_SECONDS['phase_stages']:.1f} s for phase 10 in all; H1 {h1['ms']:.3f} ms a "
+        f"call (plain {h1['plain_ms']:.3f}, per-patch copies {h1['copies_ms']:.3f}, host bound {h1['bound_ms']:.3f}), "
+        f"{cached['counts']['h1']} launches on the fit's path")
+    log(f"[phase 28] features and parity: {p28['seconds']:.1f} s; activation capture card against CPU "
+        f"{p28['capture']['worst']:.2e} of range over {p28['capture']['modules']} modules; run_checkpoint_parity "
+        f"max|d| / range {p28['checkpoint']['worst']:.2e}; CellFeatures {p28['features']['cell_ms']:.2f} ms a cell, "
+        f"DynamicFeatures {p28['features']['track_ms']:.3f} ms a track; fused forward A + B {p28['launches']}")
     PHASE_SECONDS["total"] = round(time.perf_counter() - t_start, 1)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"phase_seconds": PHASE_SECONDS}))
@@ -8835,7 +9313,7 @@ def main() -> None:
             launches=sl["launches"] + pre["launches"]["fwd"] + unext2["launches"]["fwd"] + gan["launches"]["fwd"]
             + vae["launches"]["fwd"] + ddp["launches"]["fwd"] + tta["launches"]["fwd"]
             + callbacks["launches"]["fwd"] + p21["launches"]["fwd"] + p22["launches"]["fwd"] + p24["launches"]
-            + p25["launches"]["fwd"] + p26["launches"],
+            + p25["launches"]["fwd"] + p26["launches"] + cached["counts"]["fwd"] + p28["launches"],
             **{k: kern[k] for k in keys if k != "max_abs_err"},
             max_abs_err=max(kern["max_abs_err"], pre["kernels"]["fwd_err"], pre["fwd_err"],
                             unext2["kernels"]["fwd_err"], gan["kernels"]["fwd_err"], vae["kernels"]["fwd_err"],
@@ -8849,7 +9327,7 @@ def main() -> None:
             replaces="viscy_tpu/ops/pallas/fused_block.py:233,307",
             launches=tr["bwd_launches"] + pre["launches"]["bwd"] + unext2["launches"]["bwd"] + gan["launches"]["bwd"]
             + vae["launches"]["bwd"] + ddp["launches"]["bwd"] + p21["launches"]["bwd"] + p22["launches"]["bwd"]
-            + p25["launches"]["bwd"],
+            + p25["launches"]["bwd"] + cached["counts"]["bwd"],
             **{k: bwd[k] for k in keys if k != "max_abs_err"},
             max_abs_err=max(bwd["max_abs_err"], pre["kernels"]["bwd_err"], unext2["kernels"]["bwd_err"],
                             gan["kernels"]["bwd_err"], vae["kernels"]["bwd_err"], p25["kernels"]["bwd_err"]),
@@ -8862,7 +9340,8 @@ def main() -> None:
             replaces="viscy_tpu/ops/pallas/warp3d.py:226,352",
             launches=tr["warp_launches"] + pre["launches"]["warp"] + unext2["launches"]["warp"]
             + dynaclr["warp_launches"] + dynaclr_cli["warp_launches"] + legacy["warp_launches"]
-            + gan["launches"]["warp"] + ddp["launches"]["warp"] + p21["launches"]["warp"] + p22["launches"]["warp"],
+            + gan["launches"]["warp"] + ddp["launches"]["warp"] + p21["launches"]["warp"] + p22["launches"]["warp"]
+            + cached["counts"]["warp"],
             **{k: warp[k] for k in keys if k != "max_abs_err"},
             max_abs_err=max(warp["max_abs_err"], fit["warp_max_abs_err"], pre["warp_err"], dynaclr["warp_err"],
                             dynaclr_cli["warp_err"], legacy["warp_err"], gan["warp_err"]),
@@ -8872,7 +9351,11 @@ def main() -> None:
     pt = p27["pseudotime"]
     host = [dict(name="dtw_dp", route="host", source="viscy_tpu_torch/csrc/dtw.cpp",
                  replaces="viscy_tpu/native/dtw.cpp:19", launches=pt["launches"], max_abs_err=0.0, ms=pt["h2_ms"],
-                 plain_ms=pt["plain_ms"], bound_ms=pt["bound_ms"], bound_by="bytes", library_ms=None)]
+                 plain_ms=pt["plain_ms"], bound_ms=pt["bound_ms"], bound_by="bytes", library_ms=None),
+            dict(name="crop_norm", route="host", source="viscy_tpu_torch/csrc/crop_norm.cpp",
+                 replaces="viscy_tpu/native/crop_norm.cpp:25", launches=cached["counts"]["h1"],
+                 max_abs_err=h1["max_abs_err"], ms=h1["ms"], plain_ms=h1["plain_ms"], bound_ms=h1["bound_ms"],
+                 bound_by="bytes", library_ms=None)]
     print(json.dumps({"kernels": records, "host_kernels": host}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -123,6 +123,10 @@ def test_the_port_resolves_configs_without_importing_viscy_tpu():
         "viscy_tpu_torch.apps.dynaclr.pseudotime.io, viscy_tpu_torch.apps.dynaclr.pseudotime.signals, "
         "viscy_tpu_torch.apps.dynaclr.pseudotime.metrics, viscy_tpu_torch.apps.dynaclr.pseudotime.evaluation, "
         "viscy_tpu_torch.apps.dynaclr.pseudotime._legacy, viscy_tpu_torch.apps.dynaclr.pseudotime._tables; "
+        # the engineered features, the schemas, the parity harness and its inventories, host kernel H1
+        "import viscy_tpu_torch.evaluation.feature, viscy_tpu_torch.data.schemas, "
+        "viscy_tpu_torch.apps.airtable_utils.schemas, viscy_tpu_torch.training.state_dict_inventory, "
+        "viscy_tpu_torch.training.parity, viscy_tpu_torch.apps.cytoland.__main__, viscy_tpu_torch.native; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'viscy_tpu', 'tensorstore', "
         "'pydantic', 'sklearn', 'pandas', 'imageio', 'PIL')); "
         "print(bad); sys.exit(1 if bad else 0)"

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import logging
 import math
+import os
 from pathlib import Path
 from typing import Iterable, Sequence
 
@@ -265,11 +266,19 @@ class HCSDataModule(DataModule):
             transform=train_transform,
             preloaded_fovs=train_preload,
             pushdown_crop=pushdown,
+            crop_threads=self._crop_threads(),
             **train_settings,
         )
         self.val_dataset = SlidingWindowDataset(
             positions[num_train:], transform=val_transform, preloaded_fovs=val_preload, **settings
         )
+
+    def _crop_threads(self) -> int:
+        """Threads a call of the pushdown crop (host kernel H1): the loader's
+        threads crop at once, so each takes its share of the host's cores
+        (``max(1, cores // num_workers)``; the whole host without workers)."""
+        cores = len(os.sched_getaffinity(0)) if hasattr(os, "sched_getaffinity") else os.cpu_count() or 1
+        return max(1, cores // self.num_workers) if self.num_workers > 0 else 0
 
     def _preload_positions(self, positions: list[Position]) -> list[np.ndarray]:
         """(T, C, Z, Y, X) of the selected channels of each FOV, in RAM."""

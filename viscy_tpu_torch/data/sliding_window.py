@@ -9,7 +9,10 @@ the port's zarr reader. Each item draws from
 does, so its samples equal the JAX package's bit for bit. With a RAM
 preload and the weighted crop as the only host transform, the crop is
 pushed down: origins come from a cached window-sum CDF of the preloaded
-weight channel and only the crops are copied.
+weight channel and only the crops are copied, by host kernel H1
+(:func:`viscy_tpu_torch.native.batched_crop_normalize`) where the preloaded
+FOV is C-contiguous float32 (or uint16 under ``keep_dtype``), as in JAX;
+``crop_threads`` is its thread count a call (0: one a hardware thread).
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ class SlidingWindowDataset:
         pushdown_crop=None,
         seed: int = 42,
         keep_dtype: bool = False,
+        crop_threads: int = 0,
     ) -> None:
         if not 0.0 <= min_nonzero_fraction <= 1.0:
             raise ValueError(f"min_nonzero_fraction must be in [0, 1], got {min_nonzero_fraction}")
@@ -73,6 +77,7 @@ class SlidingWindowDataset:
         self._origin_cdf_cache: dict = {}
         self.seed = seed
         self.keep_dtype = keep_dtype
+        self.crop_threads = crop_threads
         self._all_ch_names = list(self.channels["source"])
         self._all_ch_idx = list(self.source_ch_idx)
         if self.target_ch_idx is not None:
@@ -239,17 +244,24 @@ class SlidingWindowDataset:
         sample_index = HCSStackIndex(f"/{img.path}", t, z)
         full = view[t]
         z_full = cz >= slab.shape[1]
-        origins3 = [
-            (z + (0 if z_full else int(rng.integers(0, slab.shape[1] - cz + 1))), ys, xs)
-            for ys, xs in origins
-        ]
-        patch_dtype = full.dtype if self.keep_dtype else np.float32
-        patches = np.stack(
-            [
-                np.ascontiguousarray(full[:, z0 : z0 + cz, y0 : y0 + cy, x0 : x0 + cx], dtype=patch_dtype)
-                for z0, y0, x0 in origins3
-            ]
+        origins3 = np.array(
+            [(z + (0 if z_full else int(rng.integers(0, slab.shape[1] - cz + 1))), ys, xs) for ys, xs in origins],
+            np.int64,
         )
+        if full.flags["C_CONTIGUOUS"] and (
+            full.dtype == np.float32 or (self.keep_dtype and full.dtype == np.uint16)
+        ):
+            from viscy_tpu_torch.native import batched_crop_normalize
+
+            patches = batched_crop_normalize(full, origins3, (cz, cy, cx), n_threads=self.crop_threads)
+        else:
+            patch_dtype = full.dtype if self.keep_dtype else np.float32
+            patches = np.stack(
+                [
+                    np.ascontiguousarray(full[:, z0 : z0 + cz, y0 : y0 + cy, x0 : x0 + cx], dtype=patch_dtype)
+                    for z0, y0, x0 in origins3
+                ]
+            )
         out = []
         for patch in patches:
             sample = {"index": sample_index, "source": patch[:n_source]}

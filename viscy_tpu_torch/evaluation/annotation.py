@@ -1,7 +1,12 @@
-"""Human annotations joined onto an embedding store (counterpart of
-``viscy_tpu/evaluation/annotation.py``'s ``load_annotation`` and
+"""Human annotations joined onto an embedding store, and an embedding set
+converted to an AnnData store (counterpart of
+``viscy_tpu/evaluation/annotation.py``: ``convert``, ``load_annotation`` and
 ``load_annotation_anndata``), on :class:`~viscy_tpu_torch.evaluation.
 anndata_lite.Frame` tables.
+
+:func:`convert` writes a dict's embeddings to a temporary store beside the
+output first, as JAX does, and removes it at the end, where JAX leaves it
+behind (``ROADMAP.md`` Queue 3).
 
 The CSV joins by ``(fov_name, id)`` when both sides have ``id``, else by
 ``(fov_name, t, track_id)``; ``fov_name`` is stripped of ``/`` on both
@@ -22,7 +27,39 @@ import numpy as np
 from viscy_tpu_torch.evaluation.anndata_lite import Frame
 from viscy_tpu_torch.evaluation.zarr_utils import _key
 
-__all__ = ["load_annotation", "load_annotation_anndata"]
+__all__ = ["convert", "load_annotation", "load_annotation_anndata"]
+
+
+def convert(embeddings: dict | str | Path, output_path: str | Path, overwrite: bool = False,
+            return_anndata: bool = False):
+    """Convert an embedding set to an AnnData zarr store at ``output_path``:
+    a store the embedding writer wrote, or a dict of ``features``, ``index``
+    (a :class:`Frame` or a list of row dicts) and optionally
+    ``projections``. Returns the written store read back
+    (:func:`~viscy_tpu_torch.evaluation.anndata_lite.read_anndata_zarr`)
+    when ``return_anndata``, else None."""
+    import shutil
+
+    from viscy_tpu_torch.evaluation.anndata_lite import read_anndata_zarr
+    from viscy_tpu_torch.preprocess.precompute import convert_to_anndata
+    from viscy_tpu_torch.training.callbacks.embedding_writer import write_embedding_dataset
+
+    output_path = Path(output_path)
+    if output_path.exists() and not overwrite:
+        raise FileExistsError(f"Output path {output_path} already exists.")
+    tmp = None
+    if isinstance(embeddings, dict):
+        # one converter for both inputs: the dict goes to a store first
+        tmp = output_path.with_suffix(".tmp_embeddings")
+        write_embedding_dataset(tmp, embeddings["features"], embeddings["index"],
+                                projections=embeddings.get("projections"), overwrite=True)
+        embeddings = tmp
+    try:
+        result = convert_to_anndata(embeddings, output_path)
+    finally:
+        if tmp is not None:
+            shutil.rmtree(tmp, ignore_errors=True)
+    return read_anndata_zarr(result) if return_anndata else None
 
 
 def load_annotation(dataset, path: str | Path, name: str, categories: dict | None = None,
